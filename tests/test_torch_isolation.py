@@ -1,0 +1,79 @@
+"""The port stands alone: importing every module of ``tracknetv3_tpu_torch``
+loads neither ``jax`` nor the JAX package, no source of the port (nor
+``chip_smoke.py``) imports them, and its entry points refuse to run
+without a card unless the CPU is asked for."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share a few cores
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tracknetv3_tpu_torch")
+
+
+def _modules():
+    names = ["tracknetv3_tpu_torch"]
+    for info in pkgutil.walk_packages([PKG], prefix="tracknetv3_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'tracknetv3_tpu' or m.startswith('tracknetv3_tpu.')]\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+tracknetv3_tpu\b(?!_)|"
+    r"from\s+tracknetv3_tpu(\.|\s)|.*\btracknetv3_tpu\.)", re.M
+)
+
+
+def test_no_source_refers_to_jax_or_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu"))]
+    offenders = []
+    for f in files:
+        with open(f, encoding="utf8") as fh:
+            text = fh.read()
+        code = "\n".join(ln for ln in text.splitlines() if not ln.lstrip().startswith("#"))
+        for m in _FORBIDDEN.finditer(code):
+            line = m.group(0).strip()
+            # docstrings may name the JAX sources the port mirrors; imports may not
+            if line.startswith(("import", "from")):
+                offenders.append((os.path.relpath(f, ROOT), line))
+    assert not offenders, offenders
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from tracknetv3_tpu_torch.config import TrainConfig
+    from tracknetv3_tpu_torch.device import resolve_device
+    from tracknetv3_tpu_torch.training.loop import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(TrainConfig(save_dir=str(tmp_path)), str(tmp_path), verbose_print=str)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,82 @@
+"""Training CLI of the PyTorch port: ``python -m tracknetv3_tpu_torch.train``.
+
+The flags of the JAX package's ``train.py`` plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions of the kernels). Flags whose
+machinery is not ported yet (``--segment_windows`` > 1, ``--frame_alpha``
+> 0, ``--resident_frames``, ``--num_devices`` > 1, ``--multihost``,
+``--exact_decode``, ``--fast_bn``, ``--model_name InpaintNet``) raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model_name", type=str, default="TrackNet", choices=["TrackNet", "InpaintNet"])
+    p.add_argument("--seq_len", type=int, default=8, help="sequence length of input")
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--batch_size", type=int, default=10)
+    p.add_argument("--optim", type=str, default="Adam", choices=["Adam", "SGD", "Adadelta"])
+    p.add_argument("--learning_rate", type=float, default=0.001)
+    p.add_argument("--lr_scheduler", type=str, default="", choices=["", "StepLR"])
+    p.add_argument("--bg_mode", type=str, default="",
+                   choices=["", "subtract", "subtract_concat", "concat"])
+    p.add_argument("--alpha", type=float, default=-1, help="sample-mixup alpha, -1 disables")
+    p.add_argument("--frame_alpha", type=float, default=-1, help="frame-mixup alpha, -1 disables")
+    p.add_argument("--mask_ratio", type=float, default=0.3)
+    p.add_argument("--tolerance", type=float, default=4)
+    p.add_argument("--resume_training", action="store_true", default=False)
+    p.add_argument("--seed", type=int, default=13)
+    p.add_argument("--save_dir", type=str, default="exp")
+    p.add_argument("--debug", action="store_true", default=False)
+    p.add_argument("--verbose", action="store_true", default=False)
+    p.add_argument("--data_dir", type=str, default="data")
+    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--segment_windows", type=int, default=1)
+    p.add_argument("--fast_bn", action="store_true", default=False)
+    p.add_argument("--no_split_up_entry", dest="split_up_entry", action="store_false",
+                   default=True, help="recorded in param_dict; the port's forward "
+                   "always concatenates (same function)")
+    p.add_argument("--resident_frames", action="store_true", default=False)
+    p.add_argument("--exact_decode", nargs="?", const="device", default="",
+                   choices=["", "device", "host"])
+    p.add_argument("--profile", type=str, default="",
+                   help="write a torch.profiler chrome trace of the run to this directory")
+    p.add_argument("--multihost", action="store_true", default=False)
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = build_parser().parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError("--multihost is not ported to PyTorch yet")
+
+    from .config import TrainConfig
+    from .training.loop import train
+
+    import torch
+
+    skip = ("data_dir", "profile", "multihost", "device")
+    cfg = TrainConfig(**{k: v for k, v in vars(args).items() if k not in skip})
+    if torch.device(args.device).type == "cuda":
+        torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
+    if args.profile:
+        import os
+
+        with torch.profiler.profile() as prof:
+            out = train(cfg, data_dir=args.data_dir, device=args.device)
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    else:
+        out = train(cfg, data_dir=args.data_dir, device=args.device)
+    print("Done......")
+    return out
+
+
+if __name__ == "__main__":
+    main()
