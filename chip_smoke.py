@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's training path (``tracknetv3_tpu_torch``) at the full
-width of the published TrackNet configuration (seq_len 8, bg_mode concat,
-288x512, batch 10, alpha 0.5 mixup, Adam 1e-3) with random weights made
-from a seed, and holds each hand-written kernel against its plain PyTorch
-version. One JSON line per phase; any failed phase exits nonzero.
+Drives the port's two paths (``tracknetv3_tpu_torch``) at the full width
+of the published TrackNet configuration (seq_len 8, bg_mode concat,
+288x512, bf16 convolutions): training (batch 10, alpha 0.5 mixup, Adam
+1e-3) from weights made from a seed, and single-video serving (eval_mode
+weight, InpaintNet seq_len 16) from the checkpoint that training wrote. It
+holds each hand-written kernel against its plain PyTorch version. One
+JSON line per phase; any failed phase exits nonzero.
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the CUDA kernels from ``tracknetv3_tpu_torch/csrc`` (nvcc,
-   sm_90a), timed;
+   sm_90a, one process per source, all at once), timed;
 3. kernel vs plain at the main-path shape (10, 288, 512, 8), plain and
    mixup targets, logits reaching the clamp: loss relative error <= 1e-5,
    max |dz - dz_plain| <= 1e-5 * max |dz_plain|; median kernel and plain
@@ -22,7 +24,25 @@ version. One JSON line per phase; any failed phase exits nonzero.
 5. step parity: one float32 train step (TF32 off, deterministic cuDNN)
    through the kernel loss and through the plain loss from the same
    weights and batch: loss relative error <= 1e-5, relative L2 error of
-   each parameter gradient <= 1e-4.
+   each parameter gradient <= 1e-4;
+6. pool_up_vs_plain: the 2x2 max pool (P6) and nearest-2x upsample (P7)
+   kernels vs ``F.max_pool2d`` / ``F.interpolate`` at the serving forward's
+   six shapes at batch 16, bf16 with NaN and -inf entries: bit-exact (max
+   abs error 0, NaN positions equal); median kernel and plain times beside
+   each shape's bytes bound;
+7. serve: ``stage_frames`` -> ``run_staged`` -> ``inpaint_trajectory`` ->
+   ``write_pred_csv`` on a synthetic 480-frame 288x512 video, with the
+   trained TrackNet and a seeded InpaintNet, at batch 16 (the CLI default)
+   and 120: 480 CSV rows, every coordinate inside the frame, P6 and P7
+   each launched 3x per chunk forwarded; after a warm-up, the median of 3
+   runs of run_fps (frames / run_staged wall time), e2e_fps (host frames
+   to CSV) and peak device memory;
+8. serve_parity: one chunk of 16 windows through the folded forward (with
+   the kernels) and through the unfolded TrackNet in eval mode (cuDNN,
+   torch pool and upsample) from the trained checkpoint, TF32 off, in
+   bf16 (max |probability difference| <= 3e-2, mean <= 1e-3: two
+   roundings of one function) and in float32 (max <= 1e-5, mean <= 1e-6),
+   the bounds of ``tests/test_torch_fused_forward.py``.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -55,7 +75,13 @@ FWD_OPS_PER_ELEM = 30
 BWD_OPS_PER_ELEM = 40
 
 
+_START = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.time() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -113,15 +139,22 @@ def phase_env():
 
 
 def phase_build():
-    from tracknetv3_tpu_torch.ops import cuda_build, wbce_disk
+    from concurrent.futures import ThreadPoolExecutor
 
+    from tracknetv3_tpu_torch.ops import cuda_build, pool_up2x, wbce_disk
+
+    modules = (wbce_disk, pool_up2x)
     t0 = time.time()
-    path, log = cuda_build.build(wbce_disk.SOURCE)
-    wbce_disk._lib()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "entry function" in ln]
-    emit({"phase": "build", "source": f"tracknetv3_tpu_torch/csrc/{wbce_disk.SOURCE}",
-          "library": os.path.relpath(path, ROOT), "seconds": round(time.time() - t0, 3),
-          "ptxas": regs})
+    with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
+        builds = list(pool.map(lambda m: cuda_build.build(m.SOURCE), modules))
+    seconds = time.time() - t0
+    for mod, (path, log) in zip(modules, builds):
+        mod._lib()
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "entry function" in ln]
+        emit({"phase": "build", "source": f"tracknetv3_tpu_torch/csrc/{mod.SOURCE}",
+              "library": os.path.relpath(path, ROOT), "seconds_all": round(seconds, 3),
+              "ptxas": regs})
 
 
 def _logits_np(seed: int) -> np.ndarray:
@@ -380,10 +413,12 @@ def phase_step_parity(data_dir: str):
 
     dev = torch.device("cuda")
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    # no autotuning: it tried every float32 algorithm of every layer, 2.5 min
+    torch.backends.cudnn.benchmark = False
     try:
         batch = _first_batch(data_dir, dev)
         perm, lam = (torch.from_numpy(a).to(dev)
@@ -415,8 +450,219 @@ def phase_step_parity(data_dir: str):
             fail("step_parity", f"{worst}: grad rel L2 err {grad_rel[worst]}")
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = flags
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
 
+
+# ---------------------------------------------------------------- serving
+
+DEVICE = "cuda"  # of the serving phases
+SERVE_T = 480  # frames of the synthetic video
+SERVE_BATCHES = (16, 120)  # the predict CLI's default and bench.py's
+# (max, mean) |dp| of the folded forward vs the unfolded TrackNet, the
+# bounds of tests/test_torch_fused_forward.py::test_fused_forward_matches_unfolded_eval
+SERVE_PARITY_BOUNDS = {"bfloat16": (3e-2, 1e-3), "float32": (1e-5, 1e-6)}
+# NHWC input shape of each pool and upsample call of one forward at batch 16
+POOL_SHAPES = ((16, 288, 512, 64), (16, 144, 256, 128), (16, 72, 128, 256))
+UP_SHAPES = ((16, 36, 64, 512), (16, 72, 128, 256), (16, 144, 256, 128))
+
+
+def _special_bf16(shape, seed: int, dev):
+    """Random bf16 NHWC data with 32 NaN and 32 -inf entries, as the NCHW
+    view (channels_last memory) that the kernels take."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    flat = x.view(-1)
+    idx = torch.randint(0, flat.numel(), (64,), generator=g, device=dev)
+    flat[idx[:32]] = float("nan")
+    flat[idx[32:]] = float("-inf")
+    return x.permute(0, 3, 1, 2)
+
+
+def _bit_compare(a, b):
+    """(NaN positions equal, count of other unequal entries, max |a - b| over
+    entries finite in both)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    both = ~na & ~nb
+    unequal = int(((a != b) & both).sum())
+    finite = both & torch.isfinite(a) & torch.isfinite(b)
+    err = float((a.float() - b.float()).abs()[finite].max()) if bool(finite.any()) else 0.0
+    return bool(torch.equal(na, nb)), unequal, err
+
+
+def phase_pool_up():
+    import torch
+
+    from tracknetv3_tpu_torch.ops import pool_up2x as pu
+
+    dev = torch.device(DEVICE)
+    kernels = (
+        # name, kernel, plain, input shapes, output/input elements, ops per output
+        ("maxpool2x2", pu.maxpool2x2, pu.maxpool2x2_plain, POOL_SHAPES, 0.25, 3),
+        ("up2x_nearest", pu.up2x_nearest, pu.up2x_nearest_plain, UP_SHAPES, 4, 0),
+    )
+    totals = {}
+    for name, kern, plain, shapes, ratio, ops in kernels:
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "bound_by": []}
+        for i, shape in enumerate(shapes):
+            # three copies so each timed call reads cold data, as in the forward
+            xs = [_special_bf16(shape, 100 * i + k, dev) for k in range(3)]
+            got, want = kern(xs[0]), plain(xs[0])
+            torch.cuda.synchronize()
+            same_nan, unequal, err = _bit_compare(got, want)
+            layout = got.is_contiguous(memory_format=torch.channels_last)
+            ms = time_launches(lambda j: kern(xs[j % 3]))
+            plain_ms = time_launches(lambda j: plain(xs[j % 3]))
+            n_in = math.prod(shape)
+            n_out = int(n_in * ratio)
+            b_ms, b_by = bound_ms(2 * (n_in + n_out), ops * n_out)
+            emit({"phase": "pool_up_vs_plain", "kernel": name, "shape_NHWC": list(shape),
+                  "nan_positions_equal": same_nan, "unequal": unequal, "max_abs_err": err,
+                  "channels_last_out": layout, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "mb_moved": 2 * (n_in + n_out) / 1e6})
+            if not (same_nan and unequal == 0 and err == 0.0 and layout
+                    and tuple(got.shape) == tuple(want.shape)):
+                fail("pool_up_vs_plain", f"{name} at {shape}: nan_equal={same_nan} "
+                     f"unequal={unequal} err={err} channels_last={layout}")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += b_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["bound_by"].append(b_by)
+            del xs, got, want
+        totals[name] = tot
+    return totals
+
+
+def synthetic_video(T: int, seed: int):
+    """(T, H, W, 3) RGB uint8 frames drawn as ``write_synthetic_dataset``
+    draws a rally (seeded textured background, a bright disk of radius 4
+    on a parabolic arc, one 40-frame pass after another) and the disk's
+    (x, y) per frame."""
+    rng = np.random.default_rng(seed)
+    bg = np.full((H, W, 3), (40, 90, 40), np.int32)
+    bg = (bg + rng.integers(0, 40, (H, W, 3))).astype(np.uint8)
+    frames = np.repeat(bg[None], T, axis=0)
+    dy, dx = np.mgrid[-4:5, -4:5]
+    disk = dy ** 2 + dx ** 2 <= 16
+    centers = []
+    for t in range(T):
+        u = (t % 40) / 39
+        x = int(W * 0.1 + W * 0.8 * u)
+        y = int(H * 0.7 - H * 0.5 * math.sin(math.pi * u))
+        frames[t, y - 4 : y + 5, x - 4 : x + 5][disk] = 255
+        centers.append((x, y))
+    return frames, np.asarray(centers)
+
+
+def phase_serve(tmp: str):
+    import torch
+
+    from tracknetv3_tpu_torch.inference import TrackNetPredictor
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import pool_up2x as pu
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+    from tracknetv3_tpu_torch.utils.io import write_pred_csv
+
+    tn = os.path.join(tmp, "exp", "TrackNet_best.pt")  # written by phase_slice
+    inp = os.path.join(tmp, "InpaintNet_seed17.pt")
+    save_checkpoint(inp, epoch=0, max_val_acc=0.0,
+                    model=get_model("InpaintNet", generator=torch.Generator().manual_seed(17)),
+                    param_dict={"model_name": "InpaintNet", "seq_len": 16})
+    frames, centers = synthetic_video(SERVE_T, seed=21)
+    torch.backends.cudnn.benchmark = True  # as the predict CLI sets it
+    launches_b16 = None
+    for bs in SERVE_BATCHES:
+        p = TrackNetPredictor(tn, inp, batch_size=bs, device=DEVICE)  # weight, bf16
+        csv_path = os.path.join(tmp, f"serve_b{bs}_ball.csv")
+
+        def once():
+            t0 = time.perf_counter()
+            staged = p.stage_frames(frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred = p.run_staged(staged)  # ends in the one fetch
+            t2 = time.perf_counter()
+            pred = p.inpaint_trajectory(pred, (W, H))
+            write_pred_csv(pred, csv_path)
+            t3 = time.perf_counter()
+            return pred, t2 - t1, t3 - t0
+
+        once()  # warm-up: cuDNN autotuning, allocator growth
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_s, e2e_s = [], []
+        for i in range(3):
+            if i == 0:
+                pu.LAUNCHES.update(maxpool2x2=0, up2x_nearest=0)  # counts of this run only
+            pred, r, e = once()
+            if i == 0:
+                launches = dict(pu.LAUNCHES)
+            run_s.append(r)
+            e2e_s.append(e)
+        peak = torch.cuda.max_memory_allocated()
+        chunks = -(-(SERVE_T - L + 1) // bs)
+        with open(csv_path) as f:
+            n_rows = sum(1 for _ in f) - 1
+        xs, ys, vis = (np.asarray(pred[k]) for k in ("X", "Y", "Visibility"))
+        inside = bool(((xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)).all())
+        hit = (vis == 1) & (np.abs(xs - centers[:, 0]) <= 4) & (np.abs(ys - centers[:, 1]) <= 4)
+        res = {"phase": "serve", "batch_size": bs, "frames": SERVE_T, "chunks": chunks,
+               "launches": launches, "csv_rows": n_rows, "inside_frame": inside,
+               "visible_frames": int(vis.sum()), "within_4px_of_disk": int(hit.sum()),
+               "run_fps": SERVE_T / statistics.median(run_s),
+               "e2e_fps": SERVE_T / statistics.median(e2e_s),
+               "run_s": run_s, "e2e_s": e2e_s, "peak_mem_bytes": peak}
+        emit(res)
+        if n_rows != SERVE_T:
+            fail("serve", f"batch {bs}: {n_rows} CSV rows != {SERVE_T}")
+        if launches != {"maxpool2x2": 3 * chunks, "up2x_nearest": 3 * chunks}:
+            fail("serve", f"batch {bs}: launches {launches} != 3 x {chunks} chunks")
+        if not inside:
+            fail("serve", f"batch {bs}: a coordinate lies outside the {W}x{H} frame")
+        if bs == 16:
+            launches_b16 = launches
+        del p
+        torch.cuda.empty_cache()
+    return launches_b16, frames
+
+
+def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
+    import torch
+
+    from tracknetv3_tpu_torch.device import tf32_off
+    from tracknetv3_tpu_torch.inference import TrackNetPredictor
+    from tracknetv3_tpu_torch.models.fused_forward import tracknet_fused_forward
+    from tracknetv3_tpu_torch.ops.preprocess import make_staged_preprocessor
+    from tracknetv3_tpu_torch.training.checkpoint import load_model_from_checkpoint
+
+    dev = torch.device(DEVICE)
+    tn = os.path.join(tmp, "exp", "TrackNet_best.pt")
+    torch.backends.cudnn.benchmark = False  # one chunk each: autotuning costs more than it saves
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        p = TrackNetPredictor(tn, batch_size=16, compute_dtype=dtype, device=dev)
+        staged = p.stage_frames(frames[: 16 + L - 1])
+        pre = make_staged_preprocessor(p.bg_mode, L, False, out_dtype=dtype)
+        with torch.inference_mode(), tf32_off():
+            x = pre(staged.buf, staged.median, torch.arange(16, device=dev))
+            fused = tracknet_fused_forward(p.params, x).permute(0, 3, 1, 2)
+            model, _ = load_model_from_checkpoint(tn, dtype=dtype)
+            model = model.to(dev, memory_format=torch.channels_last).eval()
+            ref = torch.sigmoid(model(x.permute(0, 3, 1, 2)))
+            d = (fused - ref).abs()
+            err, mean = float(d.max()), float(d.mean())
+            flips = int(((fused > 0.5) != (ref > 0.5)).sum())
+        bound, mean_bound = SERVE_PARITY_BOUNDS[name]
+        emit({"phase": "serve_parity", "windows": 16, "dtype": name, "tf32": False,
+              "max_abs_prob_err": err, "mean_abs_prob_err": mean, "threshold_flips": flips,
+              "pixels": fused.numel(), "bound": bound, "mean_bound": mean_bound})
+        if not (err <= bound and mean <= mean_bound):
+            fail("serve_parity", f"{name}: max |dp| {err} (bound {bound}), mean {mean} "
+                 f"(bound {mean_bound})")
+        del p, staged, x, fused, model, ref, d
 
 def main() -> int:
     try:
@@ -440,17 +686,33 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, step_ms, peak = phase_slice(tmp)
         phase_step_parity(os.path.join(tmp, "data"))
+        pool_up = phase_pool_up()
+        serve_launches, frames = phase_serve(tmp)
+        phase_serve_parity(tmp, frames)
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
                 "bwd": "tracknetv3_tpu/ops/pallas_wbce.py:87"}
-    emit({"kernels": [
+    lines = [
         {"name": f"wbce_disk_{k}", "route": "cuda", "source": src,
          "replaces": replaces[k], "launches": launches[k], "max_abs_err": err[k],
          "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k][0],
          "bound_by": bound[k][1], "library_ms": None}
         for k in ("fwd", "bwd")
-    ]})
+    ]
+    # P6/P7: times and bounds summed over the three calls of one forward at
+    # batch 16; the plain version is one PyTorch call, so it is the library's
+    replaces = {"maxpool2x2": "tools/probe_bn_pool.py:203",
+                "up2x_nearest": "tools/probe_bn_pool.py:236"}
+    lines += [
+        {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/pool_up2x.cu",
+         "replaces": replaces[k], "launches": serve_launches[k],
+         "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+         "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
+         "library_ms": v["plain_ms"]}
+        for k, v in pool_up.items()
+    ]
+    emit({"kernels": lines})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``tracknetv3_tpu_torch``
-loads neither ``jax`` nor the JAX package, no source of the port (nor
-``chip_smoke.py``) imports them, and its entry points refuse to run
-without a card unless the CPU is asked for."""
+(the serving modules included) loads neither ``jax`` nor the JAX package,
+no source of the port (nor ``chip_smoke.py``) imports them, and its entry
+points (training, the predictor, ``predict_video`` and the predict CLI)
+refuse to run without a card unless the CPU is asked for."""
 
 import os
 import pkgutil
@@ -25,9 +26,21 @@ def _modules():
     return names
 
 
+SERVING_MODULES = {
+    "tracknetv3_tpu_torch.inference",
+    "tracknetv3_tpu_torch.predict",
+    "tracknetv3_tpu_torch.models.fused_forward",
+    "tracknetv3_tpu_torch.models.inpaintnet",
+    "tracknetv3_tpu_torch.ops.ensemble",
+    "tracknetv3_tpu_torch.ops.pool_up2x",
+    "tracknetv3_tpu_torch.ops.postprocess",
+}
+
+
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) > 20
+    assert SERVING_MODULES <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -77,3 +90,14 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(TrainConfig(save_dir=str(tmp_path)), str(tmp_path), verbose_print=str)
     assert resolve_device("cpu") == torch.device("cpu")
+
+    from tracknetv3_tpu_torch import predict
+    from tracknetv3_tpu_torch.inference import TrackNetPredictor, predict_video
+
+    ckpt = str(tmp_path / "TrackNet_best.pt")  # the device is checked first
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrackNetPredictor(ckpt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict_video(str(tmp_path / "v.mp4"), ckpt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict.main(["--video_file", "v.mp4", "--tracknet_file", ckpt])

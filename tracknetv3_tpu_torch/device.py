@@ -7,7 +7,8 @@ running somewhere else.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -21,3 +22,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def tf32_off() -> Iterator[None]:
+    """cuDNN convolutions in full float32 (no TF32) inside the block; the
+    other cuDNN flags keep their current values."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield

@@ -1,9 +1,11 @@
-"""TrackNet weights between the JAX package's variable trees and the port.
+"""Model weights between the JAX package's variable trees and the port.
 
 ``tracknet_from_jax`` turns ``{"params", "batch_stats"}`` numpy trees (the
 layout of the JAX package's models and checkpoints) into a state dict of
 the port's ``TrackNet``; ``tracknet_to_jax`` goes the other way. 2-D conv
-kernels are HWIO in JAX and OIHW here.
+kernels are HWIO in JAX and OIHW here. ``inpaintnet_from_jax`` /
+``inpaintnet_to_jax`` do the same for InpaintNet's ``{"params"}`` tree:
+1-D conv kernels are flax ``(k, Ci, Co)`` and torch ``(Co, Ci, k)``.
 
 ``JAX_PARAM_PATHS`` lists the JAX parameter paths in ``jax.tree_util``'s
 flatten order (dict keys sorted at every level), which is also the order
@@ -13,7 +15,7 @@ it to write and read optimizer state in the JAX package's format.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,9 +91,11 @@ def tracknet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def tracknet_to_jax(module: torch.nn.Module) -> Dict[str, Any]:
-    """Port ``TrackNet`` -> JAX ``{"params", "batch_stats"}`` numpy trees."""
-    sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+def tracknet_to_jax(module: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, Any]:
+    """Port ``TrackNet`` (or its state dict) -> JAX ``{"params",
+    "batch_stats"}`` numpy trees."""
+    state = module.state_dict() if isinstance(module, torch.nn.Module) else module
+    sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for path, name in PARAM_MAP:
@@ -102,3 +106,45 @@ def tracknet_to_jax(module: torch.nn.Module) -> Dict[str, Any]:
             _set(stats, (block, f"conv_{i}", "bn", "mean"), sd[f"{pre}.running_mean"])
             _set(stats, (block, f"conv_{i}", "bn", "var"), sd[f"{pre}.running_var"])
     return {"params": params, "batch_stats": stats}
+
+
+INPAINT_LAYERS = ("down_1", "down_2", "down_3", "bottleneck_1", "bottleneck_2",
+                  "up_1", "up_2", "up_3")
+
+
+def _inpaint_map() -> List[Tuple[Tuple[str, ...], str]]:
+    """(JAX path, torch parameter name) for every InpaintNet parameter."""
+    out = []
+    for layer in INPAINT_LAYERS:
+        out.append(((layer, "conv", "kernel"), f"{layer}.conv.weight"))
+        out.append(((layer, "conv", "bias"), f"{layer}.conv.bias"))
+    out.append((("predictor", "kernel"), "predictor.weight"))
+    out.append((("predictor", "bias"), "predictor.bias"))
+    return out
+
+
+INPAINT_MAP = _inpaint_map()
+
+
+def inpaintnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX InpaintNet ``{"params"}`` numpy tree -> port state dict."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for path, name in INPAINT_MAP:
+        arr = np.asarray(_get(params, path), np.float32)
+        if arr.ndim == 3:  # (k, Ci, Co) -> (Co, Ci, k)
+            arr = arr.transpose(2, 1, 0)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def inpaintnet_to_jax(module: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, Any]:
+    """Port ``InpaintNet`` (or its state dict) -> JAX ``{"params"}`` tree."""
+    state = module.state_dict() if isinstance(module, torch.nn.Module) else module
+    params: Dict[str, Any] = {}
+    for path, name in INPAINT_MAP:
+        arr = state[name].detach().cpu().numpy()
+        if arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
+        _set(params, path, np.ascontiguousarray(arr))
+    return {"params": params}

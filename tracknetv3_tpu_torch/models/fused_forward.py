@@ -1,0 +1,141 @@
+"""TrackNet inference forward with folded BatchNorm (the serving forward).
+
+At inference BatchNorm is an affine map with constant parameters, so it
+folds into the preceding bias-free convolution:
+
+    W' = W * gamma / sqrt(var + eps)        (per output channel)
+    b' = beta - mean * gamma / sqrt(var + eps)
+
+``fold_batchnorm`` is the JAX package's (``models/fused_forward.py:36``)
+in numpy, from the JAX variable trees or from the port's ``TrackNet`` (or
+its state dict); its output keeps the JAX layouts (HWIO kernels).
+``fused_params`` turns it into the port's tensors and
+``tracknet_fused_forward`` is ``tracknet_fused_forward`` of the JAX package
+(``:465-525``):
+
+- each 3x3 conv is ``conv(x, W') + b'`` with b' added in float32, then
+  ReLU and a cast to the working dtype (``_conv_relu``); convolutions run
+  on cuDNN in channels_last memory;
+- 2x2 max pool and nearest 2x upsample are the hand-written kernels of
+  ``ops/pool_up2x.py`` on the card (their plain versions on the CPU);
+- each up block concatenates ``[up2x(x), skip]``;
+- the 1x1 predictor's float32 bias is added before the sigmoid.
+
+One rounding differs from the JAX forward at bfloat16: cuDNN returns each
+convolution (the predictor's too) in the working dtype, so the float32
+bias is added to a value already rounded to bfloat16, where JAX adds it to
+the float32 accumulator. At float32 the functions agree to accumulation
+order.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import tf32_off
+from ..ops.pool_up2x import maxpool2x2, up2x_nearest
+from .convert import BLOCKS, tracknet_to_jax
+
+
+def fold_batchnorm(
+    variables: Union[Dict[str, Any], torch.nn.Module, Mapping[str, torch.Tensor]],
+    eps: float = 1e-5,
+) -> Dict[str, Any]:
+    """Fold BN statistics and affine parameters into conv kernels + biases.
+
+    ``variables`` is a JAX ``{"params", "batch_stats"}`` numpy tree, or the
+    port's ``TrackNet`` or its state dict. Returns ``{block: [(kernel,
+    bias), ...], "predictor": (kernel, bias)}`` in float32 numpy, kernels
+    HWIO, as the JAX package's ``fold_batchnorm`` does.
+    """
+    if isinstance(variables, torch.nn.Module) or "params" not in variables:
+        variables = tracknet_to_jax(variables)
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    folded: Dict[str, Any] = {}
+    for block, n in BLOCKS:
+        convs: List[Tuple[np.ndarray, np.ndarray]] = []
+        for i in range(1, n + 1):
+            sub = f"conv_{i}"
+            kernel = np.asarray(params[block][sub]["conv"]["kernel"], np.float32)
+            gamma = np.asarray(params[block][sub]["bn"]["scale"], np.float32)
+            beta = np.asarray(params[block][sub]["bn"]["bias"], np.float32)
+            mean = np.asarray(stats[block][sub]["bn"]["mean"], np.float32)
+            var = np.asarray(stats[block][sub]["bn"]["var"], np.float32)
+            inv = gamma / np.sqrt(var + eps)
+            convs.append((kernel * inv, beta - mean * inv))
+        folded[block] = convs
+    folded["predictor"] = (
+        np.asarray(params["predictor"]["kernel"], np.float32),
+        np.asarray(params["predictor"]["bias"], np.float32),
+    )
+    return folded
+
+
+def fused_params(folded: Dict[str, Any], dtype: torch.dtype,
+                 device: Union[str, torch.device]) -> Dict[str, Any]:
+    """Folded numpy weights -> device tensors for ``tracknet_fused_forward``:
+    OIHW kernels in ``dtype`` (channels_last memory) and float32 biases
+    shaped (1, C, 1, 1). ``"dtype"`` records the working dtype."""
+
+    def conv(kernel, bias):
+        w = torch.from_numpy(np.array(kernel.transpose(3, 2, 0, 1), np.float32))
+        w = w.to(device, dtype).contiguous(memory_format=torch.channels_last)
+        b = torch.from_numpy(np.array(bias, np.float32)).to(device).reshape(1, -1, 1, 1)
+        return w, b
+
+    out: Dict[str, Any] = {"dtype": dtype}
+    for block, _ in BLOCKS:
+        out[block] = [conv(k, b) for k, b in folded[block]]
+    out["predictor"] = conv(*folded["predictor"])
+    return out
+
+
+def _conv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    y = F.conv2d(x, w, padding=1)
+    return torch.add(y, b).relu_().to(x.dtype)  # bias in float32
+
+
+def _block(x: torch.Tensor, convs) -> torch.Tensor:
+    for w, b in convs:
+        x = _conv_relu(x, w, b)
+    return x
+
+
+def _up(x_small: torch.Tensor, skip: torch.Tensor, convs) -> torch.Tensor:
+    return _block(torch.cat([up2x_nearest(x_small), skip], dim=1), convs)
+
+
+def tracknet_fused_forward(params: Dict[str, Any], x: torch.Tensor, *,
+                           apply_sigmoid: bool = True) -> torch.Tensor:
+    """Folded-BN TrackNet forward.
+
+    Args:
+        params: ``fused_params(fold_batchnorm(...), dtype, device)``.
+        x: (B, H, W, C_in) NHWC model input (the JAX package's layout).
+
+    Returns:
+        (B, H, W, L) float32 probabilities (logits with ``apply_sigmoid``
+        False), an NHWC view of channels_last memory. At a float32 working
+        dtype cuDNN runs without TF32.
+    """
+    dtype = params["dtype"]
+    fp32 = dtype == torch.float32 and x.device.type == "cuda"
+    with tf32_off() if fp32 else contextlib.nullcontext():
+        x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+        x1 = _block(x, params["down_block_1"])
+        x2 = _block(maxpool2x2(x1), params["down_block_2"])
+        x3 = _block(maxpool2x2(x2), params["down_block_3"])
+        x = _block(maxpool2x2(x3), params["bottleneck"])
+        x = _up(x, x3, params["up_block_1"])
+        x = _up(x, x2, params["up_block_2"])
+        x = _up(x, x1, params["up_block_3"])
+        w, b = params["predictor"]
+        logits = torch.add(F.conv2d(x, w), b)  # float32
+    out = torch.sigmoid(logits) if apply_sigmoid else logits
+    return out.permute(0, 2, 3, 1)

@@ -1,20 +1,30 @@
-"""Where the time of one TrackNet train step goes on the card.
+"""Where the time of one TrackNet train step, or of one serving chunk,
+goes on the card.
 
 ``python -m tracknetv3_tpu_torch.profile_step [--batch_size 10] [--steps 5]``
+``python -m tracknetv3_tpu_torch.profile_step --serve [--batch_size 16]``
 
 Builds the published configuration (seq_len 8, bg_mode concat, 288x512,
-bfloat16 convolutions, alpha 0.5 sample mixup, Adam 1e-3) from a seed,
-feeds it a fixed random uint8 batch, warms up, then traces ``--steps``
-steps with ``torch.profiler`` and prints one JSON line: host ms per step,
-device kernel time per step by category (convolution, loss kernels,
-optimizer, reductions, elementwise, other), the device's busy share, and
-the heaviest kernels. Needs the card.
+bfloat16 convolutions) from a seed. Training: alpha 0.5 sample mixup,
+Adam 1e-3, a fixed random uint8 batch. ``--serve``: the folded serving
+forward in ``eval_mode`` weight on a random video of ``batch_size + 7``
+frames, so each ``run_staged`` is exactly one chunk of ``batch_size``
+windows (preprocess, forward, ensemble, decode) plus the ensemble flush
+and the one fetch. Warms up, then traces ``--steps`` steps or chunks with
+``torch.profiler`` and prints one JSON line: host ms per step, device
+kernel time per step by category, the device's busy share, and the
+heaviest kernels. Serving categories come from the ``serve::*`` profiler
+ranges of ``inference.py`` and, inside the forward, from kernel names
+(convolution, the pool / upsample kernels, the rest elementwise). Needs
+the card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -43,9 +53,93 @@ def _category(name: str) -> str:
     return "other"
 
 
+_POOL_UP = ("maxpool2x2_kernel", "up2x_nearest_kernel")
+_CONV = dict(_CATEGORIES)["convolution"]
+
+
+def _kernel_times(prof):
+    """{kernel name: [device us, launches]} of the traced window (the device
+    spans of the ``serve::*`` ranges are not kernels and are left out)."""
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        kernel = not evt.key.startswith("serve::")
+        if evt.device_type == torch.autograd.DeviceType.CUDA and kernel:
+            by_kernel[evt.key][0] += evt.self_device_time_total
+            by_kernel[evt.key][1] += evt.count
+    return by_kernel
+
+
+def _top(by_kernel, n):
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    return [{"name": k[:120], "ms_per_step": v[0] / 1e3 / n, "launches_per_step": v[1] / n}
+            for k, v in top]
+
+
+def _serve(args, dev) -> dict:
+    from .inference import TrackNetPredictor
+    from .training.checkpoint import save_checkpoint
+
+    B, L, H, W = args.batch_size or 16, args.seq_len, 288, 512
+    model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(args.seed))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "TrackNet.pt")
+        save_checkpoint(path, epoch=0, max_val_acc=0.0, model=model,
+                        param_dict=dict(model_name="TrackNet", seq_len=L, bg_mode="concat"))
+        p = TrackNetPredictor(path, batch_size=B, device=dev)
+    rng = np.random.default_rng(args.seed)
+    staged = p.stage_frames(rng.integers(0, 256, (B + L - 1, H, W, 3), dtype=np.uint8))
+    for _ in range(args.warmup):
+        p.run_staged(staged)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            p.run_staged(staged)  # ends in a fetch: synchronised
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    n = args.steps
+    by_kernel = _kernel_times(prof)
+    device_ms = sum(v[0] for v in by_kernel.values()) / 1e3 / n
+    ranges = defaultdict(float)  # device ms of the kernels each range launched
+    for evt in prof.events():
+        if evt.name.startswith("serve::") and evt.device_type == torch.autograd.DeviceType.CPU:
+            ranges[evt.name[len("serve::"):]] += evt.device_time_total / 1e3 / n
+
+    def ms_of(keys):
+        hits = [v[0] for k, v in by_kernel.items() if any(s in k.lower() for s in keys)]
+        return sum(hits) / 1e3 / n
+
+    pool_up, conv = ms_of(_POOL_UP), ms_of(_CONV)
+    cats = {
+        "preprocess": ranges["preprocess"],
+        "convolution": conv,
+        "pool_up_kernels": pool_up,
+        "forward_elementwise": ranges["forward"] - conv - pool_up,
+        "ensemble": ranges["ensemble"],
+        "decode": ranges["decode"],
+    }
+    cats["other"] = device_ms - sum(cats.values())
+    traced = sum(ranges.values()) > 0
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "config": f"serve TrackNet seq_len {L} concat {H}x{W} bf16 weight, one chunk of {B} "
+                  "windows + flush + fetch",
+        "host_ms_per_chunk": wall_ms / n,
+        "device_kernel_ms_per_chunk": device_ms if device_ms > 0 else "not measured",
+        "kernel_launches_per_chunk": sum(v[1] for v in by_kernel.values()) / n,
+        "device_busy_share": device_ms / (wall_ms / n) if device_ms > 0 else "not measured",
+        "ms_per_chunk_by_category": cats if traced else "not measured",
+        "top_kernels": _top(by_kernel, n),
+    }
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch_size", type=int, default=10)
+    ap.add_argument("--serve", action="store_true",
+                    help="profile one serving chunk instead of a train step")
+    ap.add_argument("--batch_size", type=int, default=None,
+                    help="10 for a train step, 16 for a serving chunk")
     ap.add_argument("--seq_len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=5)
@@ -54,7 +148,11 @@ def main(argv=None) -> dict:
 
     dev = resolve_device("cuda")
     torch.backends.cudnn.benchmark = True
-    B, L, H, W = args.batch_size, args.seq_len, 288, 512
+    if args.serve:
+        out = _serve(args, dev)
+        print(json.dumps(out), flush=True)
+        return out
+    B, L, H, W = args.batch_size or 10, args.seq_len, 288, 512
     rng = np.random.default_rng(args.seed)
     batch = {
         "rgb": torch.from_numpy(rng.integers(0, 256, (B, L, H, W, 3), dtype=np.uint8)).to(dev),
@@ -80,18 +178,12 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
+    by_kernel = _kernel_times(prof)
     by_cat = defaultdict(float)
-    by_kernel = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.self_device_time_total
-        by_cat[_category(evt.key)] += us
-        by_kernel[evt.key][0] += us
-        by_kernel[evt.key][1] += evt.count
+    for k, (us, _) in by_kernel.items():
+        by_cat[_category(k)] += us
     n = args.steps
     device_ms = sum(by_cat.values()) / 1e3 / n
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     out = {
         "device": torch.cuda.get_device_name(0),
         "config": f"TrackNet seq_len {L} concat {H}x{W} batch {B} bf16 alpha 0.5 Adam",
@@ -99,10 +191,7 @@ def main(argv=None) -> dict:
         "device_kernel_ms_per_step": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / (wall_ms / n) if device_ms > 0 else "not measured",
         "ms_per_step_by_category": {k: v / 1e3 / n for k, v in sorted(by_cat.items())},
-        "top_kernels": [
-            {"name": k[:120], "ms_per_step": v[0] / 1e3 / n, "launches_per_step": v[1] / n}
-            for k, v in top
-        ],
+        "top_kernels": _top(by_kernel, n),
     }
     print(json.dumps(out), flush=True)
     return out

@@ -6,7 +6,9 @@ an npz archive holding
   - ``__meta__``: JSON (format_version, epoch, max_val_acc, param_dict,
     scheduler, n_opt_leaves);
   - ``model/params/<block>/<conv_i>/...`` and ``model/batch_stats/...``:
-    TrackNet variables in the JAX package's layouts (HWIO kernels);
+    TrackNet variables in the JAX package's layouts (HWIO kernels); for
+    InpaintNet ``model/params/<layer>/conv/...`` only (flax ``(k, Ci, Co)``
+    kernels);
   - ``opt/<i>``: optimizer-state leaves in optax's flatten order for the
     same optimizer: Adam is the step count, then ``mu``, then ``nu``; SGD
     the momentum trace; Adadelta ``e_g`` then ``e_x``; a step-based
@@ -29,11 +31,14 @@ import torch
 
 from ..models.convert import (
     PARAM_MAP,
+    inpaintnet_from_jax,
+    inpaintnet_to_jax,
     jax_to_torch_layout,
     torch_to_jax_layout,
     tracknet_from_jax,
     tracknet_to_jax,
 )
+from ..models.inpaintnet import InpaintNet
 
 _FORMAT_VERSION = 2
 _SEP = "/"
@@ -141,7 +146,8 @@ def save_checkpoint(
         scheduler=None if scheduler is None else dict(scheduler),
         n_opt_leaves=None if opt_leaves is None else len(opt_leaves),
     )
-    arrays = _flatten(tracknet_to_jax(model), "model")
+    to_jax = inpaintnet_to_jax if isinstance(model, InpaintNet) else tracknet_to_jax
+    arrays = _flatten(to_jax(model), "model")
     for i, leaf in enumerate(opt_leaves or []):
         arrays[f"opt{_SEP}{i}"] = np.asarray(leaf)
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
@@ -172,12 +178,18 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def load_model_from_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16):
-    """Rebuild (TrackNet on the CPU, param_dict) from a checkpoint file."""
+    """Rebuild (model on the CPU, param_dict) from a checkpoint file of
+    either package: TrackNet (working dtype ``dtype``) or InpaintNet
+    (float32), as ``param_dict["model_name"]`` says."""
     from ..models.factory import get_model
 
     ckpt = load_checkpoint(path)
     pd = ckpt["param_dict"]
-    model = get_model(pd.get("model_name", "TrackNet"), pd["seq_len"], pd.get("bg_mode", ""),
-                      dtype=dtype)
+    name = pd.get("model_name", "TrackNet")
+    if name == "InpaintNet":
+        model = get_model("InpaintNet")
+        model.load_state_dict(inpaintnet_from_jax(ckpt["model"]))
+        return model, pd
+    model = get_model(name, pd["seq_len"], pd.get("bg_mode", ""), dtype=dtype)
     model.load_state_dict(tracknet_from_jax(ckpt["model"]))
     return model, pd

@@ -1,6 +1,7 @@
-"""Dataset layout and label CSVs (host side).
+"""Dataset layout, label and prediction CSVs, video reading (host side).
 
-Copy of the parts of the JAX package's ``utils/io.py`` that training reads.
+Copy of the parts of the JAX package's ``utils/io.py`` that training and
+single-video serving use.
 Dataset layout (the reference's Shuttlecock Trajectory Dataset):
 
     {data_dir}/{split}/match{id}/csv/{rally}_ball.csv          (train/val)
@@ -10,14 +11,17 @@ Dataset layout (the reference's Shuttlecock Trajectory Dataset):
     {data_dir}/{split}/match{id}/median.npz
 
 pandas is imported only where a label CSV is read, which happens only
-when a split's index cache is missing.
+when a split's index cache is missing; the prediction CSV is written with
+the ``csv`` module in pandas' ``to_csv(index=False)`` format. ``cv2`` is
+imported only where a video file is opened.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import re
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -72,3 +76,67 @@ def load_median_for_rally(match_dir: str, rally_id: str) -> np.ndarray:
     rally_median = os.path.join(match_dir, "frame", rally_id, "median.npz")
     path = match_median if os.path.exists(match_median) else rally_median
     return np.load(path)["median"]
+
+
+def write_pred_csv(pred_dict: Dict, save_file: str, save_inpaint_mask: bool = False) -> None:
+    """Write the prediction CSV (reference contract: general.py:322-354),
+    byte for byte what the JAX package's pandas writer produces."""
+    cols = ["Frame", "Visibility", "X", "Y"]
+    if save_inpaint_mask:
+        cols = ["Frame", "Visibility_GT", "X_GT", "Y_GT", "Visibility", "X", "Y",
+                "Inpaint_Mask"]
+    with open(save_file, "w", newline="", encoding="utf8") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(cols)
+        w.writerows(zip(*(pred_dict[c] for c in cols)))
+
+
+def _require_cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "reading a video file needs OpenCV (cv2), which is not installed; "
+            "decode the frames elsewhere and pass them to "
+            "TrackNetPredictor.stage_frames"
+        ) from e
+    return cv2
+
+
+class VideoReader:
+    """Thin cv2.VideoCapture wrapper yielding RGB uint8 frames."""
+
+    def __init__(self, video_file: str):
+        cv2 = _require_cv2()
+        if not os.path.exists(video_file):
+            raise FileNotFoundError(video_file)
+        self.path = video_file
+        self.cap = cv2.VideoCapture(video_file)
+        self.video_len = int(self.cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        self.fps = float(self.cap.get(cv2.CAP_PROP_FPS))
+        self.w = int(self.cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.h = int(self.cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+
+    def read(self) -> Optional[np.ndarray]:
+        ok, frame = self.cap.read()
+        if not ok:
+            return None
+        return frame[..., ::-1]  # BGR -> RGB
+
+    def read_resized_bgr(self, width: int, height: int) -> np.ndarray:
+        """Decode every frame from the start, resized to (height, width) with
+        ``cv2.INTER_LINEAR`` and kept in BGR: the JAX package's cv2 staging
+        decode (``inference.upload_video_slabs``). (T, height, width, 3)."""
+        cv2 = _require_cv2()
+        self.cap.set(cv2.CAP_PROP_POS_FRAMES, 0)
+        frame = np.empty((self.h, self.w, 3), np.uint8)
+        out: List[np.ndarray] = []
+        while self.cap.grab():
+            ok, f = self.cap.retrieve(frame)
+            if not ok:
+                break
+            out.append(cv2.resize(f, (width, height), interpolation=cv2.INTER_LINEAR))
+        return np.stack(out) if out else np.zeros((0, height, width, 3), np.uint8)
+
+    def release(self) -> None:
+        self.cap.release()
