@@ -6,13 +6,13 @@ vs the JAX package on the CPU.
 - ``tracknet_fused_forward`` vs the JAX one (the bounds of
   ``tests/test_fused_forward.py``): atol 1e-5 at float32, 5e-3 at
   bfloat16. And vs the port's unfolded TrackNet in eval mode: max |dp|
-  1e-5 and mean 1e-6 at float32; at bfloat16 max 3e-2 and mean 1e-3.
-  The bfloat16 pair is two roundings of one function (the folded kernels
-  W' rounded to bfloat16, against W rounded and BatchNorm applied in
-  float32 after the convolution); with trained weights at 288x512 their
-  max gap reaches 1.0e-2 (mean 3.1e-4) on the card, past the 5e-3 that a
-  random init at this size stays within. ``chip_smoke.py`` holds the card
-  to these bounds.
+  1e-5 and mean 1e-6 at float32; at bfloat16, two roundings of one
+  function (the folded kernels W' rounded to bfloat16, against W rounded
+  and BatchNorm applied in float32 after the convolution), max 5e-3 and
+  mean 1e-3, where this random init reads 1.1e-3 and 1.9e-4. Trained
+  weights at 288x512 read up to 1.4e-2 on the card, so ``chip_smoke.py``
+  holds the card to its own bfloat16 bound, set between those readings and
+  those of deliberately wrong forwards.
 - The plain pool and upsample vs ``_pool`` / ``_up2x``: bit-exact, NaN
   and -inf included; on a CPU tensor the wrappers return the plain result.
   The CUDA kernels are held against the same plain versions on the card
@@ -41,9 +41,8 @@ from tracknetv3_tpu_torch.ops import pool_up2x as pu  # noqa: E402
 SEQ, BG, N, HGT, WDT = 3, "concat", 2, 32, 64
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-3)}
-# (max, mean) |dp| of the folded vs the unfolded forward (chip_smoke.py's
-# SERVE_PARITY_BOUNDS)
-UNFOLDED_BOUNDS = {"float32": (1e-5, 1e-6), "bfloat16": (3e-2, 1e-3)}
+# (max, mean) |dp| of the folded vs the unfolded forward
+UNFOLDED_BOUNDS = {"float32": (1e-5, 1e-6), "bfloat16": (5e-3, 1e-3)}
 
 
 @pytest.fixture(scope="module")

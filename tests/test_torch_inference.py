@@ -187,14 +187,23 @@ def test_predict_video_csv_matches_jax(ckpts, clip_and_want, tmp_path):
 
 def test_predict_cli_csv_matches_jax(ckpts, clip_and_want, tmp_path, monkeypatch):
     """``python -m tracknetv3_tpu_torch.predict --device cpu``: its main(),
-    with the model resolution cut to the test size."""
+    with the model resolution cut to the test size and the predictor made
+    at float32, as the JAX reference's is."""
     clip, want = clip_and_want
     tn, inp = ckpts
     monkeypatch.setattr(tinf, "HEIGHT", H)
     monkeypatch.setattr(tinf, "WIDTH", W)
+    asked = []
+    real = tinf.TrackNetPredictor
+
+    def predictor_f32(*args, compute_dtype=None, **kwargs):
+        asked.append(compute_dtype)
+        return real(*args, compute_dtype=torch.float32, **kwargs)
+
+    monkeypatch.setattr(tinf, "TrackNetPredictor", predictor_f32)
     predict_cli.main(["--video_file", clip, "--tracknet_file", tn, "--inpaintnet_file", inp,
-                      "--batch_size", str(B), "--save_dir", str(tmp_path), "--device", "cpu",
-                      "--compute_dtype", "float32"])
+                      "--batch_size", str(B), "--save_dir", str(tmp_path), "--device", "cpu"])
+    assert asked == [None]  # the CLI serves at the predictor's default, bfloat16
     with open(tmp_path / "clip_ball.csv") as f:
         assert f.read() == want
 

@@ -5,8 +5,8 @@ The flags of the JAX package's ``predict.py`` for its default path
 (``--video_file``, ``--tracknet_file``, ``--inpaintnet_file``,
 ``--batch_size``, ``--eval_mode``, ``--max_sample_num``, ``--save_dir``),
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of
-the kernels) and ``--compute_dtype`` (TrackNet's working dtype; float32 is
-the parity path). Decoding needs cv2. The other flags of ``predict.py``
+the kernels). TrackNet runs in bfloat16, as the JAX CLI does. Decoding
+needs cv2. The other flags of ``predict.py``
 (batch serving, streaming, video output, device resize, the native
 decoder's formats, meshes, profiling) raise ``NotImplementedError``.
 """
@@ -34,8 +34,6 @@ def build_parser() -> argparse.ArgumentParser:
                    "staged path takes the median over all frames")
     p.add_argument("--save_dir", type=str, default="pred_result")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--compute_dtype", type=str, default="bfloat16",
-                   choices=["bfloat16", "float32"], help="TrackNet's working dtype")
     for name in _UNPORTED:
         p.add_argument(f"--{name}", nargs="?", const=True, default=None,
                        help="not ported to PyTorch yet (raises)")
@@ -66,7 +64,6 @@ def main(argv: Optional[Sequence[str]] = None):
         max_sample_num=args.max_sample_num,
         save_dir=args.save_dir,
         device=args.device,
-        compute_dtype=getattr(torch, args.compute_dtype),
     )
     print("Done.")
     return pred

@@ -1,4 +1,4 @@
-"""Where the time of one TrackNet train step, or of one serving chunk,
+"""Where the time of one TrackNet train step, or of serving one video,
 goes on the card.
 
 ``python -m tracknetv3_tpu_torch.profile_step [--batch_size 10] [--steps 5]``
@@ -6,14 +6,16 @@ goes on the card.
 
 Builds the published configuration (seq_len 8, bg_mode concat, 288x512,
 bfloat16 convolutions) from a seed. Training: alpha 0.5 sample mixup,
-Adam 1e-3, a fixed random uint8 batch. ``--serve``: the folded serving
-forward in ``eval_mode`` weight on a random video of ``batch_size + 7``
-frames, so each ``run_staged`` is exactly one chunk of ``batch_size``
-windows (preprocess, forward, ensemble, decode) plus the ensemble flush
-and the one fetch. Warms up, then traces ``--steps`` steps or chunks with
+Adam 1e-3, a fixed random uint8 batch. ``--serve``: ``run_staged`` in
+``eval_mode`` weight over a random 480-frame video, the length that
+``chip_smoke.py`` serves (chunks of ``batch_size`` windows: preprocess,
+folded forward, ensemble, decode; then the ensemble flush and the one
+fetch). Warms up, then traces ``--steps`` steps or videos with
 ``torch.profiler`` and prints one JSON line: host ms per step, device
-kernel time per step by category, the device's busy share, and the
-heaviest kernels. Serving categories come from the ``serve::*`` profiler
+kernel time per step (per chunk when serving) by category, the device's
+busy share, and the heaviest kernels. Serving also times ``--steps``
+videos untraced; its busy share is the traced device time over that
+untraced wall time, so the profiler's own host cost is left out. Serving categories come from the ``serve::*`` profiler
 ranges of ``inference.py`` and, inside the forward, from kernel names
 (convolution, the pool / upsample kernels, the rest elementwise). Needs
 the card.
@@ -54,6 +56,7 @@ def _category(name: str) -> str:
 
 
 _POOL_UP = ("maxpool2x2_kernel", "up2x_nearest_kernel")
+SERVE_FRAMES = 480
 _CONV = dict(_CATEGORIES)["convolution"]
 
 
@@ -87,18 +90,23 @@ def _serve(args, dev) -> dict:
                         param_dict=dict(model_name="TrackNet", seq_len=L, bg_mode="concat"))
         p = TrackNetPredictor(path, batch_size=B, device=dev)
     rng = np.random.default_rng(args.seed)
-    staged = p.stage_frames(rng.integers(0, 256, (B + L - 1, H, W, 3), dtype=np.uint8))
+    staged = p.stage_frames(rng.integers(0, 256, (SERVE_FRAMES, H, W, 3), dtype=np.uint8))
+    chunks = -(-(SERVE_FRAMES - L + 1) // B)
     for _ in range(args.warmup):
         p.run_staged(staged)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        p.run_staged(staged)  # ends in a fetch: synchronised
+    video_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            p.run_staged(staged)  # ends in a fetch: synchronised
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            p.run_staged(staged)
+        traced_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    n = args.steps
+    n = args.steps * chunks
     by_kernel = _kernel_times(prof)
     device_ms = sum(v[0] for v in by_kernel.values()) / 1e3 / n
     ranges = defaultdict(float)  # device ms of the kernels each range launched
@@ -121,14 +129,18 @@ def _serve(args, dev) -> dict:
     }
     cats["other"] = device_ms - sum(cats.values())
     traced = sum(ranges.values()) > 0
+    measured = device_ms > 0
     return {
         "device": torch.cuda.get_device_name(0),
-        "config": f"serve TrackNet seq_len {L} concat {H}x{W} bf16 weight, one chunk of {B} "
-                  "windows + flush + fetch",
-        "host_ms_per_chunk": wall_ms / n,
-        "device_kernel_ms_per_chunk": device_ms if device_ms > 0 else "not measured",
+        "config": f"serve TrackNet seq_len {L} concat {H}x{W} bf16 weight, a {SERVE_FRAMES}-"
+                  f"frame video in {chunks} chunks of {B} windows + flush + fetch",
+        "host_ms_per_video": video_ms,
+        "traced_host_ms_per_video": traced_ms,
+        "device_kernel_ms_per_video": device_ms * chunks if measured else "not measured",
+        "device_busy_share": device_ms * chunks / video_ms if measured else "not measured",
+        "host_ms_per_chunk": video_ms / chunks,
+        "device_kernel_ms_per_chunk": device_ms if measured else "not measured",
         "kernel_launches_per_chunk": sum(v[1] for v in by_kernel.values()) / n,
-        "device_busy_share": device_ms / (wall_ms / n) if device_ms > 0 else "not measured",
         "ms_per_chunk_by_category": cats if traced else "not measured",
         "top_kernels": _top(by_kernel, n),
     }
@@ -137,9 +149,9 @@ def _serve(args, dev) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--serve", action="store_true",
-                    help="profile one serving chunk instead of a train step")
+                    help="profile serving a video instead of a train step")
     ap.add_argument("--batch_size", type=int, default=None,
-                    help="10 for a train step, 16 for a serving chunk")
+                    help="10 for a train step, 16 windows per serving chunk")
     ap.add_argument("--seq_len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=5)
