@@ -16,21 +16,34 @@ JSON line per phase; any failed phase exits nonzero.
    mixup targets, logits reaching the clamp: loss relative error <= 1e-5,
    max |dz - dz_plain| <= 1e-5 * max |dz_plain|; median kernel and plain
    times beside each kernel's bound;
-4. the slice: a synthetic dataset (numpy only, in the loader's npz cache
+4. bn_vs_plain: the four BatchNorm + ReLU kernels (P4 statistics, P5
+   normalise + ReLU, the backward's reduce and apply) against their plain
+   versions at the train step's four shapes at batch 10, bf16 and float32,
+   on data with per-channel means far from 0, exact zeros and a constant
+   channel (variance 0, a ReLU tie): statistics against float64, the
+   forward and the apply bit-exact on equal inputs, the whole op's output
+   and dy, dgamma, dbeta within ``BN_BOUNDS``, which a backward without
+   its mean term or its variance term must fail; bf16 times of each
+   kernel, its plain version and ``torch.var_mean`` beside each bound;
+5. the slice: a synthetic dataset (numpy only, in the loader's npz cache
    formats) and ``tracknetv3_tpu_torch.train.main`` for one epoch, then
-   ``--resume_training`` to epoch 2; each kernel must have launched once
-   per train step; losses finite, checkpoints reload, val metrics back;
-   then ms/step of the full-width step and peak device memory;
-5. step parity: one float32 train step (TF32 off, deterministic cuDNN)
-   through the kernel loss and through the plain loss from the same
-   weights and batch: loss relative error <= 1e-5, relative L2 error of
-   each parameter gradient <= 1e-4;
-6. pool_up_vs_plain: the 2x2 max pool (P6) and nearest-2x upsample (P7)
+   ``--resume_training`` to epoch 2; K1/K2 must have launched once per
+   train step, each BatchNorm kernel 17 times per train step and the
+   normalise 17 times per eval batch; losses finite, checkpoints reload,
+   val metrics back; then ms/step of the full-width step and peak device
+   memory;
+6. step parity: one train step (TF32 off, deterministic cuDNN) from the
+   same weights and batch through the kernels and with one part swapped
+   for its plain version. float32: the plain loss, and the plain
+   BatchNorm; loss relative error <= 1e-5, relative L2 error of each
+   parameter gradient <= 1e-4. bfloat16: the plain BatchNorm within
+   ``STEP_PARITY_BOUNDS``, which the two wrong backwards must fail;
+7. pool_up_vs_plain: the 2x2 max pool (P6) and nearest-2x upsample (P7)
    kernels vs ``F.max_pool2d`` / ``F.interpolate`` at the serving forward's
    six shapes at batch 16, bf16 with NaN and -inf entries: bit-exact (max
    abs error 0, NaN positions equal); median kernel and plain times beside
    each shape's bytes bound;
-7. serve: ``stage_frames`` -> ``run_staged`` -> ``inpaint_trajectory`` ->
+8. serve: ``stage_frames`` -> ``run_staged`` -> ``inpaint_trajectory`` ->
    ``write_pred_csv`` on a synthetic 480-frame 288x512 video, with the
    trained TrackNet and a seeded InpaintNet, at batch 16 (the CLI default)
    and 120: 480 CSV rows, every coordinate inside the frame, P6 and P7
@@ -41,21 +54,22 @@ JSON line per phase; any failed phase exits nonzero.
    trained checkpoint's predictor bias lowered so that its heatmaps hold
    detections (``detecting_checkpoint``), whose chunks' window
    probabilities are copied to the host. Each chunk is held to the
-   unfolded TrackNet in eval mode on the same input (phase 8's bf16 bound);
+   unfolded TrackNet in eval mode on the same input (phase 9's bf16 bound);
    a CPU predictor replays the probabilities through its own
    ``run_staged`` (ensemble, decode, the flushed tail rows) and
    ``inpaint_trajectory``: its rows must equal the card's, and so must
    InpaintNet's output on the served rows and on the disk's track with an
    occlusion cut into each pass (a masked frame may differ by 1 px: the
    two devices sum InpaintNet's convolutions in different orders);
-8. serve_parity: three chunks of 16 windows of the served video through
+9. serve_parity: three chunks of 16 windows of the served video through
    the folded forward (with the kernels) and through the unfolded TrackNet
-   in eval mode (cuDNN, torch pool and upsample) from the trained
-   checkpoint, TF32 off: float32 max |probability difference| <= 1e-5,
-   mean <= 1e-6 (the bounds of ``tests/test_torch_fused_forward.py``);
-   bfloat16, two roundings of one function, within ``SERVE_PARITY_BOUNDS``,
-   set between these sound readings and the upper readings of deliberately
-   wrong forwards (``wrong_forward``), each of which must fail the bound.
+   in eval mode (cuDNN, its BatchNorm on the P5 kernel, torch pool and
+   upsample) from the trained checkpoint, TF32 off: float32 max
+   |probability difference| <= 1e-5, mean <= 1e-6 (the bounds of
+   ``tests/test_torch_fused_forward.py``); bfloat16, two roundings of one
+   function, within ``SERVE_PARITY_BOUNDS``, set between these sound
+   readings and the upper readings of deliberately wrong forwards
+   (``wrong_forward``), each of which must fail the bound.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -76,12 +90,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, H, W, L = 10, 288, 512, 8  # the main path's loss shape (README config)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+DEVICE = "cuda"  # of the BatchNorm, step-parity and serving phases
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # float operations per element, counted from csrc/wbce_disk.cu: label
 # (two squared distances, compares, blend) + sigmoid/log terms + loss
@@ -155,9 +171,9 @@ def phase_env():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from tracknetv3_tpu_torch.ops import cuda_build, pool_up2x, wbce_disk
+    from tracknetv3_tpu_torch.ops import batchnorm, cuda_build, pool_up2x, wbce_disk
 
-    modules = (wbce_disk, pool_up2x)
+    modules = (wbce_disk, pool_up2x, batchnorm)
     t0 = time.time()
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(lambda m: cuda_build.build(m.SOURCE), modules))
@@ -265,6 +281,234 @@ def phase_kernels():
     return err, ms, {"fwd": plain_fwd, "bwd": plain_bwd}, bound
 
 
+# ---------------------------------------------------------------- BatchNorm
+
+# NHWC shape of each BatchNorm + ReLU of the train step at batch 10, and how
+# many of its 17 layers have it (down 1 / up 3, down 2 / up 2, down 3 / up 1,
+# the bottleneck)
+BN_SHAPES = {(B, 288, 512, 64): 4, (B, 144, 256, 128): 4, (B, 72, 128, 256): 6,
+             (B, 36, 64, 512): 3}
+BN_LAYERS = sum(BN_SHAPES.values())
+BN_KERNELS = ("bn_stats", "bn_relu_fwd", "bn_relu_bwd_reduce", "bn_relu_bwd_apply")
+# activation elements each kernel reads + writes, and per-channel float32
+# vectors (gamma, running stats, st, bias, coefficients, gradients)
+BN_TRAFFIC = {"bn_stats": (1, 9), "bn_relu_fwd": (2, 5), "bn_relu_bwd_reduce": (2, 9),
+              "bn_relu_bwd_apply": (3, 7)}
+# float32 operations per element, counted from csrc/batchnorm.cu
+BN_OPS_PER_ELEM = {"bn_stats": 3, "bn_relu_fwd": 4, "bn_relu_bwd_reduce": 10,
+                   "bn_relu_bwd_apply": 11}
+BN_CONST_CHANNEL = 3  # constant 3.0 with bias 0: var 0 and a ReLU tie
+# Statistics against float64 (relative; the mean over |mean| + std): the
+# kernel read <= 5.8e-8, float32's own rounding. Kernel vs plain, relative
+# L2: the reduce kernel's outputs on equal inputs, and the whole op's output
+# and dy, dgamma, dbeta. Both sum every element in double, and read 0 at
+# all four shapes in both dtypes; a backward without its variance term read
+# 9.3e-3 or more, without its mean term 0.147 or more (PERF.md). The
+# bounds sit between.
+BN_BOUNDS = {"stats": 1e-6, "out": {"bfloat16": 1e-3, "float32": 1e-5},
+             "grad": {"bfloat16": 1e-3, "float32": 1e-5}, "reduce": 1e-5}
+
+
+def _bn_data(shape, dtype, seed: int, dev):
+    """A layer's conv output y (NCHW view of channels_last memory): per
+    channel a mean in [-8, 8] and a spread in [0.5, 2], 5% exact zeros and
+    one constant channel; an output gradient g with a per-channel offset and
+    a per-channel share of y's own standardised value (so both the mean and
+    the variance terms of the backward matter); gamma, beta (0 where y is
+    constant); running statistics."""
+    import torch
+
+    C = shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(lo, hi, *size):
+        return lo + (hi - lo) * torch.rand(*size, generator=gen, device=dev)
+
+    z = torch.randn(shape, generator=gen, device=dev)
+    y = (z * u(0.5, 2.0, C) + u(-8.0, 8.0, C)).masked_fill(u(0, 1, *shape) < 0.05, 0.0)
+    y[..., BN_CONST_CHANNEL] = 3.0
+    g = u(-0.5, 0.5, C) + u(-1.0, 1.0, C) * z + torch.randn(shape, generator=gen, device=dev)
+    beta = u(-0.5, 0.5, C)
+    beta[BN_CONST_CHANNEL] = 0.0
+    nchw = lambda t: t.to(dtype).permute(0, 3, 1, 2)  # noqa: E731
+    return nchw(y), nchw(g), u(0.5, 1.5, C), beta, u(-1.0, 1.0, C), u(0.5, 2.0, C)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def _ulp_diff(a, b):
+    """(max distance in units in the last place, count of unequal entries)
+    of two tensors of one float dtype."""
+    import torch
+
+    ints, mag = {torch.bfloat16: (torch.int16, 0x7FFF), torch.float32: (torch.int32, 0x7FFFFFFF)}[
+        a.dtype]
+
+    def line(t):  # sign-magnitude bits -> a monotone integer line
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, -(i & mag), i)
+
+    return int((line(a) - line(b)).abs().max()), int((a != b).sum())
+
+
+def _stats_f64(y):
+    """(mean, var) over (N, H, W) in float64, two-pass, no clamp."""
+    yd = y.double()
+    mean = yd.mean((0, 2, 3))
+    return mean, (yd - mean[:, None, None]).square().mean((0, 2, 3))
+
+
+def _bn_op_vs_plain(bn, y, g, gamma, beta, rm, rv):
+    """The op through its Function with the kernels and with the plain
+    versions: (out, dy, dgamma, dbeta) of each."""
+    res = []
+    for ops in (bn.KERNEL_OPS, bn.PLAIN_OPS):
+        yy = y.detach().requires_grad_()
+        w, b = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        out = bn.bn_relu(yy, w, b, rm.clone(), rv.clone(), True, ops)
+        out.backward(g)
+        res.append((out.detach(), yy.grad, w.grad, b.grad))
+    return res
+
+
+def phase_bn():
+    """bn_vs_plain: the four BatchNorm kernels vs their plain versions at
+    the train step's four shapes, bf16 and float32; times in bf16."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+
+    dev = torch.device(DEVICE)
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+               "max_abs_err": 0.0, "bound_by": set()} for k in BN_KERNELS}
+    for dtype, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for i, (shape, layers) in enumerate(BN_SHAPES.items()):
+            y, g, gamma, beta, rm, rv = _bn_data(shape, dtype, 10 + i, dev)
+            C = shape[-1]
+            # statistics and the running update
+            rmk, rvk, rmp, rvp = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+            st_k = bn.bn_stats(y, gamma, rmk, rvk)
+            st_p = bn.bn_stats_plain(y, gamma, rmp, rvp)
+            mean64, var64 = _stats_f64(y)
+            scale = mean64.abs() + var64.sqrt()
+            live = var64 > 0
+            stats_err = {}
+            for name, st in (("kernel", st_k), ("plain", st_p)):
+                stats_err[name] = {
+                    "mean": float(((st[0].double() - mean64).abs() / scale).max()),
+                    "var": float(((st[1].double() - var64).abs() / var64)[live].max()),
+                }
+            tie = bool(st_k[1, BN_CONST_CHANNEL] == 0 and st_p[1, BN_CONST_CHANNEL] == 0)
+            running = max(_rel_l2(rmk, rmp), _rel_l2(rvk, rvp))
+            # each kernel on the plain version's inputs
+            fwd_k, fwd_p = bn.bn_relu_fwd(y, st_p, beta), bn.bn_relu_fwd_plain(y, st_p, beta)
+            red_k = bn.bn_relu_bwd_reduce(g, y, st_p, beta, True)
+            red_p = bn.bn_relu_bwd_reduce_plain(g, y, st_p, beta, True)
+            coef = red_p[2]
+            dy_k = bn.bn_relu_bwd_apply(g, y, st_p, beta, coef)
+            dy_p = bn.bn_relu_bwd_apply_plain(g, y, st_p, beta, coef)
+            fwd_ulp, fwd_unequal = _ulp_diff(fwd_k, fwd_p)
+            apply_ulp, apply_unequal = _ulp_diff(dy_k, dy_p)
+            reduce_err = max(_rel_l2(a, b) for a, b in zip(red_k, red_p))
+            # the whole op, and the backward with a term dropped
+            (o_k, dy_ok, dw_k, db_k), (o_p, dy_op, dw_p, db_p) = _bn_op_vs_plain(
+                bn, y, g, gamma, beta, rm, rv)
+            op_ulp, op_unequal = _ulp_diff(o_k, o_p)
+            op = {"out": _rel_l2(o_k, o_p), "dy": _rel_l2(dy_ok, dy_op),
+                  "dgamma": _rel_l2(dw_k, dw_p), "dbeta": _rel_l2(db_k, db_p)}
+            wrong = {}
+            for name, row in (("no_mean_term", 0), ("no_variance_term", 1)):
+                cut = coef.clone()
+                cut[row] = 0.0
+                wrong[name] = _rel_l2(bn.bn_relu_bwd_apply_plain(g, y, st_p, beta, cut), dy_p)
+            res = {"phase": "bn_vs_plain", "dtype": dname, "shape_NHWC": list(shape),
+                   "stats_vs_float64": stats_err, "const_channel_var_zero": tie,
+                   "running_rel_l2": running, "fwd_max_ulp": fwd_ulp,
+                   "fwd_unequal": fwd_unequal, "reduce_rel_l2": reduce_err,
+                   "apply_max_ulp": apply_ulp, "apply_unequal": apply_unequal,
+                   "op_rel_l2": op, "op_out_max_ulp": op_ulp, "op_out_unequal": op_unequal,
+                   "wrong_backward_dy_rel_l2": wrong}
+            if dtype == torch.bfloat16:
+                res.update(_bn_times(bn, shape, y, g, gamma, beta, rm, rv, st_p, coef))
+                for k in BN_KERNELS:
+                    for key in ("ms", "plain_ms", "bound_ms"):
+                        out[k][key] += layers * res[key][k]
+                    out[k]["bound_by"].add(res["bound_by"][k])
+                out["bn_stats"]["library_ms"] = ((out["bn_stats"]["library_ms"] or 0.0)
+                                                 + layers * res["library_ms"]["bn_stats"])
+                errs = {"bn_stats": float((st_k - st_p).abs().max()),
+                        "bn_relu_fwd": float((fwd_k.float() - fwd_p.float()).abs().max()),
+                        "bn_relu_bwd_reduce": max(float((a - b).abs().max())
+                                                  for a, b in zip(red_k, red_p)),
+                        "bn_relu_bwd_apply": float((dy_k.float() - dy_p.float()).abs().max())}
+                for k, e in errs.items():
+                    out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
+            emit(res)
+            bad = []
+            if max(stats_err["kernel"].values()) > BN_BOUNDS["stats"]:
+                bad.append(f"statistics off float64 by {stats_err['kernel']}")
+            if not tie:
+                bad.append("the constant channel's variance is not exactly 0")
+            if running > BN_BOUNDS["stats"]:
+                bad.append(f"running statistics rel {running}")
+            if fwd_unequal or apply_unequal:
+                bad.append(f"fwd / apply not bit-exact on equal inputs ({fwd_unequal}, "
+                           f"{apply_unequal} unequal)")
+            if reduce_err > BN_BOUNDS["reduce"]:
+                bad.append(f"reduce rel L2 {reduce_err}")
+            if op["out"] > BN_BOUNDS["out"][dname]:
+                bad.append(f"op output rel L2 {op['out']}")
+            grad_bound = BN_BOUNDS["grad"][dname]
+            if max(op[k] for k in ("dy", "dgamma", "dbeta")) > grad_bound:
+                bad.append(f"op gradients {op}")
+            if min(wrong.values()) <= grad_bound:
+                bad.append(f"a wrong backward passes the dy bound {grad_bound}: {wrong}")
+            if bad:
+                fail("bn_vs_plain", f"{dname} {shape}: " + "; ".join(bad))
+            del y, g, st_k, st_p, fwd_k, fwd_p, red_k, red_p, dy_k, dy_p, o_k, o_p, dy_ok, dy_op
+            torch.cuda.empty_cache()
+    for v in out.values():
+        v["bound_by"] = "/".join(sorted(v["bound_by"]))
+    return out
+
+
+def _bn_times(bn, shape, y, g, gamma, beta, rm, rv, st, coef):
+    """Median times of each kernel, its plain version and (for the
+    statistics) ``torch.var_mean`` at one shape; three copies of y and g
+    rotate so each call reads cold data, as the step does."""
+    import torch
+
+    ys = [y] + [y.clone(memory_format=torch.channels_last) for _ in range(2)]
+    gs = [g] + [g.clone(memory_format=torch.channels_last) for _ in range(2)]
+    rm, rv = rm.clone(), rv.clone()
+    calls = {
+        "bn_stats": (lambda f: lambda i: f(ys[i % 3], gamma, rm, rv),
+                     bn.bn_stats, bn.bn_stats_plain),
+        "bn_relu_fwd": (lambda f: lambda i: f(ys[i % 3], st, beta),
+                        bn.bn_relu_fwd, bn.bn_relu_fwd_plain),
+        "bn_relu_bwd_reduce": (lambda f: lambda i: f(gs[i % 3], ys[i % 3], st, beta, True),
+                               bn.bn_relu_bwd_reduce, bn.bn_relu_bwd_reduce_plain),
+        "bn_relu_bwd_apply": (lambda f: lambda i: f(gs[i % 3], ys[i % 3], st, beta, coef),
+                              bn.bn_relu_bwd_apply, bn.bn_relu_bwd_apply_plain),
+    }
+    n_elem = math.prod(shape)
+    C = shape[-1]
+    res = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "library_ms": {}}
+    for k, (call, kern, plain) in calls.items():
+        res["ms"][k] = time_launches(call(kern))
+        res["plain_ms"][k] = time_launches(call(plain), n=10, windows=3)
+        elems, vecs = BN_TRAFFIC[k]
+        res["bound_ms"][k], res["bound_by"][k] = bound_ms(
+            elems * n_elem * y.element_size() + vecs * 4 * C, n_elem * BN_OPS_PER_ELEM[k])
+        res["library_ms"][k] = None
+    res["library_ms"]["bn_stats"] = time_launches(
+        lambda i: torch.var_mean(ys[i % 3], dim=(0, 2, 3), unbiased=False))
+    return res
+
+
 def _write_npz(path: str, **arrays) -> None:
     with open(path, "wb") as f:
         np.savez(f, **arrays)
@@ -330,6 +574,8 @@ def phase_slice(tmp: str):
     import torch
 
     from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.data.dataset import HeatmapBatchLoader, build_split_index
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
     from tracknetv3_tpu_torch.ops import wbce_disk as wd
     from tracknetv3_tpu_torch.training.checkpoint import load_model_from_checkpoint
 
@@ -343,11 +589,13 @@ def phase_slice(tmp: str):
 
     torch.cuda.reset_peak_memory_stats()
     wd.LAUNCHES.update(fwd=0, bwd=0)  # counts of the main path only
+    bn.LAUNCHES.update(dict.fromkeys(bn.LAUNCHES, 0))
     t0 = time.time()
     out1 = train_cli.main(common + ["--epochs", "1"])
     out2 = train_cli.main(common + ["--epochs", "2", "--resume_training"])
     torch.cuda.synchronize()
     launches = dict(wd.LAUNCHES)
+    bn_launches = dict(bn.LAUNCHES)
     train_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
 
@@ -356,12 +604,22 @@ def phase_slice(tmp: str):
     losses = [v for h in hist for v in (h["train_loss"], h["val_loss"])]
     reloaded = [load_model_from_checkpoint(os.path.join(save_dir, f"TrackNet_{k}.pt"))[1]
                 for k in ("best", "cur")]
-    emit({"phase": "slice", "train_steps": steps, "launches": launches,
+    # 17 BatchNorm layers: each kernel once per layer per train step, and
+    # the normalise once per layer per eval batch (one validation an epoch)
+    eval_batches = len(hist) * len(HeatmapBatchLoader(
+        build_split_index(data_dir, "val", L, L), "concat", B, data_dir=data_dir))
+    want_bn = {k: BN_LAYERS * steps for k in bn.LAUNCHES}
+    want_bn["bn_relu_fwd"] += BN_LAYERS * eval_batches
+    emit({"phase": "slice", "train_steps": steps, "eval_batches": eval_batches,
+          "launches": launches, "bn_launches": bn_launches,
           "epochs": [h["epoch"] for h in hist], "losses": losses,
           "val_res": hist[-1]["val_res"], "dataset_s": data_s, "train_s": train_s,
           "peak_mem_bytes": peak})
     if not steps or launches != {"fwd": steps, "bwd": steps}:
         fail("slice", f"launches {launches} != {steps} train steps")
+    if bn_launches != want_bn:
+        fail("slice", f"BatchNorm launches {bn_launches} != {want_bn} ({steps} train steps, "
+             f"{eval_batches} eval batches, {BN_LAYERS} layers)")
     if [h["epoch"] for h in hist] != [0, 1]:
         fail("slice", "resume did not continue at epoch 2")
     if not all(math.isfinite(v) for v in losses):
@@ -371,13 +629,17 @@ def phase_slice(tmp: str):
     if "accuracy" not in hist[-1]["val_res"]:
         fail("slice", "no val metrics")
 
-    # Step time of the full-width step on a fixed batch, after warm-up.
+    # Step time and peak memory of the full-width step on a fixed batch,
+    # after warm-up, BatchNorm on the kernels.
     model = out2["model"]
+    torch.cuda.reset_peak_memory_stats()
     step_ms = _time_train_steps(model, data_dir)
+    step_peak = torch.cuda.max_memory_allocated()
     emit({"phase": "step_time", "config": "TrackNet seq_len 8 concat 288x512 batch 10 "
           "alpha 0.5 Adam bf16", "median_ms_per_step": statistics.median(step_ms),
-          "ms_per_step": step_ms, "peak_mem_bytes": peak})
-    return launches, statistics.median(step_ms), peak
+          "ms_per_step": step_ms, "step_peak_mem_bytes": step_peak,
+          "train_run_peak_mem_bytes": peak})
+    return launches, bn_launches, statistics.median(step_ms), peak
 
 
 def _first_batch(data_dir: str, dev):
@@ -413,13 +675,52 @@ def _time_train_steps(model, data_dir: str, n: int = 12):
     return times[2:]
 
 
+# (loss relative error, worst relative L2 error of a parameter gradient) of
+# one train step against the same step with one part swapped. float32: the
+# kernel loss vs the plain loss (read 0 and 1.8e-5), and the BatchNorm
+# kernels vs their plain versions (read 0 and 0). bfloat16, BatchNorm
+# kernels vs plain: read 0 and 0, while the wrong backwards read a
+# gradient error of 1.0 or more (PERF.md); each must fail the bound.
+STEP_PARITY_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 1e-2)}
+
+
+def _step(base, dtype, x, targets, loss_fn, bn_op):
+    """Loss and parameter gradients of one train step of a copy of ``base``
+    in working dtype ``dtype``, BatchNorm through ``bn_op``."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+    from tracknetv3_tpu_torch.training.steps import _to_model_input
+
+    model = copy.deepcopy(base).to(DEVICE, memory_format=torch.channels_last).train()
+    model.dtype = dtype
+    with mock.patch.object(bn, "bn_relu_train", bn_op):
+        loss = loss_fn(model(_to_model_input(x)).movedim(1, -1), *targets)
+        loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _wrong_bn(row: int):
+    """``bn_relu_train`` whose (plain) backward drops its mean term (row 0
+    of the coefficients) or its variance term (row 1)."""
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+
+    def apply(g, y, st, bias, coef):
+        cut = coef.clone()
+        cut[row] = 0.0
+        return bn.bn_relu_bwd_apply_plain(g, y, st, bias, cut)
+
+    ops = bn.PLAIN_OPS._replace(bwd_apply=apply)
+    return lambda *args: bn.bn_relu(*args, True, ops)
+
+
 def phase_step_parity(data_dir: str):
     import torch
 
     from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
     from tracknetv3_tpu_torch.ops import wbce_disk as wd
     from tracknetv3_tpu_torch.training.steps import (
-        _to_model_input,
         assemble_tracknet_inputs,
         sample_mixup_inputs,
         sample_mixup_params,
@@ -433,6 +734,16 @@ def phase_step_parity(data_dir: str):
     torch.backends.cudnn.deterministic = True
     # no autotuning: it tried every float32 algorithm of every layer, 2.5 min
     torch.backends.cudnn.benchmark = False
+    kernel_loss, plain_loss = wd.wbce_disk_loss, wd.wbce_disk_loss_plain
+    runs = {
+        "float32": {"kernel": (kernel_loss, bn.bn_relu_train),
+                    "plain_loss": (plain_loss, bn.bn_relu_train),
+                    "plain_bn": (kernel_loss, bn.bn_relu_train_plain)},
+        "bfloat16": {"kernel": (kernel_loss, bn.bn_relu_train),
+                     "plain_bn": (kernel_loss, bn.bn_relu_train_plain),
+                     "no_mean_term": (kernel_loss, _wrong_bn(0)),
+                     "no_variance_term": (kernel_loss, _wrong_bn(1))},
+    }
     try:
         batch = _first_batch(data_dir, dev)
         perm, lam = (torch.from_numpy(a).to(dev)
@@ -441,27 +752,26 @@ def phase_step_parity(data_dir: str):
         targets = wd.pack_mixup_targets(batch["cxcy"], perm, lam)
         base = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(11),
                          dtype=torch.float32)
-        out = {}
-        for name, loss_fn in (("kernel", wd.wbce_disk_loss), ("plain", wd.wbce_disk_loss_plain)):
-            model = copy.deepcopy(base).to(dev, memory_format=torch.channels_last).train()
-            loss = loss_fn(model(_to_model_input(x)).movedim(1, -1), *targets)
-            loss.backward()
-            out[name] = (float(loss.detach()), {k: p.grad.detach().clone()
-                                       for k, p in model.named_parameters()})
-            del model, loss
-        lk, gk = out["kernel"]
-        lp, gp = out["plain"]
-        loss_rel = abs(lk - lp) / abs(lp)
-        grad_rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30))
-                    for k in gp}
-        worst = max(grad_rel, key=grad_rel.get)
-        emit({"phase": "step_parity", "dtype": "float32", "tf32": False,
-              "loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
-              "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst_param": worst})
-        if not loss_rel <= 1e-5:
-            fail("step_parity", f"loss rel err {loss_rel}")
-        if not grad_rel[worst] <= 1e-4:
-            fail("step_parity", f"{worst}: grad rel L2 err {grad_rel[worst]}")
+        for dname, variants in runs.items():
+            out = {name: _step(base, getattr(torch, dname), x, targets, loss_fn, op)
+                   for name, (loss_fn, op) in variants.items()}
+            lk, gk = out.pop("kernel")
+            loss_bound, grad_bound = STEP_PARITY_BOUNDS[dname]
+            res = {}
+            for name, (lv, gv) in out.items():
+                grad_rel = {k: _rel_l2(gk[k], gv[k]) for k in gv}
+                worst = max(grad_rel, key=grad_rel.get)
+                res[name] = {"loss": lv, "loss_rel_err": abs(lk - lv) / abs(lv),
+                             "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst_param": worst}
+                res[name]["within_bounds"] = (res[name]["loss_rel_err"] <= loss_bound
+                                              and grad_rel[worst] <= grad_bound)
+            emit({"phase": "step_parity", "dtype": dname, "tf32": False, "loss_kernel": lk,
+                  "loss_bound": loss_bound, "grad_bound": grad_bound, "vs": res})
+            for name, r in res.items():
+                if r["within_bounds"] == name.startswith("no_"):
+                    fail("step_parity", f"{dname} vs {name}: {r} (bounds {loss_bound}, "
+                         f"{grad_bound}; a wrong backward must fail them)")
+            del out
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
@@ -469,7 +779,6 @@ def phase_step_parity(data_dir: str):
 
 # ---------------------------------------------------------------- serving
 
-DEVICE = "cuda"  # of the serving phases
 SERVE_T = 480  # frames of the synthetic video
 SERVE_BATCHES = (16, 120)  # the predict CLI's default and bench.py's
 # (max, mean) |dp| of the folded forward vs the unfolded TrackNet. bf16: the
@@ -896,8 +1205,9 @@ def main() -> int:
     card = phase_env()
     phase_build()
     err, ms, plain_ms, bound = phase_kernels()
+    bn_times = phase_bn()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, step_ms, peak = phase_slice(tmp)
+        launches, bn_launches, step_ms, peak = phase_slice(tmp)
         phase_step_parity(os.path.join(tmp, "data"))
         pool_up = phase_pool_up()
         serve_launches, frames = phase_serve(tmp)
@@ -924,6 +1234,18 @@ def main() -> int:
          "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
          "library_ms": v["plain_ms"]}
         for k, v in pool_up.items()
+    ]
+    # BatchNorm: times and bounds summed over the 17 calls of one train step
+    # at batch 10 (bf16); launches per run of the train path. The backward
+    # kernels replace JAX's autodiff of the epilogue (no Pallas source).
+    replaces = {"bn_stats": "tools/probe_bn_pool.py:128",
+                "bn_relu_fwd": "tools/probe_bn_pool.py:167",
+                "bn_relu_bwd_reduce": "tracknetv3_tpu/models/fused_forward.py:285",
+                "bn_relu_bwd_apply": "tracknetv3_tpu/models/fused_forward.py:311"}
+    lines += [
+        {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/batchnorm.cu",
+         "replaces": replaces[k], "launches": bn_launches[k], **v}
+        for k, v in bn_times.items()
     ]
     emit({"kernels": lines})
     print(card, flush=True)

@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of ``tracknetv3_tpu_torch``
-(the serving modules included) loads neither ``jax`` nor the JAX package,
+(the serving and kernel modules included) loads neither ``jax`` nor the JAX package,
 no source of the port (nor ``chip_smoke.py``) imports them, and its entry
 points (training, the predictor, ``predict_video`` and the predict CLI)
 refuse to run without a card unless the CPU is asked for."""
@@ -35,12 +35,17 @@ SERVING_MODULES = {
     "tracknetv3_tpu_torch.ops.pool_up2x",
     "tracknetv3_tpu_torch.ops.postprocess",
 }
+KERNEL_MODULES = {
+    "tracknetv3_tpu_torch.ops.batchnorm",
+    "tracknetv3_tpu_torch.ops.pool_up2x",
+    "tracknetv3_tpu_torch.ops.wbce_disk",
+}
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) > 20
-    assert SERVING_MODULES <= set(mods)
+    assert SERVING_MODULES | KERNEL_MODULES <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

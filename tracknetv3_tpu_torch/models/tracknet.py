@@ -14,18 +14,22 @@ Numerics follow the JAX package's training forward
 
 - the conv runs in the working dtype (input and kernel cast to it) and its
   output stays in the working dtype;
-- BatchNorm runs in float32 (float64 for a float64 working dtype, as the
-  JAX forward's ``stats_dtype``): batch statistics over (N, H, W) as
-  ``E[y^2] - E[y]^2`` clamped at 0, normalisation
-  ``(y - mean) * rsqrt(var + eps) * scale + bias``, and a running update
-  ``0.9 * old + 0.1 * batch`` with the *biased* batch variance;
-- the ReLU output is cast back to the working dtype;
+- BatchNorm + ReLU is one op, ``ops.batchnorm.bn_relu_train`` (train
+  mode) or ``bn_relu_eval`` (running statistics): hand-written CUDA
+  kernels on the card, their plain versions on the CPU. Statistics over
+  (N, H, W) as ``E[y^2] - E[y]^2`` clamped at 0, normalisation
+  ``(y - mean) / sqrt(var + eps) * scale + bias`` in float32 (float64 for
+  a float64 working dtype, as the JAX forward's ``stats_dtype``), a running
+  update ``0.9 * old + 0.1 * batch`` with the *biased* batch variance, the
+  ReLU output cast back to the working dtype, and ``jnp.maximum``'s
+  gradient (half at a tie);
 - the predictor's 1x1 conv runs in the working dtype, its output is cast to
   float32 and then the float32 bias is added.
 
 The forward returns float32 (float64 for a float64 working dtype) logits
 in contiguous NCHW ``(B, L, H, W)`` whatever the input's memory format,
-so the loss kernel reads them without a copy.
+so the loss kernel reads them without a copy. On the card the input must
+be channels_last (the BatchNorm kernels take no other layout).
 """
 
 from __future__ import annotations
@@ -34,12 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_BN_MOMENTUM = 0.9
-_BN_EPS = 1e-5
+from ..ops import batchnorm
 
 
 class BatchNorm(nn.Module):
-    """Float32 BatchNorm with the JAX package's statistics rules."""
+    """The parameters and running statistics of one BatchNorm (the JAX
+    package's ``bn`` scope); ``ConvBNRelu`` applies them with ReLU."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -47,23 +51,6 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        yf = y.to(torch.promote_types(y.dtype, torch.float32))
-        if self.training:
-            mean = yf.mean(dim=(0, 2, 3))
-            var = (yf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(_BN_MOMENTUM).add_(
-                    mean.detach(), alpha=1.0 - _BN_MOMENTUM
-                )
-                self.running_var.mul_(_BN_MOMENTUM).add_(
-                    var.detach(), alpha=1.0 - _BN_MOMENTUM
-                )
-        else:
-            mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + _BN_EPS) * self.weight
-        return (yf - mean[:, None, None]) * inv[:, None, None] + self.bias[:, None, None]
 
 
 class ConvBNRelu(nn.Module):
@@ -74,7 +61,9 @@ class ConvBNRelu(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = F.conv2d(x.to(dtype), self.conv.weight.to(dtype), padding=1)
-        return torch.relu(self.bn(y)).to(dtype)
+        bn = self.bn
+        op = batchnorm.bn_relu_train if self.training else batchnorm.bn_relu_eval
+        return op(y, bn.weight, bn.bias, bn.running_mean, bn.running_var)
 
 
 class ConvStack(nn.Module):

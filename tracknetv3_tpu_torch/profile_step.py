@@ -12,8 +12,9 @@ Adam 1e-3, a fixed random uint8 batch. ``--serve``: ``run_staged`` in
 folded forward, ensemble, decode; then the ensemble flush and the one
 fetch). Warms up, then traces ``--steps`` steps or videos with
 ``torch.profiler`` and prints one JSON line: host ms per step, device
-kernel time per step (per chunk when serving) by category, the device's
-busy share, and the heaviest kernels. Serving also times ``--steps``
+kernel time per step (per chunk when serving) by category (a train step's
+``batchnorm`` is the four kernels of ``csrc/batchnorm.cu``), the device's
+busy share, peak device memory (training), and the heaviest kernels. Serving also times ``--steps``
 videos untraced; its busy share is the traced device time over that
 untraced wall time, so the profiler's own host cost is left out. Serving categories come from the ``serve::*`` profiler
 ranges of ``inference.py`` and, inside the forward, from kernel names
@@ -40,6 +41,7 @@ from .training.steps import make_tracknet_train_step, sample_mixup_params
 
 _CATEGORIES = (
     ("loss_kernels", ("wbce_disk",)),
+    ("batchnorm", ("bn_stats", "bn_relu")),  # the kernels of csrc/batchnorm.cu
     ("optimizer", ("adam", "multi_tensor", "foreach")),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "wgrad", "dgrad")),
     ("reduction", ("reduce",)),
@@ -182,6 +184,7 @@ def main(argv=None) -> dict:
     for i in range(args.warmup):
         step(batch, i, perm, lam)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -189,6 +192,7 @@ def main(argv=None) -> dict:
             step(batch, args.warmup + i, perm, lam)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
 
     by_kernel = _kernel_times(prof)
     by_cat = defaultdict(float)
@@ -202,6 +206,7 @@ def main(argv=None) -> dict:
         "host_ms_per_step": wall_ms / n,
         "device_kernel_ms_per_step": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / (wall_ms / n) if device_ms > 0 else "not measured",
+        "peak_mem_bytes": peak,
         "ms_per_step_by_category": {k: v / 1e3 / n for k, v in sorted(by_cat.items())},
         "top_kernels": _top(by_kernel, n),
     }
