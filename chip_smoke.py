@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's two paths (``tracknetv3_tpu_torch``) at the full width
+Drives the port's paths (``tracknetv3_tpu_torch``) at the full width
 of the published TrackNet configuration (seq_len 8, bg_mode concat,
 288x512, bf16 convolutions): training (batch 10, alpha 0.5 mixup, Adam
 1e-3) from weights made from a seed, and single-video serving (eval_mode
-weight, InpaintNet seq_len 16) from the checkpoint that training wrote. It
+weight, InpaintNet seq_len 16) from the checkpoint that training wrote,
+with its 3x3 convs on cuDNN and on each hand-written conv kernel. It
 holds each hand-written kernel against its plain PyTorch version. One
 JSON line per phase; any failed phase exits nonzero.
 
@@ -43,25 +44,40 @@ JSON line per phase; any failed phase exits nonzero.
    six shapes at batch 16, bf16 with NaN and -inf entries: bit-exact (max
    abs error 0, NaN positions equal); median kernel and plain times beside
    each shape's bytes bound;
-8. serve: ``stage_frames`` -> ``run_staged`` -> ``inpaint_trajectory`` ->
+8. conv_vs_plain: the two 3x3 conv kernels (``k3c``: P1, P2 with the sheet,
+   P3 ``full``; ``9tap``: P2 without, P3 ``full-9mm``) against
+   ``conv3x3_bias_relu_plain`` at the 11 distinct shapes of the serving
+   forward's 17 convs at batch 16 and at one shape with odd H and W, with
+   and without the bias + ReLU epilogue, on inputs with exact zeros, a NaN
+   and an inf: NaN and inf positions equal (and the NaN exactly on its 3x3
+   neighbourhood), every other element within ``CONV_ULPS_BOUND`` bfloat16
+   spacings, which four deliberately wrong convs (a tap dropped, dx
+   mirrored, the halo not zero-filled, the bias added after the cast) must
+   fail; times of each kernel, the plain version, cuDNN alone and cuDNN
+   with the torch epilogue passes, summed over the 17 calls of one forward,
+   beside the bound; conv_ablate: the ablation probe's six variants at
+   (24, 72, 128, 256 -> 256), ms and share of the bf16 peak;
+9. serve: ``stage_frames`` -> ``run_staged`` -> ``inpaint_trajectory`` ->
    ``write_pred_csv`` on a synthetic 480-frame 288x512 video, with the
    trained TrackNet and a seeded InpaintNet, at batch 16 (the CLI default)
    and 120: 480 CSV rows, every coordinate inside the frame, P6 and P7
    each launched 3x per chunk forwarded; after a warm-up, the median of 3
    runs of run_fps (frames / run_staged wall time), e2e_fps (host frames
-   to CSV) and peak device memory;
-   serve_vs_cpu, at each batch size: one more served run, with the
+   to CSV) and peak device memory; then the same through
+   ``conv_backend="hand_k3c"`` at batch 16 (17 launches of the conv kernel
+   per chunk forwarded) and ``"hand_9tap"`` on the video's first 64 frames;
+   serve_vs_cpu, after each of these: one more served run, with the
    trained checkpoint's predictor bias lowered so that its heatmaps hold
    detections (``detecting_checkpoint``), whose chunks' window
    probabilities are copied to the host. Each chunk is held to the
-   unfolded TrackNet in eval mode on the same input (phase 9's bf16 bound);
+   unfolded TrackNet in eval mode on the same input (phase 10's bf16 bound);
    a CPU predictor replays the probabilities through its own
    ``run_staged`` (ensemble, decode, the flushed tail rows) and
    ``inpaint_trajectory``: its rows must equal the card's, and so must
    InpaintNet's output on the served rows and on the disk's track with an
    occlusion cut into each pass (a masked frame may differ by 1 px: the
    two devices sum InpaintNet's convolutions in different orders);
-9. serve_parity: three chunks of 16 windows of the served video through
+10. serve_parity: three chunks of 16 windows of the served video through
    the folded forward (with the kernels) and through the unfolded TrackNet
    in eval mode (cuDNN, its BatchNorm on the P5 kernel, torch pool and
    upsample) from the trained checkpoint, TF32 off: float32 max
@@ -69,7 +85,11 @@ JSON line per phase; any failed phase exits nonzero.
    ``tests/test_torch_fused_forward.py``); bfloat16, two roundings of one
    function, within ``SERVE_PARITY_BOUNDS``, set between these sound
    readings and the upper readings of deliberately wrong forwards
-   (``wrong_forward``), each of which must fail the bound.
+   (``wrong_forward``), each of which must fail the bound; the bfloat16
+   chunks also go through both hand conv backends, under the same bound.
+
+``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
+conv kernel) and prints no kernels line.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -99,6 +119,7 @@ B, H, W, L = 10, 288, 512, 8  # the main path's loss shape (README config)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"  # of the BatchNorm, step-parity and serving phases
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # float operations per element, counted from csrc/wbce_disk.cu: label
 # (two squared distances, compares, blend) + sigmoid/log terms + loss
 FWD_OPS_PER_ELEM = 30
@@ -145,9 +166,10 @@ def time_launches(fn, n: int = 30, windows: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def bound_ms(n_bytes: int, n_ops: int):
-    """Least time on the card for the work: (ms, what bounds it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+def bound_ms(n_bytes: int, n_ops: int, peak: float = F32_FLOPS):
+    """Least time on the card for the work: (ms, what bounds it); ``peak``
+    is the card's rate for the operations' type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -171,9 +193,9 @@ def phase_env():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from tracknetv3_tpu_torch.ops import batchnorm, cuda_build, pool_up2x, wbce_disk
+    from tracknetv3_tpu_torch.ops import batchnorm, conv3x3, cuda_build, pool_up2x, wbce_disk
 
-    modules = (wbce_disk, pool_up2x, batchnorm)
+    modules = (wbce_disk, pool_up2x, batchnorm, conv3x3)
     t0 = time.time()
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(lambda m: cuda_build.build(m.SOURCE), modules))
@@ -181,7 +203,7 @@ def phase_build():
     for mod, (path, log) in zip(modules, builds):
         mod._lib()
         regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "entry function" in ln]
+                if "registers" in ln or "entry function" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"tracknetv3_tpu_torch/csrc/{mod.SOURCE}",
               "library": os.path.relpath(path, ROOT), "seconds": round(seconds, 3),
               "ptxas": regs})
@@ -780,7 +802,11 @@ def phase_step_parity(data_dir: str):
 # ---------------------------------------------------------------- serving
 
 SERVE_T = 480  # frames of the synthetic video
-SERVE_BATCHES = (16, 120)  # the predict CLI's default and bench.py's
+# (conv_backend, batch size, frames served): cuDNN at the predict CLI's default
+# batch and bench.py's, the sheet conv kernel on the whole video, the
+# nine-product kernel on a cut of it
+SERVE_RUNS = (("cudnn", 16, SERVE_T), ("cudnn", 120, SERVE_T), ("hand_k3c", 16, SERVE_T),
+              ("hand_9tap", 16, 64))
 # (max, mean) |dp| of the folded forward vs the unfolded TrackNet. bf16: the
 # sound forward read at most 1.4e-2 / 4.2e-4 per chunk and the wrong forwards
 # at least 0.11 max (up1_tiled also 1.9e-3 mean) on the card (PERF.md, PR 2).
@@ -788,6 +814,7 @@ SERVE_BATCHES = (16, 120)  # the predict CLI's default and bench.py's
 SERVE_PARITY_BOUNDS = {"bfloat16": (3e-2, 1e-3), "float32": (1e-5, 1e-6)}
 PARITY_STARTS = (0, 232, 456)  # first window of each 16-window chunk of serve_parity
 WRONG_FORWARDS = ("pool3_stride2", "up1_tiled")  # each must fail the bf16 bound
+HAND_BACKENDS = ("hand_k3c", "hand_9tap")  # the 3x3 convs on the kernels of conv3x3.cu
 # NHWC input shape of each pool and upsample call of one forward at batch 16
 POOL_SHAPES = ((16, 288, 512, 64), (16, 144, 256, 128), (16, 72, 128, 256))
 UP_SHAPES = ((16, 36, 64, 512), (16, 72, 128, 256), (16, 144, 256, 128))
@@ -864,6 +891,259 @@ def phase_pool_up():
     return totals
 
 
+# ---------------------------------------------------------------- 3x3 conv
+
+# (H, W, Ci, Co) of each distinct 3x3 conv of one serving forward, and how
+# many of its 17 convs have it (blocks of 2/2/3/3/3/2/2; an up block's first
+# conv reads the concat [up2x(x), skip])
+CONV_SHAPES = {(288, 512, 27, 64): 1, (288, 512, 64, 64): 2, (288, 512, 192, 64): 1,
+               (144, 256, 64, 128): 1, (144, 256, 128, 128): 2, (144, 256, 384, 128): 1,
+               (72, 128, 128, 256): 1, (72, 128, 256, 256): 4, (72, 128, 768, 256): 1,
+               (36, 64, 256, 512): 1, (36, 64, 512, 512): 2}
+CONV_LAYERS = sum(CONV_SHAPES.values())
+CONV_BATCH = 16
+CONV_ODD_SHAPE = (3, 37, 61, 96, 128)  # N, H, W, Ci, Co: no tile divides H or W
+CONV_VARIANTS = ("k3c", "9tap")
+# Kernel vs plain in bfloat16 spacings at max(|a|, |b|, RMS / 8)
+# (``bf16_ulps_apart``): both round one float32 sum of the same terms once,
+# so they are equal or neighbours: the kernels read exactly 1.0 at every
+# shape on the card. The bias added after the cast reads 4.25 or more and
+# the other wrong convs 255 (PERF.md); the bound sits between.
+CONV_ULPS_BOUND = 1.0
+CONV_FLOOR_OF_RMS = 0.125
+CONV_WRONG = ("tap_dropped", "dx_mirrored", "halo_not_zero", "bias_after_cast")
+ABLATE_SHAPE = (24, 72, 128, 256, 256)  # the ablation probe's: N, H, W, Ci, Co
+
+
+def _conv_data(N, H, W, Ci, Co, seed: int, dev):
+    """One layer's operands: x (NCHW view of channels_last bf16, channels
+    padded with zeros to the kernels' multiple) of unit normals with 5% exact
+    zeros, one NaN and one inf in sample 0; a He-scaled HWIO kernel, so that
+    outputs have an RMS near 1; a bias of spread 0.5, so that the ReLU cuts
+    about half and sums cancel against it."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import conv3x3 as c3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cp = c3.padded_channels(Ci)
+    x = torch.zeros((N, H, W, cp), dtype=torch.bfloat16, device=dev)
+    v = torch.randn((N, H, W, Ci), generator=g, device=dev)
+    v = v.masked_fill(torch.rand((N, H, W, Ci), generator=g, device=dev) < 0.05, 0.0)
+    x[..., :Ci] = v.to(torch.bfloat16)
+    del v
+    x[0, H // 3, W // 3, Ci // 2] = float("nan")
+    x[0, (2 * H) // 3, (2 * W) // 3, Ci // 3] = float("inf")
+    k = torch.randn((3, 3, Ci, Co), generator=g, device=dev) * math.sqrt(2.0 / (9 * Ci))
+    bias = 0.5 * torch.randn((Co,), generator=g, device=dev)
+    return x.permute(0, 3, 1, 2), k, bias
+
+
+def _conv_f32(x_f32, w_hwio_f32, padding: int = 1):
+    """float32 conv of NCHW ``x`` with an HWIO kernel by PyTorch's own
+    (non-cuDNN) convolution, as the plain version runs it."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.backends.cudnn.flags(enabled=False):
+        return F.conv2d(x_f32, w_hwio_f32.permute(3, 2, 0, 1), padding=padding)
+
+
+def _wrong_conv(name: str, x, w_hwio, bias):
+    """The conv + bias + ReLU with one deliberate fault, in float32 torch
+    ops: the (dy 2, dx 0) tap dropped, the kernel mirrored in dx, the halo
+    filled with the edge pixel instead of zero, or the bias added after the
+    cast to bfloat16."""
+    import torch
+    import torch.nn.functional as F
+
+    xf, w = x.float(), w_hwio.to(torch.bfloat16).float()
+    w = F.pad(w, (0, 0, 0, x.shape[1] - w.shape[2]))  # the input's zero channels
+    if name == "tap_dropped":
+        w = w.clone()
+        w[2, 0] = 0.0
+    elif name == "dx_mirrored":
+        w = w.flip(1)
+    if name == "halo_not_zero":
+        y = _conv_f32(F.pad(xf, (1, 1, 1, 1), mode="replicate"), w, padding=0)
+    else:
+        y = _conv_f32(xf, w)
+    if name == "bias_after_cast":
+        y = y.to(torch.bfloat16).float()
+    y = torch.maximum(y + bias.reshape(1, -1, 1, 1), torch.zeros((), device=y.device))
+    return y.to(torch.bfloat16)
+
+
+def _conv_compare(got, want, x):
+    """Kernel output vs plain: (NaN positions equal, and equal to the 3x3
+    neighbourhood of the input's NaN; inf positions equal; bfloat16 spacings
+    apart; share of unequal finite entries; max |a - b| over finite ones)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tracknetv3_tpu_torch.ops.conv3x3 import bf16_ulps_apart
+
+    nan_in = torch.isnan(x).any(dim=1, keepdim=True).float()
+    nan_want = F.max_pool2d(nan_in, 3, stride=1, padding=1).bool().expand_as(got)
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    ig, iw = torch.isinf(got), torch.isinf(want)
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    wf = want.float()
+    rms = float(wf[finite].square().mean().sqrt())
+    return {
+        "nan_positions_equal": bool(torch.equal(ng, nw)),
+        "nan_is_3x3_neighbourhood": bool(torch.equal(ng, nan_want)),
+        "inf_positions_equal": bool(torch.equal(ig, iw)
+                                    and torch.equal(got[ig] > 0, want[ig] > 0)),
+        "nan_entries": int(ng.sum()), "inf_entries": int(ig.sum()),
+        "ulps_apart": bf16_ulps_apart(got, want, CONV_FLOOR_OF_RMS * rms),
+        "unequal_share": float(((got != want) & finite).float().mean()),
+        "max_abs_err": float((got.float() - wf).abs()[finite].max()),
+        "out_rms": rms,
+    }
+
+
+def _conv_sound(r) -> bool:
+    return (r["nan_positions_equal"] and r["nan_is_3x3_neighbourhood"]
+            and r["inf_positions_equal"] and r["ulps_apart"] <= CONV_ULPS_BOUND)
+
+
+def _conv_check_shape(c3, shape, seed: int, dev, timed: bool):
+    """conv_vs_plain at one (N, H, W, Ci, Co); times too when ``timed``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tracknetv3_tpu_torch.models import fused_forward as ff
+
+    N, H, W, Ci, Co = shape
+    x, k, bias = _conv_data(N, H, W, Ci, Co, seed, dev)
+    packed = c3.pack_weights(k, torch.bfloat16, dev)
+    res = {"phase": "conv_vs_plain", "shape_NHWC": [N, H, W, Ci], "Co": Co,
+           "padded_Ci": x.shape[1], "bound_ulps": CONV_ULPS_BOUND}
+    bad = []
+    for label, b, relu in (("epilogue", bias, True), ("bare", None, False)):
+        want = c3.conv3x3_bias_relu_plain(x, packed, b, relu=relu)
+        outs = {v: c3.conv3x3_bias_relu(x, packed, b, variant=v, relu=relu)
+                for v in CONV_VARIANTS}
+        torch.cuda.synchronize()
+        res[label] = {v: _conv_compare(o, want, x) for v, o in outs.items()}
+        res[label]["k3c_equals_9tap"] = bool(torch.equal(
+            outs["k3c"].view(torch.int16), outs["9tap"].view(torch.int16)))
+        for v, o in outs.items():
+            if not (_conv_sound(res[label][v])
+                    and o.is_contiguous(memory_format=torch.channels_last)
+                    and tuple(o.shape) == (N, Co, H, W)):
+                bad.append(f"{v} {label}: {res[label][v]}")
+        if label == "epilogue":
+            # the wrong convs on two samples that hold no NaN or inf
+            lo = min(2, N - 1)
+            xs, ws = x[lo : lo + 2], want[lo : lo + 2].float()
+            floor = CONV_FLOOR_OF_RMS * float(ws.square().mean().sqrt())
+            res["wrong_ulps_apart"] = {
+                name: c3.bf16_ulps_apart(_wrong_conv(name, xs, k, bias), ws, floor)
+                for name in CONV_WRONG}
+            passed = [n for n, u in res["wrong_ulps_apart"].items() if u <= CONV_ULPS_BOUND]
+            if passed:
+                bad.append(f"the bound passes the wrong convs {passed}")
+        del want, outs
+    if timed:
+        # three copies of x rotate so that each call reads cold data
+        xs = [x] + [x.clone(memory_format=torch.channels_last) for _ in range(2)]
+        ms = {v: time_launches(lambda i, v=v: c3.conv3x3_bias_relu(
+            xs[i % 3], packed, bias, variant=v), n=10, windows=3) for v in CONV_VARIANTS}
+        plain_ms = time_launches(lambda i: c3.conv3x3_bias_relu_plain(xs[i % 3], packed, bias),
+                                 n=2, windows=3)
+        # today's route: cuDNN on the unpadded bf16 channels_last operands,
+        # alone and with the torch bias + ReLU + cast passes
+        w = k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        b4 = bias.reshape(1, -1, 1, 1)
+        xc = [t[:, :Ci].contiguous(memory_format=torch.channels_last) for t in xs]
+        cudnn_ms = time_launches(lambda i: F.conv2d(xc[i % 3], w, padding=1), n=10, windows=3)
+        cudnn_epi_ms = time_launches(lambda i: ff._conv_relu(xc[i % 3], w, b4), n=10, windows=3)
+        flops = 2 * N * H * W * 9 * Ci * Co
+        n_bytes = 2 * (N * H * W * (Ci + Co) + 9 * Ci * Co) + 4 * Co
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+        res.update({"ms": ms, "plain_ms": plain_ms, "cudnn_ms": cudnn_ms,
+                    "cudnn_with_epilogue_ms": cudnn_epi_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "gflop": flops / 1e9,
+                    "tflops": {v: flops / t / 1e9 for v, t in ms.items()}})
+    emit(res)
+    if bad:
+        fail("conv_vs_plain", f"{shape}: " + "; ".join(bad))
+    return res
+
+
+def phase_conv():
+    """conv_vs_plain at the serving forward's shapes (timed) and at one odd
+    shape; returns per kernel the sums over the 17 convs of one forward."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import conv3x3 as c3
+
+    dev = torch.device(DEVICE)
+    torch.backends.cudnn.benchmark = True  # the yardstick picks its fastest algorithms
+    tot = {v: {"ms": 0.0, "max_abs_err": 0.0} for v in CONV_VARIANTS}
+    shared = {"plain_ms": 0.0, "cudnn_ms": 0.0, "cudnn_with_epilogue_ms": 0.0,
+              "bound_ms": 0.0, "gflop": 0.0}
+    bound_by = {"bytes": 0.0, "operations": 0.0}  # ms of the summed bound under each
+    for i, ((H, W, Ci, Co), layers) in enumerate(CONV_SHAPES.items()):
+        r = _conv_check_shape(c3, (CONV_BATCH, H, W, Ci, Co), 40 + i, dev, timed=True)
+        for v in CONV_VARIANTS:
+            tot[v]["ms"] += layers * r["ms"][v]
+            tot[v]["max_abs_err"] = max(tot[v]["max_abs_err"], r["epilogue"][v]["max_abs_err"],
+                                        r["bare"][v]["max_abs_err"])
+        for key in shared:
+            shared[key] += layers * r[key]
+        bound_by[r["bound_by"]] += layers * r["bound_ms"]
+        torch.cuda.empty_cache()
+    _conv_check_shape(c3, CONV_ODD_SHAPE, 60, dev, timed=False)
+    emit({"phase": "conv_times", "what": f"the {CONV_LAYERS} 3x3 convs of one serving forward "
+          f"at batch {CONV_BATCH}, bf16, ms summed", "kernel_ms": {v: tot[v]["ms"] for v in tot},
+          **shared, "tflops": {v: shared["gflop"] / tot[v]["ms"] for v in tot},
+          "cudnn_tflops": shared["gflop"] / shared["cudnn_ms"], "bound_ms_by": bound_by})
+    return {v: {**tot[v], "plain_ms": shared["plain_ms"], "bound_ms": shared["bound_ms"],
+                "bound_by": max(bound_by, key=bound_by.get), "library_ms": shared["cudnn_ms"],
+                "library_with_epilogue_ms": shared["cudnn_with_epilogue_ms"]} for v in tot}
+
+
+def phase_conv_ablate():
+    """conv_ablate: the ablation probe's variants at its shape. ``full`` and
+    ``full-9mm`` are the two kernels (held to plain); the partial variants
+    run products on zeroed shared memory and are timings only."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import conv3x3 as c3
+
+    dev = torch.device(DEVICE)
+    N, H, W, Ci, Co = ABLATE_SHAPE
+    x, k, _ = _conv_data(N, H, W, Ci, Co, 70, dev)
+    packed = c3.pack_weights(k, torch.bfloat16, dev)
+    want = c3.conv3x3_bias_relu_plain(x, packed, None, relu=False)
+    calls = {"full": lambda: c3.conv3x3_bias_relu(x, packed, None, variant="k3c", relu=False),
+             "full-9mm": lambda: c3.conv3x3_bias_relu(x, packed, None, variant="9tap",
+                                                      relu=False)}
+    for name in c3.ABLATION_VARIANTS:
+        calls[name] = lambda name=name: c3.conv3x3_ablation(x, packed, variant=name)
+    flops = 2 * N * H * W * 9 * Ci * Co
+    res = {"phase": "conv_ablate", "shape_NHWC": [N, H, W, Ci], "Co": Co,
+           "gflop": flops / 1e9, "variants": {}}
+    bad = []
+    for name, call in calls.items():
+        out = call()
+        torch.cuda.synchronize()
+        ms = time_launches(lambda i: call(), n=10, windows=3)
+        res["variants"][name] = {"ms": ms, "share_of_bf16_peak": flops / (ms * 1e-3) / BF16_FLOPS}
+        if name in ("full", "full-9mm"):
+            cmp = _conv_compare(out, want, x)
+            res["variants"][name]["vs_plain"] = cmp
+            if not _conv_sound(cmp):
+                bad.append(f"{name}: {cmp}")
+    emit(res)
+    if bad:
+        fail("conv_ablate", "; ".join(bad))
+
+
 def synthetic_video(T: int, seed: int):
     """(T, H, W, 3) RGB uint8 frames drawn as ``write_synthetic_dataset``
     draws a rally (seeded textured background, a bright disk of radius 4
@@ -890,6 +1170,7 @@ def phase_serve(tmp: str):
 
     from tracknetv3_tpu_torch.inference import TrackNetPredictor
     from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import conv3x3 as c3
     from tracknetv3_tpu_torch.ops import pool_up2x as pu
     from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
     from tracknetv3_tpu_torch.utils.io import write_pred_csv
@@ -902,14 +1183,16 @@ def phase_serve(tmp: str):
     frames, centers = synthetic_video(SERVE_T, seed=21)
     torch.backends.cudnn.benchmark = True  # as the predict CLI sets it
     tn_detect = detecting_checkpoint(tn, frames, os.path.join(tmp, "TrackNet_detect.pt"))
-    launches_b16 = None
-    for bs in SERVE_BATCHES:
-        p = TrackNetPredictor(tn, inp, batch_size=bs, device=DEVICE)  # weight, bf16
-        csv_path = os.path.join(tmp, f"serve_b{bs}_ball.csv")
+    launches_by = {}
+    for backend, bs, T in SERVE_RUNS:
+        video, track = frames[:T], centers[:T]
+        p = TrackNetPredictor(tn, inp, batch_size=bs, device=DEVICE,
+                              conv_backend=backend)  # weight, bf16
+        csv_path = os.path.join(tmp, f"serve_{backend}_b{bs}_ball.csv")
 
         def once():
             t0 = time.perf_counter()
-            staged = p.stage_frames(frames)
+            staged = p.stage_frames(video)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             pred = p.run_staged(staged)  # ends in the one fetch
@@ -924,39 +1207,44 @@ def phase_serve(tmp: str):
         torch.cuda.reset_peak_memory_stats()
         run_s, e2e_s = [], []
         for i in range(3):
-            if i == 0:
-                pu.LAUNCHES.update(maxpool2x2=0, up2x_nearest=0)  # counts of this run only
+            if i == 0:  # counts of this run only
+                pu.LAUNCHES.update(dict.fromkeys(pu.LAUNCHES, 0))
+                c3.LAUNCHES.update(dict.fromkeys(c3.LAUNCHES, 0))
             pred, r, e = once()
             if i == 0:
-                launches = dict(pu.LAUNCHES)
+                launches = {**pu.LAUNCHES, **c3.LAUNCHES}
             run_s.append(r)
             e2e_s.append(e)
         peak = torch.cuda.max_memory_allocated()
-        chunks = -(-(SERVE_T - L + 1) // bs)
+        chunks = -(-(T - L + 1) // bs)
         with open(csv_path) as f:
             n_rows = sum(1 for _ in f) - 1
         xs, ys, vis = (np.asarray(pred[k]) for k in ("X", "Y", "Visibility"))
         inside = bool(((xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)).all())
-        hit = (vis == 1) & (np.abs(xs - centers[:, 0]) <= 4) & (np.abs(ys - centers[:, 1]) <= 4)
-        res = {"phase": "serve", "batch_size": bs, "frames": SERVE_T, "chunks": chunks,
-               "launches": launches, "csv_rows": n_rows, "inside_frame": inside,
+        hit = (vis == 1) & (np.abs(xs - track[:, 0]) <= 4) & (np.abs(ys - track[:, 1]) <= 4)
+        res = {"phase": "serve", "conv_backend": backend, "batch_size": bs, "frames": T,
+               "chunks": chunks, "launches": launches, "csv_rows": n_rows,
+               "inside_frame": inside,
                "visible_frames": int(vis.sum()), "within_4px_of_disk": int(hit.sum()),
-               "run_fps": SERVE_T / statistics.median(run_s),
-               "e2e_fps": SERVE_T / statistics.median(e2e_s),
+               "run_fps": T / statistics.median(run_s),
+               "e2e_fps": T / statistics.median(e2e_s),
                "run_s": run_s, "e2e_s": e2e_s, "peak_mem_bytes": peak}
         emit(res)
-        if n_rows != SERVE_T:
-            fail("serve", f"batch {bs}: {n_rows} CSV rows != {SERVE_T}")
-        if launches != {"maxpool2x2": 3 * chunks, "up2x_nearest": 3 * chunks}:
-            fail("serve", f"batch {bs}: launches {launches} != 3 x {chunks} chunks")
+        want = {"maxpool2x2": 3 * chunks, "up2x_nearest": 3 * chunks,
+                "conv3x3_k3c": CONV_LAYERS * chunks * (backend == "hand_k3c"),
+                "conv3x3_9tap": CONV_LAYERS * chunks * (backend == "hand_9tap")}
+        if n_rows != T:
+            fail("serve", f"{backend} batch {bs}: {n_rows} CSV rows != {T}")
+        if launches != want:
+            fail("serve", f"{backend} batch {bs}: launches {launches} != {want} "
+                 f"({chunks} chunks)")
         if not inside:
-            fail("serve", f"batch {bs}: a coordinate lies outside the {W}x{H} frame")
-        if bs == 16:
-            launches_b16 = launches
+            fail("serve", f"{backend} batch {bs}: a coordinate lies outside the {W}x{H} frame")
+        launches_by[backend, bs] = launches
         del p
-        serve_vs_cpu(tn_detect, inp, frames, centers, bs)
+        serve_vs_cpu(tn_detect, inp, video, track, bs, backend)
         torch.cuda.empty_cache()
-    return launches_b16, frames
+    return launches_by, frames
 
 
 def _unfolded(tn: str, dtype):
@@ -1023,7 +1311,7 @@ def detecting_checkpoint(tn: str, frames: np.ndarray, path: str) -> str:
 
 
 def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
-                 bs: int) -> None:
+                 bs: int, backend: str) -> None:
     """One more served run on the card (bf16, the kernels) with each
     chunk's window probabilities copied to the host and held to the
     unfolded TrackNet on the same input; then a CPU predictor replays those
@@ -1033,7 +1321,8 @@ def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
 
     from tracknetv3_tpu_torch.inference import TrackNetPredictor
 
-    p = TrackNetPredictor(tn, inp, batch_size=bs, device=DEVICE)
+    T = len(frames)
+    p = TrackNetPredictor(tn, inp, batch_size=bs, device=DEVICE, conv_backend=backend)
     t0 = time.time()
     model = _unfolded(tn, torch.bfloat16)
     forward = p._windows
@@ -1059,13 +1348,13 @@ def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
     replay = iter(host_probs)
     cpu._windows = lambda pre, buf, med, starts: next(replay)
     want = cpu.run_staged(cpu.stage_frames(frames))
-    differ = [t for t in range(SERVE_T) if _row(card, t) != _row(want, t)]
+    differ = [t for t in range(T) if _row(card, t) != _row(want, t)]
     # InpaintNet over the served rows, and over the disk's drawn track with
     # an occlusion cut into every 40-frame pass (frames 12-15, as in the
     # training data), so that its own output reaches the rows
-    occluded = {"Frame": list(range(SERVE_T)), "X": [int(v) for v in centers[:, 0]],
-                "Y": [int(v) for v in centers[:, 1]], "Visibility": [1] * SERVE_T}
-    for t in range(SERVE_T):
+    occluded = {"Frame": list(range(T)), "X": [int(v) for v in centers[:, 0]],
+                "Y": [int(v) for v in centers[:, 1]], "Visibility": [1] * T}
+    for t in range(T):
         if 12 <= t % 40 < 16:
             occluded["X"][t] = occluded["Y"][t] = occluded["Visibility"][t] = 0
     inpaint = {name: dict(zip(("masked", "unmasked_differ", "masked_differ_over_1px"),
@@ -1074,26 +1363,27 @@ def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
     bound, mean_bound = SERVE_PARITY_BOUNDS["bfloat16"]
     worst = max(g[0] for g in gaps), max(g[1] for g in gaps)
     visible = sum(card["Visibility"])
-    emit({"phase": "serve_vs_cpu", "batch_size": bs, "chunks": len(gaps),
+    emit({"phase": "serve_vs_cpu", "conv_backend": backend, "batch_size": bs,
+          "chunks": len(gaps),
           "bf16_max_abs_prob_err": worst[0], "bf16_mean_abs_prob_err_worst_chunk": worst[1],
           "bf16_chunk_max_errs": [g[0] for g in gaps], "bound": bound,
-          "mean_bound": mean_bound, "rows": SERVE_T, "visible_rows": visible,
+          "mean_bound": mean_bound, "rows": T, "visible_rows": visible,
           "rows_differ": len(differ),
           "first_differ": differ[:5], "inpaint": inpaint, "card_s": card_s,
           "cpu_s": time.time() - t0 - card_s})
     if not (worst[0] <= bound and worst[1] <= mean_bound):
-        fail("serve_vs_cpu", f"batch {bs}: a chunk's forward is off the unfolded model by "
-             f"max {worst[0]} / mean {worst[1]} (bounds {bound} / {mean_bound})")
+        fail("serve_vs_cpu", f"{backend} batch {bs}: a chunk's forward is off the unfolded "
+             f"model by max {worst[0]} / mean {worst[1]} (bounds {bound} / {mean_bound})")
     if not visible:
-        fail("serve_vs_cpu", f"batch {bs}: no detection in the rows compared")
+        fail("serve_vs_cpu", f"{backend} batch {bs}: no detection in the rows compared")
     if differ:
-        fail("serve_vs_cpu", f"batch {bs}: {len(differ)} rows differ from the CPU's, "
+        fail("serve_vs_cpu", f"{backend} batch {bs}: {len(differ)} rows differ from the CPU's, "
              f"first {differ[:5]}")
     for name, r in inpaint.items():
         if r["unmasked_differ"] or r["masked_differ_over_1px"]:
-            fail("serve_vs_cpu", f"batch {bs}: InpaintNet on {name} rows: {r}")
+            fail("serve_vs_cpu", f"{backend} batch {bs}: InpaintNet on {name} rows: {r}")
     if not inpaint["occluded"]["masked"]:
-        fail("serve_vs_cpu", f"batch {bs}: no frame was masked for inpainting")
+        fail("serve_vs_cpu", f"{backend} batch {bs}: no frame was masked for inpainting")
 
 
 @contextlib.contextmanager
@@ -1123,7 +1413,7 @@ def wrong_forward(name: str):
             return x.repeat(1, 1, 2, 2).contiguous(memory_format=torch.channels_last)
         return saved["up2x_nearest"](x)
 
-    def conv_relu(x, w, b):
+    def conv_relu(x, w, b, backend="cudnn"):
         return torch.add(F.conv2d(x, w, padding=1), b.to(x.dtype)).relu_()
 
     attr, fn = {"pool3_stride2": ("maxpool2x2", pool), "up1_tiled": ("up2x_nearest", up),
@@ -1134,6 +1424,15 @@ def wrong_forward(name: str):
     finally:
         for k, v in saved.items():
             setattr(ff, k, v)
+
+
+def _parity(out, ref, bound: float, mean_bound: float) -> dict:
+    """|dp| of a forward against the reference probabilities, and whether it
+    is within the (max, mean) bound."""
+    d = (out - ref).abs()
+    err, mean = float(d.max()), float(d.mean())
+    return {"max": err, "mean": mean, "flips": int(((out > 0.5) != (ref > 0.5)).sum()),
+            "within_bound": err <= bound and mean <= mean_bound}
 
 
 def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
@@ -1154,8 +1453,11 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
         model = _unfolded(tn, dtype)
         bound, mean_bound = SERVE_PARITY_BOUNDS[name]
         variants = ("folded",)
+        hand = {}  # the folded weights packed for each hand conv backend
         if name == "bfloat16":
             variants += WRONG_FORWARDS + ("bias_after_cast",)
+            hand = {b: TrackNetPredictor(tn, batch_size=16, compute_dtype=dtype, device=dev,
+                                         conv_backend=b).params for b in HAND_BACKENDS}
         for s in PARITY_STARTS:
             res = {}
             with torch.inference_mode(), tf32_off():
@@ -1164,26 +1466,31 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
                 for v in variants:
                     with contextlib.nullcontext() if v == "folded" else wrong_forward(v):
                         out = tracknet_fused_forward(p.params, x).permute(0, 3, 1, 2)
-                    d = (out - ref).abs()
-                    err, mean = float(d.max()), float(d.mean())
-                    res[v] = {"max": err, "mean": mean,
-                              "flips": int(((out > 0.5) != (ref > 0.5)).sum()),
-                              "within_bound": err <= bound and mean <= mean_bound}
+                    res[v] = _parity(out, ref, bound, mean_bound)
+                    if v == "folded":
+                        cudnn_out = out
+                for b, params in hand.items():
+                    out = tracknet_fused_forward(params, x).permute(0, 3, 1, 2)
+                    res[b] = _parity(out, ref, bound, mean_bound)
+                    res[b]["max_vs_cudnn_route"] = float((out - cudnn_out).abs().max())
             emit({"phase": "serve_parity", "windows": [s, s + 16], "dtype": name,
                   "tf32": False, "max_abs_prob_err": res["folded"]["max"],
                   "mean_abs_prob_err": res["folded"]["mean"],
                   "threshold_flips": res["folded"]["flips"], "pixels": out.numel(),
                   "bound": bound, "mean_bound": mean_bound,
-                  "wrong_forwards": {v: r for v, r in res.items() if v != "folded"}})
-            if not res["folded"]["within_bound"]:
-                fail("serve_parity", f"{name} windows {s}-{s + 16}: max |dp| "
-                     f"{res['folded']['max']} (bound {bound}), mean "
-                     f"{res['folded']['mean']} (bound {mean_bound})")
+                  "hand_backends": {b: res[b] for b in hand},
+                  "wrong_forwards": {v: r for v, r in res.items()
+                                     if v != "folded" and v not in hand}})
+            for v in ("folded",) + tuple(hand):
+                if not res[v]["within_bound"]:
+                    fail("serve_parity", f"{name} windows {s}-{s + 16}, {v}: max |dp| "
+                         f"{res[v]['max']} (bound {bound}), mean {res[v]['mean']} "
+                         f"(bound {mean_bound})")
             caught = [v for v in WRONG_FORWARDS if v in res and res[v]["within_bound"]]
             if caught:
                 fail("serve_parity", f"{name} windows {s}-{s + 16}: the bound passes the "
                      f"wrong forwards {caught}")
-        del p, staged, x, out, model, ref, d
+        del p, staged, x, out, model, ref, hand
 
 
 def main() -> int:
@@ -1204,12 +1511,22 @@ def main() -> int:
 
     card = phase_env()
     phase_build()
+    if sys.argv[1:] == ["--conv_only"]:
+        phase_conv()
+        phase_conv_ablate()
+        print(card, flush=True)
+        emit({"ok": True, "only": "conv", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     err, ms, plain_ms, bound = phase_kernels()
     bn_times = phase_bn()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, bn_launches, step_ms, peak = phase_slice(tmp)
         phase_step_parity(os.path.join(tmp, "data"))
         pool_up = phase_pool_up()
+        conv = phase_conv()
+        phase_conv_ablate()
         serve_launches, frames = phase_serve(tmp)
         phase_serve_parity(tmp, frames)
 
@@ -1229,7 +1546,7 @@ def main() -> int:
                 "up2x_nearest": "tools/probe_bn_pool.py:236"}
     lines += [
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/pool_up2x.cu",
-         "replaces": replaces[k], "launches": serve_launches[k],
+         "replaces": replaces[k], "launches": serve_launches["cudnn", 16][k],
          "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
          "library_ms": v["plain_ms"]}
@@ -1246,6 +1563,22 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/batchnorm.cu",
          "replaces": replaces[k], "launches": bn_launches[k], **v}
         for k, v in bn_times.items()
+    ]
+    # P1-P3: times and bounds summed over the 17 convs of one forward at batch
+    # 16 (bf16); library: cuDNN's conv alone, and with the torch epilogue
+    # passes that today's default route adds. Launches: the hand_k3c serve of
+    # the whole video, the hand_9tap serve of its 64-frame cut.
+    replaces = {"k3c": "tools/probe_pallas_conv.py:48", "9tap": "tools/probe_pallas_conv.py:130"}
+    also = {"k3c": ["tools/probe_pallas_conv.py:130 (sheet=True)",
+                    "tools/probe_pallas_ablate.py:63 (full and the partial variants)"],
+            "9tap": ["tools/probe_pallas_ablate.py:63 (full-9mm)"]}
+    served = {"k3c": ("hand_k3c", 16), "9tap": ("hand_9tap", 16)}
+    lines += [
+        {"name": f"conv3x3_{k}", "route": "cuda",
+         "source": "tracknetv3_tpu_torch/csrc/conv3x3.cu", "replaces": replaces[k],
+         "also_replaces": also[k],
+         "launches": serve_launches[served[k]][f"conv3x3_{k}"], **v}
+        for k, v in conv.items()
     ]
     emit({"kernels": lines})
     print(card, flush=True)

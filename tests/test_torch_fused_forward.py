@@ -13,6 +13,13 @@ vs the JAX package on the CPU.
   weights at 288x512 read up to 1.4e-2 on the card, so ``chip_smoke.py``
   holds the card to its own bfloat16 bound, set between those readings and
   those of deliberately wrong forwards.
+- The same forward with the 3x3 convs on a hand backend
+  (``conv_backend="hand_k3c"`` / ``"hand_9tap"``, on the CPU the plain
+  version of ``ops/conv3x3.py``: the bias added to the float32 sum, one
+  rounding) vs the JAX forward: atol 1e-5 at float32, and 2e-3 at
+  bfloat16, tighter than the ``cudnn`` route's 5e-3 because each layer
+  rounds once as JAX does (this init reads 8.0e-4 against 9.9e-4; what is
+  left is the order of the sums and the predictor's rounding).
 - The plain pool and upsample vs ``_pool`` / ``_up2x``: bit-exact, NaN
   and -inf included; on a CPU tensor the wrappers return the plain result.
   The CUDA kernels are held against the same plain versions on the card
@@ -41,6 +48,7 @@ from tracknetv3_tpu_torch.ops import pool_up2x as pu  # noqa: E402
 SEQ, BG, N, HGT, WDT = 3, "concat", 2, 32, 64
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-3)}
+HAND_TOL = {"float32": 1e-5, "bfloat16": 2e-3}  # the hand conv backends vs JAX
 # (max, mean) |dp| of the folded vs the unfolded forward
 UNFOLDED_BOUNDS = {"float32": (1e-5, 1e-6), "bfloat16": (5e-3, 1e-3)}
 
@@ -103,6 +111,23 @@ def test_fused_forward_matches_jax(variables, dtype):
     got = tff.tracknet_fused_forward(params, torch.from_numpy(x))
     assert got.shape == (N, HGT, WDT, SEQ) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["hand_k3c", "hand_9tap"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_forward_hand_backend_matches_jax(variables, dtype, backend):
+    jdt, tdt, cudnn_tol = DTYPES[dtype]
+    assert HAND_TOL[dtype] <= cudnn_tol
+    x = _x()
+    want = np.asarray(jff.tracknet_fused_forward(jff.fold_batchnorm(variables),
+                                                 jnp.asarray(x), dtype=jdt))
+    params = tff.fused_params(tff.fold_batchnorm(variables), tdt, "cpu", conv_backend=backend)
+    assert params["conv_backend"] == backend
+    w0, b0 = params["down_block_1"][0]
+    assert w0.shape == (3, 3 * 32, 64) and b0.shape == (64,)  # 12 channels padded to 32
+    got = tff.tracknet_fused_forward(params, torch.from_numpy(x))
+    assert got.shape == (N, HGT, WDT, SEQ) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=HAND_TOL[dtype], rtol=0)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -11,7 +11,9 @@ sizes of ``tests/test_staged.py`` (32x64, seq_len 3, batch 4):
 - ``inpaint_trajectory``: equal rows in all three eval modes.
 - ``predict_video`` and the predict CLI (``--device cpu``) on an mp4
   written by cv2 write the CSV of the JAX ``predict_video``
-  (``native_decode=False``, its predictor at float32), byte for byte.
+  (``native_decode=False``, its predictor at float32), byte for byte; so
+  does ``predict_video(conv_backend="hand_k3c")`` / ``"hand_9tap"``, whose
+  3x3 convs go through the plain version of ``ops/conv3x3.py`` on the CPU.
 - Without a card the serving entry points raise unless the CPU is asked
   for, and the options this slice does not port raise
   ``NotImplementedError``.
@@ -183,6 +185,32 @@ def test_predict_video_csv_matches_jax(ckpts, clip_and_want, tmp_path):
     with open(tmp_path / "clip_ball.csv") as f:
         assert f.read() == want
     assert len(pred["Frame"]) == 17
+
+
+@pytest.mark.parametrize("backend", ["hand_k3c", "hand_9tap"])
+def test_predict_video_hand_conv_backend_csv_matches_jax(ckpts, clip_and_want, tmp_path,
+                                                         backend):
+    clip, want = clip_and_want
+    tn, inp = ckpts
+    pred = tinf.predict_video(clip, tn, inp, batch_size=B, input_hw=(H, W), device="cpu",
+                              compute_dtype=torch.float32, conv_backend=backend,
+                              save_dir=str(tmp_path))
+    with open(tmp_path / "clip_ball.csv") as f:
+        assert f.read() == want
+    assert len(pred["Frame"]) == 17
+
+
+def test_predict_cli_passes_conv_backend_on(ckpts, monkeypatch):
+    seen = {}
+    monkeypatch.setattr(tinf, "predict_video", lambda **kw: seen.update(kw))
+    predict_cli.main(["--video_file", "v.mp4", "--tracknet_file", ckpts[0], "--device", "cpu",
+                      "--conv_backend", "hand_9tap"])
+    assert seen["conv_backend"] == "hand_9tap"
+    predict_cli.main(["--video_file", "v.mp4", "--tracknet_file", ckpts[0], "--device", "cpu"])
+    assert seen["conv_backend"] == "cudnn"
+    with pytest.raises(SystemExit):
+        predict_cli.main(["--video_file", "v.mp4", "--tracknet_file", ckpts[0],
+                          "--conv_backend", "winograd"])
 
 
 def test_predict_cli_csv_matches_jax(ckpts, clip_and_want, tmp_path, monkeypatch):

@@ -37,6 +37,7 @@ SERVING_MODULES = {
 }
 KERNEL_MODULES = {
     "tracknetv3_tpu_torch.ops.batchnorm",
+    "tracknetv3_tpu_torch.ops.conv3x3",
     "tracknetv3_tpu_torch.ops.pool_up2x",
     "tracknetv3_tpu_torch.ops.wbce_disk",
 }

@@ -79,7 +79,10 @@ class TrackNetPredictor:
     ``compute_dtype`` is the TrackNet working dtype (bfloat16 by default;
     float32 is the parity path and runs cuDNN without TF32). ``device``
     defaults to the card and raises without one; pass ``"cpu"`` to run the
-    plain versions of the kernels on the CPU.
+    plain versions of the kernels on the CPU. ``conv_backend`` says who
+    computes the folded forward's 3x3 convs: ``"cudnn"`` (the default) or
+    the hand-written kernels ``"hand_k3c"`` / ``"hand_9tap"``
+    (``ops/conv3x3.py``; bfloat16 only on the card).
     """
 
     def __init__(
@@ -91,6 +94,7 @@ class TrackNetPredictor:
         compute_dtype: Optional[torch.dtype] = None,
         input_hw: Optional[Tuple[int, int]] = None,
         device: Optional[Union[str, torch.device]] = None,
+        conv_backend: str = "cudnn",
     ):
         if eval_mode not in ("nonoverlap", "average", "weight"):
             raise ValueError(f"Invalid eval_mode: {eval_mode!r}")
@@ -98,7 +102,8 @@ class TrackNetPredictor:
         self.h, self.w = (int(input_hw[0]), int(input_hw[1])) if input_hw else (HEIGHT, WIDTH)
         self.compute_dtype = compute_dtype if compute_dtype is not None else torch.bfloat16
         tracknet, tn_pd = load_model_from_checkpoint(tracknet_file, dtype=torch.float32)
-        self.params = fused_params(fold_batchnorm(tracknet), self.compute_dtype, self.device)
+        self.params = fused_params(fold_batchnorm(tracknet), self.compute_dtype, self.device,
+                                   conv_backend)
         self.seq_len = int(tn_pd["seq_len"])
         self.bg_mode = tn_pd.get("bg_mode", "")
         self.eval_mode = eval_mode
@@ -299,6 +304,7 @@ def predict_video(
     input_hw: Optional[Tuple[int, int]] = None,
     device: Optional[Union[str, torch.device]] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    conv_backend: str = "cudnn",
     video_range: Optional[Tuple[int, int]] = None,
     large_video: bool = False,
     output_video: bool = False,
@@ -316,7 +322,8 @@ def predict_video(
 
     As in the JAX package the staged path takes the median over all frames;
     ``max_sample_num`` only bounds the streaming path's median, which is
-    not ported. The remaining options after ``compute_dtype`` are the JAX
+    not ported. ``conv_backend`` is ``TrackNetPredictor``'s. The options
+    after it are the JAX
     package's and raise ``NotImplementedError`` when set.
     """
     _refuse_unported(video_range=video_range, large_video=large_video,
@@ -327,6 +334,7 @@ def predict_video(
     predictor = TrackNetPredictor(
         tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
         compute_dtype=compute_dtype, input_hw=input_hw, device=device,
+        conv_backend=conv_backend,
     )
     reader = VideoReader(video_file)
     try:

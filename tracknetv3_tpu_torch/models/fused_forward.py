@@ -14,18 +14,23 @@ its state dict); its output keeps the JAX layouts (HWIO kernels).
 (``:465-525``):
 
 - each 3x3 conv is ``conv(x, W') + b'`` with b' added in float32, then
-  ReLU and a cast to the working dtype (``_conv_relu``); convolutions run
-  on cuDNN in channels_last memory;
+  ReLU and a cast to the working dtype (``_conv_relu``), in channels_last
+  memory. ``conv_backend`` says who computes it: ``"cudnn"`` (``F.conv2d``
+  and torch passes for the epilogue) or ``"hand_k3c"`` / ``"hand_9tap"``,
+  the hand-written kernels of ``ops/conv3x3.py`` with the epilogue in
+  their body (their plain version on the CPU);
 - 2x2 max pool and nearest 2x upsample are the hand-written kernels of
   ``ops/pool_up2x.py`` on the card (their plain versions on the CPU);
 - each up block concatenates ``[up2x(x), skip]``;
 - the 1x1 predictor's float32 bias is added before the sigmoid.
 
-One rounding differs from the JAX forward at bfloat16: cuDNN returns each
-convolution (the predictor's too) in the working dtype, so the float32
-bias is added to a value already rounded to bfloat16, where JAX adds it to
-the float32 accumulator. At float32 the functions agree to accumulation
-order.
+On the ``cudnn`` route one rounding differs from the JAX forward at
+bfloat16: cuDNN returns each convolution in the working dtype, so the
+float32 bias is added to a value already rounded to bfloat16, where JAX
+adds it to the float32 accumulator. The hand backends add the bias to the
+accumulator and round once, as JAX does. The 1x1 predictor is ``F.conv2d``
+on every route (and rounds before its bias at bfloat16). At float32 the
+functions agree to accumulation order.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import tf32_off
+from ..ops import conv3x3
 from ..ops.pool_up2x import maxpool2x2, up2x_nearest
 from .convert import BLOCKS, tracknet_to_jax
 
@@ -77,38 +83,73 @@ def fold_batchnorm(
     return folded
 
 
+# who computes the 3x3 convs: cuDNN, or a variant of the kernels of ops/conv3x3.py
+CONV_BACKENDS = {"cudnn": None, "hand_k3c": "k3c", "hand_9tap": "9tap"}
+
+
 def fused_params(folded: Dict[str, Any], dtype: torch.dtype,
-                 device: Union[str, torch.device]) -> Dict[str, Any]:
-    """Folded numpy weights -> device tensors for ``tracknet_fused_forward``:
-    OIHW kernels in ``dtype`` (channels_last memory) and float32 biases
-    shaped (1, C, 1, 1). ``"dtype"`` records the working dtype."""
+                 device: Union[str, torch.device],
+                 conv_backend: str = "cudnn") -> Dict[str, Any]:
+    """Folded numpy weights -> device tensors for ``tracknet_fused_forward``.
+    ``cudnn``: OIHW kernels in ``dtype`` (channels_last memory) and float32
+    biases shaped (1, C, 1, 1). A hand backend: each 3x3 kernel packed by
+    ``conv3x3.pack_weights`` (input channels padded to its multiple) and a
+    flat float32 bias; the predictor as for ``cudnn``. ``"dtype"`` and
+    ``"conv_backend"`` record the working dtype and the backend."""
+    if conv_backend not in CONV_BACKENDS:
+        raise ValueError(f"unknown conv_backend {conv_backend!r}, need one of "
+                         f"{tuple(CONV_BACKENDS)}")
+
+    def bias_f32(bias):
+        return torch.from_numpy(np.array(bias, np.float32)).to(device)
 
     def conv(kernel, bias):
         w = torch.from_numpy(np.array(kernel.transpose(3, 2, 0, 1), np.float32))
         w = w.to(device, dtype).contiguous(memory_format=torch.channels_last)
-        b = torch.from_numpy(np.array(bias, np.float32)).to(device).reshape(1, -1, 1, 1)
-        return w, b
+        return w, bias_f32(bias).reshape(1, -1, 1, 1)
 
-    out: Dict[str, Any] = {"dtype": dtype}
+    def packed(kernel, bias):
+        return conv3x3.pack_weights(kernel, dtype, device), bias_f32(bias)
+
+    conv3 = conv if conv_backend == "cudnn" else packed
+    out: Dict[str, Any] = {"dtype": dtype, "conv_backend": conv_backend}
     for block, _ in BLOCKS:
-        out[block] = [conv(k, b) for k, b in folded[block]]
+        out[block] = [conv3(k, b) for k, b in folded[block]]
     out["predictor"] = conv(*folded["predictor"])
     return out
 
 
-def _conv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _conv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               backend: str = "cudnn") -> torch.Tensor:
+    variant = CONV_BACKENDS[backend]
+    if variant is not None:
+        return conv3x3.conv3x3_bias_relu(x, w, b, variant=variant)
     y = F.conv2d(x, w, padding=1)
     return torch.add(y, b).relu_().to(x.dtype)  # bias in float32
 
 
-def _block(x: torch.Tensor, convs) -> torch.Tensor:
+def _block(x: torch.Tensor, convs, backend: str) -> torch.Tensor:
     for w, b in convs:
-        x = _conv_relu(x, w, b)
+        x = _conv_relu(x, w, b, backend)
     return x
 
 
-def _up(x_small: torch.Tensor, skip: torch.Tensor, convs) -> torch.Tensor:
-    return _block(torch.cat([up2x_nearest(x_small), skip], dim=1), convs)
+def _up(x_small: torch.Tensor, skip: torch.Tensor, convs, backend: str) -> torch.Tensor:
+    return _block(torch.cat([up2x_nearest(x_small), skip], dim=1), convs, backend)
+
+
+def _to_working_layout(x: torch.Tensor, dtype: torch.dtype, channels: int) -> torch.Tensor:
+    """NHWC ``x`` -> an NCHW view of channels_last memory in ``dtype``, in one
+    copy; with ``channels`` above x's, zero channels are appended (the hand
+    convs' first layer)."""
+    x = x.permute(0, 3, 1, 2)
+    if channels == x.shape[1]:
+        return x.to(dtype).contiguous(memory_format=torch.channels_last)
+    out = torch.empty((x.shape[0], channels) + tuple(x.shape[2:]), dtype=dtype,
+                      device=x.device, memory_format=torch.channels_last)
+    out[:, : x.shape[1]] = x
+    out[:, x.shape[1]:] = 0
+    return out
 
 
 def tracknet_fused_forward(params: Dict[str, Any], x: torch.Tensor, *,
@@ -116,7 +157,8 @@ def tracknet_fused_forward(params: Dict[str, Any], x: torch.Tensor, *,
     """Folded-BN TrackNet forward.
 
     Args:
-        params: ``fused_params(fold_batchnorm(...), dtype, device)``.
+        params: ``fused_params(fold_batchnorm(...), dtype, device,
+            conv_backend)``; its backend computes the 3x3 convs.
         x: (B, H, W, C_in) NHWC model input (the JAX package's layout).
 
     Returns:
@@ -125,16 +167,20 @@ def tracknet_fused_forward(params: Dict[str, Any], x: torch.Tensor, *,
         dtype cuDNN runs without TF32.
     """
     dtype = params["dtype"]
+    backend = params["conv_backend"]
     fp32 = dtype == torch.float32 and x.device.type == "cuda"
     with tf32_off() if fp32 else contextlib.nullcontext():
-        x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
-        x1 = _block(x, params["down_block_1"])
-        x2 = _block(maxpool2x2(x1), params["down_block_2"])
-        x3 = _block(maxpool2x2(x2), params["down_block_3"])
-        x = _block(maxpool2x2(x3), params["bottleneck"])
-        x = _up(x, x3, params["up_block_1"])
-        x = _up(x, x2, params["up_block_2"])
-        x = _up(x, x1, params["up_block_3"])
+        channels = x.shape[-1]
+        if backend != "cudnn":
+            channels = conv3x3.padded_channels(channels)
+        x = _to_working_layout(x, dtype, channels)
+        x1 = _block(x, params["down_block_1"], backend)
+        x2 = _block(maxpool2x2(x1), params["down_block_2"], backend)
+        x3 = _block(maxpool2x2(x2), params["down_block_3"], backend)
+        x = _block(maxpool2x2(x3), params["bottleneck"], backend)
+        x = _up(x, x3, params["up_block_1"], backend)
+        x = _up(x, x2, params["up_block_2"], backend)
+        x = _up(x, x1, params["up_block_3"], backend)
         w, b = params["predictor"]
         logits = torch.add(F.conv2d(x, w), b)  # float32
     out = torch.sigmoid(logits) if apply_sigmoid else logits

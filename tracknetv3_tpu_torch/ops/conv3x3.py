@@ -1,0 +1,194 @@
+"""SAME 3x3 convolution with the folded serving forward's bias + ReLU
+epilogue (hand-written CUDA kernels).
+
+The JAX serving forward's ``_conv_relu`` convolves in the working dtype
+with a float32 accumulator, adds the float32 bias to it, applies ReLU and
+casts once. ``tools/probe_pallas_conv.py`` (``make_conv3x3``,
+``make_conv3x3_wide``) and ``tools/probe_pallas_ablate.py`` hold the Pallas
+implicit-GEMM kernels written for that convolution. Here they are the two
+kernels of ``csrc/conv3x3.cu``:
+
+- ``"k3c"``: the im2col-sheet kernel (one K = 3 * Ck product per dy);
+- ``"9tap"``: nine K = Ck products on shifted views, no sheet;
+
+and the ablation probe's partial variants (``ABLATION_VARIANTS``), which are
+timings with no defined output.
+
+Tensors are NCHW views with channels_last memory (physically NHWC). The
+weights are packed once by ``pack_weights``: the HWIO kernel reshaped to
+(3, 3 * Ci, Co), rows (dx, ci) for each dy, with Ci padded to a multiple
+of ``CI_MULTIPLE`` by zero rows (the first layer's 27 channels become 32; the
+caller pads the input's channels alike). On a CPU tensor
+``conv3x3_bias_relu`` returns its plain version
+(``conv3x3_bias_relu_plain``, any float dtype); on a CUDA tensor it takes
+bfloat16 only and launches the kernel or raises. ``LAUNCHES`` counts the
+launches of each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+SOURCE = "conv3x3.cu"
+VARIANTS = ("k3c", "9tap")
+# the ablation probe's partial variants of the k3c kernel: C entry point suffix
+ABLATION_VARIANTS = {"mm-only": "k3c_mm_only", "mm1-only": "k3c_mm1_only",
+                     "dma+mm": "k3c_dma_mm", "sheet+mm": "k3c_sheet_mm"}
+LAUNCHES = {"conv3x3_k3c": 0, "conv3x3_9tap": 0}
+CI_MULTIPLE = 32  # input channels per chunk of the kernels
+CO_MULTIPLE = 64  # output channels per block
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use), load and type the kernels' C entry points."""
+    lib = cuda_build.load(SOURCE)
+    for name in VARIANTS + tuple(ABLATION_VARIANTS.values()):
+        fn = getattr(lib, f"conv3x3_{name}_bf16")
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def padded_channels(ci: int) -> int:
+    """``ci`` rounded up to the kernels' channel chunk."""
+    return -(-ci // CI_MULTIPLE) * CI_MULTIPLE
+
+
+def pack_weights(kernel_hwio: Union[np.ndarray, torch.Tensor], dtype: torch.dtype,
+                 device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """(3, 3, Ci, Co) HWIO kernel -> (3, 3 * Cp, Co) in ``dtype``: for each dy
+    the rows (dx, ci), Cp = Ci padded to a multiple of ``CI_MULTIPLE`` with
+    zero rows."""
+    k = torch.as_tensor(kernel_hwio, dtype=torch.float32)
+    if k.dim() != 4 or tuple(k.shape[:2]) != (3, 3):
+        raise ValueError(f"need a (3, 3, Ci, Co) HWIO kernel, got {tuple(k.shape)}")
+    ci, co = k.shape[2:]
+    k = F.pad(k, (0, 0, 0, padded_channels(ci) - ci))
+    return k.reshape(3, -1, co).to(device, dtype).contiguous()
+
+
+def _check_operands(x: torch.Tensor, packed: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+    if x.dim() != 4 or packed.dim() != 3 or packed.shape[0] != 3:
+        raise ValueError(f"need x (N, C, H, W) and packed weights (3, 3 * C, Co), got "
+                         f"{tuple(x.shape)} and {tuple(packed.shape)}")
+    if packed.shape[1] != 3 * x.shape[1]:
+        raise ValueError(f"x has {x.shape[1]} channels, the packed weights "
+                         f"{packed.shape[1]} / 3 (pad the input's channels as pack_weights "
+                         f"pads the kernel's)")
+    if packed.dtype != x.dtype or packed.device != x.device:
+        raise ValueError(f"weights are {packed.dtype} on {packed.device}, x is {x.dtype} on "
+                         f"{x.device}")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != packed.shape[2:]
+                             or bias.device != x.device):
+        raise ValueError(f"need a float32 bias of shape ({packed.shape[2]},) on {x.device}, "
+                         f"got {bias.dtype} {tuple(bias.shape)} on {bias.device}")
+
+
+def conv3x3_bias_relu_plain(x: torch.Tensor, packed: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, *,
+                            relu: bool = True) -> torch.Tensor:
+    """The function in plain PyTorch: ``F.conv2d`` on float32 copies
+    (``padding=1``), the float32 bias, a NaN-propagating ReLU, one cast to
+    ``x.dtype``; channels_last. On the card it runs PyTorch's own
+    (non-cuDNN) float32 convolution, so no TF32 and no transform algorithm
+    that would spread a NaN or an inf past its 3x3 neighbourhood."""
+    _check_operands(x, packed, bias)
+    co = packed.shape[2]
+    w = packed.reshape(3, 3, -1, co).permute(3, 2, 0, 1).float()
+    with torch.backends.cudnn.flags(enabled=False):
+        y = F.conv2d(x.float(), w, padding=1)
+    if bias is not None:
+        y = y + bias.reshape(1, -1, 1, 1)
+    if relu:
+        y = torch.maximum(y, torch.zeros((), device=y.device))
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def bf16_ulps_apart(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
+    """Largest ``|a - b|`` over the entries finite in both, in units of the
+    bfloat16 spacing at ``max(|a|, |b|, floor)``. Two float32 sums of the
+    same terms in different orders, each rounded once to bfloat16, are at
+    most 1 apart wherever the result is not a cancellation far below the
+    size of the sums; ``floor`` (a fraction of the output's RMS) sets the
+    spacing that such entries are held to."""
+    a, b = a.float(), b.float()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(ok.any()):
+        return 0.0
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(floor)
+    spacing = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return float(((a - b).abs() / spacing)[ok].max())
+
+
+def check_kernel_input(x: torch.Tensor, packed: torch.Tensor,
+                       bias: Optional[torch.Tensor]) -> None:
+    """Raise unless the operands are what the kernels take: bfloat16 x, an
+    NCHW view of channels_last memory with a multiple of ``CI_MULTIPLE``
+    channels; contiguous bfloat16 packed weights with a multiple of
+    ``CO_MULTIPLE`` output channels; a contiguous float32 bias or None;
+    16-byte aligned."""
+    _check_operands(x, packed, bias)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the conv kernels take bfloat16, got {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("need channels_last (NHWC) memory")
+    if x.shape[1] % CI_MULTIPLE or packed.shape[2] % CO_MULTIPLE:
+        raise ValueError(f"need input channels a multiple of {CI_MULTIPLE} and output "
+                         f"channels a multiple of {CO_MULTIPLE}, got {x.shape[1]} -> "
+                         f"{packed.shape[2]}")
+    if not packed.is_contiguous() or (bias is not None and not bias.is_contiguous()):
+        raise ValueError("need contiguous packed weights and bias")
+    ptrs = [x.data_ptr(), packed.data_ptr()] + ([bias.data_ptr()] if bias is not None else [])
+    if any(p % 16 for p in ptrs):
+        raise ValueError("need 16-byte aligned tensors")
+
+
+def _launch(entry: str, x: torch.Tensor, packed: torch.Tensor, bias: Optional[torch.Tensor],
+            relu: bool) -> torch.Tensor:
+    """Check, allocate y, launch the C entry point ``conv3x3_<entry>_bf16``."""
+    check_kernel_input(x, packed, bias)
+    N, C, H, W = x.shape
+    co = packed.shape[2]
+    y = torch.empty((N, co, H, W), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    fn = getattr(_lib(), f"conv3x3_{entry}_bf16")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
+                 y.data_ptr(), N, H, W, C, co, int(relu), stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_{entry} failed to launch: cudaError {err}")
+    return y
+
+
+def conv3x3_bias_relu(x: torch.Tensor, packed: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, *, variant: str,
+                      relu: bool = True) -> torch.Tensor:
+    """Kernels P1-P3: (N, C, H, W) -> (N, Co, H, W), channels_last,
+    ``cast(relu(conv(x) + bias))`` with one rounding. ``bias=None,
+    relu=False`` gives the bare conv. ``variant`` is ``"k3c"`` or ``"9tap"``."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown conv variant {variant!r}, need one of {VARIANTS}")
+    if x.device.type == "cpu":
+        return conv3x3_bias_relu_plain(x, packed, bias, relu=relu)
+    y = _launch(variant, x, packed, bias, relu)
+    LAUNCHES[f"conv3x3_{variant}"] += 1
+    return y
+
+
+def conv3x3_ablation(x: torch.Tensor, packed: torch.Tensor, *, variant: str) -> torch.Tensor:
+    """One of the ablation probe's partial variants of the k3c kernel on the
+    card (``ABLATION_VARIANTS``): for timing only, the output is no conv."""
+    return _launch(ABLATION_VARIANTS[variant], x, packed, None, False)

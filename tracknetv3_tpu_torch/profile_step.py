@@ -2,7 +2,8 @@
 goes on the card.
 
 ``python -m tracknetv3_tpu_torch.profile_step [--batch_size 10] [--steps 5]``
-``python -m tracknetv3_tpu_torch.profile_step --serve [--batch_size 16]``
+``python -m tracknetv3_tpu_torch.profile_step --serve [--batch_size 16]
+[--conv_backend hand_k3c]``
 
 Builds the published configuration (seq_len 8, bg_mode concat, 288x512,
 bfloat16 convolutions) from a seed. Training: alpha 0.5 sample mixup,
@@ -18,8 +19,10 @@ busy share, peak device memory (training), and the heaviest kernels. Serving als
 videos untraced; its busy share is the traced device time over that
 untraced wall time, so the profiler's own host cost is left out. Serving categories come from the ``serve::*`` profiler
 ranges of ``inference.py`` and, inside the forward, from kernel names
-(convolution, the pool / upsample kernels, the rest elementwise). Needs
-the card.
+(``conv3x3``: the hand-written conv kernels of ``csrc/conv3x3.cu``, which
+``--conv_backend hand_k3c`` / ``hand_9tap`` serve through; convolution:
+cuDNN's; the pool / upsample kernels; the rest elementwise). Needs the
+card.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from .training.steps import make_tracknet_train_step, sample_mixup_params
 _CATEGORIES = (
     ("loss_kernels", ("wbce_disk",)),
     ("batchnorm", ("bn_stats", "bn_relu")),  # the kernels of csrc/batchnorm.cu
+    ("conv3x3", ("conv3x3_",)),  # the kernels of csrc/conv3x3.cu
     ("optimizer", ("adam", "multi_tensor", "foreach")),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "wgrad", "dgrad")),
     ("reduction", ("reduce",)),
@@ -60,6 +64,7 @@ def _category(name: str) -> str:
 _POOL_UP = ("maxpool2x2_kernel", "up2x_nearest_kernel")
 SERVE_FRAMES = 480
 _CONV = dict(_CATEGORIES)["convolution"]
+_HAND_CONV = dict(_CATEGORIES)["conv3x3"]
 
 
 def _kernel_times(prof):
@@ -90,7 +95,7 @@ def _serve(args, dev) -> dict:
         path = os.path.join(d, "TrackNet.pt")
         save_checkpoint(path, epoch=0, max_val_acc=0.0, model=model,
                         param_dict=dict(model_name="TrackNet", seq_len=L, bg_mode="concat"))
-        p = TrackNetPredictor(path, batch_size=B, device=dev)
+        p = TrackNetPredictor(path, batch_size=B, device=dev, conv_backend=args.conv_backend)
     rng = np.random.default_rng(args.seed)
     staged = p.stage_frames(rng.integers(0, 256, (SERVE_FRAMES, H, W, 3), dtype=np.uint8))
     chunks = -(-(SERVE_FRAMES - L + 1) // B)
@@ -120,12 +125,20 @@ def _serve(args, dev) -> dict:
         hits = [v[0] for k, v in by_kernel.items() if any(s in k.lower() for s in keys)]
         return sum(hits) / 1e3 / n
 
-    pool_up, conv = ms_of(_POOL_UP), ms_of(_CONV)
+    pool_up, hand_conv = ms_of(_POOL_UP), ms_of(_HAND_CONV)
+    conv = ms_of(_CONV) - hand_conv  # cuDNN's: the hand kernels' names hold "conv" too
+    # The port's own kernels are launched through ctypes, and the profiler
+    # may not count them under the range that was open (it did not on torch
+    # 2.11): then the ranges leave room for them in the device total, and
+    # the forward's range holds torch's kernels only.
+    own = pool_up + hand_conv
+    own_in_ranges = sum(ranges.values()) + own > device_ms * 1.001
     cats = {
         "preprocess": ranges["preprocess"],
         "convolution": conv,
+        "conv3x3": hand_conv,
         "pool_up_kernels": pool_up,
-        "forward_elementwise": ranges["forward"] - conv - pool_up,
+        "forward_elementwise": ranges["forward"] - conv - (own if own_in_ranges else 0.0),
         "ensemble": ranges["ensemble"],
         "decode": ranges["decode"],
     }
@@ -134,7 +147,8 @@ def _serve(args, dev) -> dict:
     measured = device_ms > 0
     return {
         "device": torch.cuda.get_device_name(0),
-        "config": f"serve TrackNet seq_len {L} concat {H}x{W} bf16 weight, a {SERVE_FRAMES}-"
+        "config": f"serve TrackNet seq_len {L} concat {H}x{W} bf16 weight, conv_backend "
+                  f"{args.conv_backend}, a {SERVE_FRAMES}-"
                   f"frame video in {chunks} chunks of {B} windows + flush + fetch",
         "host_ms_per_video": video_ms,
         "traced_host_ms_per_video": traced_ms,
@@ -144,6 +158,7 @@ def _serve(args, dev) -> dict:
         "device_kernel_ms_per_chunk": device_ms if measured else "not measured",
         "kernel_launches_per_chunk": sum(v[1] for v in by_kernel.values()) / n,
         "ms_per_chunk_by_category": cats if traced else "not measured",
+        "own_kernels_counted_in_ranges": own_in_ranges,
         "top_kernels": _top(by_kernel, n),
     }
 
@@ -154,6 +169,9 @@ def main(argv=None) -> dict:
                     help="profile serving a video instead of a train step")
     ap.add_argument("--batch_size", type=int, default=None,
                     help="10 for a train step, 16 windows per serving chunk")
+    ap.add_argument("--conv_backend", default="cudnn",
+                    choices=["cudnn", "hand_k3c", "hand_9tap"],
+                    help="who computes the served forward's 3x3 convs (with --serve)")
     ap.add_argument("--seq_len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=5)
