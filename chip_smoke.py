@@ -4,14 +4,17 @@
 Drives the port's paths (``tracknetv3_tpu_torch``) at the full width
 of the published TrackNet configuration (seq_len 8, bg_mode concat,
 288x512, bf16 convolutions): training (batch 10, alpha 0.5 mixup, Adam
-1e-3) from weights made from a seed, and single-video serving (eval_mode
+1e-3) from weights made from a seed, on plain batches and on segmented,
+frame-mixup and device-resident ones, and single-video serving (eval_mode
 weight, InpaintNet seq_len 16) from the checkpoint that training wrote,
 with its 3x3 convs on cuDNN and on each hand-written conv kernel. It
 holds each hand-written kernel against its plain PyTorch version. One
-JSON line per phase; any failed phase exits nonzero.
+compact JSON line per phase (``--verbose`` prints the line of every shape
+or case too); the train CLI's own lines go to stderr; any failed phase
+exits nonzero.
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: the CUDA kernels from ``tracknetv3_tpu_torch/csrc`` (nvcc,
+2. build: the five CUDA sources of ``tracknetv3_tpu_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), timed;
 3. kernel vs plain at the main-path shape (10, 288, 512, 8), plain and
    mixup targets, logits reaching the clamp: loss relative error <= 1e-5,
@@ -88,8 +91,34 @@ JSON line per phase; any failed phase exits nonzero.
    (``wrong_forward``), each of which must fail the bound; the bfloat16
    chunks also go through both hand conv backends, under the same bound.
 
+11. copy_vs_plain (run after phase 4): the three copy kernels
+   (``window_copy``, ``repeat_rows``, ``roll_cols``: the halo / shift,
+   repeat and roll probes U1-U7) at the probes' shapes ((32, 264, 128)
+   bf16, (32, 256, 256) for U4, float32 and bf16 for U6, (2, 32, 264, 128)
+   for U7) and at the train path's (segments (2, 12, 288, 512, 3) uint8 ->
+   (10, 8, ...), the median x5, 80 frames of a 160-frame resident buffer,
+   10 float32 medians, the blend's two gathers), float inputs holding NaN
+   payloads, -0.0, inf and denormals: every bit equal to the plain version
+   and to one PyTorch call, while a wrong version of each (a start off by
+   one, the unshifted tile, the other channels, the tiled repeat, a roll
+   the other way) must differ; times beside the bytes bound;
+12. seg_train (after phase 6): ``train.main`` for one epoch each with
+   ``--segment_windows 5``, ``--frame_alpha 0.5`` (alone: the two-disk loss
+   kernels; with ``--alpha 0.5``: materialised labels) and
+   ``--resident_frames``: finite losses, val metrics, and the copy kernels'
+   launches (1 ``window_copy`` + 1 ``repeat_rows`` per segmented step, 2
+   ``window_copy`` per frame-mixup or resident step and per resident eval
+   batch); seg_step_time: ms per step, peak memory and host bytes shipped
+   on one fixed batch of each kind, the plain batch first and last;
+   seg_parity: one float32 train step (TF32 off, deterministic cuDNN) on a
+   segmented and on a resident batch against the plain batch holding the
+   same windows: the assembled input bit-equal, loss and gradients
+   bit-equal (or within phase 6's float32 bounds if a plain step does not
+   repeat itself bit for bit).
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
-conv kernel) and prints no kernels line.
+conv kernel), ``--copy_only`` phases 1, 2 and 11; neither prints a kernels
+line.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -99,12 +128,14 @@ this script.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import csv
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -127,10 +158,15 @@ BWD_OPS_PER_ELEM = 40
 
 
 _START = time.time()
+VERBOSE = False  # --verbose: the per-shape detail lines go to the output too
 
 
-def emit(obj) -> None:
-    """One JSON line; a phase's line also carries the seconds since start."""
+def emit(obj, detail: bool = False) -> None:
+    """One JSON line; a phase's line also carries the seconds since start.
+    A ``detail`` line (one shape or case of a phase, which the phase's own
+    line summarises) is printed only with ``--verbose``."""
+    if detail and not VERBOSE:
+        return
     if "phase" in obj:
         obj = {**obj, "t_s": round(time.time() - _START, 1)}
     print(json.dumps(obj), flush=True)
@@ -193,20 +229,33 @@ def phase_env():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from tracknetv3_tpu_torch.ops import batchnorm, conv3x3, cuda_build, pool_up2x, wbce_disk
+    from tracknetv3_tpu_torch.ops import (
+        batchnorm,
+        conv3x3,
+        cuda_build,
+        pool_up2x,
+        shift_copy,
+        wbce_disk,
+    )
 
-    modules = (wbce_disk, pool_up2x, batchnorm, conv3x3)
+    modules = (wbce_disk, pool_up2x, batchnorm, conv3x3, shift_copy)
     t0 = time.time()
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(lambda m: cuda_build.build(m.SOURCE), modules))
     seconds = time.time() - t0
+    sources = {}
     for mod, (path, log) in zip(modules, builds):
         mod._lib()
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "entry function" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"tracknetv3_tpu_torch/csrc/{mod.SOURCE}",
-              "library": os.path.relpath(path, ROOT), "seconds": round(seconds, 3),
-              "ptxas": regs})
+              "library": os.path.relpath(path, ROOT), "ptxas": regs}, detail=True)
+        used = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+        sources[mod.SOURCE] = {"kernels": len(used), "max_registers": max(used, default=None),
+                               "max_spill_bytes": max(spills, default=0)}
+    emit({"phase": "build", "nvcc": "one process per source, all at once",
+          "seconds": round(seconds, 3), "sources": sources})
 
 
 def _logits_np(seed: int) -> np.ndarray:
@@ -406,6 +455,7 @@ def phase_bn():
     dev = torch.device(DEVICE)
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
                "max_abs_err": 0.0, "bound_by": set()} for k in BN_KERNELS}
+    worst = {}  # per dtype, over the four shapes
     for dtype, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         for i, (shape, layers) in enumerate(BN_SHAPES.items()):
             y, g, gamma, beta, rm, rv = _bn_data(shape, dtype, 10 + i, dev)
@@ -468,7 +518,16 @@ def phase_bn():
                         "bn_relu_bwd_apply": float((dy_k.float() - dy_p.float()).abs().max())}
                 for k, e in errs.items():
                     out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
-            emit(res)
+            emit(res, detail=True)
+            acc = worst.setdefault(dname, {"stats_vs_float64": 0.0, "fwd_unequal": 0,
+                                          "apply_unequal": 0, "reduce_rel_l2": 0.0,
+                                          "op_rel_l2": 0.0, "min_wrong_dy_rel_l2": math.inf})
+            acc["stats_vs_float64"] = max(acc["stats_vs_float64"], *stats_err["kernel"].values())
+            acc["fwd_unequal"] += fwd_unequal
+            acc["apply_unequal"] += apply_unequal
+            acc["reduce_rel_l2"] = max(acc["reduce_rel_l2"], reduce_err)
+            acc["op_rel_l2"] = max(acc["op_rel_l2"], *op.values())
+            acc["min_wrong_dy_rel_l2"] = min(acc["min_wrong_dy_rel_l2"], *wrong.values())
             bad = []
             if max(stats_err["kernel"].values()) > BN_BOUNDS["stats"]:
                 bad.append(f"statistics off float64 by {stats_err['kernel']}")
@@ -494,6 +553,11 @@ def phase_bn():
             torch.cuda.empty_cache()
     for v in out.values():
         v["bound_by"] = "/".join(sorted(v["bound_by"]))
+    emit({"phase": "bn_vs_plain", "shapes_NHWC": [list(sh) for sh in BN_SHAPES],
+          "worst_over_shapes": worst, "bounds": BN_BOUNDS,
+          "bf16_ms_per_train_step": {k: {key: v[key] for key in
+                                         ("ms", "plain_ms", "bound_ms", "library_ms")}
+                                     for k, v in out.items()}})
     return out
 
 
@@ -613,8 +677,9 @@ def phase_slice(tmp: str):
     wd.LAUNCHES.update(fwd=0, bwd=0)  # counts of the main path only
     bn.LAUNCHES.update(dict.fromkeys(bn.LAUNCHES, 0))
     t0 = time.time()
-    out1 = train_cli.main(common + ["--epochs", "1"])
-    out2 = train_cli.main(common + ["--epochs", "2", "--resume_training"])
+    with contextlib.redirect_stdout(sys.stderr):  # the CLI's own lines
+        out1 = train_cli.main(common + ["--epochs", "1"])
+        out2 = train_cli.main(common + ["--epochs", "2", "--resume_training"])
     torch.cuda.synchronize()
     launches = dict(wd.LAUNCHES)
     bn_launches = dict(bn.LAUNCHES)
@@ -661,7 +726,7 @@ def phase_slice(tmp: str):
           "alpha 0.5 Adam bf16", "median_ms_per_step": statistics.median(step_ms),
           "ms_per_step": step_ms, "step_peak_mem_bytes": step_peak,
           "train_run_peak_mem_bytes": peak})
-    return launches, bn_launches, statistics.median(step_ms), peak
+    return launches, bn_launches, statistics.median(step_ms), peak, model
 
 
 def _first_batch(data_dir: str, dev):
@@ -678,23 +743,7 @@ def _first_batch(data_dir: str, dev):
 def _time_train_steps(model, data_dir: str, n: int = 12):
     import torch
 
-    from tracknetv3_tpu_torch.training.optim import build_optimizer
-    from tracknetv3_tpu_torch.training.steps import make_tracknet_train_step, sample_mixup_params
-
-    dev = torch.device("cuda")
-    batch = _first_batch(data_dir, dev)
-    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
-    step = make_tracknet_train_step(model, opt, "concat", 0.5, sched)
-    perm, lam = (torch.from_numpy(a).to(dev)
-                 for a in sample_mixup_params(np.random.default_rng(5), B, 0.5))
-    times = []
-    for i in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(batch, i, perm, lam)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times[2:]
+    return _time_steps(model, _first_batch(data_dir, torch.device("cuda")), 0.5, n)[0]
 
 
 # (loss relative error, worst relative L2 error of a parameter gradient) of
@@ -799,6 +848,450 @@ def phase_step_parity(data_dir: str):
          torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
 
 
+# ---------------------------------------------------------------- copy kernels
+
+PROBE_TILE = 8  # the halo / shift probes' row tile: windows start at rows 0, 8, 16, 24
+SEG_WINDOWS = 5  # windows per segment of the segmented runs: 2 segments of 12 frames a batch
+COPY_KERNELS = ("window_copy", "repeat_rows", "roll_cols")
+
+
+def _bits_data(shape, dtype, seed: int, dev):
+    """uint8: uniform bytes. bfloat16 / float32: unit normals with 1% of the
+    words replaced by random bit patterns (NaNs with payloads, infinities,
+    denormals) and -0.0, +inf and two NaNs of different payloads set."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+    ints, bits = {torch.bfloat16: (torch.int16, 16), torch.float32: (torch.int32, 32)}[dtype]
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    words = x.view(ints).view(-1)  # shares x's memory
+    idx = torch.randint(0, words.numel(), (words.numel() // 100,), generator=g, device=dev)
+    lo = -(2 ** (bits - 1))
+    words[idx] = torch.randint(lo, -lo, (idx.numel(),), generator=g, device=dev).to(ints)
+    for i, v in enumerate((0x8000, 0x7F80, 0x7FC1, 0xFF83)):
+        v <<= bits - 16
+        words[7 * i + 1] = v - 2 ** bits if v >= -lo else v
+    return x
+
+
+def _words(t):
+    import torch
+
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _unequal_words(a, b) -> int:
+    """Elements of ``a`` whose bits differ from ``b``'s (-1: shape or dtype)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    return int((_words(a) != _words(b)).sum())
+
+
+def _window_rows(starts, rows: int):
+    """(n, rows) int64 row indices of the windows: what one indexing call takes."""
+    import torch
+
+    return starts.long()[:, None] + torch.arange(rows, device=starts.device)[None, :]
+
+
+def _off_by_one(starts, rows: int, n_rows: int):
+    return (starts + 1).clamp(max=n_rows - rows)
+
+
+def _copy_cases(dev):
+    """The seven probes at the probe's shapes and the train path's copies at
+    the README configuration's. Each case: the kernel's call, its plain
+    version, one PyTorch call that computes the same (``library``), a wrong
+    version that must differ, on an input made by ``make(seed)``; ``needed``
+    counts the elements the call must read (for a gather: its distinct rows)."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import shift_copy as sc
+
+    bf16, f32, u8 = torch.bfloat16, torch.float32, torch.uint8
+    Hp, Wp, Cp = 32, 256, 128  # the probes' tile
+    tile = torch.arange(0, Hp, PROBE_TILE, dtype=torch.int32, device=dev)
+    cases = []
+
+    def add(name, kernel, probe, shape, dtype, call, plain, library, lib_name, wrong, wrong_name,
+            needed=None):
+        cases.append(dict(name=name, kernel=kernel, probe=probe, shape=shape, dtype=dtype,
+                          call=call, plain=plain, library=library, library_name=lib_name,
+                          wrong=wrong, wrong_name=wrong_name, needed=needed))
+
+    def window_case(name, probe, shape, dtype, starts, rows, lib, lib_name, wrong=None,
+                    wrong_name="a start off by one", flat=None, **kw):
+        """``window_copy`` on ``flat(x)`` (x viewed as rows of the source)."""
+        flat = flat or (lambda x: x)
+        fshape = tuple(flat(torch.empty(shape, device="meta")).shape)
+        n_rows = fshape[0]
+        plain_kw = {k: v for k, v in kw.items() if k != "staged"}
+        # the distinct source rows, and of each the columns and channels copied
+        needed = (torch.unique(_window_rows(starts, rows)).numel() * math.prod(fshape[1:-2])
+                  * kw.get("cols", fshape[-2]) * kw.get("chs", fshape[-1]))
+        add(name, "window_copy", probe, shape, dtype,
+            lambda x: sc.window_copy(flat(x), starts, rows, **kw),
+            lambda x: sc.window_copy_plain(flat(x), starts, rows, **plain_kw),
+            lib, lib_name,
+            wrong or (lambda x: sc.window_copy_plain(
+                flat(x), _off_by_one(starts, rows, n_rows), rows, **plain_kw)),
+            wrong_name, needed)
+
+    # ---- the probes (tools/probe_mosaic_caps.py)
+    xs = (Hp, Wp + 8, Cp)
+    tiled = lambda t: t.reshape((Hp // PROBE_TILE, PROBE_TILE) + tuple(t.shape[1:]))  # noqa: E731
+    window_case("U1", "U1 leading-slice DMA", xs, bf16, tile, PROBE_TILE,
+                lambda x: tiled(x.clone()), "clone")
+    shifted = lambda x: tiled(x.narrow(1, 1, Wp).contiguous())  # noqa: E731
+    window_case("U2", "U2 sublane-offset-1 DMA", xs, bf16, tile, PROBE_TILE, shifted,
+                "narrow().contiguous()", col0=1, cols=Wp)
+    window_case("U3", "U3 in-kernel sublane-offset slice", xs, bf16, tile, PROBE_TILE, shifted,
+                "narrow().contiguous()",
+                wrong=lambda x: sc.window_copy_plain(x, tile, PROBE_TILE, col0=0, cols=Wp),
+                wrong_name="the unshifted tile", col0=1, cols=Wp, staged=True)
+    upper = lambda x: tiled(x.narrow(2, 128, 128).contiguous())  # noqa: E731
+    for name, staged in (("U4", True), ("U4_direct", False)):
+        window_case(name, "U4 in-kernel lane-slice aligned", (Hp, Wp, 256), bf16, tile,
+                    PROBE_TILE, upper, "narrow().contiguous()",
+                    wrong=lambda x: sc.window_copy_plain(x, tile, PROBE_TILE, ch0=0, chs=128),
+                    wrong_name="the lower channels", ch0=128, chs=128, staged=staged)
+    add("U5", "repeat_rows", "U5 pltpu.repeat sublane x2", (Hp, Wp, Cp), bf16,
+        lambda x: sc.repeat_rows(x, 2), lambda x: sc.repeat_rows_plain(x, 2),
+        lambda x: x.repeat_interleave(2, dim=0), "repeat_interleave",
+        lambda x: tiled(x).repeat(1, 2, 1, 1).reshape((2 * Hp, Wp, Cp)),
+        "the tiled repeat of each 8-row tile")
+    for name, dtype in (("U6", f32), ("U6_bf16", bf16)):
+        add(name, "roll_cols", "U6 f32 sublane roll", (Hp, Wp, Cp), dtype,
+            lambda x: sc.roll_cols(x, 1), lambda x: sc.roll_cols_plain(x, 1),
+            lambda x: torch.roll(x, 1, dims=-2), "torch.roll",
+            lambda x: torch.roll(x, -1, dims=-2), "a roll the other way")
+    window_case("U7", "U7 rank4 sublane-offset DMA", (2,) + xs, bf16, tile, PROBE_TILE,
+                lambda x: tiled(x[0].narrow(1, 1, Wp).contiguous()), "narrow().contiguous()",
+                flat=lambda x: x.reshape((2 * Hp,) + xs[1:]), col0=1, cols=Wp)
+
+    # ---- the train path (training/steps.assemble_tracknet_inputs), README configuration
+    rng = np.random.default_rng(31)
+    frame = (H, W, 3)
+    span = SEG_WINDOWS + L - 1
+    n_seg = B // SEG_WINDOWS
+    seg_starts = (torch.arange(n_seg, device=dev)[:, None] * span
+                  + torch.arange(SEG_WINDOWS, device=dev)[None, :]).reshape(-1)
+    flat_segs = lambda x: x.reshape((n_seg * span,) + frame)  # noqa: E731
+    seg_rows = _window_rows(seg_starts, L)
+    window_case("segment_expand", None, (n_seg, span) + frame, u8, seg_starts, L,
+                lambda x: flat_segs(x)[seg_rows], "advanced indexing", flat=flat_segs)
+    add("median_repeat", "repeat_rows", None, (n_seg,) + frame, u8,
+        lambda x: sc.repeat_rows(x, SEG_WINDOWS), lambda x: sc.repeat_rows_plain(x, SEG_WINDOWS),
+        lambda x: x.repeat_interleave(SEG_WINDOWS, dim=0), "repeat_interleave",
+        lambda x: x.repeat(SEG_WINDOWS, 1, 1, 1), "the tiled repeat")
+    n_res = 160  # frames of the synthetic train split: 2 matches x 2 rallies x 40
+    res_idx = torch.from_numpy(rng.integers(0, n_res, B * L).astype(np.int32)).to(dev)
+    window_case("resident_gather", None, (n_res,) + frame, u8, res_idx, 1,
+                lambda x: torch.index_select(x, 0, res_idx)[:, None], "index_select")
+    med_idx = torch.from_numpy(rng.integers(0, 4, B).astype(np.int32)).to(dev)
+    window_case("resident_median_gather", None, (4,) + frame, f32, med_idx, 1,
+                lambda x: torch.index_select(x, 0, med_idx)[:, None], "index_select")
+    pair = torch.from_numpy(rng.integers(0, L, (B, L, 2))).to(dev)
+    flat_win = lambda x: x.reshape((B * L,) + frame)  # noqa: E731
+    for k in (0, 1):
+        starts = (torch.arange(B, device=dev)[:, None] * L + pair[..., k]).reshape(-1)
+        window_case(f"blend_gather_{'ab'[k]}", None, (B, L) + frame, u8, starts, 1,
+                    lambda x, starts=starts: torch.index_select(flat_win(x), 0, starts)[:, None],
+                    "index_select", flat=flat_win)
+    return cases
+
+
+def phase_copy():
+    """copy_vs_plain: the three copy kernels against their plain versions,
+    bit for bit, at the probes' shapes and the train path's; wrong versions
+    must differ; times beside the bytes bound and one PyTorch call."""
+    import torch
+
+    from tracknetv3_tpu_torch.training import steps
+
+    dev = torch.device(DEVICE)
+    rows = {}
+    for i, c in enumerate(_copy_cases(dev)):
+        xs = [_bits_data(c["shape"], c["dtype"], 200 + 3 * i + k, dev) for k in range(3)]
+        got, want, lib, wrong = (c[f](xs[0]) for f in ("call", "plain", "library", "wrong"))
+        torch.cuda.synchronize()
+        unequal = _unequal_words(got, want)
+        lib_unequal = _unequal_words(got.reshape(lib.shape), lib)
+        wrong_unequal = _unequal_words(got.reshape(wrong.shape), wrong)
+        ms = time_launches(lambda j: c["call"](xs[j % 3]))
+        plain_ms = time_launches(lambda j: c["plain"](xs[j % 3]))
+        lib_ms = time_launches(lambda j: c["library"](xs[j % 3]))
+        n_in = math.prod(c["shape"]) if c["needed"] is None else c["needed"]
+        n_bytes = (n_in + got.numel()) * got.element_size()
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        special = 0 if c["dtype"] == torch.uint8 else int((~torch.isfinite(got)).sum())
+        rows[c["name"]] = r = {
+            "phase": "copy_vs_plain", "case": c["name"], "kernel": c["kernel"],
+            "probe": c["probe"], "dtype": str(c["dtype"]).split(".")[-1],
+            "in_shape": list(c["shape"]), "out_shape": list(got.shape),
+            "unequal_words": unequal, "library": c["library_name"],
+            "library_unequal_words": lib_unequal, "wrong": c["wrong_name"],
+            "wrong_unequal_words": wrong_unequal, "nan_or_inf_copied": special,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "mb_moved": n_bytes / 1e6}
+        emit(r, detail=True)
+        if unequal or lib_unequal:
+            fail("copy_vs_plain", f"{c['name']}: {unequal} words differ from the plain version, "
+                 f"{lib_unequal} from {c['library_name']}")
+        if wrong_unequal == 0:
+            fail("copy_vs_plain", f"{c['name']}: {c['wrong_name']} passes the comparison")
+        if c["dtype"] != torch.uint8 and special == 0:
+            fail("copy_vs_plain", f"{c['name']}: no NaN or inf reached the output")
+        del xs, got, want, lib, wrong
+    # the step's own helpers reach the same kernels with tables they build themselves
+    segs = _bits_data((B // SEG_WINDOWS, SEG_WINDOWS + L - 1, H, W, 3), torch.uint8, 290, dev)
+    want = torch.stack([segs[s, j : j + L] for s in range(segs.shape[0])
+                        for j in range(SEG_WINDOWS)])
+    helper_unequal = _unequal_words(steps._expand_segments(segs, L), want)
+    if helper_unequal:
+        fail("copy_vs_plain", f"_expand_segments: {helper_unequal} words differ from slicing")
+    emit({"phase": "copy_vs_plain", "what": "bit-equal to the plain version and to one PyTorch "
+          "call; each wrong version differs; [ms, bound_ms, plain_ms, library_ms]",
+          "cases": {k: [round(r[key], 5) for key in ("ms", "bound_ms", "plain_ms", "library_ms")]
+                    for k, r in rows.items()},
+          "expand_segments_helper_unequal_words": helper_unequal})
+    # the kernels' line: each kernel at the train path's shape (the roll at the probe's)
+    at = {"window_copy": "segment_expand", "repeat_rows": "median_repeat", "roll_cols": "U6"}
+    return {k: {"at": f"copy_vs_plain case {v}", "max_abs_err": 0.0,  # bit-equal in every case
+                **{key: rows[v][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}}
+            for k, v in at.items()}
+
+
+# (name, flags beyond the common ones, (window_copy, repeat_rows) launches per
+# train step and per eval batch, K1 / K2 launches per train step): segmented
+# batches expand once and repeat the median once; a frame-mixup step gathers
+# the blend's two operands (with sample mixup too it composes materialised
+# labels, so the two-disk loss kernels rest); a resident step gathers frames
+# and medians, in training and in validation
+SEG_RUNS = (
+    ("segment_windows", ["--segment_windows", str(SEG_WINDOWS), "--alpha", "0.5"], (1, 1), (0, 0), 1),
+    ("frame_alpha", ["--frame_alpha", "0.5", "--alpha", "-1"], (2, 0), (0, 0), 1),
+    ("frame_alpha+alpha", ["--frame_alpha", "0.5", "--alpha", "0.5"], (2, 0), (0, 0), 0),
+    ("resident_frames", ["--resident_frames", "--alpha", "0.5"], (2, 0), (2, 0), 1),
+)
+
+
+def _device_batch(batch, dev):
+    import torch
+
+    return {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+            for k, v in batch.items()}
+
+
+def _seg_batches(data_dir: str, dev):
+    """The first batch (seed 3) of each loader mode, on the host."""
+    from tracknetv3_tpu_torch.data.dataset import (
+        HeatmapBatchLoader,
+        ResidentHeatmapLoader,
+        build_split_index,
+    )
+
+    index = build_split_index(data_dir, "train", L, 1)
+    kw = dict(shuffle=True, seed=3, data_dir=data_dir)
+    loaders = {
+        "plain": HeatmapBatchLoader(index, "concat", B, **kw),
+        "segment_windows": HeatmapBatchLoader(index, "concat", B, segment_windows=SEG_WINDOWS, **kw),
+        "frame_alpha": HeatmapBatchLoader(index, "concat", B, frame_alpha=0.5, **kw),
+        "resident_frames": ResidentHeatmapLoader(index, "concat", B, device=dev, **kw),
+    }
+    return {k: next(iter(v)) for k, v in loaders.items()}
+
+
+def phase_seg_train(tmp: str, model):
+    """seg_train: the train CLI with segmented batches, frame mixup (alone and
+    with sample mixup) and device-resident frames, one epoch each; then ms per
+    step, peak memory and host bytes shipped per step on a fixed batch of each
+    kind, beside the plain batch's."""
+    import torch
+
+    from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.data.dataset import HeatmapBatchLoader, build_split_index
+    from tracknetv3_tpu_torch.ops import shift_copy as sc
+    from tracknetv3_tpu_torch.ops import wbce_disk as wd
+    from tracknetv3_tpu_torch.training.loop import _DEVICE_KEYS
+
+    dev = torch.device(DEVICE)
+    data_dir = os.path.join(tmp, "data")
+    eval_batches = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L), "concat", B,
+                                          data_dir=data_dir))
+    total = dict.fromkeys(sc.LAUNCHES, 0)
+    runs = {}
+    for name, flags, per_step, per_eval, loss_kernels in SEG_RUNS:
+        sc.LAUNCHES.update(dict.fromkeys(sc.LAUNCHES, 0))  # counts of this run only
+        wd.LAUNCHES.update(fwd=0, bwd=0)
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):  # the CLI's own lines
+            out = train_cli.main(["--seq_len", str(L), "--bg_mode", "concat",
+                                  "--batch_size", str(B), "--data_dir", data_dir,
+                                  "--epochs", "1",
+                                  "--save_dir", os.path.join(tmp, f"exp_{name}")] + flags)
+        torch.cuda.synchronize()
+        launches, k_launches = dict(sc.LAUNCHES), dict(wd.LAUNCHES)
+        steps, (h,) = out["step"], out["history"]
+        want = {"window_copy": per_step[0] * steps + per_eval[0] * eval_batches,
+                "repeat_rows": per_step[1] * steps + per_eval[1] * eval_batches, "roll_cols": 0}
+        runs[name] = {"train_steps": steps, "eval_batches": eval_batches, "launches": launches,
+                      "loss_kernel_launches": k_launches, "train_loss": h["train_loss"],
+                      "val_loss": h["val_loss"], "seconds": round(time.time() - t0, 2)}
+        if not steps or launches != want:
+            fail("seg_train", f"{name}: copy launches {launches} != {want} ({steps} train steps, "
+                 f"{eval_batches} eval batches)")
+        if k_launches != {"fwd": loss_kernels * steps, "bwd": loss_kernels * steps}:
+            fail("seg_train", f"{name}: loss kernel launches {k_launches} in {steps} steps")
+        if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])
+                and "accuracy" in h["val_res"]):
+            fail("seg_train", f"{name}: {h}")
+        for k, v in launches.items():
+            total[k] += v
+    emit({"phase": "seg_train", "config": f"TrackNet seq_len {L} concat {H}x{W} batch {B} bf16, "
+          f"one epoch each through the train CLI", "runs": runs, "copy_launches_total": total})
+
+    # a fixed batch of each kind, in turns: plain first and last
+    batches = _seg_batches(data_dir, dev)
+    order = (("plain", "plain", 0.5), ("segment_windows", "segment_windows", 0.5),
+             ("frame_alpha", "frame_alpha", -1.0), ("frame_alpha+alpha", "frame_alpha", 0.5),
+             ("resident_frames", "resident_frames", 0.5), ("plain_again", "plain", 0.5))
+    times = {}
+    for name, kind, alpha in order:
+        host = batches[kind]
+        shipped = sum(v.nbytes for k, v in host.items()
+                      if k in _DEVICE_KEYS and isinstance(v, np.ndarray))
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses = _time_steps(model, _device_batch(host, dev), alpha)
+        times[name] = {"median_ms": statistics.median(step_ms), "min_ms": min(step_ms),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "host_bytes_shipped": shipped,
+                       "loss_first_last": [losses[0], losses[-1]]}
+        if not all(math.isfinite(v) for v in losses) or min(losses[-3:]) > 1.1 * losses[0]:
+            fail("seg_step_time", f"{name}: the loss on a fixed batch went {losses}")
+    emit({"phase": "seg_step_time", "what": "per step: 10 steps after 2 warm-up on one fixed "
+          "batch of each kind, host clock around synchronize", "kinds": times})
+    return total
+
+
+def _time_steps(model, batch, alpha: float, n: int = 12):
+    """(ms of each step after 2 warm-up, the loss of every step) of ``n``
+    train steps on one device batch, a new Adam each time."""
+    import torch
+
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+    from tracknetv3_tpu_torch.training.steps import make_tracknet_train_step, sample_mixup_params
+
+    dev = torch.device(DEVICE)
+    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+    step = make_tracknet_train_step(model, opt, "concat", alpha, sched)
+    mix = ()
+    if alpha > 0:
+        mix = tuple(torch.from_numpy(a).to(dev)
+                    for a in sample_mixup_params(np.random.default_rng(5), B, alpha))
+    times, losses = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch, i, *mix)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return times[2:], losses
+
+
+def _expanded_plain(batch):
+    """The plain batch that holds the windows of a segmented or resident
+    batch, by torch indexing (no kernel of the port)."""
+    import torch
+
+    out = {"cxcy": batch["cxcy"]}
+    if "seg_rgb" in batch:
+        segs = batch["seg_rgb"]
+        seg = segs.shape[1] - L + 1
+        out["rgb"] = segs[:, _window_rows(torch.arange(seg, device=segs.device), L)].flatten(0, 1)
+        out["median"] = batch["median"].repeat_interleave(seg, dim=0)
+    else:
+        out["rgb"] = batch["res_rgb_buf"][batch["res_idx"].long()]
+        out["median"] = batch["res_median_buf"][batch["res_median_idx"].long()]
+    return out
+
+
+def phase_seg_parity(data_dir: str):
+    """seg_parity: one float32 train step (TF32 off, deterministic cuDNN, no
+    autotuning) from the same weights on a segmented batch, on a resident
+    batch, and on the plain batch holding the same windows: the assembled
+    input bit-equal; loss and gradients bit-equal, or within the float32
+    bounds of ``step_parity`` where a plain step differs from itself."""
+    import torch
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+    from tracknetv3_tpu_torch.training.steps import (
+        assemble_tracknet_inputs,
+        make_tracknet_train_step,
+        sample_mixup_params,
+    )
+
+    dev = torch.device(DEVICE)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    base = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(11),
+                     dtype=torch.float32)
+    perm, lam = (torch.from_numpy(a).to(dev)
+                 for a in sample_mixup_params(np.random.default_rng(7), B, 0.5))
+
+    def one_step(batch):
+        model = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)
+        opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+        loss = make_tracknet_train_step(model, opt, "concat", 0.5, sched)(batch, 0, perm, lam)
+        return float(loss), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    def versus(a, b):
+        (la, ga), (lb, gb) = a, b
+        rel = {k: _rel_l2(ga[k], gb[k]) for k in gb}
+        return {"loss": la, "loss_rel_err": abs(la - lb) / abs(lb),
+                "grad_rel_l2_max": max(rel.values()),
+                "bit_equal": la == lb and all(torch.equal(ga[k], gb[k]) for k in gb)}
+
+    loss_bound, grad_bound = STEP_PARITY_BOUNDS["float32"]
+    try:
+        host = _seg_batches(data_dir, dev)
+        res = {}
+        for kind in ("segment_windows", "resident_frames"):
+            batch = _device_batch(host[kind], dev)
+            plain = _expanded_plain(batch)
+            x_unequal = _unequal_words(assemble_tracknet_inputs(batch, "concat"),
+                                       assemble_tracknet_inputs(plain, "concat"))
+            ref = one_step(plain)
+            res[kind] = {"x_unequal_words": x_unequal, "vs_plain": versus(one_step(batch), ref),
+                         "plain_vs_itself": versus(one_step(plain), ref)}
+        emit({"phase": "seg_parity", "dtype": "float32", "tf32": False,
+              "cudnn": "deterministic, no autotuning", "loss_bound": loss_bound,
+              "grad_bound": grad_bound, "kinds": res})
+        for kind, r in res.items():
+            v = r["vs_plain"]
+            if r["x_unequal_words"]:
+                fail("seg_parity", f"{kind}: {r['x_unequal_words']} elements of the assembled "
+                     "input differ from the plain batch's")
+            if not (v["bit_equal"] or (v["loss_rel_err"] <= loss_bound
+                                       and v["grad_rel_l2_max"] <= grad_bound)):
+                fail("seg_parity", f"{kind}: {v} (bounds {loss_bound}, {grad_bound})")
+            if not v["bit_equal"] and r["plain_vs_itself"]["bit_equal"]:
+                fail("seg_parity", f"{kind}: equal inputs, a plain step that repeats bit for "
+                     f"bit, and yet {v}")
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+
 # ---------------------------------------------------------------- serving
 
 SERVE_T = 480  # frames of the synthetic video
@@ -876,7 +1369,8 @@ def phase_pool_up():
             emit({"phase": "pool_up_vs_plain", "kernel": name, "shape_NHWC": list(shape),
                   "nan_positions_equal": same_nan, "unequal": unequal, "max_abs_err": err,
                   "channels_last_out": layout, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": b_ms, "bound_by": b_by, "mb_moved": 2 * (n_in + n_out) / 1e6})
+                  "bound_ms": b_ms, "bound_by": b_by, "mb_moved": 2 * (n_in + n_out) / 1e6},
+                 detail=True)
             if not (same_nan and unequal == 0 and err == 0.0 and layout
                     and tuple(got.shape) == tuple(want.shape)):
                 fail("pool_up_vs_plain", f"{name} at {shape}: nan_equal={same_nan} "
@@ -888,6 +1382,10 @@ def phase_pool_up():
             tot["bound_by"].append(b_by)
             del xs, got, want
         totals[name] = tot
+    emit({"phase": "pool_up_vs_plain", "what": "the three calls of one serving forward at "
+          "batch 16, bf16 with NaN and -inf, ms summed; every shape bit-exact",
+          "kernels": {k: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                      for k, v in totals.items()}})
     return totals
 
 
@@ -1068,7 +1566,7 @@ def _conv_check_shape(c3, shape, seed: int, dev, timed: bool):
                     "cudnn_with_epilogue_ms": cudnn_epi_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "gflop": flops / 1e9,
                     "tflops": {v: flops / t / 1e9 for v, t in ms.items()}})
-    emit(res)
+    emit(res, detail=True)
     if bad:
         fail("conv_vs_plain", f"{shape}: " + "; ".join(bad))
     return res
@@ -1087,8 +1585,10 @@ def phase_conv():
     shared = {"plain_ms": 0.0, "cudnn_ms": 0.0, "cudnn_with_epilogue_ms": 0.0,
               "bound_ms": 0.0, "gflop": 0.0}
     bound_by = {"bytes": 0.0, "operations": 0.0}  # ms of the summed bound under each
+    checked = []
     for i, ((H, W, Ci, Co), layers) in enumerate(CONV_SHAPES.items()):
         r = _conv_check_shape(c3, (CONV_BATCH, H, W, Ci, Co), 40 + i, dev, timed=True)
+        checked.append(r)
         for v in CONV_VARIANTS:
             tot[v]["ms"] += layers * r["ms"][v]
             tot[v]["max_abs_err"] = max(tot[v]["max_abs_err"], r["epilogue"][v]["max_abs_err"],
@@ -1097,7 +1597,16 @@ def phase_conv():
             shared[key] += layers * r[key]
         bound_by[r["bound_by"]] += layers * r["bound_ms"]
         torch.cuda.empty_cache()
-    _conv_check_shape(c3, CONV_ODD_SHAPE, 60, dev, timed=False)
+    checked.append(_conv_check_shape(c3, CONV_ODD_SHAPE, 60, dev, timed=False))
+    emit({"phase": "conv_vs_plain", "shapes": len(checked), "bound_ulps": CONV_ULPS_BOUND,
+          "worst_ulps_apart": max(r[e][v]["ulps_apart"] for r in checked
+                                  for e in ("epilogue", "bare") for v in CONV_VARIANTS),
+          "max_unequal_share": max(r[e][v]["unequal_share"] for r in checked
+                                   for e in ("epilogue", "bare") for v in CONV_VARIANTS),
+          "k3c_equals_9tap_everywhere": all(r[e]["k3c_equals_9tap"] for r in checked
+                                            for e in ("epilogue", "bare")),
+          "min_wrong_ulps_apart": {n: min(r["wrong_ulps_apart"][n] for r in checked)
+                                   for n in CONV_WRONG}})
     emit({"phase": "conv_times", "what": f"the {CONV_LAYERS} 3x3 convs of one serving forward "
           f"at batch {CONV_BATCH}, bf16, ms summed", "kernel_ms": {v: tot[v]["ms"] for v in tot},
           **shared, "tflops": {v: shared["gflop"] / tot[v]["ms"] for v in tot},
@@ -1136,9 +1645,20 @@ def phase_conv_ablate():
         res["variants"][name] = {"ms": ms, "share_of_bf16_peak": flops / (ms * 1e-3) / BF16_FLOPS}
         if name in ("full", "full-9mm"):
             cmp = _conv_compare(out, want, x)
-            res["variants"][name]["vs_plain"] = cmp
+            emit({"phase": "conv_ablate", "variant": name, "vs_plain": cmp}, detail=True)
+            res["variants"][name]["ulps_apart"] = cmp["ulps_apart"]
             if not _conv_sound(cmp):
                 bad.append(f"{name}: {cmp}")
+    # the plain version, cuDNN alone and the bound at the same shape
+    import torch.nn.functional as F
+
+    w = k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    torch.backends.cudnn.benchmark = True
+    res["plain_ms"] = time_launches(
+        lambda i: c3.conv3x3_bias_relu_plain(x, packed, None, relu=False), n=2, windows=3)
+    res["cudnn_ms"] = time_launches(lambda i: F.conv2d(x, w, padding=1), n=10, windows=3)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        2 * (N * H * W * (Ci + Co) + 9 * Ci * Co), flops, BF16_FLOPS)
     emit(res)
     if bad:
         fail("conv_ablate", "; ".join(bad))
@@ -1366,11 +1886,13 @@ def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
     emit({"phase": "serve_vs_cpu", "conv_backend": backend, "batch_size": bs,
           "chunks": len(gaps),
           "bf16_max_abs_prob_err": worst[0], "bf16_mean_abs_prob_err_worst_chunk": worst[1],
-          "bf16_chunk_max_errs": [g[0] for g in gaps], "bound": bound,
+          "bound": bound,
           "mean_bound": mean_bound, "rows": T, "visible_rows": visible,
           "rows_differ": len(differ),
           "first_differ": differ[:5], "inpaint": inpaint, "card_s": card_s,
           "cpu_s": time.time() - t0 - card_s})
+    emit({"phase": "serve_vs_cpu", "conv_backend": backend, "batch_size": bs,
+          "bf16_chunk_max_errs": [g[0] for g in gaps]}, detail=True)
     if not (worst[0] <= bound and worst[1] <= mean_bound):
         fail("serve_vs_cpu", f"{backend} batch {bs}: a chunk's forward is off the unfolded "
              f"model by max {worst[0]} / mean {worst[1]} (bounds {bound} / {mean_bound})")
@@ -1458,6 +1980,7 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
             variants += WRONG_FORWARDS + ("bias_after_cast",)
             hand = {b: TrackNetPredictor(tn, batch_size=16, compute_dtype=dtype, device=dev,
                                          conv_backend=b).params for b in HAND_BACKENDS}
+        worst = {}  # variant -> (max, mean) |dp| over the chunks; the wrong ones: the least
         for s in PARITY_STARTS:
             res = {}
             with torch.inference_mode(), tf32_off():
@@ -1480,7 +2003,11 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
                   "bound": bound, "mean_bound": mean_bound,
                   "hand_backends": {b: res[b] for b in hand},
                   "wrong_forwards": {v: r for v, r in res.items()
-                                     if v != "folded" and v not in hand}})
+                                     if v != "folded" and v not in hand}}, detail=True)
+            for v, r in res.items():
+                pick = min if v in WRONG_FORWARDS else max
+                old = worst.get(v, (r["max"], r["mean"]))
+                worst[v] = (pick(old[0], r["max"]), pick(old[1], r["mean"]))
             for v in ("folded",) + tuple(hand):
                 if not res[v]["within_bound"]:
                     fail("serve_parity", f"{name} windows {s}-{s + 16}, {v}: max |dp| "
@@ -1490,10 +2017,26 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
             if caught:
                 fail("serve_parity", f"{name} windows {s}-{s + 16}: the bound passes the "
                      f"wrong forwards {caught}")
+        emit({"phase": "serve_parity", "dtype": name, "tf32": False,
+              "chunks_of_16_windows": len(PARITY_STARTS), "bound": bound, "mean_bound": mean_bound,
+              "max_and_mean_abs_prob_err": {
+                  v: {"max": m[0], "mean": m[1],
+                      "over_chunks": "least" if v in WRONG_FORWARDS else "worst"}
+                  for v, m in worst.items()}})
         del p, staged, x, out, model, ref, hand
 
 
 def main() -> int:
+    global VERBOSE
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--conv_only", action="store_true",
+                    help="build, conv_vs_plain and conv_ablate alone; no kernels line")
+    ap.add_argument("--copy_only", action="store_true",
+                    help="build and copy_vs_plain alone; no kernels line")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the per-shape detail lines too")
+    args = ap.parse_args()
+    VERBOSE = args.verbose
     try:
         import torch
     except ImportError:
@@ -1511,19 +2054,28 @@ def main() -> int:
 
     card = phase_env()
     phase_build()
-    if sys.argv[1:] == ["--conv_only"]:
-        phase_conv()
-        phase_conv_ablate()
+    only = "conv" if args.conv_only else "copy" if args.copy_only else None
+    if only:
+        if only == "conv":
+            phase_conv()
+            phase_conv_ablate()
+        else:
+            phase_copy()
         print(card, flush=True)
-        emit({"ok": True, "only": "conv", "device": {
+        emit({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
         return 0
     err, ms, plain_ms, bound = phase_kernels()
     bn_times = phase_bn()
+    copies = phase_copy()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, bn_launches, step_ms, peak = phase_slice(tmp)
+        launches, bn_launches, step_ms, peak, model = phase_slice(tmp)
         phase_step_parity(os.path.join(tmp, "data"))
+        copy_launches = phase_seg_train(tmp, model)
+        del model
+        phase_seg_parity(os.path.join(tmp, "data"))
+        torch.cuda.empty_cache()
         pool_up = phase_pool_up()
         conv = phase_conv()
         phase_conv_ablate()
@@ -1579,6 +2131,23 @@ def main() -> int:
          "also_replaces": also[k],
          "launches": serve_launches[served[k]][f"conv3x3_{k}"], **v}
         for k, v in conv.items()
+    ]
+    # P8/P9: each kernel at the train path's shape of copy_vs_plain (the roll,
+    # which no path of the system runs, at its probe's); launches summed over
+    # seg_train's four runs of the train CLI
+    replaces = {"window_copy": "tools/probe_mosaic_caps.py:88",
+                "repeat_rows": "tools/probe_mosaic_caps.py:164",
+                "roll_cols": "tools/probe_mosaic_caps.py:201"}
+    also = {"window_copy": ["tools/probe_mosaic_caps.py:107 (U2)",
+                            "tools/probe_mosaic_caps.py:126 (U3: staged)",
+                            "tools/probe_mosaic_caps.py:147 (U4)",
+                            "tools/probe_mosaic_caps.py:230 (U7)"],
+            "repeat_rows": [], "roll_cols": []}
+    lines += [
+        {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/shift_copy.cu",
+         "replaces": replaces[k], "also_replaces": also[k], "launches": copy_launches[k],
+         "on_a_ported_path": k != "roll_cols", **copies[k]}
+        for k in COPY_KERNELS
     ]
     emit({"kernels": lines})
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """The port's ``train()`` on the CPU: one epoch at ``input_hw=(32, 64)`` on a
 small synthetic dataset, checkpoints, val metrics with the JAX loop's
 keys, ``resume_training`` to epoch 2, and ``NotImplementedError`` for each
-option this slice does not port."""
+option not ported (``test_torch_train_options.py`` trains with the ported
+ones)."""
 
 import os
 import subprocess
@@ -65,7 +66,6 @@ def test_train_one_epoch_then_resume(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("segment_windows", 2), ("frame_alpha", 0.5), ("resident_frames", True),
     ("num_devices", 2), ("exact_decode", "device"), ("fast_bn", True),
     ("model_name", "InpaintNet"),
 ])

@@ -57,12 +57,11 @@ class TrainConfig:
     """Training configuration; the same fields and defaults as the JAX
     package's ``TrainConfig`` so ``param_dict`` round-trips.
 
-    Fields that select JAX/TPU-only machinery (``num_devices`` > 1,
-    ``segment_windows`` > 1, ``resident_frames``, ``fast_bn``,
-    ``exact_decode``, ``frame_alpha`` > 0) are kept for the round trip;
-    the port's training loop raises ``NotImplementedError`` when one is
-    set. ``split_up_entry`` and ``sync_bn`` are formulation choices of the
-    TPU step that do not change the function: the port ignores them.
+    Fields that select machinery not ported yet (``num_devices`` > 1,
+    ``fast_bn``, ``exact_decode``) are kept for the round trip; the port's
+    training loop raises ``NotImplementedError`` when one is set.
+    ``split_up_entry`` and ``sync_bn`` are formulation choices of the TPU
+    step that do not change the function: the port ignores them.
     """
 
     model_name: str = "TrackNet"

@@ -11,9 +11,14 @@ by either package serves both:
   mode).
 
 ``HeatmapBatchLoader`` shuffles with ``np.random.default_rng(seed)`` exactly
-as the JAX loader does, so both yield the same batches. PIL and pandas are
-imported only where a cache is missing. Frame mixup, segmented batches and
-multi-process sharding are not ported yet and raise ``NotImplementedError``.
+as the JAX loader does, so both yield the same batches: plain ones,
+segmented ones (``segment_windows`` > 1: each segment's unique frames once,
+expanded into windows on the device) and frame-mixup ones (``frame_alpha``
+> 0: the host blend plan of ``frame_mixup.plan_frame_mixup``).
+``ResidentHeatmapLoader`` puts the split's frames on the device once and
+yields flat frame indices. PIL and pandas are imported only where a cache
+is missing. Multi-process sharding and resident frames on a mesh are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..config import HEIGHT, IMG_FORMAT, WIDTH
+from ..ops.shift_copy import check_starts
 from ..utils.io import (
     get_rally_dirs,
     label_csv_path,
@@ -32,6 +38,7 @@ from ..utils.io import (
     parse_rally_dir,
     read_label_csv,
 )
+from .frame_mixup import plan_frame_mixup
 
 
 def _slide_windows(n: int, seq_len: int, sliding_step: int, padding: bool) -> List[List[int]]:
@@ -247,6 +254,17 @@ class HeatmapBatchLoader:
       vis     (B, L) f32
 
     Channel stacking and label generation happen on the device.
+
+    ``segment_windows`` > 1 groups each batch into segments of that many
+    consecutive stride-1 windows, which share L-1 frames: the batch carries
+    each segment's unique frames once (``seg_rgb`` / ``seg_diff``
+    (n_seg, seg + L - 1, H, W, c), ``median`` (n_seg, H, W, 3)) and the
+    train step expands them into the overlapping windows on the device.
+
+    ``frame_alpha`` > 0 adds the frame-mixup blend plan of each window
+    (``mix_pair`` (B, L, 2) int32, ``mix_pix_w`` (B, L) f32, ``mix_centers``
+    (B, L, 2, 2) int32, ``mix_hm_w`` (B, L) f32; ``coor`` / ``vis`` follow the
+    resampled slots). Segmented batches do not take frame mixup.
     """
 
     def __init__(
@@ -263,10 +281,6 @@ class HeatmapBatchLoader:
         process_id: int = 0,
         process_count: int = 1,
     ):
-        if frame_alpha > 0:
-            raise NotImplementedError("frame mixup (frame_alpha > 0) is not ported yet")
-        if segment_windows > 1:
-            raise NotImplementedError("segmented batches (segment_windows > 1) are not ported yet")
         if process_count > 1 or process_id != 0:
             raise NotImplementedError("multi-process loading is not ported yet")
         self.index = index
@@ -277,8 +291,21 @@ class HeatmapBatchLoader:
         self.rng = np.random.default_rng(seed)
         self.input_hw = tuple(index.input_hw)
         self.cache = FrameCache(data_dir, bg_mode, input_hw=self.input_hw)
+        self.frame_alpha = frame_alpha
+        self.segment_windows = max(int(segment_windows), 1)
+        if self.segment_windows > 1:
+            assert batch_size % self.segment_windows == 0, (
+                f"batch_size {batch_size} not divisible by segment_windows "
+                f"{self.segment_windows}"
+            )
+            assert frame_alpha <= 0, "segmented batches do not support frame mixup"
+            self._segment_starts = _segment_starts(self.index.data["id"], self.segment_windows)
 
     def __len__(self):
+        if self.segment_windows > 1:
+            nsb = self.batch_size // self.segment_windows
+            n = len(self._segment_starts)
+            return n // nsb if self.drop_last else -(-n // nsb)
         n = len(self.index)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
@@ -301,6 +328,249 @@ class HeatmapBatchLoader:
                 median[b] = m
         return rgb, diff, median
 
+    def _iter_segmented(self, start_batch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """Segmented batches: each segment's unique frames + window labels."""
+        seg = self.segment_windows
+        L = self.index.data["id"].shape[1]
+        n_seg_batch = self.batch_size // seg
+        starts = self._segment_starts.copy()
+        if self.shuffle:
+            self.rng.shuffle(starts)
+        n_batches = len(starts) // n_seg_batch
+        # drop_last=False: the remaining segments form a final short batch
+        if not self.drop_last and len(starts) % n_seg_batch:
+            n_batches += 1
+        need_diff = self.bg_mode in ("subtract", "subtract_concat")
+        need_rgb = self.bg_mode in ("", "subtract_concat", "concat")
+        span = seg + L - 1  # unique frames per segment
+        hgt, wdt = self.input_hw
+        fid = self.index.data["frame_id"]
+        for bi in range(start_batch, n_batches):
+            seg_starts = starts[bi * n_seg_batch : (bi + 1) * n_seg_batch]
+            nsb = len(seg_starts)  # < n_seg_batch only for the tail batch
+            # window rows of this batch, ordered segment-major
+            sel = (seg_starts[:, None] + np.arange(seg)[None, :]).reshape(-1)
+            ids, coor, vis, _, shape, cxcy = _window_labels(self.index, sel)
+            rgb = np.zeros((nsb, span, hgt, wdt, 3), np.uint8) if need_rgb else None
+            diff = np.zeros((nsb, span, hgt, wdt, 1), np.uint8) if need_diff else None
+            median = np.zeros((nsb, hgt, wdt, 3), np.uint8) if self.bg_mode == "concat" else None
+            for k, st in enumerate(seg_starts):
+                first = self.index.data["id"][st]
+                r, d, m = self.cache.load(self.index.rally_dirs[first[0, 0]])
+                # the segment's unique frames by their on-disk ids (window
+                # st's L rows + each later window's new last row): the label
+                # CSV may skip frames
+                fr = np.concatenate([fid[st], fid[st + 1 : st + seg, -1]])
+                fr = np.clip(fr, 0, r.shape[0] - 1 if r is not None else d.shape[0] - 1)
+                if need_rgb:
+                    rgb[k] = r[fr]
+                if need_diff:
+                    diff[k] = d[fr][..., None]
+                if median is not None:
+                    median[k] = m
+            batch = {"id": ids, "cxcy": cxcy, "coor": coor / shape[:, None, :], "vis": vis}
+            if rgb is not None:
+                batch["seg_rgb"] = rgb
+            if diff is not None:
+                batch["seg_diff"] = diff
+            if median is not None:
+                batch["median"] = median
+            yield batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        yield from self.iter_from(0)
+
+    def iter_from(self, start_batch: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches from ``start_batch`` on, without assembling the skipped
+        ones. With ``start_batch`` > 0 only a loader that does not shuffle
+        gives the tail of one epoch."""
+        assert start_batch == 0 or not self.shuffle, (
+            "iter_from(start>0) on a shuffled loader would not match any "
+            "single epoch's order"
+        )
+        if self.segment_windows > 1:
+            yield from self._iter_segmented(start_batch)
+            return
+        n = len(self.index)
+        order = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(order)
+        B = self.batch_size
+        stop = (n // B) * B if self.drop_last else n
+        for s in range(start_batch * B, stop, B):
+            sel = order[s : s + B]
+            ids, coor, vis, scaler, shape, cxcy = _window_labels(self.index, sel)
+            # pixels come from the on-disk frame numbers ({n}.png)
+            frame_pos = self.index.data["frame_id"][sel]
+            rgb, diff, median = self._gather_frames(ids, frame_pos)
+            batch = {"id": ids, "cxcy": cxcy, "coor": coor / shape[:, None, :], "vis": vis}
+            if rgb is not None:
+                batch["rgb"] = rgb
+            if diff is not None:
+                batch["diff"] = diff
+            if median is not None:
+                batch["median"] = median
+            if self.frame_alpha > 0:
+                # one plan per window, drawn from the loader's generator in
+                # batch order; len(sel), not B: the final batch may be short
+                plans = [
+                    plan_frame_mixup(coor[b], vis[b], scaler[b, 0], scaler[b, 1],
+                                     self.frame_alpha, self.rng)
+                    for b in range(len(sel))
+                ]
+                batch["mix_pair"] = np.stack([p.frame_pair for p in plans])
+                batch["mix_pix_w"] = np.stack([p.pix_w for p in plans])
+                batch["mix_centers"] = np.stack([p.centers for p in plans])
+                batch["mix_hm_w"] = np.stack([p.hm_w for p in plans])
+                # the blend gathers frames mix_pair[b, l] of window b on the device
+                check_starts(batch["mix_pair"], 1, frame_pos.shape[1])
+                # viz-only coords/vis follow the resampled slots
+                batch["coor"] = np.stack([p.coor for p in plans]) / shape[:, None, :]
+                batch["vis"] = np.stack([p.vis for p in plans])
+            yield batch
+
+
+def _window_labels(index: SplitIndex, sel: np.ndarray):
+    """(ids, coor, vis, scaler, shape, cxcy) of the index rows ``sel``."""
+    ids = index.data["id"][sel]
+    coor = index.data["coor"][sel].astype(np.float32)
+    vis = index.data["vis"][sel].astype(np.float32)
+    scaler = index.img_scaler[ids[:, 0, 0]]  # (B, 2)
+    shape = index.img_shape[ids[:, 0, 0]]  # (B, 2)
+    cx = (coor[..., 0] / scaler[:, None, 0]).astype(np.int32)
+    cy = (coor[..., 1] / scaler[:, None, 1]).astype(np.int32)
+    return ids, coor, vis, scaler, shape, np.stack([cx, cy], axis=-1)
+
+
+def _segment_starts(ids: np.ndarray, seg: int) -> np.ndarray:
+    """Index rows that start a segment of ``seg`` consecutive stride-1 windows
+    of one rally: non-overlapping (stride ``seg`` within each run of valid
+    starts) plus each run's final start, so a rally's tail windows are
+    covered (a tail segment re-covers at most seg-1 windows)."""
+    same_rally = ids[:, 0, 0]
+    pos = ids[:, 0, 1]
+    n = len(ids)
+    ok = np.ones(n - seg + 1, bool) if n >= seg else np.zeros(0, bool)
+    for k in range(1, seg):
+        ok &= same_rally[k : n - seg + 1 + k] == same_rally[: n - seg + 1]
+        ok &= pos[k : n - seg + 1 + k] == pos[: n - seg + 1] + k
+    ok_idx = np.nonzero(ok)[0]
+    runs = np.split(ok_idx, np.nonzero(np.diff(ok_idx) > 1)[0] + 1) if len(ok_idx) else []
+    starts = []
+    for r in runs:
+        chosen = list(r[::seg])
+        if chosen[-1] != r[-1]:
+            chosen.append(r[-1])
+        starts.extend(chosen)
+    starts = np.asarray(starts, np.int64)
+    if n > 0 and len(starts) == 0:
+        raise ValueError(
+            f"segment_windows={seg} found no consecutive stride-1 window runs - "
+            "segmented batching requires an index built with sliding_step=1"
+        )
+    return starts
+
+
+class ResidentHeatmapLoader:
+    """TrackNet batches against split frames that live on the device.
+
+    Every unique frame of the split goes to ``device`` once, as uint8, when
+    the loader is built (through one pinned host buffer per device buffer);
+    each batch then carries only flat frame indices and labels:
+
+      res_idx         (B, L) int32   rows of ``res_rgb_buf`` / ``res_diff_buf``
+      res_median_idx  (B,) int32     rows of ``res_median_buf`` (concat mode)
+      res_rgb_buf     (T, H, W, 3) u8 device tensor   (rgb modes)
+      res_diff_buf    (T, H, W, 1) u8 device tensor   (subtract modes)
+      res_median_buf  (n_rally, H, W, 3) f32 device tensor (concat mode)
+      id, cxcy, coor, vis            as ``HeatmapBatchLoader``
+
+    and the train step gathers the windows on the device
+    (``training/steps.assemble_tracknet_inputs``). Frame mixup needs the host
+    blend planner: use ``HeatmapBatchLoader``. The split's frames must fit
+    ``budget_bytes``, else ``MemoryError`` (callers fall back). Single device
+    only: a mesh, frame sharding and multi-process staging are not ported.
+    """
+
+    def __init__(
+        self,
+        index: SplitIndex,
+        bg_mode: str = "",
+        batch_size: int = 8,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 13,
+        data_dir: str = "",
+        budget_bytes: float = 6e9,
+        mesh=None,
+        frame_sharding: str = "auto",
+        process_id: int = 0,
+        process_count: int = 1,
+        device="cpu",
+    ):
+        import torch
+
+        if mesh is not None or frame_sharding != "auto":
+            raise NotImplementedError("resident frames on a mesh are not ported yet")
+        if process_count > 1 or process_id != 0:
+            raise NotImplementedError("multi-process loading is not ported yet")
+        self.index = index
+        self.bg_mode = bg_mode
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.device = torch.device(device)
+        self.frame_sharding = "single"
+        need_diff = bg_mode in ("subtract", "subtract_concat")
+        need_rgb = bg_mode in ("", "subtract_concat", "concat")
+
+        cache = FrameCache(data_dir, bg_mode, input_hw=index.input_hw)
+        rgb_parts, diff_parts, medians, offsets = [], [], [], []
+        total = 0
+        off = 0
+        for rd in index.rally_dirs:
+            r, d, m = cache.load(rd)
+            n = (r if r is not None else d).shape[0]
+            offsets.append(off)
+            off += n
+            if need_rgb:
+                rgb_parts.append(r)
+                total += r.nbytes
+            if need_diff:
+                diff_parts.append(d[..., None])
+                total += d.nbytes
+            medians.append(m)
+        if total > budget_bytes:
+            raise MemoryError(
+                f"split frames ({total / 1e9:.1f} GB) exceed the resident "
+                f"budget ({budget_bytes / 1e9:.1f} GB)"
+            )
+        self._offsets = np.asarray(offsets, np.int64)
+        self._n_frames = off
+        self.rgb_buf = self._put(rgb_parts) if need_rgb else None
+        self.diff_buf = self._put(diff_parts) if need_diff else None
+        self.median_buf = (
+            self._put([np.stack(medians).astype(np.float32)]) if bg_mode == "concat" else None
+        )
+
+    def _put(self, parts: List[np.ndarray]):
+        """The parts, concatenated along axis 0, as one device tensor: they
+        are written into one host buffer (pinned when the device is a card)
+        that is copied to the device once."""
+        import torch
+
+        shape = (sum(p.shape[0] for p in parts),) + parts[0].shape[1:]
+        pin = self.device.type == "cuda"
+        dtype = {"uint8": torch.uint8, "float32": torch.float32}[parts[0].dtype.name]
+        host = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        np.concatenate(parts, axis=0, out=host.numpy())
+        return host.to(self.device) if pin else host
+
+    def __len__(self):
+        n = len(self.index)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.index)
         order = np.arange(n)
@@ -310,26 +580,19 @@ class HeatmapBatchLoader:
         stop = (n // B) * B if self.drop_last else n
         for s in range(0, stop, B):
             sel = order[s : s + B]
-            ids = self.index.data["id"][sel]
-            # pixels come from the on-disk frame numbers ({n}.png)
-            frame_pos = self.index.data["frame_id"][sel]
-            coor = self.index.data["coor"][sel].astype(np.float32)
-            vis = self.index.data["vis"][sel].astype(np.float32)
-            scaler = self.index.img_scaler[ids[:, 0, 0]]  # (B, 2)
-            shape = self.index.img_shape[ids[:, 0, 0]]  # (B, 2)
-            cx = (coor[..., 0] / scaler[:, None, 0]).astype(np.int32)
-            cy = (coor[..., 1] / scaler[:, None, 1]).astype(np.int32)
-            rgb, diff, median = self._gather_frames(ids, frame_pos)
-            batch = {
-                "id": ids,
-                "cxcy": np.stack([cx, cy], axis=-1),
-                "coor": coor / shape[:, None, :],
-                "vis": vis,
-            }
-            if rgb is not None:
-                batch["rgb"] = rgb
-            if diff is not None:
-                batch["diff"] = diff
-            if median is not None:
-                batch["median"] = median
+            ids, coor, vis, _, shape, cxcy = _window_labels(self.index, sel)
+            rally_i = ids[:, 0, 0]
+            frame_pos = self.index.data["frame_id"][sel]  # (B, L) on-disk ids
+            flat_idx = (self._offsets[rally_i][:, None] + frame_pos).astype(np.int32)
+            # the device gather does not clip: refuse a bad index here
+            check_starts(flat_idx, 1, self._n_frames)
+            batch = {"id": ids, "res_idx": flat_idx, "cxcy": cxcy,
+                     "coor": coor / shape[:, None, :], "vis": vis}
+            if self.rgb_buf is not None:
+                batch["res_rgb_buf"] = self.rgb_buf
+            if self.diff_buf is not None:
+                batch["res_diff_buf"] = self.diff_buf
+            if self.median_buf is not None:
+                batch["res_median_buf"] = self.median_buf
+                batch["res_median_idx"] = rally_i.astype(np.int32)
             yield batch

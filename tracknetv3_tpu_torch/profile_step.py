@@ -1,13 +1,17 @@
 """Where the time of one TrackNet train step, or of serving one video,
 goes on the card.
 
-``python -m tracknetv3_tpu_torch.profile_step [--batch_size 10] [--steps 5]``
+``python -m tracknetv3_tpu_torch.profile_step [--batch_size 10] [--steps 5]
+[--batch_kind segmented|frame_mixup|resident] [--alpha -1]``
 ``python -m tracknetv3_tpu_torch.profile_step --serve [--batch_size 16]
 [--conv_backend hand_k3c]``
 
 Builds the published configuration (seq_len 8, bg_mode concat, 288x512,
 bfloat16 convolutions) from a seed. Training: alpha 0.5 sample mixup,
-Adam 1e-3, a fixed random uint8 batch. ``--serve``: ``run_staged`` in
+Adam 1e-3, a fixed random uint8 batch that is already on the card
+(``--batch_kind``: a plain batch, 5-window segments, a frame-mixup batch, or
+indices into a 160-frame device-resident buffer; ``copy_kernels`` is then
+the kernels of ``csrc/shift_copy.cu``). ``--serve``: ``run_staged`` in
 ``eval_mode`` weight over a random 480-frame video, the length that
 ``chip_smoke.py`` serves (chunks of ``batch_size`` windows: preprocess,
 folded forward, ensemble, decode; then the ensemble flush and the one
@@ -43,6 +47,8 @@ from .training.optim import build_optimizer
 from .training.steps import make_tracknet_train_step, sample_mixup_params
 
 _CATEGORIES = (
+    # the kernels of csrc/shift_copy.cu; first: their names hold "copy" too
+    ("copy_kernels", ("window_copy_kernel", "repeat_rows_kernel", "roll_cols_kernel")),
     ("loss_kernels", ("wbce_disk",)),
     ("batchnorm", ("bn_stats", "bn_relu")),  # the kernels of csrc/batchnorm.cu
     ("conv3x3", ("conv3x3_",)),  # the kernels of csrc/conv3x3.cu
@@ -172,6 +178,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--conv_backend", default="cudnn",
                     choices=["cudnn", "hand_k3c", "hand_9tap"],
                     help="who computes the served forward's 3x3 convs (with --serve)")
+    ap.add_argument("--batch_kind", default="plain",
+                    choices=["plain", "segmented", "frame_mixup", "resident"],
+                    help="what the train step assembles its input from")
+    ap.add_argument("--alpha", type=float, default=0.5, help="sample-mixup alpha, -1 disables")
     ap.add_argument("--seq_len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=5)
@@ -186,28 +196,46 @@ def main(argv=None) -> dict:
         return out
     B, L, H, W = args.batch_size or 10, args.seq_len, 288, 512
     rng = np.random.default_rng(args.seed)
-    batch = {
-        "rgb": torch.from_numpy(rng.integers(0, 256, (B, L, H, W, 3), dtype=np.uint8)).to(dev),
-        "median": torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev),
-        "cxcy": torch.from_numpy(np.stack(
-            [rng.integers(1, W, (B, L)), rng.integers(1, H, (B, L))], -1
-        ).astype(np.int32)).to(dev),
-    }
-    perm, lam = (torch.from_numpy(a).to(dev) for a in sample_mixup_params(rng, B, 0.5))
+
+    def u8(*shape):
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    def centers(*shape):
+        return np.stack([rng.integers(1, W, shape), rng.integers(1, H, shape)], -1).astype(np.int32)
+
+    seg, n_res, n_rally = 5, 160, 4  # windows per segment; frames and rallies of the buffers
+    batch = {"cxcy": centers(B, L)}
+    if args.batch_kind == "segmented":
+        batch.update(seg_rgb=u8(B // seg, seg + L - 1, H, W, 3), median=u8(B // seg, H, W, 3))
+    elif args.batch_kind == "resident":
+        batch.update(res_rgb_buf=u8(n_res, H, W, 3),
+                     res_idx=rng.integers(0, n_res, (B, L)).astype(np.int32),
+                     res_median_buf=u8(n_rally, H, W, 3).astype(np.float32),
+                     res_median_idx=rng.integers(0, n_rally, B).astype(np.int32))
+    else:
+        batch.update(rgb=u8(B, L, H, W, 3), median=u8(B, H, W, 3))
+    if args.batch_kind == "frame_mixup":
+        batch.update(mix_pair=rng.integers(0, L, (B, L, 2)).astype(np.int32),
+                     mix_pix_w=rng.random((B, L)).astype(np.float32),
+                     mix_centers=centers(B, L, 2), mix_hm_w=rng.random((B, L)).astype(np.float32))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    mix = ()
+    if args.alpha > 0:
+        mix = tuple(torch.from_numpy(a).to(dev) for a in sample_mixup_params(rng, B, args.alpha))
     model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(args.seed))
     model = model.to(dev, memory_format=torch.channels_last)
     opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
-    step = make_tracknet_train_step(model, opt, "concat", 0.5, sched)
+    step = make_tracknet_train_step(model, opt, "concat", args.alpha, sched)
 
     for i in range(args.warmup):
-        step(batch, i, perm, lam)
+        step(batch, i, *mix)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(args.steps):
-            step(batch, args.warmup + i, perm, lam)
+            step(batch, args.warmup + i, *mix)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
@@ -220,7 +248,8 @@ def main(argv=None) -> dict:
     device_ms = sum(by_cat.values()) / 1e3 / n
     out = {
         "device": torch.cuda.get_device_name(0),
-        "config": f"TrackNet seq_len {L} concat {H}x{W} batch {B} bf16 alpha 0.5 Adam",
+        "config": f"TrackNet seq_len {L} concat {H}x{W} batch {B} bf16 alpha {args.alpha} Adam, "
+                  f"{args.batch_kind} batch",
         "host_ms_per_step": wall_ms / n,
         "device_kernel_ms_per_step": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / (wall_ms / n) if device_ms > 0 else "not measured",

@@ -1,11 +1,12 @@
 """Training CLI of the PyTorch port: ``python -m tracknetv3_tpu_torch.train``.
 
 The flags of the JAX package's ``train.py`` plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain versions of the kernels). Flags whose
-machinery is not ported yet (``--segment_windows`` > 1, ``--frame_alpha``
-> 0, ``--resident_frames``, ``--num_devices`` > 1, ``--multihost``,
-``--exact_decode``, ``--fast_bn``, ``--model_name InpaintNet``) raise
-``NotImplementedError``.
+``cuda``; ``cpu`` runs the plain versions of the kernels).
+``--segment_windows N`` ships each N-window segment's frames once,
+``--frame_alpha A`` turns frame mixup on, ``--resident_frames`` keeps the
+splits' frames on the device. Flags whose machinery is not ported yet
+(``--num_devices`` > 1, ``--multihost``, ``--exact_decode``, ``--fast_bn``,
+``--model_name InpaintNet``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@ override contract (the checkpoint's config replaces the caller's, except
 
 Batches are assembled on the host by a background thread into pinned
 buffers and copied to the card with ``non_blocking`` copies, so the copy
-of the next batch overlaps the current step.
+of the next batch overlaps the current step. ``segment_windows`` > 1 ships
+each segment's unique frames once and ``frame_alpha`` > 0 the frame-mixup
+blend plan (``HeatmapBatchLoader``); ``resident_frames`` puts the train and
+val splits' frames on the device once and ships indices
+(``ResidentHeatmapLoader``; frame mixup, or a split over the loader's
+budget, falls back to the host loader).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
-from ..data.dataset import HeatmapBatchLoader, build_split_index
+from ..data.dataset import HeatmapBatchLoader, ResidentHeatmapLoader, build_split_index
 from ..device import resolve_device
 from ..evaluation.loops import eval_tracknet
 from ..models.factory import get_model
@@ -40,17 +45,16 @@ from .optim import build_optimizer
 from .steps import make_tracknet_eval_step, make_tracknet_train_step, sample_mixup_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# batch keys that the device needs; ``id`` stays on the host for eval
-_DEVICE_KEYS = ("rgb", "diff", "median", "cxcy")
+# batch keys that the device needs; ``id`` stays on the host for eval, and a
+# resident loader's ``res_*_buf`` are device tensors already
+_DEVICE_KEYS = ("rgb", "diff", "median", "cxcy", "seg_rgb", "seg_diff", "mix_pair",
+                "mix_pix_w", "mix_centers", "mix_hm_w", "res_idx", "res_median_idx")
 
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for options this slice does not port."""
     unsupported = {
         "model_name != 'TrackNet'": cfg.model_name != "TrackNet",
-        "segment_windows > 1": cfg.segment_windows > 1,
-        "frame_alpha > 0": cfg.frame_alpha > 0,
-        "resident_frames": bool(cfg.resident_frames),
         "num_devices > 1": (cfg.num_devices or 1) > 1,
         "exact_decode": bool(cfg.exact_decode),
         "fast_bn": bool(cfg.fast_bn),
@@ -147,11 +151,29 @@ def train(
     val_index = build_split_index(
         data_dir, "val", cfg.seq_len, cfg.seq_len, debug=cfg.debug, input_hw=cfg.input_hw
     )
-    train_loader = HeatmapBatchLoader(
-        train_index, cfg.bg_mode, cfg.batch_size, shuffle=True, drop_last=True,
-        seed=cfg.seed, data_dir=data_dir,
-    )
-    val_loader = HeatmapBatchLoader(val_index, cfg.bg_mode, cfg.batch_size, data_dir=data_dir)
+    train_loader = val_loader = None
+    if cfg.resident_frames and cfg.frame_alpha <= 0:
+        try:
+            train_loader = ResidentHeatmapLoader(
+                train_index, cfg.bg_mode, cfg.batch_size, shuffle=True, drop_last=True,
+                seed=cfg.seed, data_dir=data_dir, device=dev,
+            )
+            val_loader = ResidentHeatmapLoader(
+                val_index, cfg.bg_mode, cfg.batch_size, data_dir=data_dir, device=dev
+            )
+            verbose_print("Resident frames: split staged to device memory")
+        except MemoryError as e:
+            verbose_print(f"resident_frames fallback: {e}")
+            train_loader = val_loader = None
+    if train_loader is None:
+        train_loader = HeatmapBatchLoader(
+            train_index, cfg.bg_mode, cfg.batch_size, shuffle=True, drop_last=True,
+            seed=cfg.seed, data_dir=data_dir, frame_alpha=cfg.frame_alpha,
+            segment_windows=cfg.segment_windows,
+        )
+    if val_loader is None:
+        val_loader = HeatmapBatchLoader(val_index, cfg.bg_mode, cfg.batch_size,
+                                        data_dir=data_dir)
     steps_per_epoch = max(len(train_loader), 1)
     verbose_print(f"Dataset: {len(train_index)} train / {len(val_index)} val windows")
 
