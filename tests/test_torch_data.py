@@ -107,7 +107,10 @@ def test_unported_loader_modes_raise(data_dirs):
         ds.HeatmapBatchLoader(idx, "concat", 4, process_count=2)
     for kw in (dict(process_count=2), dict(mesh=object()), dict(frame_sharding="shard")):
         with pytest.raises(NotImplementedError):
-            ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], **kw)
+            ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], device="cpu",
+                                     **kw)
+    with pytest.raises(TypeError):  # the resident loader's device is the caller's to name
+        ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"])
     with pytest.raises(NotImplementedError):
         ds.build_split_index(data_dirs["port"], "train", SEQ, 1, data_mode="coordinate")
     # as the JAX loader: segments take no frame mixup and must divide the batch
@@ -246,7 +249,8 @@ def test_resident_loader_matches_jax_and_the_plain_loader(data_dirs, bg_mode):
     kw = dict(shuffle=True, drop_last=False, seed=3)
     want_loader = jax_ds.ResidentHeatmapLoader(want_idx, bg_mode, 3, data_dir=data_dirs["jax"],
                                                **kw)
-    got_loader = ds.ResidentHeatmapLoader(got_idx, bg_mode, 3, data_dir=data_dirs["port"], **kw)
+    got_loader = ds.ResidentHeatmapLoader(got_idx, bg_mode, 3, data_dir=data_dirs["port"],
+                                          device="cpu", **kw)
     plain = ds.HeatmapBatchLoader(got_idx, bg_mode, 3, data_dir=data_dirs["port"], **kw)
     assert len(got_loader) == len(want_loader) == len(plain) > 0
     assert got_loader.frame_sharding == want_loader.frame_sharding == "single"
@@ -276,14 +280,15 @@ def test_resident_loader_matches_jax_and_the_plain_loader(data_dirs, bg_mode):
 def test_resident_loader_budget(data_dirs):
     idx = ds.build_split_index(data_dirs["port"], "train", SEQ, SEQ, input_hw=HW)
     with pytest.raises(MemoryError, match="exceed the resident budget"):
-        ds.ResidentHeatmapLoader(idx, "", 3, data_dir=data_dirs["port"], budget_bytes=10)
+        ds.ResidentHeatmapLoader(idx, "", 3, data_dir=data_dirs["port"], budget_bytes=10,
+                                 device="cpu")
     with pytest.raises(MemoryError, match="exceed the resident budget"):
         jax_ds.ResidentHeatmapLoader(idx, "", 3, data_dir=data_dirs["port"], budget_bytes=10)
 
 
 def test_resident_loader_refuses_an_index_outside_the_buffers(data_dirs):
     idx = ds.build_split_index(data_dirs["port"], "train", SEQ, SEQ, input_hw=HW)
-    loader = ds.ResidentHeatmapLoader(idx, "", 3, data_dir=data_dirs["port"])
+    loader = ds.ResidentHeatmapLoader(idx, "", 3, data_dir=data_dirs["port"], device="cpu")
     loader._n_frames -= 1  # as if the last frame were missing from the buffer
     with pytest.raises(IndexError):
         list(loader)

@@ -156,10 +156,19 @@ def test_u5_is_interleaved_not_tiled(probe_results, probe_inputs):
                             for i in range(H // TH)])
     assert not np.array_equal(tiled, want)
     if status == "WRONG-VALUES":
-        # what pltpu.repeat computes under this JAX: the tiled copy
-        v = jnp.asarray(xs[:TH])
-        interp = np.asarray(jnp.concatenate([v, v], axis=0))
+        # what the probe's kernel body computes on one row tile under this
+        # JAX, interpreted: the tiled copy, not the expectation
+        from jax.experimental.pallas import tpu as pltpu
+
+        def body(x_ref, o_ref):
+            o_ref[:] = pltpu.repeat(x_ref[:], 2, 0)
+
+        interp = pl.pallas_call(
+            body, out_shape=jax.ShapeDtypeStruct((2 * TH, W, C), jnp.bfloat16), interpret=True
+        )(jnp.asarray(xs[:TH], jnp.bfloat16))
+        interp = np.asarray(interp.astype(jnp.float32))
         np.testing.assert_array_equal(interp, tiled[: 2 * TH])
+        assert not np.array_equal(interp, want[: 2 * TH])
 
 
 # ------------------------------------------------------------ the path's uses

@@ -490,6 +490,7 @@ class ResidentHeatmapLoader:
     blend planner: use ``HeatmapBatchLoader``. The split's frames must fit
     ``budget_bytes``, else ``MemoryError`` (callers fall back). Single device
     only: a mesh, frame sharding and multi-process staging are not ported.
+    ``device`` has no default: the caller names the card, or asks for the CPU.
     """
 
     def __init__(
@@ -506,7 +507,8 @@ class ResidentHeatmapLoader:
         frame_sharding: str = "auto",
         process_id: int = 0,
         process_count: int = 1,
-        device="cpu",
+        *,
+        device,
     ):
         import torch
 

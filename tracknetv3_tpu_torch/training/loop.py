@@ -165,6 +165,8 @@ def train(
         except MemoryError as e:
             verbose_print(f"resident_frames fallback: {e}")
             train_loader = val_loader = None
+    if cfg.resident_frames and cfg.frame_alpha > 0:
+        verbose_print("resident_frames fallback: frame mixup plans its blends on the host loader")
     if train_loader is None:
         train_loader = HeatmapBatchLoader(
             train_index, cfg.bg_mode, cfg.batch_size, shuffle=True, drop_last=True,
