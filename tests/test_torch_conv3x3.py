@@ -40,6 +40,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tracknetv3_tpu.models import fused_forward as jff  # noqa: E402
 from tracknetv3_tpu_torch.models import fused_forward as tff  # noqa: E402
+from tracknetv3_tpu_torch.models.factory import get_model  # noqa: E402
 from tracknetv3_tpu_torch.ops import conv3x3 as c3  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,7 +109,7 @@ def test_plain_bare_conv_matches_pallas_probe_and_lax(probe, case):
         jx, jk, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"),
         preferred_element_type=jnp.float32).astype(jnp.bfloat16)
     assert want_probe.dtype == jnp.bfloat16
-    packed = c3.pack_weights(k, torch.bfloat16)
+    packed = c3.pack_weights(k, torch.bfloat16, device="cpu")
     xt = _port_input(x, torch.bfloat16)
     for variant in c3.VARIANTS:  # a CPU tensor: the plain version, whatever the variant
         got = c3.conv3x3_bias_relu(xt, packed, None, variant=variant, relu=False)
@@ -128,7 +129,7 @@ def test_epilogue_matches_jax_conv_relu(dtype, shape, co):
     x, k = _data(shape, co, seed=co)
     bias = np.random.default_rng(7).standard_normal(co).astype(np.float32)
     want = np.asarray(jff._conv_relu(jnp.asarray(x), k, bias, jdt).astype(jnp.float32))
-    packed = c3.pack_weights(k, tdt)
+    packed = c3.pack_weights(k, tdt, device="cpu")
     got = c3.conv3x3_bias_relu(_port_input(x, tdt), packed, torch.from_numpy(bias),
                                variant="k3c")
     assert got.dtype == tdt
@@ -147,7 +148,7 @@ def test_relu_keeps_nan_as_jax_does():
     bias = np.zeros(64, np.float32)
     want = np.asarray(jff._conv_relu(jnp.asarray(x), k, bias, jnp.bfloat16).astype(jnp.float32))
     got = _nhwc(c3.conv3x3_bias_relu(_port_input(x, torch.bfloat16),
-                                     c3.pack_weights(k, torch.bfloat16),
+                                     c3.pack_weights(k, torch.bfloat16, device="cpu"),
                                      torch.from_numpy(bias), variant="9tap")).numpy()
     assert np.isnan(want).sum() == 9 * 64  # the NaN's 3x3 neighbourhood, every channel
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
@@ -157,7 +158,7 @@ def test_relu_keeps_nan_as_jax_does():
 @pytest.mark.parametrize("ci,co", [(27, 64), (24, 64), (64, 128), (192, 64)])
 def test_pack_weights_is_the_probes_reshape_with_zero_pad_rows(ci, co):
     k = np.random.default_rng(ci).standard_normal((3, 3, ci, co)).astype(np.float32)
-    packed = c3.pack_weights(k, torch.float32)
+    packed = c3.pack_weights(k, torch.float32, device="cpu")
     cp = c3.padded_channels(ci)
     assert cp % c3.CI_MULTIPLE == 0 and 0 <= cp - ci < c3.CI_MULTIPLE
     assert packed.shape == (3, 3 * cp, co) and packed.is_contiguous()
@@ -166,7 +167,7 @@ def test_pack_weights_is_the_probes_reshape_with_zero_pad_rows(ci, co):
     assert not rows[:, :, ci:].any()
     if cp == ci:  # the probes' own layout: k.reshape(3, 3 * Ci, Co)
         np.testing.assert_array_equal(packed.numpy(), k.reshape(3, 3 * ci, co))
-    assert c3.pack_weights(k, torch.bfloat16).dtype == torch.bfloat16
+    assert c3.pack_weights(k, torch.bfloat16, device="cpu").dtype == torch.bfloat16
 
 
 def _cl(shape, dtype=torch.bfloat16):
@@ -184,7 +185,7 @@ def _w(ci, co, dtype=torch.bfloat16):
      lambda: None, "take bfloat16"),
     (lambda: torch.zeros((1, 32, 5, 7), dtype=torch.bfloat16), lambda: _w(32, 64),
      lambda: None, "channels_last"),
-    (lambda: _cl((1, 27, 5, 7)), lambda: _w(27, 64), lambda: None, "multiple of 32"),
+    (lambda: _cl((1, 27, 5, 7)), lambda: _w(27, 64), lambda: None, f"multiple of {c3.CI_MULTIPLE}"),
     (lambda: _cl((1, 32, 5, 7)), lambda: _w(32, 48), lambda: None, "multiple of 64"),
     (lambda: _cl((1, 27, 5, 7)), lambda: _w(32, 64), lambda: None, "pad the input"),
     (lambda: _cl((1, 32, 5, 7)), lambda: _w(32, 64, torch.float32), lambda: None,
@@ -217,4 +218,24 @@ def test_unknown_variant_and_backend_raise_and_cpu_counts_no_launch():
     with pytest.raises(ValueError, match="unknown conv_backend"):
         tff.fused_params({}, torch.bfloat16, "cpu", conv_backend="hand")
     with pytest.raises(ValueError, match=r"\(3, 3, Ci, Co\)"):
-        c3.pack_weights(np.zeros((3, 27, 64), np.float32), torch.bfloat16)
+        c3.pack_weights(np.zeros((3, 27, 64), np.float32), torch.bfloat16, device="cpu")
+
+
+def test_conv_backend_rule_defaults_by_dtype_and_refuses_float32_hand_on_the_card():
+    """One rule for every caller (``fused_params``, the predictor, the CLIs):
+    unset gives the bfloat16 default or cuDNN at float32; a hand backend at
+    float32 runs its plain version on the CPU and raises on the card."""
+    assert tff.resolve_conv_backend(None, torch.bfloat16, "cuda") == tff.DEFAULT_CONV_BACKEND
+    assert tff.resolve_conv_backend(None, torch.float32, "cuda") == "cudnn"
+    assert tff.resolve_conv_backend(None, torch.float32, "cpu") == "cudnn"
+    for backend in ("hand_k3c", "hand_9tap"):
+        assert tff.resolve_conv_backend(backend, torch.bfloat16, "cuda") == backend
+        assert tff.resolve_conv_backend(backend, torch.float32, "cpu") == backend
+        with pytest.raises(ValueError, match="bfloat16 conv kernels"):
+            tff.resolve_conv_backend(backend, torch.float32, "cuda")
+        with pytest.raises(ValueError, match="bfloat16 conv kernels"):
+            tff.fused_params({}, torch.float32, torch.device("cuda"), conv_backend=backend)
+    assert tff.resolve_conv_backend("cudnn", torch.float32, "cuda") == "cudnn"
+    model = get_model("TrackNet", 8, "concat", generator=torch.Generator().manual_seed(5))
+    params = tff.fused_params(tff.fold_batchnorm(model), torch.bfloat16, "cpu")
+    assert params["conv_backend"] == tff.DEFAULT_CONV_BACKEND

@@ -43,6 +43,7 @@ from tracknetv3_tpu.models import get_model as jax_get_model  # noqa: E402
 from tracknetv3_tpu_torch.models import fused_forward as tff  # noqa: E402
 from tracknetv3_tpu_torch.models.convert import BLOCKS, tracknet_from_jax  # noqa: E402
 from tracknetv3_tpu_torch.models.factory import get_model  # noqa: E402
+from tracknetv3_tpu_torch.ops import conv3x3 as c3  # noqa: E402
 from tracknetv3_tpu_torch.ops import pool_up2x as pu  # noqa: E402
 
 SEQ, BG, N, HGT, WDT = 3, "concat", 2, 32, 64
@@ -124,7 +125,9 @@ def test_fused_forward_hand_backend_matches_jax(variables, dtype, backend):
     params = tff.fused_params(tff.fold_batchnorm(variables), tdt, "cpu", conv_backend=backend)
     assert params["conv_backend"] == backend
     w0, b0 = params["down_block_1"][0]
-    assert w0.shape == (3, 3 * 32, 64) and b0.shape == (64,)  # 12 channels padded to 32
+    cp = c3.padded_channels(12)  # 12 channels padded to the kernels' multiple
+    assert cp % c3.CI_MULTIPLE == 0 and 0 <= cp - 12 < c3.CI_MULTIPLE
+    assert w0.shape == (3, 3 * cp, 64) and b0.shape == (64,)
     got = tff.tracknet_fused_forward(params, torch.from_numpy(x))
     assert got.shape == (N, HGT, WDT, SEQ) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=HAND_TOL[dtype], rtol=0)

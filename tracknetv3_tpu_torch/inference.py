@@ -80,9 +80,10 @@ class TrackNetPredictor:
     float32 is the parity path and runs cuDNN without TF32). ``device``
     defaults to the card and raises without one; pass ``"cpu"`` to run the
     plain versions of the kernels on the CPU. ``conv_backend`` says who
-    computes the folded forward's 3x3 convs: ``"cudnn"`` (the default) or
-    the hand-written kernels ``"hand_k3c"`` / ``"hand_9tap"``
-    (``ops/conv3x3.py``; bfloat16 only on the card).
+    computes the folded forward's 3x3 convs: ``"cudnn"`` or the
+    hand-written kernels ``"hand_k3c"`` / ``"hand_9tap"``
+    (``ops/conv3x3.py``; bfloat16 only on the card); unset, the rule of
+    ``models.fused_forward.resolve_conv_backend`` picks it.
     """
 
     def __init__(
@@ -94,7 +95,7 @@ class TrackNetPredictor:
         compute_dtype: Optional[torch.dtype] = None,
         input_hw: Optional[Tuple[int, int]] = None,
         device: Optional[Union[str, torch.device]] = None,
-        conv_backend: str = "cudnn",
+        conv_backend: Optional[str] = None,
     ):
         if eval_mode not in ("nonoverlap", "average", "weight"):
             raise ValueError(f"Invalid eval_mode: {eval_mode!r}")
@@ -304,7 +305,7 @@ def predict_video(
     input_hw: Optional[Tuple[int, int]] = None,
     device: Optional[Union[str, torch.device]] = None,
     compute_dtype: Optional[torch.dtype] = None,
-    conv_backend: str = "cudnn",
+    conv_backend: Optional[str] = None,
     video_range: Optional[Tuple[int, int]] = None,
     large_video: bool = False,
     output_video: bool = False,

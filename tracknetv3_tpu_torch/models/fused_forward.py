@@ -18,7 +18,9 @@ its state dict); its output keeps the JAX layouts (HWIO kernels).
   memory. ``conv_backend`` says who computes it: ``"cudnn"`` (``F.conv2d``
   and torch passes for the epilogue) or ``"hand_k3c"`` / ``"hand_9tap"``,
   the hand-written kernels of ``ops/conv3x3.py`` with the epilogue in
-  their body (their plain version on the CPU);
+  their body (their plain version on the CPU). ``resolve_conv_backend`` is
+  the one rule for an unset backend (``DEFAULT_CONV_BACKEND`` at bfloat16,
+  ``"cudnn"`` at float32) and refuses a hand backend at float32 on the card;
 - 2x2 max pool and nearest 2x upsample are the hand-written kernels of
   ``ops/pool_up2x.py`` on the card (their plain versions on the CPU);
 - each up block concatenates ``[up2x(x), skip]``;
@@ -27,8 +29,8 @@ its state dict); its output keeps the JAX layouts (HWIO kernels).
 On the ``cudnn`` route one rounding differs from the JAX forward at
 bfloat16: cuDNN returns each convolution in the working dtype, so the
 float32 bias is added to a value already rounded to bfloat16, where JAX
-adds it to the float32 accumulator. The hand backends add the bias to the
-accumulator and round once, as JAX does. The 1x1 predictor is ``F.conv2d``
+adds it to the float32 accumulator. The hand backends (the bfloat16
+default) add the bias to the accumulator and round once, as JAX does. The 1x1 predictor is ``F.conv2d``
 on every route (and rounds before its bias at bfloat16). At float32 the
 functions agree to accumulation order.
 """
@@ -36,7 +38,7 @@ functions agree to accumulation order.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Mapping, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,20 +87,42 @@ def fold_batchnorm(
 
 # who computes the 3x3 convs: cuDNN, or a variant of the kernels of ops/conv3x3.py
 CONV_BACKENDS = {"cudnn": None, "hand_k3c": "k3c", "hand_9tap": "9tap"}
+# the backend of a bfloat16 forward whose caller names none: the faster
+# hand route, which served 1.5x / 1.7x cuDNN's frames/s at batch 16 / 120 on
+# an H100 (chip_smoke.py serve, PERF.md)
+DEFAULT_CONV_BACKEND = "hand_9tap"
+
+
+def resolve_conv_backend(conv_backend: Optional[str], dtype: torch.dtype,
+                         device: Union[str, torch.device]) -> str:
+    """Who computes the 3x3 convs of a forward in ``dtype`` on ``device``.
+    Unset (None): ``DEFAULT_CONV_BACKEND`` at bfloat16, ``"cudnn"`` at any
+    other dtype, since the conv kernels take bfloat16 only. A hand backend
+    asked for at another dtype on the card raises rather than fall back; on
+    the CPU every backend runs its plain version at any dtype."""
+    if conv_backend is None:
+        return DEFAULT_CONV_BACKEND if dtype == torch.bfloat16 else "cudnn"
+    if conv_backend not in CONV_BACKENDS:
+        raise ValueError(f"unknown conv_backend {conv_backend!r}, need one of "
+                         f"{tuple(CONV_BACKENDS)}")
+    hand = CONV_BACKENDS[conv_backend] is not None
+    if hand and dtype != torch.bfloat16 and torch.device(device).type == "cuda":
+        raise ValueError(f"conv_backend {conv_backend!r} runs the bfloat16 conv kernels, the "
+                         f"working dtype is {dtype}: ask for 'cudnn' or leave it unset")
+    return conv_backend
 
 
 def fused_params(folded: Dict[str, Any], dtype: torch.dtype,
                  device: Union[str, torch.device],
-                 conv_backend: str = "cudnn") -> Dict[str, Any]:
+                 conv_backend: Optional[str] = None) -> Dict[str, Any]:
     """Folded numpy weights -> device tensors for ``tracknet_fused_forward``.
     ``cudnn``: OIHW kernels in ``dtype`` (channels_last memory) and float32
     biases shaped (1, C, 1, 1). A hand backend: each 3x3 kernel packed by
     ``conv3x3.pack_weights`` (input channels padded to its multiple) and a
-    flat float32 bias; the predictor as for ``cudnn``. ``"dtype"`` and
-    ``"conv_backend"`` record the working dtype and the backend."""
-    if conv_backend not in CONV_BACKENDS:
-        raise ValueError(f"unknown conv_backend {conv_backend!r}, need one of "
-                         f"{tuple(CONV_BACKENDS)}")
+    flat float32 bias; the predictor as for ``cudnn``. ``conv_backend`` goes
+    through ``resolve_conv_backend``. ``"dtype"`` and ``"conv_backend"``
+    record the working dtype and the backend."""
+    conv_backend = resolve_conv_backend(conv_backend, dtype, device)
 
     def bias_f32(bias):
         return torch.from_numpy(np.array(bias, np.float32)).to(device)
@@ -109,7 +133,7 @@ def fused_params(folded: Dict[str, Any], dtype: torch.dtype,
         return w, bias_f32(bias).reshape(1, -1, 1, 1)
 
     def packed(kernel, bias):
-        return conv3x3.pack_weights(kernel, dtype, device), bias_f32(bias)
+        return conv3x3.pack_weights(kernel, dtype, device=device), bias_f32(bias)
 
     conv3 = conv if conv_backend == "cudnn" else packed
     out: Dict[str, Any] = {"dtype": dtype, "conv_backend": conv_backend}

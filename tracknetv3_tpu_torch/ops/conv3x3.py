@@ -1,15 +1,18 @@
 """SAME 3x3 convolution with the folded serving forward's bias + ReLU
-epilogue (hand-written CUDA kernels).
+epilogue (hand-written CUDA kernels for Hopper).
 
 The JAX serving forward's ``_conv_relu`` convolves in the working dtype
 with a float32 accumulator, adds the float32 bias to it, applies ReLU and
 casts once. ``tools/probe_pallas_conv.py`` (``make_conv3x3``,
 ``make_conv3x3_wide``) and ``tools/probe_pallas_ablate.py`` hold the Pallas
 implicit-GEMM kernels written for that convolution. Here they are the two
-kernels of ``csrc/conv3x3.cu``:
+kernels of ``csrc/conv3x3.cu`` (TMA loads through an mbarrier ring, ``wgmma``
+products, the epilogue on the accumulators, TMA stores):
 
-- ``"k3c"``: the im2col-sheet kernel (one K = 3 * Ck product per dy);
-- ``"9tap"``: nine K = Ck products on shifted views, no sheet;
+- ``"k3c"``: the im2col-sheet kernel (one K = 3 * CK product per dy, A and B
+  from shared memory);
+- ``"9tap"``: nine K = CK products on shifted views of the halo tile, A
+  loaded to registers by ``ldmatrix``, no sheet;
 
 and the ablation probe's partial variants (``ABLATION_VARIANTS``), which are
 timings with no defined output.
@@ -18,18 +21,22 @@ Tensors are NCHW views with channels_last memory (physically NHWC). The
 weights are packed once by ``pack_weights``: the HWIO kernel reshaped to
 (3, 3 * Ci, Co), rows (dx, ci) for each dy, with Ci padded to a multiple
 of ``CI_MULTIPLE`` by zero rows (the first layer's 27 channels become 32; the
-caller pads the input's channels alike). On a CPU tensor
-``conv3x3_bias_relu`` returns its plain version
-(``conv3x3_bias_relu_plain``, any float dtype); on a CUDA tensor it takes
-bfloat16 only and launches the kernel or raises. ``LAUNCHES`` counts the
-launches of each kernel.
+caller pads the input's channels alike). The kernels read channel chunks of
+``CK``; the tensor maps' zero fill covers a last chunk past Ci, so Ci need
+only give the 16-byte global stride that TMA takes. ``launch_plan`` computes
+every size a launch passes to the C entry point: tiles, grid, shared memory,
+the three tensor maps. On a CPU tensor ``conv3x3_bias_relu`` returns its
+plain version (``conv3x3_bias_relu_plain``, any float dtype); on a CUDA
+tensor it takes bfloat16 only and launches the kernel or raises.
+``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,8 +50,98 @@ VARIANTS = ("k3c", "9tap")
 ABLATION_VARIANTS = {"mm-only": "k3c_mm_only", "mm1-only": "k3c_mm1_only",
                      "dma+mm": "k3c_dma_mm", "sheet+mm": "k3c_sheet_mm"}
 LAUNCHES = {"conv3x3_k3c": 0, "conv3x3_9tap": 0}
-CI_MULTIPLE = 32  # input channels per chunk of the kernels
-CO_MULTIPLE = 64  # output channels per block
+CI_MULTIPLE = 8  # input channels: TMA's 16-byte global stride
+CO_MULTIPLE = 64  # output channels per 128-byte TMA box
+TH, TW = 8, 16  # pixel tile at MW = 1; 8 MW rows: two warpgroups of MW m64 blocks of 4 x 16
+CK = 64  # input channels per chunk: 128 bytes per pixel
+SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on the H100
+# shared memory of one block (csrc/conv3x3.cu): buffers 1024-aligned, 1024
+# bytes of slack to align the base, 128 for the mbarriers
+W_BLOCK_BYTES = 3 * CK * 128  # one dy's three taps for 64 output channels
+SHEET_BYTES = 3 * (TH // 2 + 2) * TW * 128  # one warpgroup's im2col sheet
+STORE_BLOCK_BYTES = 4 * TW * 128  # one m64 block's output (64 pixels), 64 channels
+WEIGHT_STAGES = {"k3c": 2, "9tap": 3}
+# the order of the plan's int64s that the C entry points read (enum Plan)
+PLAN_FIELDS = ("N", "H", "W", "Ci", "Co", "BN", "grid_x", "grid_y", "smem_bytes",
+               "tiles_w", "tiles_h", "x_dims", "x_strides", "x_box", "w_dims", "w_strides",
+               "w_box", "y_dims", "y_strides", "y_box")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """A TMA tensor map: dims innermost first (elements), byte strides of
+    the outer dims, box (elements)."""
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    box: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Everything a launch of ``conv3x3.cu`` passes in (``launch_plan``)."""
+    N: int
+    H: int
+    W: int
+    Ci: int
+    Co: int
+    BN: int  # output channels per block
+    MW: int  # m64 blocks (64 pixels) per consumer warpgroup: the tile is 8 MW rows
+    grid: Tuple[int, int]  # (pixel tiles, channel tiles)
+    tiles: Tuple[int, int]  # (along W, along H)
+    smem_bytes: int
+    stage_bytes: Dict[str, int]  # each shared-memory buffer's bytes, and their counts
+    x_map: TensorMap  # x (C, W, H, N): box = one chunk's halo tile
+    w_map: TensorMap  # weights (Co, Ci, 9 taps): box = one dy's three taps
+    y_map: TensorMap  # y (Co, W, H, N): box = one m64 block's output, 64 channels
+
+    def to_int64(self) -> np.ndarray:
+        vals = [self.N, self.H, self.W, self.Ci, self.Co, self.BN, *self.grid, self.smem_bytes,
+                *self.tiles]
+        for m in (self.x_map, self.w_map, self.y_map):
+            vals += [*m.dims, *m.strides, *m.box]
+        return np.asarray(vals, np.int64)
+
+
+def launch_plan(N: int, H: int, W: int, Ci: int, Co: int, variant: str) -> LaunchPlan:
+    """The launch of ``variant`` (``VARIANTS`` or ``ABLATION_VARIANTS``) on
+    x (N, H, W, Ci) -> y (N, H, W, Co), bf16 NHWC; raises on shapes the
+    kernels do not take."""
+    if variant not in VARIANTS and variant not in ABLATION_VARIANTS:
+        raise ValueError(f"unknown conv variant {variant!r}")
+    if min(N, H, W, Ci, Co) <= 0 or Ci % CI_MULTIPLE or Co % CO_MULTIPLE:
+        raise ValueError(f"need input channels a multiple of {CI_MULTIPLE} and output "
+                         f"channels a multiple of {CO_MULTIPLE}, got {Ci} -> {Co}")
+    bn = 128 if Co % 128 == 0 else 64
+    if variant in ABLATION_VARIANTS and bn != 128:
+        raise ValueError("the ablation variants are built for 128 output channels a block")
+    k3c = variant != "9tap"
+    mw = 1 if k3c or bn == 128 else 2  # 9tap at BN = 64: M = 256
+    th = TH * mw
+    tiles = (-(-W // TW), -(-H // th))
+    stages = WEIGHT_STAGES["k3c" if k3c else "9tap"]
+    per_wg = SHEET_BYTES if k3c else mw * bn // 64 * STORE_BLOCK_BYTES
+    halo = CK * 2 * (TW + 2) * (th + 2)
+    stage_bytes = {"halo_tile": halo, "halo_buffer": _round_up(halo, 1024),
+                   "halo_buffers": 2, "weight_stage": bn // 64 * W_BLOCK_BYTES,
+                   "weight_stages": stages, "per_warpgroup": per_wg, "warpgroups": 2,
+                   "barriers": 128, "align_slack": 1024}
+    smem = (stage_bytes["align_slack"] + 2 * stage_bytes["halo_buffer"] + 2 * per_wg
+            + stages * stage_bytes["weight_stage"] + stage_bytes["barriers"])
+    e = 2  # bytes of a bfloat16
+    return LaunchPlan(
+        N=N, H=H, W=W, Ci=Ci, Co=Co, BN=bn, MW=mw, grid=(N * tiles[0] * tiles[1], Co // bn),
+        tiles=tiles, smem_bytes=smem, stage_bytes=stage_bytes,
+        x_map=TensorMap((Ci, W, H, N), (Ci * e, W * Ci * e, H * W * Ci * e),
+                        (CK, TW + 2, th + 2, 1)),
+        w_map=TensorMap((Co, Ci, 9), (Co * e, Ci * Co * e), (64, CK, 3)),
+        y_map=TensorMap((Co, W, H, N), (Co * e, W * Co * e, H * W * Co * e),
+                        (64, TW, 4, 1)),
+    )
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,18 +153,18 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     for name in VARIANTS + tuple(ABLATION_VARIANTS.values()):
         fn = getattr(lib, f"conv3x3_{name}_bf16")
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _P]
         fn.restype = _I
     return lib
 
 
 def padded_channels(ci: int) -> int:
-    """``ci`` rounded up to the kernels' channel chunk."""
+    """``ci`` rounded up to ``CI_MULTIPLE``."""
     return -(-ci // CI_MULTIPLE) * CI_MULTIPLE
 
 
-def pack_weights(kernel_hwio: Union[np.ndarray, torch.Tensor], dtype: torch.dtype,
-                 device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+def pack_weights(kernel_hwio: Union[np.ndarray, torch.Tensor], dtype: torch.dtype, *,
+                 device: Union[str, torch.device]) -> torch.Tensor:
     """(3, 3, Ci, Co) HWIO kernel -> (3, 3 * Cp, Co) in ``dtype``: for each dy
     the rows (dx, ci), Cp = Ci padded to a multiple of ``CI_MULTIPLE`` with
     zero rows."""
@@ -138,7 +235,7 @@ def check_kernel_input(x: torch.Tensor, packed: torch.Tensor,
     NCHW view of channels_last memory with a multiple of ``CI_MULTIPLE``
     channels; contiguous bfloat16 packed weights with a multiple of
     ``CO_MULTIPLE`` output channels; a contiguous float32 bias or None;
-    16-byte aligned."""
+    16-byte aligned (TMA's global addresses)."""
     _check_operands(x, packed, bias)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the conv kernels take bfloat16, got {x.dtype}")
@@ -155,21 +252,23 @@ def check_kernel_input(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("need 16-byte aligned tensors")
 
 
-def _launch(entry: str, x: torch.Tensor, packed: torch.Tensor, bias: Optional[torch.Tensor],
-            relu: bool) -> torch.Tensor:
-    """Check, allocate y, launch the C entry point ``conv3x3_<entry>_bf16``."""
+def _launch(entry: str, variant: str, x: torch.Tensor, packed: torch.Tensor,
+            bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """Check, plan, allocate y, launch the C entry point ``conv3x3_<entry>_bf16``."""
     check_kernel_input(x, packed, bias)
     N, C, H, W = x.shape
     co = packed.shape[2]
+    plan = launch_plan(N, H, W, C, co, variant).to_int64()
     y = torch.empty((N, co, H, W), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     fn = getattr(_lib(), f"conv3x3_{entry}_bf16")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
-                 y.data_ptr(), N, H, W, C, co, int(relu), stream)
+                 y.data_ptr(), plan.ctypes.data, int(relu), stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_{entry} failed to launch: cudaError {err}")
+        raise RuntimeError(f"conv3x3_{entry} failed to launch: error {err} (cudaError, or "
+                           f"10000 + the CUresult of a tensor map)")
     return y
 
 
@@ -183,7 +282,7 @@ def conv3x3_bias_relu(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"unknown conv variant {variant!r}, need one of {VARIANTS}")
     if x.device.type == "cpu":
         return conv3x3_bias_relu_plain(x, packed, bias, relu=relu)
-    y = _launch(variant, x, packed, bias, relu)
+    y = _launch(variant, variant, x, packed, bias, relu)
     LAUNCHES[f"conv3x3_{variant}"] += 1
     return y
 
@@ -191,4 +290,4 @@ def conv3x3_bias_relu(x: torch.Tensor, packed: torch.Tensor,
 def conv3x3_ablation(x: torch.Tensor, packed: torch.Tensor, *, variant: str) -> torch.Tensor:
     """One of the ablation probe's partial variants of the k3c kernel on the
     card (``ABLATION_VARIANTS``): for timing only, the output is no conv."""
-    return _launch(ABLATION_VARIANTS[variant], x, packed, None, False)
+    return _launch(ABLATION_VARIANTS[variant], variant, x, packed, None, False)

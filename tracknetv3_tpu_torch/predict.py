@@ -5,9 +5,10 @@ The flags of the JAX package's ``predict.py`` for its default path
 (``--video_file``, ``--tracknet_file``, ``--inpaintnet_file``,
 ``--batch_size``, ``--eval_mode``, ``--max_sample_num``, ``--save_dir``),
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of
-the kernels) and ``--conv_backend`` (``cudnn``, the default, or the
-hand-written 3x3 conv kernels ``hand_k3c`` / ``hand_9tap``). TrackNet
-runs in bfloat16, as the JAX CLI does. Decoding needs cv2. The other flags of ``predict.py``
+the kernels) and ``--conv_backend`` (``cudnn`` or the hand-written 3x3
+conv kernels ``hand_k3c`` / ``hand_9tap``; unset, the bfloat16 default of
+``models.fused_forward.DEFAULT_CONV_BACKEND``). TrackNet runs in bfloat16,
+as the JAX CLI does. Decoding needs cv2. The other flags of ``predict.py``
 (batch serving, streaming, video output, device resize, the native
 decoder's formats, meshes, profiling) raise ``NotImplementedError``.
 """
@@ -35,9 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "staged path takes the median over all frames")
     p.add_argument("--save_dir", type=str, default="pred_result")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--conv_backend", type=str, default="cudnn",
+    p.add_argument("--conv_backend", type=str, default=None,
                    choices=["cudnn", "hand_k3c", "hand_9tap"],
-                   help="who computes the folded forward's 3x3 convs")
+                   help="who computes the folded forward's 3x3 convs (default: "
+                   "models.fused_forward.DEFAULT_CONV_BACKEND)")
     for name in _UNPORTED:
         p.add_argument(f"--{name}", nargs="?", const=True, default=None,
                        help="not ported to PyTorch yet (raises)")

@@ -4,7 +4,7 @@ goes on the card.
 ``python -m tracknetv3_tpu_torch.profile_step [--batch_size 10] [--steps 5]
 [--batch_kind segmented|frame_mixup|resident] [--alpha -1]``
 ``python -m tracknetv3_tpu_torch.profile_step --serve [--batch_size 16]
-[--conv_backend hand_k3c]``
+[--conv_backend cudnn|hand_k3c|hand_9tap]``
 
 Builds the published configuration (seq_len 8, bg_mode concat, 288x512,
 bfloat16 convolutions) from a seed. Training: alpha 0.5 sample mixup,
@@ -136,9 +136,11 @@ def _serve(args, dev) -> dict:
     # The port's own kernels are launched through ctypes, and the profiler
     # may not count them under the range that was open (it did not on torch
     # 2.11): then the ranges leave room for them in the device total, and
-    # the forward's range holds torch's kernels only.
+    # the forward's range holds torch's kernels only. Whichever reading puts
+    # the ranges' sum nearer the device total is taken.
     own = pool_up + hand_conv
-    own_in_ranges = sum(ranges.values()) + own > device_ms * 1.001
+    in_ranges = sum(ranges.values())
+    own_in_ranges = abs(device_ms - in_ranges) < abs(device_ms - in_ranges - own)
     cats = {
         "preprocess": ranges["preprocess"],
         "convolution": conv,
@@ -154,7 +156,7 @@ def _serve(args, dev) -> dict:
     return {
         "device": torch.cuda.get_device_name(0),
         "config": f"serve TrackNet seq_len {L} concat {H}x{W} bf16 weight, conv_backend "
-                  f"{args.conv_backend}, a {SERVE_FRAMES}-"
+                  f"{p.params['conv_backend']}, a {SERVE_FRAMES}-"
                   f"frame video in {chunks} chunks of {B} windows + flush + fetch",
         "host_ms_per_video": video_ms,
         "traced_host_ms_per_video": traced_ms,
@@ -175,9 +177,10 @@ def main(argv=None) -> dict:
                     help="profile serving a video instead of a train step")
     ap.add_argument("--batch_size", type=int, default=None,
                     help="10 for a train step, 16 windows per serving chunk")
-    ap.add_argument("--conv_backend", default="cudnn",
+    ap.add_argument("--conv_backend", default=None,
                     choices=["cudnn", "hand_k3c", "hand_9tap"],
-                    help="who computes the served forward's 3x3 convs (with --serve)")
+                    help="who computes the served forward's 3x3 convs (with --serve; "
+                    "default: models.fused_forward.DEFAULT_CONV_BACKEND)")
     ap.add_argument("--batch_kind", default="plain",
                     choices=["plain", "segmented", "frame_mixup", "resident"],
                     help="what the train step assembles its input from")
