@@ -17,11 +17,21 @@ exits nonzero.
 2. build: the five CUDA sources of ``tracknetv3_tpu_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), timed; the count of
    ``HGMMA`` (wgmma), ``UTMALDG`` / ``UTMASTG`` (TMA) and ``SYNCS``
-   (mbarrier) instructions in the conv library's SASS;
+   (mbarrier) instructions in the conv library's SASS, and of ``UBLKCP``
+   (1-D bulk copies) and ``SYNCS`` in the copy and loss libraries', which
+   must not be 0;
 3. kernel vs plain at the main-path shape (10, 288, 512, 8), plain and
-   mixup targets, logits reaching the clamp: loss relative error <= 1e-5,
-   max |dz - dz_plain| <= 1e-5 * max |dz_plain|; median kernel and plain
-   times beside each kernel's bound;
+   mixup targets, logits reaching the clamp, and mixup targets on logits
+   that peak on the label disks: loss relative error <= 1e-5, max |dz -
+   dz_plain| <= 1e-5 * max |dz_plain|; K1 gives the same loss bits in four
+   calls and through both ways in (``ring``, ``direct``); two wrong K1
+   forwards emulated from the plain version (the last item's partial
+   dropped, every label row skipped) must fail the 1e-5 bound on the peaked
+   logits; kernel_times: median kernel and plain times of K1 (each way in at
+   2-4 blocks per SM) and K2 beside each kernel's bound, the larger of the
+   bytes at 3.35 TB/s and the SASS instructions per element (read from the
+   probe kernels of ``csrc/wbce_disk.cu``) at the issue rate of the SM clock
+   ``nvidia-smi`` reads;
 4. bn_vs_plain: the four BatchNorm + ReLU kernels (P4 statistics, P5
    normalise + ReLU, the backward's reduce and apply) against their plain
    versions at the train step's four shapes at batch 10, bf16 and float32,
@@ -97,7 +107,8 @@ exits nonzero.
    (``wrong_forward``), each of which must fail the bound; the bfloat16
    chunks also go through both hand conv backends, under the same bound.
 
-11. copy_vs_plain (run after phase 4): the three copy kernels
+11. copy_vs_plain (run after phase 4): the three copy kernels (each
+   ``window_copy`` case names the route ``copy_plan`` took)
    (``window_copy``, ``repeat_rows``, ``roll_cols``: the halo / shift,
    repeat and roll probes U1-U7) at the probes' shapes ((32, 264, 128)
    bf16, (32, 256, 256) for U4, float32 and bf16 for U6, (2, 32, 264, 128)
@@ -123,8 +134,12 @@ exits nonzero.
    repeat itself bit for bit).
 
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
-conv kernel), ``--copy_only`` phases 1, 2 and 11; neither prints a kernels
-line.
+conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
+2 and 3; none prints a kernels line. With ``--copy_only`` or
+``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
+parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
+and loss kernels from its own sources, holds them bit for bit against this
+tree's and times the two in turns (old, new, new, old).
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -158,10 +173,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"  # of the BatchNorm, step-parity and serving phases
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
-# float operations per element, counted from csrc/wbce_disk.cu: label
-# (two squared distances, compares, blend) + sigmoid/log terms + loss
-FWD_OPS_PER_ELEM = 30
-BWD_OPS_PER_ELEM = 40
 
 
 _START = time.time()
@@ -233,7 +244,7 @@ def phase_env():
     return card
 
 
-def phase_build():
+def phase_build(baseline=None):
     from concurrent.futures import ThreadPoolExecutor
 
     from tracknetv3_tpu_torch.ops import (
@@ -261,24 +272,49 @@ def phase_build():
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
         sources[mod.SOURCE] = {"kernels": len(used), "max_registers": max(used, default=None),
                                "max_spill_bytes": max(spills, default=0)}
-    conv_path = builds[modules.index(conv3x3)][0]
+    path = {mod: p for mod, (p, _) in zip(modules, builds)}
+    sass = {"conv3x3": _sass_counts(path[conv3x3], ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")),
+            "shift_copy": _sass_counts(path[shift_copy], BULK_OPCODES),
+            "wbce_disk": _sass_counts(path[wbce_disk], BULK_OPCODES)}
     emit({"phase": "build", "nvcc": "one process per source, all at once",
           "seconds": round(seconds, 3), "sources": sources,
-          "conv3x3_sass": _sass_counts(conv_path, ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS"))})
+          **{f"{k}_sass": v for k, v in sass.items()}})
+    # the copy ring and K1's ring are built from bulk copies and mbarriers
+    for lib in ("shift_copy", "wbce_disk"):
+        counts = sass[lib]
+        if isinstance(counts, dict) and not all(counts[op] > 0 for op in BULK_OPCODES):
+            fail("build", f"{lib}: no bulk-copy or mbarrier instruction in its SASS: {counts}")
+    if baseline is not None:  # the parent tree's copy and loss kernels, built before timing
+        for mod in baseline:
+            mod._lib()
 
 
-def _sass_counts(library, opcodes):
-    """How many of each SASS opcode ``cuobjdump -sass`` shows in a built
-    library: HGMMA (wgmma), UTMALDG / UTMASTG (TMA loads / stores), SYNCS
-    (mbarrier operations); "not measured" where cuobjdump is missing."""
+# SASS of the 1-D bulk copies (UBLKCP: cp.async.bulk, both directions) and of
+# the mbarrier operations (SYNCS)
+BULK_OPCODES = ("UBLKCP", "SYNCS")
+
+
+def _sass(library):
+    """``cuobjdump -sass`` of a built library, or why it is not there."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return "not measured: no cuobjdump"
+        return None, "not measured: no cuobjdump"
     out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                          timeout=300)
     if out.returncode != 0:
-        return f"not measured: cuobjdump exited {out.returncode}"
-    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in opcodes}
+        return None, f"not measured: cuobjdump exited {out.returncode}"
+    return out.stdout, None
+
+
+def _sass_counts(library, opcodes):
+    """How many instructions of each SASS opcode a built library holds (any
+    suffix: ``UBLKCP.S.G`` counts as ``UBLKCP``): HGMMA (wgmma), UTMALDG /
+    UTMASTG (TMA tensor loads / stores), UBLKCP (1-D bulk copies), SYNCS
+    (mbarrier operations); "not measured" where cuobjdump is missing."""
+    text, why = _sass(library)
+    if text is None:
+        return why
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in opcodes}
 
 
 def _logits_np(seed: int) -> np.ndarray:
@@ -300,7 +336,107 @@ def _centers_np(rng) -> np.ndarray:
     return np.stack([cx, cy], axis=-1).astype(np.int32)
 
 
-def phase_kernels():
+PEAK = 12.0  # kernel_vs_plain's peaked logits: raised by this much on the label disks
+
+
+def _label_rows(cxcy2, sigma: float):
+    """(B, L) counts of the rows of each plane that can hold a label pixel:
+    within sigma of a visible center's row (the rows K1 does not skip)."""
+    c = cxcy2.cpu().numpy().astype(np.float32)  # (B, 2, 2, L)
+    r = np.arange(H, dtype=np.float32)[None, None, :]
+    s2 = np.float32(sigma) * np.float32(sigma)
+    near = np.zeros((B, L, H), bool)
+    for k in (0, 1):
+        cx, cy = c[:, k, 0], c[:, k, 1]  # (B, L)
+        vis = (cx != 0) | (cy != 0)
+        d = r - cy[..., None]
+        near |= vis[..., None] & (d * d <= s2)
+    return near.sum(-1)
+
+
+def _wrong_k1(name: str, z, cxcy2, w):
+    """A wrong K1 forward, emulated from the plain version: ``last_item_dropped``
+    leaves out the partial of the plan's last item (the last row of the last
+    plane); ``label_rows_skipped`` takes every row for one no disk touches (y
+    = 0 everywhere)."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import losses
+    from tracknetv3_tpu_torch.ops import wbce_disk as wd
+
+    logits = z.movedim(1, -1)  # (B, H, W, L)
+    if name == "label_rows_skipped":
+        return losses.wbce_from_logits(logits, torch.zeros_like(logits))
+    y = wd.disk_labels_plain(cxcy2, w, H, W)
+    part = losses.wbce_from_logits(logits[-1:, -1:, :, -1:], y[-1:, -1:, :, -1:])
+    n, n_part = logits.numel(), W
+    return (losses.wbce_from_logits(logits, y).double() * n - part.double() * n_part) / n
+
+
+def _sass_functions(library):
+    """{function: [opcode, ...]} of a built library's SASS, each through its
+    first unpredicated EXIT (the straight path; subroutines placed after it,
+    such as the IEEE division's slow path, are left out). None where
+    cuobjdump is missing or fails."""
+    text, _ = _sass(library)
+    if text is None:
+        return None
+    funcs, name, done = {}, None, False
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name, done = m.group(1), False
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name is not None and not done:
+            funcs[name].append(m.group(2))
+            done = m.group(2) == "EXIT" and m.group(1) is None
+    return funcs
+
+
+def _per_element_instructions():
+    """SASS instructions per element of K1 (on a label row and on a skipped
+    row) and of K2, from the probe kernels of csrc/wbce_disk.cu: each probe's
+    straight path less ``wbce_probe_base``'s (its loads, stores and index
+    math), plus 1 (K1's accumulating add, K2's scale). MUFU: the
+    quarter-rate special-function instructions among them."""
+    from tracknetv3_tpu_torch.ops import cuda_build, wbce_disk
+
+    funcs = _sass_functions(cuda_build.library_path(wbce_disk.SOURCE))
+    if funcs is None:
+        return None
+    base = funcs.get("wbce_probe_base")
+    counts = {}
+    for key, probe in (("fwd_label", "wbce_probe_fwd_label"), ("fwd_skip", "wbce_probe_fwd_skip"),
+                       ("bwd", "wbce_probe_bwd")):
+        ops = funcs.get(probe)
+        if ops is None or base is None:
+            return None
+        counts[key] = {"instructions": len(ops) - len(base) + 1,
+                       "mufu": sum(op.startswith("MUFU") for op in ops)
+                       - sum(op.startswith("MUFU") for op in base)}
+    return counts
+
+
+def _sm_clock_hz():
+    """The SM clock's maximum as nvidia-smi reads it (Hz), None if unread."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    try:
+        return float(smi.stdout.strip().splitlines()[0]) * 1e6
+    except (ValueError, IndexError):
+        return None
+
+
+def issue_bound_ms(instructions: float, sms: int, clock_hz: float) -> float:
+    """Instructions (per lane) over the card's issue rate: each SM's 4
+    schedulers issue one warp instruction (32 lanes) a cycle."""
+    return instructions / (sms * 4 * 32 * clock_hz) * 1e3
+
+
+def phase_kernels(baseline=None):
     import torch
 
     from tracknetv3_tpu_torch.ops import wbce_disk as wd
@@ -315,28 +451,61 @@ def phase_kernels():
         "plain": wd.pack_plain_targets(cxcy),
         "mixup": wd.pack_mixup_targets(cxcy, perm, lam),
     }
-    z = torch.from_numpy(_logits_np(0)).to(dev)  # (B, L, H, W)
-    clamp_share = float((z.abs() > 16.2).float().mean())
+    z_sym = torch.from_numpy(_logits_np(0)).to(dev)  # (B, L, H, W)
+    # On logits symmetric about 0 a label pixel's term has the same expectation
+    # with y = 1 as with y = 0, so a forward that loses the labels can pass.
+    # ``peaked``: the same logits raised by PEAK on the disks, as a trained
+    # TrackNet's heatmap peaks on the ball; there the labels move the loss.
+    y_mix = wd.disk_labels_plain(*cases["mixup"], H, W).movedim(-1, 1)  # (B, L, H, W)
+    z_peak = z_sym + PEAK * (y_mix > 0).float()
+    near = ((z_peak.abs() - 16.1181).abs() < 1e-3)  # off the clamp boundary, as _logits_np
+    z_peak = torch.where(near, z_peak + 0.01 * z_peak.sign(), z_peak)
+    clamp_share = float((z_sym.abs() > 16.2).float().mean())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wd.loss_plan(B, L, H, W, sms)
     err = {"fwd": 0.0, "bwd": 0.0}
-    for name, (cxcy2, w) in cases.items():
+    for name, (cxcy2, w), z in (("plain", cases["plain"], z_sym),
+                                ("mixup", cases["mixup"], z_sym),
+                                ("mixup_peaked", cases["mixup"], z_peak)):
         a = z.movedim(1, -1).detach().requires_grad_()
         loss_k = wd.wbce_disk_loss(a, cxcy2, w)
         loss_k.backward()
         b = z.movedim(1, -1).detach().requires_grad_()
         loss_p = wd.wbce_disk_loss_plain(b, cxcy2, w)
         loss_p.backward()
+        centers, wf = wd.flatten_targets(cxcy2, w)
+        # the other way in, and three calls of the default on one input
+        other = "direct" if wd.FWD_VARIANT == "ring" else "ring"
+        loss_o = wd.wbce_disk_forward(z, centers, wf, variant=other)
+        repeats = [wd.wbce_disk_forward(z, centers, wf) for _ in range(3)]
+        wrong = {k: float(_wrong_k1(k, z, cxcy2, w))
+                 for k in ("last_item_dropped", "label_rows_skipped")}
         torch.cuda.synchronize()
         lk, lp = float(loss_k.detach()), float(loss_p.detach())
         rel = abs(lk - lp) / abs(lp)
         dz_err = float((a.grad - b.grad).abs().max())
         dz_max = float(b.grad.abs().max())
+        bits = [int(t.view(torch.int32)) for t in [loss_k.detach(), *repeats]]
+        other_bits = int(loss_o.view(torch.int32))
+        wrong_rel = {k: abs(v - lp) / abs(lp) for k, v in wrong.items()}
         emit({"phase": "kernel_vs_plain", "targets": name, "loss_kernel": lk,
               "loss_plain": lp, "loss_rel_err": rel, "dz_max_abs_err": dz_err,
-              "dz_plain_max": dz_max, "clamped_share": clamp_share})
+              "dz_plain_max": dz_max, "clamped_share": clamp_share,
+              "fwd_variant": wd.FWD_VARIANT, "loss_bits_4_calls": bits,
+              f"{other}_equal_bits": other_bits == bits[0], "wrong_rel_err": wrong_rel,
+              "label_rows": int(_label_rows(cxcy2, wd.SIGMA).sum()), "rows": B * L * H})
         if not (math.isfinite(lk) and rel <= 1e-5):
             fail("kernel_vs_plain", f"{name}: loss {lk} vs plain {lp} (rel {rel})")
         if not dz_err <= 1e-5 * dz_max:
             fail("kernel_vs_plain", f"{name}: dz err {dz_err} > 1e-5 * {dz_max}")
+        if len(set(bits)) != 1:
+            fail("kernel_vs_plain", f"{name}: K1 gave different bits in four calls: {bits}")
+        if other_bits != bits[0]:
+            fail("kernel_vs_plain", f"{name}: the {other} forward differs from "
+                 f"{wd.FWD_VARIANT}'s bits")
+        for k, v in wrong_rel.items():
+            if z is z_peak and not v > 1e-5:
+                fail("kernel_vs_plain", f"{name}: the wrong forward {k} passes (rel {v})")
         err["fwd"] = max(err["fwd"], abs(lk - lp))
         err["bwd"] = max(err["bwd"], dz_err)
 
@@ -344,12 +513,28 @@ def phase_kernels():
     # logits (141 MB, past the 50 MB L2) rotate so each call reads cold data.
     cxcy2, w = cases["mixup"]
     centers, wf = wd.flatten_targets(cxcy2, w)
-    zs = [z.clone() for _ in range(3)]
+    zs = [z_sym.clone() for _ in range(3)]
     g = torch.ones((), device=dev)
-    ms = {
-        "fwd": time_launches(lambda i: wd.wbce_disk_forward(zs[i % 3], centers, wf)),
-        "bwd": time_launches(lambda i: wd.wbce_disk_backward(zs[i % 3], centers, wf, g)),
-    }
+    fwd = {v: (lambda i, v=v: wd.wbce_disk_forward(zs[i % 3], centers, wf, variant=v))
+           for v in wd.VARIANTS}
+    # each way in at each grid K1 can take (the chosen pair is the default)
+    by_grid = {f"{v}_{b}_per_sm": time_launches(
+        lambda i, v=v, b=b: wd.wbce_disk_forward(zs[i % 3], centers, wf, variant=v,
+                                                 blocks_per_sm=b))
+        for v in wd.VARIANTS for b in range(2, wd.MAX_BLOCKS_PER_SM + 1)}
+    bwd = lambda i: wd.wbce_disk_backward(zs[i % 3], centers, wf, g)  # noqa: E731
+    earlier = {}
+    if baseline is not None:  # the parent's kernels, in turns: old, new, new, old
+        _, old_wd = baseline
+        old = {"fwd": lambda i: old_wd.wbce_disk_forward(zs[i % 3], centers, wf),
+               "bwd": lambda i: old_wd.wbce_disk_backward(zs[i % 3], centers, wf, g)}
+        new = {"fwd": fwd[wd.FWD_VARIANT], "bwd": bwd}
+        turns = {k: [time_launches(old[k]), time_launches(new[k]), time_launches(new[k]),
+                     time_launches(old[k])] for k in ("fwd", "bwd")}
+        earlier = {k: statistics.mean(v[0::3]) for k, v in turns.items()}
+        emit({"phase": "kernel_times", "what": "turns old, new, new, old (ms)", "turns": turns})
+    by_variant = {v: time_launches(f) for v, f in fwd.items()}
+    ms = {"fwd": by_variant[wd.FWD_VARIANT], "bwd": time_launches(bwd)}
     with torch.no_grad():
         plain_fwd = time_launches(
             lambda i: wd.wbce_disk_loss_plain(zs[i % 3].movedim(1, -1), cxcy2, w)
@@ -361,17 +546,34 @@ def phase_kernels():
     )
     del graphs, leaves
     # each input read once, each output written once: logits, centers and
-    # weights in; the loss (4 B) out forward; g (4 B) in and dz out backward
+    # weights in; the loss (4 B) out forward; g (4 B) in and dz out backward.
+    # Beside the bytes, the instructions this data needs at the card's issue
+    # rate: K1 pays the label path only on the rows a disk can touch.
     n = B * L * H * W
     in_bytes = 4 * (n + centers.numel() + wf.numel())
-    bound = {
-        "fwd": bound_ms(in_bytes + 4, n * FWD_OPS_PER_ELEM),
-        "bwd": bound_ms(in_bytes + 4 + 4 * n, n * BWD_OPS_PER_ELEM),
-    }
+    bytes_ms = {"fwd": bound_ms(in_bytes + 4, 0)[0], "bwd": bound_ms(in_bytes + 4 + 4 * n, 0)[0]}
+    per_elem, clock = _per_element_instructions(), _sm_clock_hz()
+    issue_ms, label_elems = {}, int(_label_rows(cxcy2, wd.SIGMA).sum()) * W
+    if per_elem is not None and clock is not None:
+        fwd_instr = (label_elems * per_elem["fwd_label"]["instructions"]
+                     + (n - label_elems) * per_elem["fwd_skip"]["instructions"])
+        issue_ms = {"fwd": issue_bound_ms(fwd_instr, sms, clock),
+                    "bwd": issue_bound_ms(n * per_elem["bwd"]["instructions"], sms, clock)}
+    bound = {k: (max(bytes_ms[k], issue_ms.get(k, 0.0)),
+                 "operations" if issue_ms.get(k, 0.0) > bytes_ms[k] else "bytes")
+             for k in ("fwd", "bwd")}
     emit({"phase": "kernel_times", "shape_BHWL": [B, H, W, L], "kernel_ms": ms,
+          "fwd_ms_by_variant": by_variant, "fwd_ms_by_variant_and_grid": by_grid,
+          "fwd_default": [wd.FWD_VARIANT, wd.FWD_BLOCKS_PER_SM],
+          "earlier_ms": earlier or "not measured",
           "plain_ms": {"fwd": plain_fwd, "bwd": plain_bwd},
           "bound_ms": {k: v[0] for k, v in bound.items()},
-          "bound_by": {k: v[1] for k, v in bound.items()}})
+          "bound_by": {k: v[1] for k, v in bound.items()},
+          "bytes_bound_ms": bytes_ms, "issue_bound_ms": issue_ms or "not measured",
+          "per_element_sass": per_elem or "not measured", "sm_clock_max_hz": clock,
+          "label_row_share": label_elems / n, "fwd_device_launches": 1,
+          "fwd_plan": {"items": plan.items, "grid": plan.grid,
+                       "blocks_per_sm": plan.blocks_per_sm}})
     return err, ms, {"fwd": plain_fwd, "bwd": plain_bwd}, bound
 
 
@@ -923,15 +1125,18 @@ def _off_by_one(starts, rows: int, n_rows: int):
     return (starts + 1).clamp(max=n_rows - rows)
 
 
-def _copy_cases(dev):
+def _copy_cases(dev, sc=None):
     """The seven probes at the probe's shapes and the train path's copies at
     the README configuration's. Each case: the kernel's call, its plain
     version, one PyTorch call that computes the same (``library``), a wrong
     version that must differ, on an input made by ``make(seed)``; ``needed``
-    counts the elements the call must read (for a gather: its distinct rows)."""
+    counts the elements the call must read (for a gather: its distinct rows).
+    ``sc``: the copy module whose kernels the cases call (this tree's by
+    default)."""
     import torch
 
-    from tracknetv3_tpu_torch.ops import shift_copy as sc
+    if sc is None:
+        from tracknetv3_tpu_torch.ops import shift_copy as sc
 
     bf16, f32, u8 = torch.bfloat16, torch.float32, torch.uint8
     Hp, Wp, Cp = 32, 256, 128  # the probes' tile
@@ -961,6 +1166,11 @@ def _copy_cases(dev):
             wrong or (lambda x: sc.window_copy_plain(
                 flat(x), _off_by_one(starts, rows, n_rows), rows, **plain_kw)),
             wrong_name, needed)
+        # the launch's geometry, for its route (pointers: torch's 256-byte alignment)
+        cases[-1].update(flat_shape=fshape, n=starts.numel(), rows=rows,
+                         staged=kw.get("staged", False),
+                         ranges=(kw.get("col0", 0), kw.get("cols"), kw.get("ch0", 0),
+                                 kw.get("chs")))
 
     # ---- the probes (tools/probe_mosaic_caps.py)
     xs = (Hp, Wp + 8, Cp)
@@ -1026,16 +1236,20 @@ def _copy_cases(dev):
     return cases
 
 
-def phase_copy():
+def phase_copy(baseline=None):
     """copy_vs_plain: the three copy kernels against their plain versions,
     bit for bit, at the probes' shapes and the train path's; wrong versions
-    must differ; times beside the bytes bound and one PyTorch call."""
+    must differ; times beside the bytes bound and one PyTorch call. With
+    ``baseline`` (another tree's ops modules), that tree's kernels too, bit
+    for bit, and the two timed in turns: old, new, new, old."""
     import torch
 
+    from tracknetv3_tpu_torch.ops import shift_copy as sc
     from tracknetv3_tpu_torch.training import steps
 
     dev = torch.device(DEVICE)
     rows = {}
+    old_cases = _copy_cases(dev, baseline[0]) if baseline is not None else None
     for i, c in enumerate(_copy_cases(dev)):
         xs = [_bits_data(c["shape"], c["dtype"], 200 + 3 * i + k, dev) for k in range(3)]
         got, want, lib, wrong = (c[f](xs[0]) for f in ("call", "plain", "library", "wrong"))
@@ -1045,6 +1259,16 @@ def phase_copy():
         wrong_unequal = _unequal_words(got.reshape(wrong.shape), wrong)
         # beside the bit comparison, the measured max |got - want| where both are finite
         err = _bit_compare(got, want)[2] if got.shape == want.shape else float("inf")
+        turns = None
+        if old_cases is not None:
+            old = old_cases[i]["call"]
+            old_unequal = _unequal_words(old(xs[0]), got)
+            if old_unequal:
+                fail("copy_vs_plain", f"{c['name']}: {old_unequal} words differ from the "
+                     "baseline tree's kernel")
+            new = lambda j: c["call"](xs[j % 3])  # noqa: E731
+            turns = [time_launches(lambda j: old(xs[j % 3])), time_launches(new),
+                     time_launches(new), time_launches(lambda j: old(xs[j % 3]))]
         ms = time_launches(lambda j: c["call"](xs[j % 3]))
         plain_ms = time_launches(lambda j: c["plain"](xs[j % 3]))
         lib_ms = time_launches(lambda j: c["library"](xs[j % 3]))
@@ -1061,6 +1285,14 @@ def phase_copy():
             "wrong_unequal_words": wrong_unequal, "nan_or_inf_copied": special,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "mb_moved": n_bytes / 1e6}
+        if c["kernel"] == "window_copy":
+            g = sc.window_geometry(tuple(c["flat_shape"]), got.element_size(), c["n"], c["rows"],
+                                   *c["ranges"])
+            r["route"] = sc.copy_plan(g, c["n"], c["rows"], c["staged"], 0, 0, 132).route
+        if turns is not None:
+            r["turns_old_new_new_old_ms"] = turns
+            r["earlier_ms"] = statistics.mean(turns[0::3])
+            r["new_in_turns_ms"] = statistics.mean(turns[1:3])
         emit(r, detail=True)
         if unequal or lib_unequal:
             fail("copy_vs_plain", f"{c['name']}: {unequal} words differ from the plain version, "
@@ -1081,6 +1313,9 @@ def phase_copy():
           "call; each wrong version differs; [ms, bound_ms, plain_ms, library_ms]",
           "cases": {k: [round(r[key], 5) for key in ("ms", "bound_ms", "plain_ms", "library_ms")]
                     for k, r in rows.items()},
+          "routes": {k: r["route"] for k, r in rows.items() if "route" in r},
+          "earlier_ms": ({k: round(r["earlier_ms"], 5) for k, r in rows.items()}
+                         if baseline is not None else "not measured"),
           "expand_segments_helper_unequal_words": helper_unequal})
     # the kernels' line: each kernel at the train path's shape (the roll at the probe's)
     at = {"window_copy": "segment_expand", "repeat_rows": "median_repeat", "roll_cols": "U6"}
@@ -2116,6 +2351,25 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
         del p, staged, x, out, model, ref, hand
 
 
+def _baseline_modules(root: str):
+    """The copy and loss kernel modules of the port in another checkout,
+    imported under another package name so that both trees live in one
+    process; each builds its kernels from its own sources into its own
+    ``build/``."""
+    import importlib
+    import importlib.util
+
+    name = "baseline_tracknetv3_tpu_torch"
+    pkg = os.path.join(os.path.abspath(root), "tracknetv3_tpu_torch")
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module(f"{name}.ops.shift_copy"),
+            importlib.import_module(f"{name}.ops.wbce_disk"))
+
+
 def main() -> int:
     global VERBOSE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2123,6 +2377,13 @@ def main() -> int:
                     help="build, conv_vs_plain and conv_ablate alone; no kernels line")
     ap.add_argument("--copy_only", action="store_true",
                     help="build and copy_vs_plain alone; no kernels line")
+    ap.add_argument("--loss_only", action="store_true",
+                    help="build, kernel_vs_plain and kernel_times alone; no kernels line")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="with --copy_only or --loss_only: a checkout of another commit "
+                         "(e.g. the parent's, unpacked with git archive); its copy and loss "
+                         "kernels are built from its sources, checked bit for bit against "
+                         "this tree's and timed in turns with them (old, new, new, old)")
     ap.add_argument("--verbose", action="store_true",
                     help="print the per-shape detail lines too")
     args = ap.parse_args()
@@ -2142,15 +2403,22 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
+    only = ("conv" if args.conv_only else "copy" if args.copy_only
+            else "loss" if args.loss_only else None)
+    if args.baseline and only not in ("copy", "loss"):
+        print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
+        return 2
+    baseline = _baseline_modules(args.baseline) if args.baseline else None
     card = phase_env()
-    phase_build()
-    only = "conv" if args.conv_only else "copy" if args.copy_only else None
+    phase_build(baseline)
     if only:
         if only == "conv":
             phase_conv()
             phase_conv_ablate()
+        elif only == "copy":
+            phase_copy(baseline)
         else:
-            phase_copy()
+            phase_kernels(baseline)
         print(card, flush=True)
         emit({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2175,6 +2443,8 @@ def main() -> int:
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
                 "bwd": "tracknetv3_tpu/ops/pallas_wbce.py:87"}
+    # K1/K2 bounds: the larger of the bytes and the SASS instructions at the
+    # issue rate (kernel_times)
     lines = [
         {"name": f"wbce_disk_{k}", "route": "cuda", "source": src,
          "replaces": replaces[k], "launches": launches[k], "max_abs_err": err[k],

@@ -26,31 +26,64 @@
 //
 // Design. Bound on the H100 SXM by bytes: each input byte is read once and
 // each output byte written once, with no arithmetic beyond addresses. The
-// kernels work in bytes, so one body serves every element type; the vector
-// type V (16, 8, 4, 2 or 1 bytes) is the widest that divides every base
-// pointer, stride, offset and extent of the launch (the wrapper chooses it;
-// the entry points check it again). A frame start is a multiple of the frame's
-// bytes, but a one-column shift of a 3-channel uint8 image is 3 bytes, so the
-// width is a property of the launch, not of the type. One block copies
-// kThreads * kUnroll vectors of one output row: each thread first issues its
-// kUnroll loads, then its stores, so several 16-byte loads are in flight per
-// thread; neighbouring threads touch neighbouring vectors. A block reads its
-// own window start from the table (no host read-back). ``staged`` copies whole
-// pixels of the source row into a 32 KB shared tile first and slices the tile,
-// as U3 and U4 slice the fetched VMEM tile; the direct form slices in the
-// global load, as U2 and U7 slice in the DMA. This is the simple, right first
-// version: no TMA, no cp.async.
+// kernels work in bytes, so one body serves every element type. A launch of
+// window_copy takes one of three routes, which ops/shift_copy.py copy_plan
+// chooses from the launch's geometry and passes in with every size of the
+// launch (the entry point checks the plan against its own constants):
+// - bulk (every source run, destination run, base pointer and stride a
+//   multiple of 16 bytes: whole frames, whole rows, 16-byte channel ranges).
+//   A persistent grid of one-warp blocks, as many per SM as the ring's
+//   shared memory lets reside (two at the largest stages, four for a small
+//   copy; the occupancy API confirms it); block b walks items
+//   [b * items / grid, (b + 1) * items / grid) of a list of work items, each
+//   a chunk of one output row of up to kMaxStageBytes (24 KB; smaller for a
+//   small copy, so that every SM gets work). Lane 0 works a ring of kStages
+//   shared-memory stages: it issues the item's 1-D bulk TMA loads
+//   (cp.async.bulk ... complete_tx::bytes, one per contiguous source run;
+//   for a channel range the warp's lanes issue the runs) kLag items ahead,
+//   waits on the stage's mbarrier, issues one bulk store of the chunk
+//   (cp.async.bulk.global.shared::cta.bulk_group), and refills a stage only
+//   after wait_group.read says its store has left shared memory. Loads of
+//   later items overlap the stores of earlier ones; no data passes through
+//   registers. A block finds its first item with one divide and steps from
+//   item to item; the next window's start is read one window ahead of use.
+//   Measured on an H100 (PERF.md): the large gathers run at the card's copy
+//   rate, level with index_select; a 2 MB copy pays the ring's set-up.
+// - vector (any other direct launch, e.g. a one-column shift of a 3-byte
+//   uint8 pixel): one block copies kThreads * kUnroll vectors of one output
+//   row; the vector type V (16, 8, 4, 2 or 1 bytes) is the widest that
+//   divides every base pointer, stride, offset and extent of the launch; each
+//   thread first issues its kUnroll loads, then its stores.
+// - staged (U3, U4 staged): whole pixels of the source row go into a shared
+//   tile of up to 32 KB and are sliced there, as U3 and U4 slice the fetched
+//   VMEM tile; the vector body moves them. The plan sizes the tile so that
+//   the grid fills the card.
+// A block reads its own window start from the table (no host read-back).
+// repeat_rows and roll_cols keep the vector body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
 
+#include "bulk_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 constexpr int kTileBytes = 32768;  // the staged variant's shared tile
+// the bulk route: a ring of kStages stages of at most kMaxStageBytes, loads
+// issued kLag items ahead of the store, blocks of one warp, as many per SM
+// as their shared memory allows, up to kMaxBulkBlocksPerSM
+constexpr int kStages = 4;
+constexpr int kLag = 3;
+constexpr int kMaxStageBytes = 24576;
+constexpr int kBulkThreads = 32;
+constexpr int kMaxBulkBlocksPerSM = 4;
+constexpr int kBarrierBytes = 128;  // the stages' mbarriers, before the stages
+static_assert(kLag < kStages, "a stage is refilled only after its store was issued");
+static_assert(kStages * 8 <= kBarrierBytes, "one 8-byte mbarrier per stage");
 
 typedef long long i64;
 
@@ -124,6 +157,145 @@ __global__ void __launch_bounds__(kThreads) window_copy_kernel(const WindowArgs 
       *reinterpret_cast<V*>(dst + (lo - a.col0 + p) * a.chs_bytes + k * kV) = val;
     }
   }
+}
+
+struct BulkArgs {
+  const unsigned char* x;
+  const void* starts;
+  unsigned char* out;
+  int starts_i64;
+  i64 n, rows;          // windows, rows per window
+  i64 row_stride;       // bytes of one row of x
+  i64 out_row_bytes;
+  i64 off0, segs, seg_stride, seg_bytes;  // as in WindowArgs
+  // an output row is chunks_per_row items; an item is chunk_bytes of the
+  // row (segs == 1) or runs_per_chunk runs of seg_bytes (segs > 1)
+  i64 chunk_bytes, chunks_per_row, runs_per_chunk, items;
+  i64 stage_bytes;
+};
+
+__device__ __forceinline__ i64 load_start(const BulkArgs& a, i64 i) {
+  return a.starts_i64 ? reinterpret_cast<const i64*>(a.starts)[i]
+                      : (i64) reinterpret_cast<const int*>(a.starts)[i];
+}
+
+// Where one item comes from and goes to: the source row, the chunk's first
+// run and how many runs, its bytes and destination.
+struct Item {
+  const unsigned char* src;  // first source byte of the item
+  unsigned char* dst;
+  i64 runs;                  // contiguous source runs (1 where segs == 1)
+  unsigned int bytes;        // bytes of the item (all its runs)
+};
+
+// Steps through the items of one block in order: (output row, chunk), the
+// window and row within it, and the window's start (the next one read ahead).
+struct Cursor {
+  i64 orow, c, i, t, start, next_start;
+
+  __device__ __forceinline__ void begin(const BulkArgs& a, i64 item) {
+    orow = item / a.chunks_per_row;
+    c = item - orow * a.chunks_per_row;
+    i = orow / a.rows;
+    t = orow - i * a.rows;
+    start = load_start(a, i);
+    next_start = (i + 1 < a.n) ? load_start(a, i + 1) : 0;
+  }
+
+  __device__ __forceinline__ void advance(const BulkArgs& a) {
+    if (++c < a.chunks_per_row) return;
+    c = 0;
+    ++orow;
+    if (++t < a.rows) return;
+    t = 0;
+    ++i;
+    start = next_start;
+    if (i + 1 < a.n) next_start = load_start(a, i + 1);
+  }
+
+  __device__ __forceinline__ Item item(const BulkArgs& a) const {
+    Item it;
+    const unsigned char* row = a.x + (start + t) * a.row_stride + a.off0;
+    unsigned char* drow = a.out + orow * a.out_row_bytes;
+    if (a.segs == 1) {
+      const i64 b0 = c * a.chunk_bytes;
+      const i64 left = a.out_row_bytes - b0;
+      it.src = row + b0;
+      it.dst = drow + b0;
+      it.runs = 1;
+      it.bytes = (unsigned int)(left < a.chunk_bytes ? left : a.chunk_bytes);
+    } else {
+      const i64 s0 = c * a.runs_per_chunk;
+      const i64 left = a.segs - s0;
+      it.src = row + s0 * a.seg_stride;
+      it.dst = drow + s0 * a.seg_bytes;
+      it.runs = left < a.runs_per_chunk ? left : a.runs_per_chunk;
+      it.bytes = (unsigned int)(it.runs * a.seg_bytes);
+    }
+    return it;
+  }
+};
+
+// The bulk route (see the design note). One warp per block; lane 0 works
+// the ring, every lane issues its share of a channel range's runs.
+__global__ void __launch_bounds__(kBulkThreads) window_copy_bulk_kernel(const BulkArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const i64 begin = (i64)blockIdx.x * a.items / gridDim.x;
+  const i64 end = (i64)(blockIdx.x + 1) * a.items / gridDim.x;
+  const i64 n_items = end - begin;
+  if (n_items <= 0) return;
+  const int lane = threadIdx.x;
+  const uint32_t bars = bulk::smem_u32(smem);
+  const uint32_t stage0 = bars + kBarrierBytes;
+  // destination and bytes of the item in each stage, for its store
+  __shared__ unsigned char* stage_dst[kStages];
+  __shared__ unsigned int stage_bytes[kStages];
+  Cursor cur;
+  cur.begin(a, begin);  // its window-start loads overlap the barriers' set-up
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) bulk::mbar_init(bars + 8 * s, 1);
+    bulk::mbar_init_fence();
+  }
+  __syncwarp();
+  // issue the loads of local item k into its stage; the cursor is on item k
+  auto issue = [&](i64 k) {
+    const int s = (int)(k % kStages);
+    const uint32_t bar = bars + 8 * s, dst = stage0 + (uint32_t)(s * a.stage_bytes);
+    const Item it = cur.item(a);
+    if (lane == 0) {
+      stage_dst[s] = it.dst;
+      stage_bytes[s] = it.bytes;
+      bulk::mbar_arrive_expect_tx(bar, it.bytes);
+    }
+    __syncwarp();
+    if (it.runs == 1) {
+      if (lane == 0) bulk::load(dst, it.src, it.bytes, bar);
+    } else {
+      for (i64 j = lane; j < it.runs; j += kBulkThreads)
+        bulk::load(dst + (uint32_t)(j * a.seg_bytes), it.src + j * a.seg_stride,
+                   (unsigned int)a.seg_bytes, bar);
+    }
+    cur.advance(a);
+  };
+
+  const i64 primed = n_items < kLag ? n_items : kLag;
+  for (i64 k = 0; k < primed; ++k) issue(k);
+  for (i64 j = 0; j < n_items; ++j) {
+    if (j + kLag < n_items) {
+      // the stage of item j + kLag last held item j + kLag - kStages, whose
+      // store was followed by kStages - kLag - 1 newer ones
+      if (j + kLag >= kStages && lane == 0) bulk::wait_group_read<kStages - kLag - 1>();
+      __syncwarp();
+      issue(j + kLag);
+    }
+    const int s = (int)(j % kStages);
+    if (lane == 0) {
+      bulk::mbar_wait(bars + 8 * s, (uint32_t)((j / kStages) & 1));
+      bulk::store(stage_dst[s], stage0 + (uint32_t)(s * a.stage_bytes), stage_bytes[s]);
+      bulk::commit_group();
+    }
+  }
+  if (lane == 0) bulk::wait_group_read<0>();  // the stores' writes finish on their own
 }
 
 // x: (R, row_bytes) -> out: (R * k, row_bytes), out[r * k + j] = x[r].
@@ -231,6 +403,59 @@ int launch_roll(const void* x, void* out, i64 R, i64 W, i64 pix_bytes, i64 shift
   return (int)cudaGetLastError();
 }
 
+// window_copy's launch plan (ops/shift_copy.py copy_plan), int64 in this order.
+enum Plan {
+  P_ROUTE, P_VEC, P_BLOCKS_PER_ROW, P_TILE_PIX, P_CHUNK_BYTES, P_CHUNKS_PER_ROW, P_RUNS_PER_CHUNK,
+  P_ITEMS, P_STAGE_BYTES, P_GRID, P_THREADS, P_SMEM, P_BLOCKS_PER_SM, P_LEN
+};
+enum Route { kRouteVector = 0, kRouteStaged = 1, kRouteBulk = 2 };
+
+// The bulk plan must cover the geometry with items that fit their stages.
+bool bulk_plan_matches(const BulkArgs& b, const long long* p) {
+  const i64 out_rows = b.n * b.rows;
+  if (p[P_VEC] != 16 || p[P_BLOCKS_PER_ROW] != 0 || p[P_TILE_PIX] != 0 ||
+      p[P_THREADS] != kBulkThreads ||
+      p[P_BLOCKS_PER_SM] < 1 || p[P_BLOCKS_PER_SM] > kMaxBulkBlocksPerSM)
+    return false;
+  if (b.stage_bytes <= 0 || b.stage_bytes > kMaxStageBytes || b.stage_bytes % 128 ||
+      p[P_SMEM] != kBarrierBytes + kStages * b.stage_bytes)
+    return false;
+  if (!divides(16, {b.row_stride, b.off0, b.seg_stride, b.seg_bytes, b.chunk_bytes}))
+    return false;
+  if (b.segs == 1) {
+    if (b.runs_per_chunk != 1 || b.chunk_bytes <= 0 || b.chunk_bytes > b.stage_bytes ||
+        b.chunks_per_row != (b.out_row_bytes + b.chunk_bytes - 1) / b.chunk_bytes)
+      return false;
+  } else {
+    if (b.runs_per_chunk < 1 || b.chunk_bytes != b.runs_per_chunk * b.seg_bytes ||
+        b.chunk_bytes > b.stage_bytes ||
+        b.chunks_per_row != (b.segs + b.runs_per_chunk - 1) / b.runs_per_chunk)
+      return false;
+  }
+  return b.items == out_rows * b.chunks_per_row && p[P_GRID] >= 1 && p[P_GRID] <= b.items &&
+         p[P_GRID] <= 0x7fffffffLL;
+}
+
+int launch_bulk(const BulkArgs& b, const long long* p, cudaStream_t stream) {
+  const int smem = (int)p[P_SMEM];
+  cudaError_t err = cudaFuncSetAttribute(window_copy_bulk_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // the grid must be resident at once: at most blocks_per_sm per SM, and the
+  // card must hold that many
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_copy_bulk_kernel,
+                                                      kBulkThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < p[P_BLOCKS_PER_SM] || p[P_GRID] > (i64)sms * p[P_BLOCKS_PER_SM])
+    return (int)cudaErrorInvalidValue;
+  window_copy_bulk_kernel<<<(unsigned int)p[P_GRID], kBulkThreads, smem, stream>>>(b);
+  return (int)cudaGetLastError();
+}
+
 #define DISPATCH_VEC(vec, CALL)                      \
   switch (vec) {                                     \
     case 16: return CALL(uint4);                     \
@@ -245,16 +470,26 @@ int launch_roll(const void* x, void* out, i64 R, i64 W, i64 pix_bytes, i64 shift
 
 extern "C" {
 
-// the staged variant's shared tile: a pixel (C elements) must fit in it
-int shift_copy_tile_bytes() { return kTileBytes; }
+// The constants ops/shift_copy.py checks against its own: the staged
+// variant's largest tile (a pixel must fit in it), the vector body's threads
+// and unroll, the bulk ring's stages, largest stage, threads, most blocks per
+// SM, barrier bytes and load lag, and the plan's length.
+int shift_copy_constants(long long* out) {
+  const long long c[] = {kTileBytes, kThreads, kUnroll, kStages, kMaxStageBytes,
+                         kBulkThreads, kMaxBulkBlocksPerSM, kBarrierBytes, kLag, P_LEN};
+  for (int i = 0; i < (int)(sizeof(c) / sizeof(c[0])); ++i) out[i] = c[i];
+  return 0;
+}
 
 // out (n, rows, cols, chs) = x[starts[i] + t, col0 + w, ch0 + c], x viewed as
 // (R, W, C) with pixels of pix_bytes and channel offsets given in bytes.
-// ``vec`` must divide both base pointers and every byte quantity. Returns a
-// cudaError (1 = an argument that does not fit the kernel).
+// ``plan``: copy_plan's P_LEN int64s (route, vector width, items, grid,
+// shared memory); a plan that does not fit the geometry or this source's
+// constants is refused. Returns a cudaError (1 = an argument that does not
+// fit the kernel).
 int window_copy(const void* x, const void* starts, int starts_i64, void* out, long long n,
                 long long rows, long long W, long long pix_bytes, long long col0, long long cols,
-                long long ch0_bytes, long long chs_bytes, int staged, int vec, void* stream) {
+                long long ch0_bytes, long long chs_bytes, const long long* plan, void* stream) {
   if (n <= 0 || rows <= 0 || cols <= 0 || chs_bytes <= 0) return 0;
   if (col0 < 0 || col0 + cols > W || ch0_bytes < 0 || ch0_bytes + chs_bytes > pix_bytes)
     return (int)cudaErrorInvalidValue;
@@ -283,19 +518,50 @@ int window_copy(const void* x, const void* starts, int starts_i64, void* out, lo
   }
   a.off0 = col0 * pix_bytes + ch0_bytes;
   a.tile_pix = 0;
-  if (!aligned(x, vec) || !aligned(out, vec) ||
+  const i64 route = plan[P_ROUTE], vec = plan[P_VEC];
+  if (vec < 1 || vec > 16 || (vec & (vec - 1)) || !aligned(x, vec) || !aligned(out, vec) ||
       !divides(vec, {a.row_stride, a.off0, a.seg_stride, a.seg_bytes}))
     return (int)cudaErrorInvalidValue;
-  if (staged) {
-    if (pix_bytes > kTileBytes || !divides(vec, {pix_bytes, ch0_bytes, chs_bytes}))
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == kRouteBulk) {
+    BulkArgs b;
+    b.x = a.x;
+    b.starts = starts;
+    b.out = a.out;
+    b.starts_i64 = starts_i64;
+    b.n = n;
+    b.rows = rows;
+    b.row_stride = a.row_stride;
+    b.out_row_bytes = a.out_row_bytes;
+    b.off0 = a.off0;
+    b.segs = a.segs;
+    b.seg_stride = a.seg_stride;
+    b.seg_bytes = a.seg_bytes;
+    b.chunk_bytes = plan[P_CHUNK_BYTES];
+    b.chunks_per_row = plan[P_CHUNKS_PER_ROW];
+    b.runs_per_chunk = plan[P_RUNS_PER_CHUNK];
+    b.items = plan[P_ITEMS];
+    b.stage_bytes = plan[P_STAGE_BYTES];
+    if (!bulk_plan_matches(b, plan)) return (int)cudaErrorInvalidValue;
+    return launch_bulk(b, plan, st);
+  }
+  if (route != kRouteVector && route != kRouteStaged) return (int)cudaErrorInvalidValue;
+  const bool staged = route == kRouteStaged;
+  if (staged) {  // the plan's tile: whole pixels, at most kTileBytes
+    a.tile_pix = plan[P_TILE_PIX];
+    if (a.tile_pix < 1 || a.tile_pix * pix_bytes > kTileBytes ||
+        !divides(vec, {pix_bytes, ch0_bytes, chs_bytes}))
       return (int)cudaErrorInvalidValue;
-    a.tile_pix = kTileBytes / pix_bytes;
     a.blocks_per_row = (W + a.tile_pix - 1) / a.tile_pix;
   } else {
+    if (plan[P_TILE_PIX] != 0) return (int)cudaErrorInvalidValue;
     a.blocks_per_row = blocks_for(a.out_row_bytes / vec);
   }
-  if (!grid_fits(n * rows, a.blocks_per_row)) return (int)cudaErrorInvalidValue;
-#define CALL_WINDOW(V) launch_window<V>(a, n * rows, staged != 0, (cudaStream_t)stream)
+  if (!grid_fits(n * rows, a.blocks_per_row) || plan[P_BLOCKS_PER_ROW] != a.blocks_per_row ||
+      plan[P_GRID] != n * rows * a.blocks_per_row || plan[P_THREADS] != kThreads ||
+      plan[P_SMEM] != 0)
+    return (int)cudaErrorInvalidValue;
+#define CALL_WINDOW(V) launch_window<V>(a, n * rows, staged, st)
   DISPATCH_VEC(vec, CALL_WINDOW)
 #undef CALL_WINDOW
 }

@@ -1,6 +1,7 @@
 // Fused WBCE loss against virtual disk labels, forward and backward, for
 // Hopper (sm_90a). Plain C interface, loaded with ctypes
-// (tracknetv3_tpu_torch/ops/wbce_disk.py).
+// (tracknetv3_tpu_torch/ops/wbce_disk.py, whose loss_plan computes every
+// size of a forward launch).
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // tracknetv3_tpu/ops/pallas_wbce.py:
@@ -18,29 +19,68 @@
 // scalar. Its clamp masks test exactly the forward's condition (raw
 // log_sigmoid > log 1e-7); so no fast-math expf/logf anywhere.
 //
-// Design. Grid (ceil(H / kRows), L, B): a block owns kRows rows of one
-// (sample, frame) plane, loads its four centers and its weight once, and
-// walks the rows with threads on neighbouring columns (coalesced, no
-// division per element). The forward reduces in each warp, then across the
-// block, writes one partial per block, and a one-block pass sums the
-// partials in a fixed order (double accumulator) and divides by B*L*H*W.
-// No float atomics: the loss is the same from run to run.
-//
 // Bound on the H100 SXM (3.35 TB/s) at the training shape
 // (10, 8, 288, 512): the forward must read the 47.2 MB of logits, so
 // >= 14.1 us; the backward reads them and writes 47.2 MB of dz, so
-// >= 28.2 us. Each element also costs one expf and one log1pf, and the
-// per-element instruction count may make the kernels compute-limited
-// before they reach that bandwidth. This is the simple, right first
-// version; tiling for speed is later work.
+// >= 28.2 us. Each element also costs one IEEE expf, one log1pf and one
+// division, so the instructions each element issues set a second floor
+// (chip_smoke.py counts them in this library's SASS, from the probe
+// kernels at the end of this file).
+//
+// Forward design (K1): one launch.
+// - A fixed partition of the logits into work items of one row of one
+//   (sample, frame) plane (2 KB at W = 512), one float partial per item. The
+//   item count is the shape's, not the card's, so the loss does not depend on
+//   the grid and is the same bits run to run.
+// - A persistent grid (the plan's blocks per SM, of 8 warps) in which every
+//   warp walks its own even contiguous share of the rows: no block barrier
+//   inside the loop, and at B*L*H = 23,040 rows the shares differ by one row
+//   of about eleven.
+// - Two ways in for the logits, the same arithmetic and order. ``ring``: lane
+//   0 of each warp keeps kStages rows of its share in flight as 1-D bulk TMA
+//   copies into the warp's own stages of shared memory (bulk_async.cuh), each
+//   completing on its stage's mbarrier; the lanes read float4 from the stage
+//   and lane 0 refills it once the warp is past it. ``direct``: each lane
+//   issues its kLoadsPerLane 16-byte ld.global.nc loads of the row at once,
+//   then computes. On an H100 ``direct`` at four blocks per SM is the faster
+//   (ops/wbce_disk.py FWD_VARIANT; PERF.md): the loop is bound by the
+//   elements' dependent expf / log1pf / division chains, not by the loads.
+// - Rows no disk touches: where |row - cy| > sigma for both visible centers
+//   (dy * dy > sigma^2, exact in float for integer rows and centers) the
+//   label is 0 on the whole row, and the term is -(p * p * l1mp), bit for bit
+//   what loss_term returns at y = 0; such rows skip the membership math and
+//   raw_lp. The predicate is computed once per row. At sigma 2.5 at most 10
+//   of a plane's 288 rows hold label pixels.
+// - Each row's partial: per-lane float sums in a fixed order (the lane's
+//   float4s in order, the four terms of one in order), then the fixed
+//   warp-shuffle tree. The last block to finish (an int ticket taken after
+//   __threadfence; no float atomics) sums the partials in double, thread t
+//   taking rows t, t + 256, ..., then a fixed tree; divides by B*L*H*W;
+//   resets the ticket for the next launch.
+//
+// Backward (K2): grid (ceil(H / kRows), L, B), a block owns kRows rows of one
+// plane and walks them with threads on neighbouring columns. Not redesigned
+// yet.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;  // rows of one plane per block
+constexpr int kRows = 4;  // K2: rows of one plane per block
+// K1: each warp walks its own rows; ``ring``: a ring of kStages stages of
+// one row per warp (a row of at most kMaxRowBytes), the warps' mbarriers in
+// the first kBarrierBytes; kLoadsPerLane float4s in flight per lane
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;
+constexpr int kMaxRowBytes = 8192;
+constexpr int kMaxBlocksPerSM = 4;
+constexpr int kBarrierBytes = 256;
+constexpr int kLoadsPerLane = 4;
+static_assert(kWarps * kStages * 8 <= kBarrierBytes, "one mbarrier per warp and stage");
 // logf(1e-7) in double, rounded to float: the same constant as the JAX
 // package's jnp.float32(jnp.log(1e-7)).
 constexpr float kLogFloor = -16.118095650958320f;
@@ -95,6 +135,43 @@ __device__ __forceinline__ float loss_term(float z, float y) {
   return -(omp * omp * y * lp + p * p * (1.f - y) * l1mp);
 }
 
+// loss_term(z, 0.f), bit for bit, without the label's side: raw_lp and the
+// (1-p)^2 y log p product are not needed where y is 0.
+__device__ __forceinline__ float loss_term_y0(float z) {
+  const float e = expf(-fabsf(z));
+  const float l1p = log1pf(e);
+  const float raw_l1mp = fminf(-z, 0.f) - l1p;
+  const float p = z >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);
+  const float l1mp = fmaxf(raw_l1mp, kLogFloor);
+  return -(p * p * l1mp);
+}
+
+// Whether row ``row`` of a plane can hold a label pixel: within sigma of a
+// visible center's row. Exact: integer-valued floats, and a squared column
+// distance >= 0 only adds to the squared row distance.
+__device__ __forceinline__ bool label_row(const Targets& t, float row, float sigma2) {
+  const float dya = row - t.cya, dyb = row - t.cyb;
+  return (t.va && dya * dya <= sigma2) || (t.vb && dyb * dyb <= sigma2);
+}
+
+__device__ __forceinline__ float terms4(const Targets& t, float4 v, float row, float col,
+                                        float sigma2, bool lbl) {
+  // added in this order by both ways in: x, y, z, w
+  float s = 0.f;
+  if (lbl) {
+    s += loss_term(v.x, label(t, row, col, sigma2));
+    s += loss_term(v.y, label(t, row, col + 1.f, sigma2));
+    s += loss_term(v.z, label(t, row, col + 2.f, sigma2));
+    s += loss_term(v.w, label(t, row, col + 3.f, sigma2));
+  } else {
+    s += loss_term_y0(v.x);
+    s += loss_term_y0(v.y);
+    s += loss_term_y0(v.z);
+    s += loss_term_y0(v.w);
+  }
+  return s;
+}
+
 __device__ __forceinline__ float grad_term(float z, float y) {
   float p, raw_lp, raw_l1mp;
   sigmoid_logs(z, p, raw_lp, raw_l1mp);
@@ -125,35 +202,126 @@ __device__ __forceinline__ T block_sum(T v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    wbce_disk_fwd_kernel(const float* __restrict__ z, const int* __restrict__ centers,
-                         const float* __restrict__ w, float* __restrict__ partials,
-                         int L, int H, int W, float sigma2) {
-  const int l = blockIdx.y, b = blockIdx.z;
-  const Targets t = load_targets(centers, w, b, l, L);
-  const size_t plane = ((size_t)b * L + l) * (size_t)H * W;
-  const int row0 = blockIdx.x * kRows;
-  const int row1 = min(row0 + kRows, H);
-  float acc = 0.f;
-  for (int r = row0; r < row1; ++r) {
-    const float* zr = z + plane + (size_t)r * W;
-    for (int c = threadIdx.x; c < W; c += kThreads) {
-      acc += loss_term(zr[c], label(t, (float)r, (float)c, sigma2));
-    }
-  }
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[((size_t)b * L + l) * gridDim.x + blockIdx.x] = s;
-  }
+struct FwdArgs {
+  const float* z;
+  const int* centers;
+  const float* w;
+  float* partials;  // one per item: one per row of a plane
+  int* ticket;      // 0 between launches
+  float* loss;
+  int L, H, W;
+  int items;        // B*L*H
+  int stage_bytes;  // one row, rounded up to 128 bytes
+  float sigma2;
+  double count;  // B*L*H*W
+};
+
+__device__ __forceinline__ float4 ld_nc_v4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    wbce_disk_finalize_kernel(const float* __restrict__ partials, int n, float count,
-                              float* __restrict__ loss) {
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < n; i += kThreads) acc += (double)partials[i];
-  const double s = block_sum(acc);
-  if (threadIdx.x == 0) loss[0] = (float)s / count;
+// Sum over a warp; the result is valid in lane 0. The fixed tree of block_sum.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// K1 (see the design note). Each warp walks its own share of the rows;
+// kRing: its rows come through its own ring of kStages stages of one row;
+// else each lane loads its float4s straight to registers. Both add the same
+// terms in the same order, so they give the same bits.
+template <bool kRing>
+__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM) wbce_disk_fwd_kernel(const FwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int is_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long warps = (long long)gridDim.x * kWarps;
+  const long long gw = (long long)blockIdx.x * kWarps + warp;
+  const int begin = (int)(gw * a.items / warps);
+  const int n_items = (int)((gw + 1) * a.items / warps) - begin;
+  const int W4 = a.W / 4;
+  const uint32_t base = bulk::smem_u32(smem);
+  const uint32_t bars = base + warp * kStages * 8;
+  const uint32_t stage0 = base + kBarrierBytes + warp * kStages * a.stage_bytes;
+  const uint32_t row_bytes = (uint32_t)a.W * 4u;
+
+  auto issue = [&](int j) {  // lane 0: the bulk load of local item j
+    const int s = j % kStages;
+    bulk::mbar_arrive_expect_tx(bars + 8 * s, row_bytes);
+    bulk::load(stage0 + (uint32_t)(s * a.stage_bytes), a.z + (size_t)(begin + j) * a.W,
+               row_bytes, bars + 8 * s);
+  };
+  if (kRing) {
+    if (lane == 0) {
+      for (int s = 0; s < kStages; ++s) bulk::mbar_init(bars + 8 * s, 1);
+      bulk::mbar_init_fence();
+      for (int j = 0; j < min(kStages, n_items); ++j) issue(j);
+    }
+    __syncwarp();
+  }
+
+  int plane_of_t = -1;
+  Targets t;
+  for (int j = 0; j < n_items; ++j) {
+    const int item = begin + j;
+    const int plane = item / a.H;
+    if (plane != plane_of_t) {
+      t = load_targets(a.centers, a.w, plane / a.L, plane % a.L, a.L);
+      plane_of_t = plane;
+    }
+    const float row = (float)(item - plane * a.H);
+    const bool lbl = label_row(t, row, a.sigma2);  // once per row
+    const float4* src;
+    if (kRing) {
+      const int s = j % kStages;
+      bulk::mbar_wait(bars + 8 * s, (uint32_t)((j / kStages) & 1));
+      src = reinterpret_cast<const float4*>(smem + kBarrierBytes +
+                                            (warp * kStages + s) * a.stage_bytes);
+    } else {
+      src = reinterpret_cast<const float4*>(a.z + (size_t)item * a.W);
+    }
+    float acc = 0.f;
+    for (int q0 = lane; q0 < W4; q0 += kLoadsPerLane * 32) {
+      float4 v[kLoadsPerLane];
+#pragma unroll
+      for (int u = 0; u < kLoadsPerLane; ++u) {
+        const int q = q0 + 32 * u;
+        if (q < W4) v[u] = kRing ? src[q] : ld_nc_v4(reinterpret_cast<const float*>(src + q));
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsPerLane; ++u) {
+        const int q = q0 + 32 * u;
+        if (q < W4) acc += terms4(t, v[u], row, (float)(4 * q), a.sigma2, lbl);
+      }
+    }
+    const float part = warp_sum(acc);
+    if (lane == 0) a.partials[item] = part;
+    if (kRing) {
+      __syncwarp();  // every lane is past the stage
+      if (lane == 0 && j + kStages < n_items) issue(j + kStages);
+    }
+  }
+
+  // The last block to get here sums the partials.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    is_last = atomicAdd(a.ticket, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  double sum = 0.0;
+  for (int i = threadIdx.x; i < a.items; i += kThreads) sum += (double)__ldcg(a.partials + i);
+  sum = block_sum(sum);
+  if (threadIdx.x == 0) {
+    a.loss[0] = (float)(sum / a.count);
+    *a.ticket = 0;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -177,30 +345,114 @@ __global__ void __launch_bounds__(kThreads)
 
 inline dim3 grid_of(int B, int L, int H) { return dim3((H + kRows - 1) / kRows, L, B); }
 
+// K1's launch plan (ops/wbce_disk.py loss_plan), int64 in this order.
+enum Plan { P_VARIANT, P_ITEMS, P_STAGE_BYTES, P_GRID, P_THREADS, P_SMEM, P_BLOCKS_PER_SM, P_LEN };
+enum Variant { kVariantRing = 0, kVariantDirect = 1 };
+
+bool plan_matches(const long long* p, int B, int L, int H, int W) {
+  const bool ring = p[P_VARIANT] == kVariantRing;
+  if (p[P_VARIANT] != kVariantRing && p[P_VARIANT] != kVariantDirect) return false;
+  if (B <= 0 || L <= 0 || H <= 0 || W <= 0 || W % 4 || p[P_ITEMS] != (long long)B * L * H ||
+      p[P_ITEMS] > 0x7fffffffLL)
+    return false;
+  if (p[P_STAGE_BYTES] != (W * 4LL + 127) / 128 * 128) return false;
+  if (ring && p[P_STAGE_BYTES] > kMaxRowBytes) return false;
+  if (p[P_SMEM] != (ring ? kBarrierBytes + kWarps * kStages * p[P_STAGE_BYTES] : 0)) return false;
+  return p[P_THREADS] == kThreads && p[P_GRID] >= 1 &&
+         p[P_GRID] <= (p[P_ITEMS] + kWarps - 1) / kWarps &&
+         p[P_BLOCKS_PER_SM] >= 1 && p[P_BLOCKS_PER_SM] <= kMaxBlocksPerSM;
+}
+
+template <bool kRing>
+int launch_fwd(const FwdArgs& a, const long long* p, cudaStream_t stream) {
+  const int smem = (int)p[P_SMEM];
+  auto kernel = wbce_disk_fwd_kernel<kRing>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < p[P_BLOCKS_PER_SM] || p[P_GRID] > (long long)sms * p[P_BLOCKS_PER_SM])
+    return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned int)p[P_GRID], kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Probe kernels, never launched: chip_smoke.py counts the SASS instructions
+// of each to read the per-element cost of K1 (a label row, a skipped row)
+// and K2, less the loads, stores and index math that probe_base also has.
+extern "C" __global__ void wbce_probe_base(const float* z, const int* centers, const float* w,
+                                           float* out) {
+  const Targets t = load_targets(centers, w, 0, 0, 1);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = z[i] * t.wa;
+}
+
+extern "C" __global__ void wbce_probe_fwd_label(const float* z, const int* centers,
+                                                const float* w, float* out, float sigma2) {
+  const Targets t = load_targets(centers, w, 0, 0, 1);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = loss_term(z[i], label(t, (float)blockIdx.x, (float)threadIdx.x, sigma2)) * t.wa;
+}
+
+extern "C" __global__ void wbce_probe_fwd_skip(const float* z, const int* centers,
+                                               const float* w, float* out) {
+  const Targets t = load_targets(centers, w, 0, 0, 1);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = loss_term_y0(z[i]) * t.wa;
+}
+
+extern "C" __global__ void wbce_probe_bwd(const float* z, const int* centers, const float* w,
+                                          float* out, float sigma2) {
+  const Targets t = load_targets(centers, w, 0, 0, 1);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = grad_term(z[i], label(t, (float)blockIdx.x, (float)threadIdx.x, sigma2)) * t.wa;
+}
 
 extern "C" {
 
-// Number of float partials the forward needs as scratch.
-int wbce_disk_num_partials(int B, int L, int H) {
-  const dim3 g = grid_of(B, L, H);
-  return (int)(g.x * g.y * g.z);
+// K1's constants, which ops/wbce_disk.py checks against its own: threads,
+// stages, the largest ring row, the most blocks per SM, the barrier bytes,
+// the plan's length.
+int wbce_disk_constants(long long* out) {
+  out[0] = kThreads;
+  out[1] = kStages;
+  out[2] = kMaxRowBytes;
+  out[3] = kMaxBlocksPerSM;
+  out[4] = kBarrierBytes;
+  out[5] = P_LEN;
+  return 0;
 }
 
-// loss[0] = mean clamped WBCE; partials: wbce_disk_num_partials() floats.
-int wbce_disk_forward(const float* z, const int* centers, const float* w,
-                      float* partials, float* loss, int B, int L, int H, int W,
-                      float sigma, void* stream) {
+// loss[0] = mean clamped WBCE, in one launch. partials: plan[P_ITEMS] = B*L*H
+// floats; ticket: one int, 0 before the launch and again after it.
+int wbce_disk_forward(const float* z, const int* centers, const float* w, float* partials,
+                      int* ticket, float* loss, int B, int L, int H, int W, float sigma,
+                      const long long* plan, void* stream) {
+  if (!plan_matches(plan, B, L, H, W) || ((uintptr_t)z % 16)) return (int)cudaErrorInvalidValue;
+  FwdArgs a;
+  a.z = z;
+  a.centers = centers;
+  a.w = w;
+  a.partials = partials;
+  a.ticket = ticket;
+  a.loss = loss;
+  a.L = L;
+  a.H = H;
+  a.W = W;
+  a.items = (int)plan[P_ITEMS];
+  a.stage_bytes = (int)plan[P_STAGE_BYTES];
+  a.sigma2 = sigma * sigma;
+  a.count = (double)B * L * H * W;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = grid_of(B, L, H);
-  const float count = (float)((long long)B * L * H * W);
-  wbce_disk_fwd_kernel<<<grid, kThreads, 0, s>>>(z, centers, w, partials, L, H, W,
-                                                 sigma * sigma);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wbce_disk_finalize_kernel<<<1, kThreads, 0, s>>>(
-      partials, (int)(grid.x * grid.y * grid.z), count, loss);
-  return (int)cudaGetLastError();
+  return plan[P_VARIANT] == kVariantRing ? launch_fwd<true>(a, plan, s)
+                                         : launch_fwd<false>(a, plan, s);
 }
 
 // dz (B, L, H, W) = dL/dz * g[0] / (B*L*H*W).

@@ -2,8 +2,9 @@
 
 Each source in ``tracknetv3_tpu_torch/csrc/`` has a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
-repository's ``build/`` directory, named by a hash of the source and the
-flags, at its first use in a process. The library is loaded with
+repository's ``build/`` directory, named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, at its first use in a
+process. The library is loaded with
 ``ctypes``. A missing ``nvcc`` or a failed build raises.
 
 No ``--use_fast_math``: the WBCE backward's clamp masks must test exactly
@@ -13,6 +14,7 @@ the forward's condition, and approximate ``expf``/``logf`` move it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +24,8 @@ from typing import Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# the H100's shared memory per SM; each resident block takes 1 KB more of it
+SMEM_PER_SM = 233_472
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -39,6 +43,8 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = (CSRC_DIR / source).read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
@@ -67,3 +73,11 @@ def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and load it; each kernel module
     keeps the loaded library for the life of the process."""
     return ctypes.CDLL(str(build(source)[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device) -> int:
+    """The card's SM count, which sizes the persistent grids."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -23,7 +23,11 @@ All three are copies: every bit of an element is kept, whatever its type
 (any dtype of 1, 2 or 4 bytes). The kernels work in bytes with the widest
 vector (16 down to 1 byte) that divides every pointer, stride, offset and
 extent of the launch; ``vector_bytes`` chooses it here, where the CPU tests
-reach it.
+reach it. ``copy_plan`` chooses ``window_copy``'s route from the launch's
+geometry and computes every size the launch passes in: ``"bulk"`` where
+every run, pointer and stride is a multiple of 16 bytes (a persistent grid
+walking chunks of output rows through a ring of 1-D bulk TMA copies),
+``"staged"`` where asked, ``"vector"`` otherwise.
 
 On a CPU tensor each wrapper returns its plain version (``*_plain``: torch
 indexing, ``repeat_interleave``, ``torch.roll``); on a CUDA tensor it
@@ -36,6 +40,7 @@ device table back would put a synchronisation into the train step.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -47,7 +52,20 @@ from . import cuda_build
 
 SOURCE = "shift_copy.cu"
 LAUNCHES = {"window_copy": 0, "repeat_rows": 0, "roll_cols": 0}
-TILE_BYTES = 32768  # the staged variant's shared tile (kTileBytes of the source)
+TILE_BYTES = 32768  # the staged variant's largest shared tile (kTileBytes of the source)
+THREADS, UNROLL = 256, 4  # the vector body: a block copies THREADS * UNROLL vectors
+# the bulk route (the source's constants): a ring of STAGES stages of at most
+# MAX_STAGE_BYTES, loads issued LAG items ahead, one-warp blocks, at most
+# MAX_BULK_BLOCKS_PER_SM of them per SM, the stages' mbarriers in the first
+# BARRIER_BYTES of shared memory
+STAGES, LAG, MAX_STAGE_BYTES = 4, 3, 24576
+BULK_THREADS, MAX_BULK_BLOCKS_PER_SM, BARRIER_BYTES = 32, 4, 128
+MIN_CHUNK_BYTES = 4096  # a small copy's chunks shrink to spread it, down to this
+ROUTES = {"vector": 0, "staged": 1, "bulk": 2}  # enum Route of the source
+# the order of the plan's int64s that the C entry point reads (enum Plan)
+PLAN_FIELDS = ("route", "vec", "blocks_per_row", "tile_pix", "chunk_bytes", "chunks_per_row",
+               "runs_per_chunk", "items", "stage_bytes", "grid", "threads", "smem_bytes",
+               "blocks_per_sm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,15 +76,19 @@ _LL = ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     """Build (at first use), load and type the kernels' C entry points."""
     lib = cuda_build.load(SOURCE)
-    lib.shift_copy_tile_bytes.argtypes = []
-    lib.shift_copy_tile_bytes.restype = _I
-    lib.window_copy.argtypes = [_P, _P, _I, _P] + [_LL] * 8 + [_I, _I, _P]
+    lib.shift_copy_constants.argtypes = [_P]
+    lib.shift_copy_constants.restype = _I
+    lib.window_copy.argtypes = [_P, _P, _I, _P] + [_LL] * 8 + [_P, _P]
     lib.repeat_rows.argtypes = [_P, _P, _LL, _LL, _LL, _I, _P]
     lib.roll_cols.argtypes = [_P, _P, _LL, _LL, _LL, _LL, _I, _P]
     for fn in (lib.window_copy, lib.repeat_rows, lib.roll_cols):
         fn.restype = _I
-    if lib.shift_copy_tile_bytes() != TILE_BYTES:
-        raise RuntimeError("csrc/shift_copy.cu and ops/shift_copy.py disagree on the tile size")
+    ours = (TILE_BYTES, THREADS, UNROLL, STAGES, MAX_STAGE_BYTES, BULK_THREADS,
+            MAX_BULK_BLOCKS_PER_SM, BARRIER_BYTES, LAG, len(PLAN_FIELDS))
+    consts = (ctypes.c_longlong * len(ours))()
+    lib.shift_copy_constants(consts)
+    if tuple(consts) != ours:
+        raise RuntimeError("csrc/shift_copy.cu and ops/shift_copy.py disagree on their constants")
     return lib
 
 
@@ -140,13 +162,22 @@ class WindowGeometry(NamedTuple):
     chs_bytes: int
     out_shape: Tuple[int, ...]
 
+    def runs(self) -> Tuple[int, int, int, int]:
+        """An output row as contiguous source runs: (segs, seg_bytes,
+        seg_stride, off0): ``segs`` runs of ``seg_bytes``, the s-th at byte
+        ``off0 + s * seg_stride`` of the source row. Whole pixels are one run;
+        a channel range is one run per pixel."""
+        off0 = self.col0 * self.pix_bytes + self.ch0_bytes
+        if self.chs_bytes == self.pix_bytes:
+            return 1, self.cols * self.pix_bytes, 0, off0
+        return self.cols, self.chs_bytes, self.pix_bytes, off0
+
     def byte_quantities(self, staged: bool) -> Tuple[int, ...]:
         """What the vector width must divide (beside the base pointers)."""
-        whole = self.chs_bytes == self.pix_bytes
-        seg_bytes = self.cols * self.pix_bytes if whole else self.chs_bytes
-        q = (self.W * self.pix_bytes, self.col0 * self.pix_bytes + self.ch0_bytes, seg_bytes)
-        if not whole:
-            q += (self.pix_bytes,)
+        segs, seg_bytes, seg_stride, off0 = self.runs()
+        q = (self.W * self.pix_bytes, off0, seg_bytes)
+        if segs > 1:
+            q += (seg_stride,)
         if staged:
             q += (self.pix_bytes, self.ch0_bytes, self.chs_bytes)
         return q
@@ -172,6 +203,93 @@ def window_geometry(shape: Tuple[int, ...], element_size: int, n: int, rows: int
                          f"{tuple(shape)}")
     return WindowGeometry(W, C * element_size, col0, cols, ch0 * element_size,
                           chs * element_size, out_shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class CopyPlan:
+    """``window_copy``'s launch: its route and every size the C entry point
+    checks. ``vector`` / ``staged``: ``blocks_per_row`` blocks of THREADS per
+    output row (``staged``: each slices a tile of ``tile_pix`` pixels).
+    ``bulk``: ``items`` work items, each ``chunk_bytes`` of an
+    output row (``runs_per_chunk`` runs of a channel range), walked by a grid
+    of ``grid`` one-warp blocks in even contiguous shares."""
+
+    route: str
+    vec: int
+    blocks_per_row: int = 0
+    tile_pix: int = 0
+    chunk_bytes: int = 0
+    chunks_per_row: int = 0
+    runs_per_chunk: int = 0
+    items: int = 0
+    stage_bytes: int = 0
+    grid: int = 0
+    threads: int = THREADS
+    smem_bytes: int = 0
+    blocks_per_sm: int = 0
+
+    def as_array(self) -> np.ndarray:
+        v = dataclasses.asdict(self)
+        v["route"] = ROUTES[self.route]
+        return np.array([v[f] for f in PLAN_FIELDS], dtype=np.int64)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def copy_plan(g: WindowGeometry, n: int, rows: int, staged: bool, x_ptr: int, out_ptr: int,
+              num_sms: int) -> CopyPlan:
+    """The route and sizes of one ``window_copy`` launch of ``n`` windows of
+    ``rows`` rows, from its geometry and base pointers alone.
+
+    - ``staged``: a shared tile of up to TILE_BYTES holds whole pixels of a
+      row; as few pixels as give the grid about four blocks per SM.
+    - ``bulk``: every run, pointer and stride a multiple of 16 bytes (and a
+      channel range's run within a stage). An item is a chunk of one output
+      row: up to MAX_STAGE_BYTES, smaller for a small copy so that two
+      blocks per SM get two items each, but not below MIN_CHUNK_BYTES; a
+      channel range's chunk is whole runs. As many blocks per SM as the
+      ring's shared memory lets reside, up to MAX_BULK_BLOCKS_PER_SM.
+    - ``vector``: everything else, with the widest vector that divides it all.
+    """
+    out_rows = n * rows
+    if out_rows < 1:
+        raise ValueError(f"no rows to copy: {n} windows of {rows} rows")
+    segs, seg_bytes, _, _ = g.runs()
+    out_row_bytes = g.cols * g.chs_bytes
+    vec = vector_bytes(x_ptr, out_ptr, *g.byte_quantities(staged))
+    if staged:
+        if g.pix_bytes > TILE_BYTES:
+            raise ValueError(f"staged needs a pixel of at most {TILE_BYTES} bytes, got "
+                             f"{g.pix_bytes} (a whole-row copy is one pixel)")
+        want_bpr = -(-4 * num_sms // out_rows)
+        tile_pix = max(1, min(TILE_BYTES // g.pix_bytes, -(-g.W // want_bpr)))
+        bpr = -(-g.W // tile_pix)
+        plan = CopyPlan("staged", vec, blocks_per_row=bpr, tile_pix=tile_pix,
+                        grid=out_rows * bpr)
+    elif vec == 16 and (segs == 1 or seg_bytes <= MAX_STAGE_BYTES):
+        target = _round_up(-(-out_rows * out_row_bytes // (4 * num_sms)), 16)
+        target = min(MAX_STAGE_BYTES, max(MIN_CHUNK_BYTES, target))
+        if segs == 1:
+            rpc, chunk = 1, min(target, out_row_bytes)
+            cpr = -(-out_row_bytes // chunk)
+        else:
+            rpc = max(1, min(segs, target // seg_bytes))
+            chunk, cpr = rpc * seg_bytes, -(-segs // rpc)
+        items = out_rows * cpr
+        stage = _round_up(chunk, 128)
+        smem = BARRIER_BYTES + STAGES * stage
+        per_sm = min(MAX_BULK_BLOCKS_PER_SM, cuda_build.SMEM_PER_SM // (smem + 1024))
+        plan = CopyPlan("bulk", 16, chunk_bytes=chunk, chunks_per_row=cpr, runs_per_chunk=rpc,
+                        items=items, stage_bytes=stage, grid=min(items, num_sms * per_sm),
+                        threads=BULK_THREADS, smem_bytes=smem, blocks_per_sm=per_sm)
+    else:
+        bpr = -(-(out_row_bytes // vec) // (THREADS * UNROLL))
+        plan = CopyPlan("vector", vec, blocks_per_row=bpr, grid=out_rows * bpr)
+    if plan.grid > 0x7FFFFFFF:
+        raise ValueError(f"{plan.grid} blocks do not fit one launch's grid")
+    return plan
 
 
 def _check_starts_tensor(x: torch.Tensor, starts: torch.Tensor) -> None:
@@ -210,18 +328,17 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, rows: int, col0: int = 0,
     check_kernel_input(x)
     n = starts.shape[0]
     g = window_geometry(tuple(x.shape), x.element_size(), n, rows, col0, cols, ch0, chs)
-    if staged and g.pix_bytes > TILE_BYTES:
-        raise ValueError(f"staged needs a pixel of at most {TILE_BYTES} bytes, got "
-                         f"{g.pix_bytes} (a whole-row copy is one pixel)")
     out = torch.empty(g.out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = vector_bytes(x.data_ptr(), out.data_ptr(), *g.byte_quantities(staged))
+    plan = copy_plan(g, n, rows, staged, x.data_ptr(), out.data_ptr(),
+                     cuda_build.num_sms(x.device))
+    arr = plan.as_array()
     with torch.cuda.device(x.device):
         err = _lib().window_copy(
             x.data_ptr(), starts.data_ptr(), int(starts.dtype == torch.int64), out.data_ptr(),
             n, rows, g.W, g.pix_bytes, g.col0, g.cols, g.ch0_bytes, g.chs_bytes,
-            int(staged), vec, _stream(x),
+            arr.ctypes.data, _stream(x),
         )
     _raise_on(err, "window_copy")
     LAUNCHES["window_copy"] += 1

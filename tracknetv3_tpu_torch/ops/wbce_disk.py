@@ -18,14 +18,25 @@ of the permuted sample, w = lambda) and frame mixup (two carried centers).
 runs ``wbce_disk_loss_plain`` (``make_heatmaps`` + ``wbce_from_logits``);
 on a CUDA tensor it launches the kernels or raises. ``LAUNCHES`` counts
 the launches of each direction.
+
+The forward (K1) is one launch of a persistent grid whose warps walk a
+fixed partition of the logits into rows (``loss_plan``): one float partial
+per row, summed in double by the last block to finish, so the loss is the
+same bits from run to run and does not depend on the card. Its scratch (the
+partials and the last block's ticket) is kept per device and stream. The
+logits reach a warp either through its ring of bulk TMA copies in shared
+memory (``"ring"``) or by 16-byte loads straight to registers
+(``"direct"``); both add the same terms in the same order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SIGMA
@@ -35,6 +46,18 @@ from .losses import wbce_from_logits
 
 SOURCE = "wbce_disk.cu"
 LAUNCHES = {"fwd": 0, "bwd": 0}
+# K1's constants (csrc/wbce_disk.cu): threads per block (8 warps), ring
+# stages per warp, the longest row the ring takes, the most blocks per SM
+# (the launch bounds), the warps' mbarriers' bytes before the stages
+THREADS, STAGES, MAX_ROW_BYTES, MAX_BLOCKS_PER_SM, BARRIER_BYTES = 256, 3, 8192, 4, 256
+WARPS = THREADS // 32
+VARIANTS = {"ring": 0, "direct": 1}  # enum Variant of the source
+# the faster way in and grid on the H100 (chip_smoke.py kernel_times, PERF.md)
+FWD_VARIANT = "direct"
+FWD_BLOCKS_PER_SM = 4
+# the order of the plan's int64s that the C entry point reads (enum Plan)
+PLAN_FIELDS = ("variant", "items", "stage_bytes", "grid", "threads", "smem_bytes",
+               "blocks_per_sm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,13 +67,87 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     """Build (at first use), load and type the kernels' C entry points."""
     lib = cuda_build.load(SOURCE)
-    lib.wbce_disk_num_partials.argtypes = [_I, _I, _I]
-    lib.wbce_disk_num_partials.restype = _I
-    sig = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]
+    lib.wbce_disk_constants.argtypes = [_P]
+    lib.wbce_disk_constants.restype = _I
+    lib.wbce_disk_forward.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P, _P]
+    lib.wbce_disk_backward.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
     for fn in (lib.wbce_disk_forward, lib.wbce_disk_backward):
-        fn.argtypes = sig
         fn.restype = _I
+    consts = (ctypes.c_longlong * 6)()
+    lib.wbce_disk_constants(consts)
+    if tuple(consts) != (THREADS, STAGES, MAX_ROW_BYTES, MAX_BLOCKS_PER_SM, BARRIER_BYTES,
+                         len(PLAN_FIELDS)):
+        raise RuntimeError("csrc/wbce_disk.cu and ops/wbce_disk.py disagree on their constants")
     return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class LossPlan:
+    """K1's launch: ``items`` work items, one per row of a (sample, frame)
+    plane, walked by the ``grid * WARPS`` warps in even contiguous shares;
+    a row's stage in the ring and the block's shared memory."""
+
+    variant: str
+    items: int
+    stage_bytes: int
+    grid: int
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    def as_array(self) -> np.ndarray:
+        v = dataclasses.asdict(self)
+        v["variant"] = VARIANTS[self.variant]
+        return np.array([v[f] for f in PLAN_FIELDS], dtype=np.int64)
+
+    def warp_items(self, gw: int) -> range:
+        """The rows warp ``gw`` of the grid walks, as the kernel computes them."""
+        warps = self.grid * WARPS
+        return range(gw * self.items // warps, (gw + 1) * self.items // warps)
+
+
+def loss_plan(B: int, L: int, H: int, W: int, num_sms: int, variant: str = FWD_VARIANT,
+              blocks_per_sm: int = FWD_BLOCKS_PER_SM) -> LossPlan:
+    """K1's partition and grid. An item is one row of one plane: B*L*H
+    items, a count that depends on the shape alone, so the loss does not
+    depend on the card. The grid is ``num_sms * blocks_per_sm`` blocks (no
+    more than the ring's shared memory lets reside), or one warp per row
+    where there are fewer rows. Raises where no launch fits:
+    W not a multiple of 4 (16-byte rows for the bulk copies and the float4
+    loads), a row longer than MAX_ROW_BYTES for the ring."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got {variant!r}")
+    if min(B, L, H, W) < 1:
+        raise ValueError(f"empty logits {(B, L, H, W)}")
+    if not 1 <= blocks_per_sm <= MAX_BLOCKS_PER_SM:
+        raise ValueError(f"blocks_per_sm must be in [1, {MAX_BLOCKS_PER_SM}], got {blocks_per_sm}")
+    if W % 4:
+        raise ValueError(f"the forward kernel needs W a multiple of 4, got {W}")
+    stage = -(-4 * W // 128) * 128
+    if variant == "ring" and stage > MAX_ROW_BYTES:
+        raise ValueError(f"the ring takes rows of at most {MAX_ROW_BYTES // 4} logits, got {W}")
+    items = B * L * H
+    smem = BARRIER_BYTES + WARPS * STAGES * stage if variant == "ring" else 0
+    if smem:  # no more blocks than the rings' shared memory lets reside
+        blocks_per_sm = min(blocks_per_sm, cuda_build.SMEM_PER_SM // (smem + 1024))
+    grid = min(num_sms * blocks_per_sm, -(-items // WARPS))
+    return LossPlan(variant, items, stage, grid, THREADS, smem, blocks_per_sm)
+
+
+# (device index, stream) -> (partials, ticket): K1's scratch. The ticket is
+# 0 between launches (the last block resets it); launches on one stream run
+# in order, so they may share it.
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, stream: int, items: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    have = _SCRATCH.get(key)
+    if have is None or have[0].numel() < items:
+        have = (torch.empty(items, dtype=torch.float32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        _SCRATCH[key] = have
+    return have
 
 
 def _check(z: torch.Tensor, centers: torch.Tensor, w: torch.Tensor) -> None:
@@ -77,18 +174,25 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def wbce_disk_forward(z: torch.Tensor, centers: torch.Tensor, w: torch.Tensor,
-                      sigma: float = SIGMA) -> torch.Tensor:
-    """Kernel K1: mean WBCE of ``z`` (B, L, H, W) -> 0-d float32 tensor."""
+                      sigma: float = SIGMA, variant: str = FWD_VARIANT,
+                      blocks_per_sm: int = FWD_BLOCKS_PER_SM) -> torch.Tensor:
+    """Kernel K1: mean WBCE of ``z`` (B, L, H, W) -> 0-d float32 tensor, in
+    one launch (``variant``: how the logits reach a warp; ``blocks_per_sm``:
+    the grid's blocks per SM). The loss's bits do not depend on either."""
     _check(z, centers, w)
+    if z.data_ptr() % 16:
+        raise ValueError("the forward kernel needs 16-byte aligned logits")
     B, L, H, W = z.shape
-    lib = _lib()
-    partials = torch.empty(lib.wbce_disk_num_partials(B, L, H), device=z.device)
+    plan = loss_plan(B, L, H, W, cuda_build.num_sms(z.device), variant, blocks_per_sm)
+    arr = plan.as_array()
     loss = torch.empty((), device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.wbce_disk_forward(
+        partials, ticket = _scratch(z.device, stream, plan.items)
+        err = _lib().wbce_disk_forward(
             z.data_ptr(), centers.data_ptr(), w.data_ptr(), partials.data_ptr(),
-            loss.data_ptr(), B, L, H, W, float(sigma), stream,
+            ticket.data_ptr(), loss.data_ptr(), B, L, H, W, float(sigma), arr.ctypes.data,
+            stream,
         )
     _raise_on(err, "wbce_disk_forward")
     LAUNCHES["fwd"] += 1
@@ -143,11 +247,18 @@ def wbce_disk_loss_plain(logits: torch.Tensor, cxcy2: torch.Tensor, w: torch.Ten
     """The kernels' function from plain ops: materialised blended labels
     (``make_heatmaps``) and ``wbce_from_logits``, differentiated by autograd."""
     B, H, W, L = logits.shape
+    return wbce_from_logits(logits, disk_labels_plain(cxcy2, w, H, W, sigma))
+
+
+def disk_labels_plain(cxcy2: torch.Tensor, w: torch.Tensor, H: int, W: int,
+                      sigma: float = SIGMA) -> torch.Tensor:
+    """The blended two-disk labels the kernels build on the fly, materialised:
+    (B, H, W, L) float32."""
+    B, L = cxcy2.shape[0], cxcy2.shape[-1]
     map_a = make_heatmaps(cxcy2[:, 0, 0], cxcy2[:, 0, 1], H, W, sigma)  # (B, L, H, W)
     map_b = make_heatmaps(cxcy2[:, 1, 0], cxcy2[:, 1, 1], H, W, sigma)
     wa = w.reshape(B, L, 1, 1).float()
-    y = map_a * wa + map_b * (1.0 - wa)
-    return wbce_from_logits(logits, y.movedim(1, -1))
+    return (map_a * wa + map_b * (1.0 - wa)).movedim(1, -1)
 
 
 def wbce_disk_loss(logits: torch.Tensor, cxcy2: torch.Tensor, w: torch.Tensor,

@@ -48,7 +48,7 @@ from .training.steps import make_tracknet_train_step, sample_mixup_params
 
 _CATEGORIES = (
     # the kernels of csrc/shift_copy.cu; first: their names hold "copy" too
-    ("copy_kernels", ("window_copy_kernel", "repeat_rows_kernel", "roll_cols_kernel")),
+    ("copy_kernels", ("window_copy", "repeat_rows_kernel", "roll_cols_kernel")),
     ("loss_kernels", ("wbce_disk",)),
     ("batchnorm", ("bn_stats", "bn_relu")),  # the kernels of csrc/batchnorm.cu
     ("conv3x3", ("conv3x3_",)),  # the kernels of csrc/conv3x3.cu
@@ -259,6 +259,12 @@ def main(argv=None) -> dict:
         "peak_mem_bytes": peak,
         "ms_per_step_by_category": {k: v / 1e3 / n for k, v in sorted(by_cat.items())},
         "top_kernels": _top(by_kernel, n),
+        # the loss and copy kernels one by one: device launches per step
+        # (K1 is one launch per forward, K2 one per backward)
+        "loss_and_copy_kernels": [
+            {"name": k[:120], "ms_per_step": v[0] / 1e3 / n, "launches_per_step": v[1] / n}
+            for k, v in sorted(by_kernel.items())
+            if _category(k) in ("loss_kernels", "copy_kernels")],
     }
     print(json.dumps(out), flush=True)
     return out
