@@ -18,19 +18,19 @@ exits nonzero.
    sm_90a, one process per source, all at once), timed; the count of
    ``HGMMA`` (wgmma), ``UTMALDG`` / ``UTMASTG`` (TMA) and ``SYNCS``
    (mbarrier) instructions in the conv library's SASS, and of ``UBLKCP``
-   (1-D bulk copies) and ``SYNCS`` in the copy and loss libraries', which
-   must not be 0;
+   (1-D bulk copies) and ``SYNCS`` in the copy library's, which must not
+   be 0;
 3. kernel vs plain at the main-path shape (10, 288, 512, 8), plain and
    mixup targets, logits reaching the clamp, and mixup targets on logits
    that peak on the label disks: loss relative error <= 1e-5, max |dz -
    dz_plain| <= 1e-5 * max |dz_plain|; K1 gives the same loss bits in four
-   calls and through both ways in (``ring``, ``direct``); two wrong K1
-   forwards emulated from the plain version (the last item's partial
-   dropped, every label row skipped) must fail the 1e-5 bound on the peaked
-   logits; kernel_times: median kernel and plain times of K1 (each way in at
-   2-4 blocks per SM) and K2 beside each kernel's bound, the larger of the
-   bytes at 3.35 TB/s and the SASS instructions per element (read from the
-   probe kernels of ``csrc/wbce_disk.cu``) at the issue rate of the SM clock
+   calls; two wrong K1 forwards emulated from the plain version (the last
+   item's partial dropped, every label row skipped) must fail the 1e-5
+   bound on the peaked logits; kernel_times: median kernel and plain times
+   of K1 and K2 beside each kernel's bound, the larger of the bytes at 3.35
+   TB/s and the arithmetic instructions per element (read from the probe
+   kernels of ``csrc/wbce_disk.cu``'s SASS, moves, convergence markers and
+   uniform index math left out) at the issue rate of the SM clock
    ``nvidia-smi`` reads;
 4. bn_vs_plain: the four BatchNorm + ReLU kernels (P4 statistics, P5
    normalise + ReLU, the backward's reduce and apply) against their plain
@@ -139,7 +139,8 @@ conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
-tree's and times the two in turns (old, new, new, old).
+tree's and times the two in turns (old, new, new, old), with the host time
+of a call of each forward or copy wrapper beside.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -220,6 +221,25 @@ def time_launches(fn, n: int = 30, windows: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def host_us_per_call(fn, n: int = 200, windows: int = 5) -> float:
+    """Host time of one call in us, the median over ``windows`` windows of
+    ``n`` calls, while the card spins so that no call waits for it: what a
+    wrapper adds to the host's side of a step."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        per_call.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
 def bound_ms(n_bytes: int, n_ops: int, peak: float = F32_FLOPS):
     """Least time on the card for the work: (ms, what bounds it); ``peak``
     is the card's rate for the operations' type."""
@@ -274,16 +294,14 @@ def phase_build(baseline=None):
                                "max_spill_bytes": max(spills, default=0)}
     path = {mod: p for mod, (p, _) in zip(modules, builds)}
     sass = {"conv3x3": _sass_counts(path[conv3x3], ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")),
-            "shift_copy": _sass_counts(path[shift_copy], BULK_OPCODES),
-            "wbce_disk": _sass_counts(path[wbce_disk], BULK_OPCODES)}
+            "shift_copy": _sass_counts(path[shift_copy], BULK_OPCODES)}
     emit({"phase": "build", "nvcc": "one process per source, all at once",
           "seconds": round(seconds, 3), "sources": sources,
           **{f"{k}_sass": v for k, v in sass.items()}})
-    # the copy ring and K1's ring are built from bulk copies and mbarriers
-    for lib in ("shift_copy", "wbce_disk"):
-        counts = sass[lib]
-        if isinstance(counts, dict) and not all(counts[op] > 0 for op in BULK_OPCODES):
-            fail("build", f"{lib}: no bulk-copy or mbarrier instruction in its SASS: {counts}")
+    # the copy ring is built from bulk copies and mbarriers
+    counts = sass["shift_copy"]
+    if isinstance(counts, dict) and not all(counts[op] > 0 for op in BULK_OPCODES):
+        fail("build", f"shift_copy: no bulk-copy or mbarrier instruction in its SASS: {counts}")
     if baseline is not None:  # the parent tree's copy and loss kernels, built before timing
         for mod in baseline:
             mod._lib()
@@ -395,12 +413,30 @@ def _sass_functions(library):
     return funcs
 
 
+# SASS opcodes that are not arithmetic the loss needs: register moves (the
+# compiler re-materialises constants per element), convergence markers and
+# branches, loads, stores, constant and special-register reads. Opcodes of
+# the uniform datapath (U...: index and parameter math) are left out too.
+NOT_ARITHMETIC = ("MOV", "IMAD.MOV", "MOV32I", "BSSY", "BSYNC", "BRA", "BRX", "CALL", "RET",
+                  "EXIT", "WARPSYNC", "NOP", "BAR", "S2R", "CS2R", "S2UR", "R2UR", "LDC", "LDG",
+                  "STG", "LDS", "STS", "LD", "ST")
+
+
+def _arithmetic(op: str) -> bool:
+    return not op.startswith("U") and not any(
+        op == x or op.startswith(x + ".") for x in NOT_ARITHMETIC)
+
+
 def _per_element_instructions():
     """SASS instructions per element of K1 (on a label row and on a skipped
-    row) and of K2, from the probe kernels of csrc/wbce_disk.cu: each probe's
-    straight path less ``wbce_probe_base``'s (its loads, stores and index
-    math), plus 1 (K1's accumulating add, K2's scale). MUFU: the
-    quarter-rate special-function instructions among them."""
+    row) and of K2, from the probe kernels of csrc/wbce_disk.cu: the
+    arithmetic on each probe's straight path less ``wbce_probe_base``'s (its
+    index math), plus 1 (K1's accumulating add, K2's scale). Beside it the
+    whole straight path counted the same way (``straight_path``), the
+    opcodes left out (``left_out``) and the MUFU among the arithmetic (the
+    quarter-rate special-function instructions)."""
+    from collections import Counter
+
     from tracknetv3_tpu_torch.ops import cuda_build, wbce_disk
 
     funcs = _sass_functions(cuda_build.library_path(wbce_disk.SOURCE))
@@ -413,9 +449,14 @@ def _per_element_instructions():
         ops = funcs.get(probe)
         if ops is None or base is None:
             return None
-        counts[key] = {"instructions": len(ops) - len(base) + 1,
-                       "mufu": sum(op.startswith("MUFU") for op in ops)
-                       - sum(op.startswith("MUFU") for op in base)}
+        arith = Counter(op for op in ops if _arithmetic(op))
+        arith.subtract(op for op in base if _arithmetic(op))
+        counts[key] = {"arithmetic": sum(arith.values()) + 1,
+                       "straight_path": len(ops) - len(base) + 1,
+                       "mufu": sum(v for op, v in arith.items() if op.startswith("MUFU")),
+                       "arithmetic_opcodes": {op: v for op, v in sorted(arith.items()) if v},
+                       "left_out": dict(sorted(Counter(
+                           op for op in ops if not _arithmetic(op)).items()))}
     return counts
 
 
@@ -474,9 +515,7 @@ def phase_kernels(baseline=None):
         loss_p = wd.wbce_disk_loss_plain(b, cxcy2, w)
         loss_p.backward()
         centers, wf = wd.flatten_targets(cxcy2, w)
-        # the other way in, and three calls of the default on one input
-        other = "direct" if wd.FWD_VARIANT == "ring" else "ring"
-        loss_o = wd.wbce_disk_forward(z, centers, wf, variant=other)
+        # three more calls on one input
         repeats = [wd.wbce_disk_forward(z, centers, wf) for _ in range(3)]
         wrong = {k: float(_wrong_k1(k, z, cxcy2, w))
                  for k in ("last_item_dropped", "label_rows_skipped")}
@@ -486,13 +525,11 @@ def phase_kernels(baseline=None):
         dz_err = float((a.grad - b.grad).abs().max())
         dz_max = float(b.grad.abs().max())
         bits = [int(t.view(torch.int32)) for t in [loss_k.detach(), *repeats]]
-        other_bits = int(loss_o.view(torch.int32))
         wrong_rel = {k: abs(v - lp) / abs(lp) for k, v in wrong.items()}
         emit({"phase": "kernel_vs_plain", "targets": name, "loss_kernel": lk,
               "loss_plain": lp, "loss_rel_err": rel, "dz_max_abs_err": dz_err,
               "dz_plain_max": dz_max, "clamped_share": clamp_share,
-              "fwd_variant": wd.FWD_VARIANT, "loss_bits_4_calls": bits,
-              f"{other}_equal_bits": other_bits == bits[0], "wrong_rel_err": wrong_rel,
+              "loss_bits_4_calls": bits, "wrong_rel_err": wrong_rel,
               "label_rows": int(_label_rows(cxcy2, wd.SIGMA).sum()), "rows": B * L * H})
         if not (math.isfinite(lk) and rel <= 1e-5):
             fail("kernel_vs_plain", f"{name}: loss {lk} vs plain {lp} (rel {rel})")
@@ -500,9 +537,6 @@ def phase_kernels(baseline=None):
             fail("kernel_vs_plain", f"{name}: dz err {dz_err} > 1e-5 * {dz_max}")
         if len(set(bits)) != 1:
             fail("kernel_vs_plain", f"{name}: K1 gave different bits in four calls: {bits}")
-        if other_bits != bits[0]:
-            fail("kernel_vs_plain", f"{name}: the {other} forward differs from "
-                 f"{wd.FWD_VARIANT}'s bits")
         for k, v in wrong_rel.items():
             if z is z_peak and not v > 1e-5:
                 fail("kernel_vs_plain", f"{name}: the wrong forward {k} passes (rel {v})")
@@ -515,26 +549,23 @@ def phase_kernels(baseline=None):
     centers, wf = wd.flatten_targets(cxcy2, w)
     zs = [z_sym.clone() for _ in range(3)]
     g = torch.ones((), device=dev)
-    fwd = {v: (lambda i, v=v: wd.wbce_disk_forward(zs[i % 3], centers, wf, variant=v))
-           for v in wd.VARIANTS}
-    # each way in at each grid K1 can take (the chosen pair is the default)
-    by_grid = {f"{v}_{b}_per_sm": time_launches(
-        lambda i, v=v, b=b: wd.wbce_disk_forward(zs[i % 3], centers, wf, variant=v,
-                                                 blocks_per_sm=b))
-        for v in wd.VARIANTS for b in range(2, wd.MAX_BLOCKS_PER_SM + 1)}
+    fwd = lambda i: wd.wbce_disk_forward(zs[i % 3], centers, wf)  # noqa: E731
     bwd = lambda i: wd.wbce_disk_backward(zs[i % 3], centers, wf, g)  # noqa: E731
     earlier = {}
     if baseline is not None:  # the parent's kernels, in turns: old, new, new, old
         _, old_wd = baseline
         old = {"fwd": lambda i: old_wd.wbce_disk_forward(zs[i % 3], centers, wf),
                "bwd": lambda i: old_wd.wbce_disk_backward(zs[i % 3], centers, wf, g)}
-        new = {"fwd": fwd[wd.FWD_VARIANT], "bwd": bwd}
+        new = {"fwd": fwd, "bwd": bwd}
         turns = {k: [time_launches(old[k]), time_launches(new[k]), time_launches(new[k]),
                      time_launches(old[k])] for k in ("fwd", "bwd")}
         earlier = {k: statistics.mean(v[0::3]) for k, v in turns.items()}
-        emit({"phase": "kernel_times", "what": "turns old, new, new, old (ms)", "turns": turns})
-    by_variant = {v: time_launches(f) for v, f in fwd.items()}
-    ms = {"fwd": by_variant[wd.FWD_VARIANT], "bwd": time_launches(bwd)}
+        host = [host_us_per_call(old["fwd"]), host_us_per_call(fwd), host_us_per_call(fwd),
+                host_us_per_call(old["fwd"])]
+        emit({"phase": "kernel_times", "what": "turns old, new, new, old (ms); the forward "
+              "wrapper's host us per call in the same turns", "turns": turns,
+              "fwd_host_us_per_call": host})
+    ms = {"fwd": time_launches(fwd), "bwd": time_launches(bwd)}
     with torch.no_grad():
         plain_fwd = time_launches(
             lambda i: wd.wbce_disk_loss_plain(zs[i % 3].movedim(1, -1), cxcy2, w)
@@ -555,16 +586,14 @@ def phase_kernels(baseline=None):
     per_elem, clock = _per_element_instructions(), _sm_clock_hz()
     issue_ms, label_elems = {}, int(_label_rows(cxcy2, wd.SIGMA).sum()) * W
     if per_elem is not None and clock is not None:
-        fwd_instr = (label_elems * per_elem["fwd_label"]["instructions"]
-                     + (n - label_elems) * per_elem["fwd_skip"]["instructions"])
+        fwd_instr = (label_elems * per_elem["fwd_label"]["arithmetic"]
+                     + (n - label_elems) * per_elem["fwd_skip"]["arithmetic"])
         issue_ms = {"fwd": issue_bound_ms(fwd_instr, sms, clock),
-                    "bwd": issue_bound_ms(n * per_elem["bwd"]["instructions"], sms, clock)}
+                    "bwd": issue_bound_ms(n * per_elem["bwd"]["arithmetic"], sms, clock)}
     bound = {k: (max(bytes_ms[k], issue_ms.get(k, 0.0)),
                  "operations" if issue_ms.get(k, 0.0) > bytes_ms[k] else "bytes")
              for k in ("fwd", "bwd")}
     emit({"phase": "kernel_times", "shape_BHWL": [B, H, W, L], "kernel_ms": ms,
-          "fwd_ms_by_variant": by_variant, "fwd_ms_by_variant_and_grid": by_grid,
-          "fwd_default": [wd.FWD_VARIANT, wd.FWD_BLOCKS_PER_SM],
           "earlier_ms": earlier or "not measured",
           "plain_ms": {"fwd": plain_fwd, "bwd": plain_bwd},
           "bound_ms": {k: v[0] for k, v in bound.items()},
@@ -572,8 +601,7 @@ def phase_kernels(baseline=None):
           "bytes_bound_ms": bytes_ms, "issue_bound_ms": issue_ms or "not measured",
           "per_element_sass": per_elem or "not measured", "sm_clock_max_hz": clock,
           "label_row_share": label_elems / n, "fwd_device_launches": 1,
-          "fwd_plan": {"items": plan.items, "grid": plan.grid,
-                       "blocks_per_sm": plan.blocks_per_sm}})
+          "fwd_plan": {"items": plan.items, "grid": plan.grid}})
     return err, ms, {"fwd": plain_fwd, "bwd": plain_bwd}, bound
 
 
@@ -1166,11 +1194,6 @@ def _copy_cases(dev, sc=None):
             wrong or (lambda x: sc.window_copy_plain(
                 flat(x), _off_by_one(starts, rows, n_rows), rows, **plain_kw)),
             wrong_name, needed)
-        # the launch's geometry, for its route (pointers: torch's 256-byte alignment)
-        cases[-1].update(flat_shape=fshape, n=starts.numel(), rows=rows,
-                         staged=kw.get("staged", False),
-                         ranges=(kw.get("col0", 0), kw.get("cols"), kw.get("ch0", 0),
-                                 kw.get("chs")))
 
     # ---- the probes (tools/probe_mosaic_caps.py)
     xs = (Hp, Wp + 8, Cp)
@@ -1252,7 +1275,10 @@ def phase_copy(baseline=None):
     old_cases = _copy_cases(dev, baseline[0]) if baseline is not None else None
     for i, c in enumerate(_copy_cases(dev)):
         xs = [_bits_data(c["shape"], c["dtype"], 200 + 3 * i + k, dev) for k in range(3)]
-        got, want, lib, wrong = (c[f](xs[0]) for f in ("call", "plain", "library", "wrong"))
+        sc.LAST_PLAN = None
+        got = c["call"](xs[0])
+        plan = sc.LAST_PLAN  # the plan window_copy launched (None for the other kernels)
+        want, lib, wrong = (c[f](xs[0]) for f in ("plain", "library", "wrong"))
         torch.cuda.synchronize()
         unequal = _unequal_words(got, want)
         lib_unequal = _unequal_words(got.reshape(lib.shape), lib)
@@ -1269,6 +1295,9 @@ def phase_copy(baseline=None):
             new = lambda j: c["call"](xs[j % 3])  # noqa: E731
             turns = [time_launches(lambda j: old(xs[j % 3])), time_launches(new),
                      time_launches(new), time_launches(lambda j: old(xs[j % 3]))]
+            if plan is not None:
+                host = [host_us_per_call(lambda j: old(xs[j % 3])), host_us_per_call(new),
+                        host_us_per_call(new), host_us_per_call(lambda j: old(xs[j % 3]))]
         ms = time_launches(lambda j: c["call"](xs[j % 3]))
         plain_ms = time_launches(lambda j: c["plain"](xs[j % 3]))
         lib_ms = time_launches(lambda j: c["library"](xs[j % 3]))
@@ -1285,14 +1314,14 @@ def phase_copy(baseline=None):
             "wrong_unequal_words": wrong_unequal, "nan_or_inf_copied": special,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "mb_moved": n_bytes / 1e6}
-        if c["kernel"] == "window_copy":
-            g = sc.window_geometry(tuple(c["flat_shape"]), got.element_size(), c["n"], c["rows"],
-                                   *c["ranges"])
-            r["route"] = sc.copy_plan(g, c["n"], c["rows"], c["staged"], 0, 0, 132).route
+        if plan is not None:
+            r["route"] = plan.route
         if turns is not None:
             r["turns_old_new_new_old_ms"] = turns
             r["earlier_ms"] = statistics.mean(turns[0::3])
             r["new_in_turns_ms"] = statistics.mean(turns[1:3])
+            if plan is not None:
+                r["host_us_per_call_old_new_new_old"] = host
         emit(r, detail=True)
         if unequal or lib_unequal:
             fail("copy_vs_plain", f"{c['name']}: {unequal} words differ from the plain version, "

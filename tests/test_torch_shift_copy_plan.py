@@ -5,17 +5,18 @@ do that the card alone can run, rehearsed on the CPU.
 size the launch passes in. Here, at every geometry ``chip_smoke.py``'s
 ``copy_vs_plain`` drives (the probes U1-U4 and U7 at their shapes; the
 segment expansion, the resident, median and blend gathers at the README
-configuration's), at a ragged last chunk and at a 3-byte-pixel column shift:
+configuration's), at a ragged last piece and at a 3-byte-pixel column shift:
 
-- each case lands on the route it should (bulk, staged, vector);
+- each case lands on the route it should (bulk for a copy of whole rows
+  large enough to fill the ring, staged where asked, vector otherwise);
 - a numpy model of the route's kernel, mirrored from the source (the bulk
-  kernel's block shares, ``Cursor`` and ``Item``; the vector kernel's
+  kernel's even shares of units, ``Cursor`` and ``Piece``; the vector kernel's
   block / thread / unroll units; the staged kernel's tile), writes every
   output byte exactly once, from the right source byte;
-- every item fits its ring stage, every bulk copy is a multiple of 16 bytes
+- every piece fits its ring stage, every block of the bulk route moves the
+  same bytes to within one unit, every bulk copy is a multiple of 16 bytes
   at 16-byte aligned addresses, and the grid holds as many blocks per SM
-  as the ring's shared memory lets reside (two at the largest stages, up to
-  four for a small copy);
+  as the ring's shared memory lets reside (two at the largest stages);
 - the plan's field order and the ring's constants agree with the source,
   and the ring's ``wait_group.read`` depth frees a stage before its refill.
 
@@ -66,13 +67,21 @@ CASES = {
     "resident_gather": _frame_case(160, _rng.integers(0, 160, B * L), 1),
     "resident_median_gather": _frame_case(4, _rng.integers(0, 4, B), 1, elem=4),
     "blend_gather_a": _frame_case(B * L, np.arange(B * L) // L * L + _rng.integers(0, L, B * L), 1),
-    # a 4 KB-chunked row of 4,112 bytes: one full chunk and a 16-byte one
-    "ragged_last_chunk": dict(shape=(6, 257, 8), elem=2, starts=np.array([0, 3, 1]), rows=3),
+    # rows of 24,592 bytes in 24 KB pieces: one full piece and a 16-byte one
+    # (16-byte units: the row is off the 128-byte grid), 27 MB in all
+    "ragged_last_chunk": dict(shape=(1200, 1537, 8), elem=2,
+                              starts=_rng.integers(0, 1190, 100), rows=11),
     # a one-column shift of 3-byte uint8 pixels: no vector wider than a byte
     "pixel3_column_shift": dict(shape=(5, 40, 3), elem=1, starts=np.array([0, 2]), rows=3, col0=1,
                                 cols=39),
 }
-ROUTES = {"U3": "staged", "U4": "staged", "pixel3_column_shift": "vector"}
+# the route each case must take: the bulk route for the train path's large
+# whole-frame copies and the large ragged case, the vector body for the
+# probes' 2 MB copies, the 17.7 MB median gather, a channel range and a
+# 3-byte pixel
+ROUTES = {"U1": "vector", "U2": "vector", "U3": "staged", "U4": "staged",
+          "U4_direct": "vector", "U7": "vector", "resident_median_gather": "vector",
+          "pixel3_column_shift": "vector"}
 
 
 def _geometry(c):
@@ -99,49 +108,55 @@ def _expected(xb, g, starts, rows):
 
 
 def _bulk_model(xb, g, starts, rows, p):
-    """window_copy_bulk_kernel, item by item: each block's share, its cursor
-    (one divide at the first item, then steps; the next window's start read
-    one window ahead), each item's runs into its stage and its store."""
+    """window_copy_bulk_kernel, piece by piece: each block's share of the
+    units, its cursor (one divide at its first unit, then steps; the next
+    window's start read one window ahead), each piece's runs into its stage
+    and its store."""
     n = len(starts)
     segs, seg_bytes, seg_stride, off0 = g.runs()
+    contiguous = segs == 1
+    src_unit_stride = p.unit_bytes if contiguous else seg_stride
     row_stride, out_row = g.W * g.pix_bytes, g.cols * g.chs_bytes
     out = np.zeros(n * rows * out_row, np.uint8)
     writes = np.zeros(out.size, np.int32)
-    stage_use = []
+    stage_use, block_bytes = [], []
     for b in range(p.grid):
-        begin, end = b * p.items // p.grid, (b + 1) * p.items // p.grid
-        assert end > begin, "a block without items"
-        orow = begin // p.chunks_per_row
-        c = begin - orow * p.chunks_per_row
+        share = p.block_units(b)
+        assert len(share) > 0, "a block without units"
+        u, end = share.start, share.stop
+        orow = u // p.units_per_row
+        k = u - orow * p.units_per_row
         i, t = orow // rows, orow % rows
         start, next_start = starts[i], (starts[i + 1] if i + 1 < n else 0)
-        for k in range(end - begin):
-            src = (start + t) * row_stride + off0
-            drow = orow * out_row
-            if segs == 1:
-                b0 = c * p.chunk_bytes
-                runs = [(src + b0, drow + b0, min(p.chunk_bytes, out_row - b0))]
+        moved = 0
+        while u < end:  # Cursor::take
+            m = min(p.chunk_units, p.units_per_row - k, end - u)
+            src = (start + t) * row_stride + off0 + k * src_unit_stride
+            dst = orow * out_row + k * p.unit_bytes
+            if contiguous:
+                runs = [(src, dst, m * p.unit_bytes)]
             else:
-                s0 = c * p.runs_per_chunk
-                nr = min(p.runs_per_chunk, segs - s0)
-                runs = [(src + (s0 + j) * seg_stride, drow + (s0 + j) * seg_bytes, seg_bytes)
-                        for j in range(nr)]
+                runs = [(src + r * src_unit_stride, dst + r * p.unit_bytes, p.unit_bytes)
+                        for r in range(m)]
             nbytes = sum(r[2] for r in runs)
-            assert nbytes <= p.stage_bytes
+            assert nbytes == m * p.unit_bytes <= p.stage_bytes
             stage_use.append(nbytes)
+            moved += nbytes
             for s_off, d_off, nb in runs:
                 assert s_off % 16 == 0 and nb % 16 == 0 and d_off % 16 == 0
                 out[d_off:d_off + nb] = xb[s_off:s_off + nb]
                 writes[d_off:d_off + nb] += 1
-            # Cursor::advance
-            c += 1
-            if c == p.chunks_per_row:
-                c, orow, t = 0, orow + 1, t + 1
+            u, k = u + m, k + m
+            if k == p.units_per_row:
+                k, orow, t = 0, orow + 1, t + 1
                 if t == rows:
                     t, i = 0, i + 1
                     start = next_start
                     if i + 1 < n:
                         next_start = starts[i + 1]
+        block_bytes.append(moved)
+    # every block moves the same bytes to within one unit
+    assert max(block_bytes) - min(block_bytes) <= p.unit_bytes
     return out, writes, stage_use
 
 
@@ -243,26 +258,40 @@ def test_plan_fits_the_card(name):
             assert p.grid >= 2 * SMS
         return
     assert p.vec == 16 and p.threads == sc.BULK_THREADS
-    assert p.stage_bytes % 128 == 0 and p.chunk_bytes <= p.stage_bytes <= sc.MAX_STAGE_BYTES
+    assert p.stage_bytes % 128 == 0
+    assert p.chunk_units * p.unit_bytes <= p.stage_bytes <= sc.MAX_STAGE_BYTES
+    assert p.units_per_row * p.unit_bytes == g.cols * g.chs_bytes
+    assert p.units == n * CASES[name]["rows"] * p.units_per_row
     assert p.smem_bytes == sc.BARRIER_BYTES + sc.STAGES * p.stage_bytes
     assert 1 <= p.blocks_per_sm <= sc.MAX_BULK_BLOCKS_PER_SM
     assert p.blocks_per_sm * (p.smem_bytes + 1024) <= SMEM_PER_SM
     if p.blocks_per_sm < sc.MAX_BULK_BLOCKS_PER_SM:  # as many as the shared memory lets in
         assert (p.blocks_per_sm + 1) * (p.smem_bytes + 1024) > SMEM_PER_SM
-    assert p.grid == min(p.items, SMS * p.blocks_per_sm)
-    # every block has work, and the shares differ by at most one item
-    shares = [(b + 1) * p.items // p.grid - b * p.items // p.grid for b in range(p.grid)]
+    assert p.grid == min(p.units, SMS * p.blocks_per_sm)
+    # the ring fills: every block walks at least STAGES full pieces
+    assert p.units >= p.grid * sc.STAGES * p.chunk_units
+    assert p.chunk_units == min(p.units_per_row, sc.MAX_STAGE_BYTES // p.unit_bytes)
+    # the widest unit the pointers (0, 256), offset and strides allow
+    want = 16 if name == "ragged_last_chunk" else 128
+    assert p.unit_bytes == want
+    # every block has work, and the shares differ by at most one unit
+    shares = [len(p.block_units(b)) for b in range(p.grid)]
     assert min(shares) >= 1 and max(shares) - min(shares) <= 1
+    assert sum(shares) == p.units
 
 
 def test_misaligned_pointer_or_stride_leaves_the_bulk_route():
-    c = CASES["U1"]
+    c = CASES["resident_gather"]
+    assert _plan(c)[0].route == "bulk"
     p = _plan(c, x_ptr=8)[0]
     assert p.route == "vector" and p.vec == 8
     assert _plan(c, out_ptr=4)[0].vec == 4
+    assert _plan(c, x_ptr=32)[0].unit_bytes == 32  # the units follow the pointers
     # a 2-byte column offset: runs start off the 16-byte grid
-    odd = dict(c, shape=(32, 264, 1), col0=1, cols=256)
+    odd = dict(c, shape=(160, 512, 3), elem=2, col0=1, cols=511)
     assert _plan(odd)[0].route == "vector"
+    # the same copy with too few frames for the ring to fill
+    assert _plan(dict(c, starts=c["starts"][:40]))[0].route == "vector"
 
 
 def test_a_geometry_that_fits_no_route_raises():
@@ -292,10 +321,10 @@ def test_constants_and_plan_fields_match_the_source():
     routes = re.search(r"enum Route \{([^}]*)\}", src).group(1)
     assert {k: int(v) for k, v in re.findall(r"kRoute(\w+) = (\d+)", routes)} == {
         k.capitalize(): v for k, v in sc.ROUTES.items()}
-    # the ring: before the load of item j (issued LAG items ahead of the
-    # store), the stores issued are items <= j - LAG - 1; wait_group.read
+    # the ring: before the load of piece j (issued LAG pieces ahead of the
+    # store), the stores issued are pieces <= j - LAG - 1; wait_group.read
     # N = STAGES - LAG - 1 leaves only the newest N pending, so the store of
-    # item j - STAGES, the stage's last user, has left shared memory
+    # piece j - STAGES, the stage's last user, has left shared memory
     n_pending = sc.STAGES - sc.LAG - 1
     assert f"wait_group_read<kStages - kLag - 1>" in src and n_pending >= 0
     for j in range(sc.STAGES, 4 * sc.STAGES):

@@ -45,33 +45,25 @@ SHAPES = {"readme": (10, 8, 288, 512), "odd": (2, 3, 37, 20), "wide": (1, 2, 9, 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_partition_covers_every_row_once(name):
     B, L, H, W = SHAPES[name]
-    plan = wd.loss_plan(B, L, H, W, SMS, "ring")
-    assert plan.items == B * L * H and plan.stage_bytes >= 4 * W
+    plan = wd.loss_plan(B, L, H, W, SMS)
+    assert plan.items == B * L * H and plan.threads == wd.THREADS
     shares = [plan.warp_items(gw) for gw in range(plan.grid * wd.WARPS)]
     np.testing.assert_array_equal(np.concatenate([np.array(r) for r in shares]),
                                   np.arange(plan.items))
     sizes = [len(r) for r in shares]
     assert max(sizes) - min(sizes) <= 1 and max(sizes) >= 1
-    assert plan.grid == min(SMS * plan.blocks_per_sm, -(-plan.items // wd.WARPS))
-    fits = cuda_build.SMEM_PER_SM // (plan.smem_bytes + 1024)
-    assert plan.blocks_per_sm == min(wd.FWD_BLOCKS_PER_SM, fits)
-    assert plan.smem_bytes == wd.BARRIER_BYTES + wd.WARPS * wd.STAGES * plan.stage_bytes
-    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= cuda_build.SMEM_PER_SM
-    direct = wd.loss_plan(B, L, H, W, SMS, "direct")
-    assert direct.smem_bytes == 0 and direct.blocks_per_sm == wd.FWD_BLOCKS_PER_SM
-    # the partition depends on the shape alone
-    assert wd.loss_plan(B, L, H, W, 7).items == direct.items == plan.items
+    assert plan.grid == min(SMS * wd.BLOCKS_PER_SM, -(-plan.items // wd.WARPS))
+    # the partition depends on the shape alone; the cached plan is loss_plan's
+    assert wd.loss_plan(B, L, H, W, 7).items == plan.items
+    cached, arr = wd._plan_array(B, L, H, W, SMS)
+    assert cached == plan and arr.tolist() == [plan.items, plan.grid, wd.THREADS]
 
 
 def test_shapes_no_launch_fits_raise():
-    for bad in ((1, 1, 8, 10), (0, 1, 8, 8), (1, 1, 8, 4096)):
+    for bad in ((1, 1, 8, 10), (0, 1, 8, 8), (1, 1, 0, 8)):
         with pytest.raises(ValueError):
-            wd.loss_plan(*bad, SMS, "ring")  # the ring: at most 2048 logits a row
-    assert wd.loss_plan(1, 1, 8, 4096, SMS, "direct").items == 8
-    with pytest.raises(ValueError):
-        wd.loss_plan(1, 1, 8, 8, SMS, "tiled")
-    with pytest.raises(ValueError):
-        wd.loss_plan(1, 1, 8, 8, SMS, blocks_per_sm=wd.MAX_BLOCKS_PER_SM + 1)
+            wd.loss_plan(*bad, SMS)
+    assert wd.loss_plan(1, 1, 8, 4096, SMS).items == 8  # any row length that is a multiple of 4
 
 
 # ------------------------------------------------------------ the kernel's sum
@@ -211,16 +203,8 @@ def test_constants_and_plan_fields_match_the_source():
     with open(SOURCE) as f:
         src = f.read()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert consts["kThreads"] == wd.THREADS and consts["kStages"] == wd.STAGES
-    assert consts["kMaxRowBytes"] == wd.MAX_ROW_BYTES
-    assert consts["kMaxBlocksPerSM"] == wd.MAX_BLOCKS_PER_SM
-    assert consts["kBarrierBytes"] == wd.BARRIER_BYTES
-    assert "__launch_bounds__(kThreads, kMaxBlocksPerSM)" in src
+    assert consts["kThreads"] == wd.THREADS and consts["kBlocksPerSM"] == wd.BLOCKS_PER_SM
+    assert "__launch_bounds__(kThreads, kBlocksPerSM)" in src
     enum = re.search(r"enum Plan \{([^}]*)\}", src).group(1)
     names = [n.strip() for n in enum.split(",") if n.strip()]
-    want = ["P_" + f.upper() for f in wd.PLAN_FIELDS]
-    want[want.index("P_SMEM_BYTES")] = "P_SMEM"
-    assert names == want + ["P_LEN"]
-    variants = re.search(r"enum Variant \{([^}]*)\}", src).group(1)
-    assert {k.lower(): int(v) for k, v in re.findall(r"kVariant(\w+) = (\d+)", variants)} == \
-        wd.VARIANTS
+    assert names == ["P_" + f.upper() for f in wd.PLAN_FIELDS] + ["P_LEN"]

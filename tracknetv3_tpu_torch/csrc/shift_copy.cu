@@ -30,30 +30,33 @@
 // window_copy takes one of three routes, which ops/shift_copy.py copy_plan
 // chooses from the launch's geometry and passes in with every size of the
 // launch (the entry point checks the plan against its own constants):
-// - bulk (every source run, destination run, base pointer and stride a
-//   multiple of 16 bytes: whole frames, whole rows, 16-byte channel ranges).
-//   A persistent grid of one-warp blocks, as many per SM as the ring's
-//   shared memory lets reside (two at the largest stages, four for a small
-//   copy; the occupancy API confirms it); block b walks items
-//   [b * items / grid, (b + 1) * items / grid) of a list of work items, each
-//   a chunk of one output row of up to kMaxStageBytes (24 KB; smaller for a
-//   small copy, so that every SM gets work). Lane 0 works a ring of kStages
-//   shared-memory stages: it issues the item's 1-D bulk TMA loads
-//   (cp.async.bulk ... complete_tx::bytes, one per contiguous source run;
-//   for a channel range the warp's lanes issue the runs) kLag items ahead,
-//   waits on the stage's mbarrier, issues one bulk store of the chunk
+// - bulk (a copy of whole rows, whose base pointers, offsets and strides
+//   are multiples of 16 bytes, large enough that every block walks at least
+//   kStages full pieces: at the README configuration the train path's frame
+//   gathers and segment expansion, 35 MB each; on smaller copies the vector
+//   body measured faster on an H100, PERF.md). A persistent grid of one-warp
+//   blocks, as many per SM as the ring's shared memory lets reside (two at
+//   the largest stages). The output is a list of units (16 to 128 bytes of
+//   a row, as wide as the pointers and strides allow: a bulk copy that starts
+//   off a 128-byte line is slower), and block b takes units
+//   [b * units / grid, (b + 1) * units / grid): every block moves the same
+//   bytes to within a unit, so no block is left with one more piece than
+//   the others. It walks its share in pieces of up to kMaxStageBytes (24 KB)
+//   that end at a row's end. Its lane 0 works a ring of kStages shared-memory
+//   stages: it issues the piece's 1-D bulk TMA load (cp.async.bulk ...
+//   complete_tx::bytes) kLag pieces ahead, waits on the stage's mbarrier,
+//   issues one bulk store of the piece
 //   (cp.async.bulk.global.shared::cta.bulk_group), and refills a stage only
 //   after wait_group.read says its store has left shared memory. Loads of
-//   later items overlap the stores of earlier ones; no data passes through
-//   registers. A block finds its first item with one divide and steps from
-//   item to item; the next window's start is read one window ahead of use.
-//   Measured on an H100 (PERF.md): the large gathers run at the card's copy
-//   rate, level with index_select; a 2 MB copy pays the ring's set-up.
-// - vector (any other direct launch, e.g. a one-column shift of a 3-byte
-//   uint8 pixel): one block copies kThreads * kUnroll vectors of one output
-//   row; the vector type V (16, 8, 4, 2 or 1 bytes) is the widest that
-//   divides every base pointer, stride, offset and extent of the launch; each
-//   thread first issues its kUnroll loads, then its stores.
+//   later pieces overlap the stores of earlier ones; no data passes through
+//   registers. A block finds its first unit with one divide and steps from
+//   piece to piece; the next window's start is read one window ahead of use.
+// - vector (any other direct launch: a channel range, a smaller copy, a
+//   one-column shift of a 3-byte uint8 pixel): one block copies
+//   kThreads * kUnroll vectors of one output row; the vector type V (16, 8,
+//   4, 2 or 1 bytes) is the widest that divides every base pointer, stride,
+//   offset and extent of the launch; each thread first issues its kUnroll
+//   loads, then its stores.
 // - staged (U3, U4 staged): whole pixels of the source row go into a shared
 //   tile of up to 32 KB and are sliced there, as U3 and U4 slice the fetched
 //   VMEM tile; the vector body moves them. The plan sizes the tile so that
@@ -66,7 +69,98 @@
 
 #include <initializer_list>
 
-#include "bulk_async.cuh"
+// Hopper's 1-D bulk asynchronous copies (TMA without a tensor map) and the
+// shared-memory mbarriers that count their bytes, as inline PTX.
+//
+// A load  cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes
+//         copies a contiguous run of global memory into shared memory and
+//         reports its bytes to an mbarrier; a thread arms the barrier with
+//         the bytes it expects (mbar_arrive_expect_tx) and every reader waits
+//         on the barrier's phase parity (mbar_wait).
+// A store cp.async.bulk.global.shared::cta.bulk_group copies a run of shared
+//         memory to global memory; stores are grouped by commit_group, and
+//         wait_group.read N returns once all but the N newest groups have
+//         finished reading shared memory (the buffer may then be refilled).
+// Sizes and both addresses must be multiples of 16 bytes.
+
+namespace bulk {
+
+// A barrier wait that has not completed after this long traps, so a ring
+// that is wrong ends the launch with an error instead of hanging the card.
+constexpr long long kWaitLimitNs = 10000000000LL;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (the copies)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ long long globaltimer_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity ``parity`` has completed; trap after
+// kWaitLimitNs.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spins & 1023) == 0) {
+      const long long now = globaltimer_ns();
+      if (spins == 0) start = now;
+      else if (now - start > kWaitLimitNs) __trap();
+    }
+  }
+}
+
+// global -> shared, ``bytes`` (a multiple of 16), completion on ``bar``
+__device__ __forceinline__ void load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared -> global, ``bytes`` (a multiple of 16), in the current bulk group
+__device__ __forceinline__ void store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// all but the N newest bulk groups have finished reading shared memory
+template <int N>
+__device__ __forceinline__ void wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+}  // namespace bulk
 
 namespace {
 
@@ -74,7 +168,7 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 constexpr int kTileBytes = 32768;  // the staged variant's shared tile
 // the bulk route: a ring of kStages stages of at most kMaxStageBytes, loads
-// issued kLag items ahead of the store, blocks of one warp, as many per SM
+// issued kLag pieces ahead of the store, blocks of one warp, as many per SM
 // as their shared memory allows, up to kMaxBulkBlocksPerSM
 constexpr int kStages = 4;
 constexpr int kLag = 3;
@@ -82,6 +176,7 @@ constexpr int kMaxStageBytes = 24576;
 constexpr int kBulkThreads = 32;
 constexpr int kMaxBulkBlocksPerSM = 4;
 constexpr int kBarrierBytes = 128;  // the stages' mbarriers, before the stages
+constexpr int kMaxDevices = 64;
 static_assert(kLag < kStages, "a stage is refilled only after its store was issued");
 static_assert(kStages * 8 <= kBarrierBytes, "one 8-byte mbarrier per stage");
 
@@ -167,10 +262,11 @@ struct BulkArgs {
   i64 n, rows;          // windows, rows per window
   i64 row_stride;       // bytes of one row of x
   i64 out_row_bytes;
-  i64 off0, segs, seg_stride, seg_bytes;  // as in WindowArgs
-  // an output row is chunks_per_row items; an item is chunk_bytes of the
-  // row (segs == 1) or runs_per_chunk runs of seg_bytes (segs > 1)
-  i64 chunk_bytes, chunks_per_row, runs_per_chunk, items;
+  i64 off0;             // as in WindowArgs
+  // an output row is one run of the source row from byte off0, taken as
+  // units_per_row units of unit_bytes (16 to 128); a piece is up to
+  // chunk_units units of one row; ``units`` over all rows
+  i64 unit_bytes, units_per_row, chunk_units, units;
   i64 stage_bytes;
 };
 
@@ -179,114 +275,99 @@ __device__ __forceinline__ i64 load_start(const BulkArgs& a, i64 i) {
                       : (i64) reinterpret_cast<const int*>(a.starts)[i];
 }
 
-// Where one item comes from and goes to: the source row, the chunk's first
-// run and how many runs, its bytes and destination.
-struct Item {
-  const unsigned char* src;  // first source byte of the item
+// Where one piece comes from and goes to.
+struct Piece {
+  const unsigned char* src;  // first source byte of the piece
   unsigned char* dst;
-  i64 runs;                  // contiguous source runs (1 where segs == 1)
-  unsigned int bytes;        // bytes of the item (all its runs)
+  unsigned int bytes;
 };
 
-// Steps through the items of one block in order: (output row, chunk), the
-// window and row within it, and the window's start (the next one read ahead).
+// Steps through a block's share of units [u, end) piece by piece: the output
+// row and unit within it, the window and row within the window, and the
+// window's start (the next one read ahead).
 struct Cursor {
-  i64 orow, c, i, t, start, next_start;
+  i64 u, end, orow, k, i, t, start, next_start;
 
-  __device__ __forceinline__ void begin(const BulkArgs& a, i64 item) {
-    orow = item / a.chunks_per_row;
-    c = item - orow * a.chunks_per_row;
+  __device__ __forceinline__ void begin(const BulkArgs& a, i64 u0, i64 u1) {
+    u = u0;
+    end = u1;
+    orow = u0 / a.units_per_row;
+    k = u0 - orow * a.units_per_row;
     i = orow / a.rows;
     t = orow - i * a.rows;
     start = load_start(a, i);
     next_start = (i + 1 < a.n) ? load_start(a, i + 1) : 0;
   }
 
-  __device__ __forceinline__ void advance(const BulkArgs& a) {
-    if (++c < a.chunks_per_row) return;
-    c = 0;
-    ++orow;
-    if (++t < a.rows) return;
-    t = 0;
-    ++i;
-    start = next_start;
-    if (i + 1 < a.n) next_start = load_start(a, i + 1);
-  }
+  __device__ __forceinline__ bool done() const { return u >= end; }
 
-  __device__ __forceinline__ Item item(const BulkArgs& a) const {
-    Item it;
-    const unsigned char* row = a.x + (start + t) * a.row_stride + a.off0;
-    unsigned char* drow = a.out + orow * a.out_row_bytes;
-    if (a.segs == 1) {
-      const i64 b0 = c * a.chunk_bytes;
-      const i64 left = a.out_row_bytes - b0;
-      it.src = row + b0;
-      it.dst = drow + b0;
-      it.runs = 1;
-      it.bytes = (unsigned int)(left < a.chunk_bytes ? left : a.chunk_bytes);
-    } else {
-      const i64 s0 = c * a.runs_per_chunk;
-      const i64 left = a.segs - s0;
-      it.src = row + s0 * a.seg_stride;
-      it.dst = drow + s0 * a.seg_bytes;
-      it.runs = left < a.runs_per_chunk ? left : a.runs_per_chunk;
-      it.bytes = (unsigned int)(it.runs * a.seg_bytes);
+  // the piece at the cursor, and the cursor moved past it
+  __device__ __forceinline__ Piece take(const BulkArgs& a) {
+    i64 m = a.chunk_units;
+    if (a.units_per_row - k < m) m = a.units_per_row - k;
+    if (end - u < m) m = end - u;
+    Piece p;
+    p.src = a.x + (start + t) * a.row_stride + a.off0 + k * a.unit_bytes;
+    p.dst = a.out + orow * a.out_row_bytes + k * a.unit_bytes;
+    p.bytes = (unsigned int)(m * a.unit_bytes);
+    u += m;
+    k += m;
+    if (k == a.units_per_row) {
+      k = 0;
+      ++orow;
+      if (++t == a.rows) {
+        t = 0;
+        ++i;
+        start = next_start;
+        if (i + 1 < a.n) next_start = load_start(a, i + 1);
+      }
     }
-    return it;
+    return p;
   }
 };
 
-// The bulk route (see the design note). One warp per block; lane 0 works
-// the ring, every lane issues its share of a channel range's runs.
+// The bulk route (see the design note). One warp per block: every lane
+// steps the cursor, lane 0 works the ring.
 __global__ void __launch_bounds__(kBulkThreads) window_copy_bulk_kernel(const BulkArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const i64 begin = (i64)blockIdx.x * a.items / gridDim.x;
-  const i64 end = (i64)(blockIdx.x + 1) * a.items / gridDim.x;
-  const i64 n_items = end - begin;
-  if (n_items <= 0) return;
+  const i64 u0 = (i64)blockIdx.x * a.units / gridDim.x;
+  const i64 u1 = (i64)(blockIdx.x + 1) * a.units / gridDim.x;
+  if (u1 <= u0) return;
   const int lane = threadIdx.x;
   const uint32_t bars = bulk::smem_u32(smem);
   const uint32_t stage0 = bars + kBarrierBytes;
-  // destination and bytes of the item in each stage, for its store
+  // destination and bytes of the piece in each stage, for its store
   __shared__ unsigned char* stage_dst[kStages];
   __shared__ unsigned int stage_bytes[kStages];
   Cursor cur;
-  cur.begin(a, begin);  // its window-start loads overlap the barriers' set-up
+  cur.begin(a, u0, u1);  // its window-start loads overlap the barriers' set-up
   if (lane == 0) {
     for (int s = 0; s < kStages; ++s) bulk::mbar_init(bars + 8 * s, 1);
     bulk::mbar_init_fence();
   }
   __syncwarp();
-  // issue the loads of local item k into its stage; the cursor is on item k
-  auto issue = [&](i64 k) {
-    const int s = (int)(k % kStages);
-    const uint32_t bar = bars + 8 * s, dst = stage0 + (uint32_t)(s * a.stage_bytes);
-    const Item it = cur.item(a);
+  // issue the load of local piece j (the one at the cursor) into its stage
+  auto issue = [&](i64 j) {
+    const int s = (int)(j % kStages);
+    const Piece p = cur.take(a);
     if (lane == 0) {
-      stage_dst[s] = it.dst;
-      stage_bytes[s] = it.bytes;
-      bulk::mbar_arrive_expect_tx(bar, it.bytes);
+      stage_dst[s] = p.dst;
+      stage_bytes[s] = p.bytes;
+      bulk::mbar_arrive_expect_tx(bars + 8 * s, p.bytes);
+      bulk::load(stage0 + (uint32_t)(s * a.stage_bytes), p.src, p.bytes, bars + 8 * s);
     }
     __syncwarp();
-    if (it.runs == 1) {
-      if (lane == 0) bulk::load(dst, it.src, it.bytes, bar);
-    } else {
-      for (i64 j = lane; j < it.runs; j += kBulkThreads)
-        bulk::load(dst + (uint32_t)(j * a.seg_bytes), it.src + j * a.seg_stride,
-                   (unsigned int)a.seg_bytes, bar);
-    }
-    cur.advance(a);
   };
 
-  const i64 primed = n_items < kLag ? n_items : kLag;
-  for (i64 k = 0; k < primed; ++k) issue(k);
-  for (i64 j = 0; j < n_items; ++j) {
-    if (j + kLag < n_items) {
-      // the stage of item j + kLag last held item j + kLag - kStages, whose
-      // store was followed by kStages - kLag - 1 newer ones
-      if (j + kLag >= kStages && lane == 0) bulk::wait_group_read<kStages - kLag - 1>();
+  i64 issued = 0;  // pieces whose loads are issued; kLag ahead of the store
+  while (issued < kLag && !cur.done()) issue(issued++);
+  for (i64 j = 0; j < issued; ++j) {
+    if (!cur.done()) {  // piece j + kLag
+      // its stage last held piece j + kLag - kStages, whose store was
+      // followed by kStages - kLag - 1 newer ones
+      if (issued >= kStages && lane == 0) bulk::wait_group_read<kStages - kLag - 1>();
       __syncwarp();
-      issue(j + kLag);
+      issue(issued++);
     }
     const int s = (int)(j % kStages);
     if (lane == 0) {
@@ -405,14 +486,13 @@ int launch_roll(const void* x, void* out, i64 R, i64 W, i64 pix_bytes, i64 shift
 
 // window_copy's launch plan (ops/shift_copy.py copy_plan), int64 in this order.
 enum Plan {
-  P_ROUTE, P_VEC, P_BLOCKS_PER_ROW, P_TILE_PIX, P_CHUNK_BYTES, P_CHUNKS_PER_ROW, P_RUNS_PER_CHUNK,
-  P_ITEMS, P_STAGE_BYTES, P_GRID, P_THREADS, P_SMEM, P_BLOCKS_PER_SM, P_LEN
+  P_ROUTE, P_VEC, P_BLOCKS_PER_ROW, P_TILE_PIX, P_UNIT_BYTES, P_UNITS_PER_ROW, P_CHUNK_UNITS,
+  P_UNITS, P_STAGE_BYTES, P_GRID, P_THREADS, P_SMEM, P_BLOCKS_PER_SM, P_LEN
 };
 enum Route { kRouteVector = 0, kRouteStaged = 1, kRouteBulk = 2 };
 
-// The bulk plan must cover the geometry with items that fit their stages.
+// The bulk plan must cover the geometry with pieces that fit their stages.
 bool bulk_plan_matches(const BulkArgs& b, const long long* p) {
-  const i64 out_rows = b.n * b.rows;
   if (p[P_VEC] != 16 || p[P_BLOCKS_PER_ROW] != 0 || p[P_TILE_PIX] != 0 ||
       p[P_THREADS] != kBulkThreads ||
       p[P_BLOCKS_PER_SM] < 1 || p[P_BLOCKS_PER_SM] > kMaxBulkBlocksPerSM)
@@ -420,38 +500,51 @@ bool bulk_plan_matches(const BulkArgs& b, const long long* p) {
   if (b.stage_bytes <= 0 || b.stage_bytes > kMaxStageBytes || b.stage_bytes % 128 ||
       p[P_SMEM] != kBarrierBytes + kStages * b.stage_bytes)
     return false;
-  if (!divides(16, {b.row_stride, b.off0, b.seg_stride, b.seg_bytes, b.chunk_bytes}))
+  if (b.units_per_row * b.unit_bytes != b.out_row_bytes || b.chunk_units < 1 ||
+      b.chunk_units * b.unit_bytes > b.stage_bytes)
     return false;
-  if (b.segs == 1) {
-    if (b.runs_per_chunk != 1 || b.chunk_bytes <= 0 || b.chunk_bytes > b.stage_bytes ||
-        b.chunks_per_row != (b.out_row_bytes + b.chunk_bytes - 1) / b.chunk_bytes)
-      return false;
-  } else {
-    if (b.runs_per_chunk < 1 || b.chunk_bytes != b.runs_per_chunk * b.seg_bytes ||
-        b.chunk_bytes > b.stage_bytes ||
-        b.chunks_per_row != (b.segs + b.runs_per_chunk - 1) / b.runs_per_chunk)
-      return false;
-  }
-  return b.items == out_rows * b.chunks_per_row && p[P_GRID] >= 1 && p[P_GRID] <= b.items &&
+  return b.units == b.n * b.rows * b.units_per_row && p[P_GRID] >= 1 && p[P_GRID] <= b.units &&
          p[P_GRID] <= 0x7fffffffLL;
+}
+
+// What the bulk kernel's launch needs of the current device, read at its
+// first bulk launch with this shared memory and kept: the dynamic shared
+// memory attribute set, and the most blocks its grid may have there (its
+// SMs times the plan's blocks per SM, where the occupancy API confirms that
+// many fit on an SM; else 0).
+int bulk_max_grid(int smem, long long blocks_per_sm, long long* out) {
+  struct Seen { int smem = -1, attr_smem = -1, sms = 0, per_sm = 0; };
+  static Seen seen[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  Seen& d = seen[dev];
+  if (d.smem != smem) {
+    if (smem > d.attr_smem) {
+      err = cudaFuncSetAttribute(window_copy_bulk_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      d.attr_smem = smem;
+    }
+    if ((err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.per_sm, window_copy_bulk_kernel,
+                                                        kBulkThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    d.smem = smem;
+  }
+  *out = d.per_sm >= blocks_per_sm ? (long long)d.sms * blocks_per_sm : 0;
+  return 0;
 }
 
 int launch_bulk(const BulkArgs& b, const long long* p, cudaStream_t stream) {
   const int smem = (int)p[P_SMEM];
-  cudaError_t err = cudaFuncSetAttribute(window_copy_bulk_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  // the grid must be resident at once: at most blocks_per_sm per SM, and the
-  // card must hold that many
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_copy_bulk_kernel,
-                                                      kBulkThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < p[P_BLOCKS_PER_SM] || p[P_GRID] > (i64)sms * p[P_BLOCKS_PER_SM])
-    return (int)cudaErrorInvalidValue;
+  long long max_grid = 0;
+  const int err = bulk_max_grid(smem, p[P_BLOCKS_PER_SM], &max_grid);
+  if (err != 0) return err;
+  if (p[P_GRID] > max_grid) return (int)cudaErrorInvalidValue;
   window_copy_bulk_kernel<<<(unsigned int)p[P_GRID], kBulkThreads, smem, stream>>>(b);
   return (int)cudaGetLastError();
 }
@@ -534,13 +627,17 @@ int window_copy(const void* x, const void* starts, int starts_i64, void* out, lo
     b.row_stride = a.row_stride;
     b.out_row_bytes = a.out_row_bytes;
     b.off0 = a.off0;
-    b.segs = a.segs;
-    b.seg_stride = a.seg_stride;
-    b.seg_bytes = a.seg_bytes;
-    b.chunk_bytes = plan[P_CHUNK_BYTES];
-    b.chunks_per_row = plan[P_CHUNKS_PER_ROW];
-    b.runs_per_chunk = plan[P_RUNS_PER_CHUNK];
-    b.items = plan[P_ITEMS];
+    b.unit_bytes = plan[P_UNIT_BYTES];
+    // whole pixels (one run a row) in units of 16 to 128 bytes, on which
+    // every piece starts
+    if (a.segs != 1 || b.unit_bytes < 16 || b.unit_bytes > 128 ||
+        (b.unit_bytes & (b.unit_bytes - 1)) || !aligned(x, b.unit_bytes) ||
+        !aligned(out, b.unit_bytes) ||
+        !divides(b.unit_bytes, {a.row_stride, a.off0, a.out_row_bytes}))
+      return (int)cudaErrorInvalidValue;
+    b.units_per_row = plan[P_UNITS_PER_ROW];
+    b.chunk_units = plan[P_CHUNK_UNITS];
+    b.units = plan[P_UNITS];
     b.stage_bytes = plan[P_STAGE_BYTES];
     if (!bulk_plan_matches(b, plan)) return (int)cudaErrorInvalidValue;
     return launch_bulk(b, plan, st);

@@ -23,28 +23,25 @@
 // (10, 8, 288, 512): the forward must read the 47.2 MB of logits, so
 // >= 14.1 us; the backward reads them and writes 47.2 MB of dz, so
 // >= 28.2 us. Each element also costs one IEEE expf, one log1pf and one
-// division, so the instructions each element issues set a second floor
-// (chip_smoke.py counts them in this library's SASS, from the probe
-// kernels at the end of this file).
+// division, so the arithmetic each element needs sets a second floor
+// (chip_smoke.py counts its instructions in this library's SASS, from the
+// probe kernels at the end of this file, leaving out moves, convergence
+// markers and uniform index math).
 //
 // Forward design (K1): one launch.
 // - A fixed partition of the logits into work items of one row of one
 //   (sample, frame) plane (2 KB at W = 512), one float partial per item. The
 //   item count is the shape's, not the card's, so the loss does not depend on
 //   the grid and is the same bits run to run.
-// - A persistent grid (the plan's blocks per SM, of 8 warps) in which every
+// - A persistent grid (kBlocksPerSM blocks of 8 warps per SM) in which every
 //   warp walks its own even contiguous share of the rows: no block barrier
 //   inside the loop, and at B*L*H = 23,040 rows the shares differ by one row
 //   of about eleven.
-// - Two ways in for the logits, the same arithmetic and order. ``ring``: lane
-//   0 of each warp keeps kStages rows of its share in flight as 1-D bulk TMA
-//   copies into the warp's own stages of shared memory (bulk_async.cuh), each
-//   completing on its stage's mbarrier; the lanes read float4 from the stage
-//   and lane 0 refills it once the warp is past it. ``direct``: each lane
-//   issues its kLoadsPerLane 16-byte ld.global.nc loads of the row at once,
-//   then computes. On an H100 ``direct`` at four blocks per SM is the faster
-//   (ops/wbce_disk.py FWD_VARIANT; PERF.md): the loop is bound by the
-//   elements' dependent expf / log1pf / division chains, not by the loads.
+// - Each lane issues its kLoadsPerLane 16-byte ld.global.nc loads of the row
+//   at once, then computes. A ring of 1-D bulk TMA copies per warp into
+//   shared memory gave the same bits and was slower at every grid on an H100
+//   (PERF.md, PR 7): the loop is bound by the elements' dependent expf /
+//   log1pf / division chains, not by the loads.
 // - Rows no disk touches: where |row - cy| > sigma for both visible centers
 //   (dy * dy > sigma^2, exact in float for integer rows and centers) the
 //   label is 0 on the whole row, and the term is -(p * p * l1mp), bit for bit
@@ -65,30 +62,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bulk_async.cuh"
+// One (sample, frame) plane's targets: the two disks' centers as floats,
+// whether each is visible, the weight of disk A. (Outside the anonymous
+// namespace: the probe kernels at the end take it as a parameter.)
+struct Targets {
+  float cxa, cya, cxb, cyb, wa;
+  bool va, vb;
+};
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 4;  // K2: rows of one plane per block
-// K1: each warp walks its own rows; ``ring``: a ring of kStages stages of
-// one row per warp (a row of at most kMaxRowBytes), the warps' mbarriers in
-// the first kBarrierBytes; kLoadsPerLane float4s in flight per lane
+// K1: each warp walks its own rows, kLoadsPerLane float4s in flight per
+// lane; kBlocksPerSM blocks on each SM
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 3;
-constexpr int kMaxRowBytes = 8192;
-constexpr int kMaxBlocksPerSM = 4;
-constexpr int kBarrierBytes = 256;
+constexpr int kBlocksPerSM = 4;
 constexpr int kLoadsPerLane = 4;
-static_assert(kWarps * kStages * 8 <= kBarrierBytes, "one mbarrier per warp and stage");
+constexpr int kMaxDevices = 64;
 // logf(1e-7) in double, rounded to float: the same constant as the JAX
 // package's jnp.float32(jnp.log(1e-7)).
 constexpr float kLogFloor = -16.118095650958320f;
-
-struct Targets {
-  float cxa, cya, cxb, cyb, wa;
-  bool va, vb;
-};
 
 __device__ __forceinline__ Targets load_targets(const int* __restrict__ centers,
                                                 const float* __restrict__ w, int b,
@@ -156,7 +150,7 @@ __device__ __forceinline__ bool label_row(const Targets& t, float row, float sig
 
 __device__ __forceinline__ float terms4(const Targets& t, float4 v, float row, float col,
                                         float sigma2, bool lbl) {
-  // added in this order by both ways in: x, y, z, w
+  // added in this order: x, y, z, w
   float s = 0.f;
   if (lbl) {
     s += loss_term(v.x, label(t, row, col, sigma2));
@@ -210,8 +204,7 @@ struct FwdArgs {
   int* ticket;      // 0 between launches
   float* loss;
   int L, H, W;
-  int items;        // B*L*H
-  int stage_bytes;  // one row, rounded up to 128 bytes
+  int items;  // B*L*H
   float sigma2;
   double count;  // B*L*H*W
 };
@@ -230,44 +223,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// K1 (see the design note). Each warp walks its own share of the rows;
-// kRing: its rows come through its own ring of kStages stages of one row;
-// else each lane loads its float4s straight to registers. Both add the same
-// terms in the same order, so they give the same bits.
-template <bool kRing>
-__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM) wbce_disk_fwd_kernel(const FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// K1 (see the design note). Each warp walks its own share of the rows; each
+// lane loads its float4s of a row straight to registers.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) wbce_disk_fwd_kernel(const FwdArgs a) {
   __shared__ int is_last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long warps = (long long)gridDim.x * kWarps;
   const long long gw = (long long)blockIdx.x * kWarps + warp;
   const int begin = (int)(gw * a.items / warps);
-  const int n_items = (int)((gw + 1) * a.items / warps) - begin;
+  const int end = (int)((gw + 1) * a.items / warps);
   const int W4 = a.W / 4;
-  const uint32_t base = bulk::smem_u32(smem);
-  const uint32_t bars = base + warp * kStages * 8;
-  const uint32_t stage0 = base + kBarrierBytes + warp * kStages * a.stage_bytes;
-  const uint32_t row_bytes = (uint32_t)a.W * 4u;
-
-  auto issue = [&](int j) {  // lane 0: the bulk load of local item j
-    const int s = j % kStages;
-    bulk::mbar_arrive_expect_tx(bars + 8 * s, row_bytes);
-    bulk::load(stage0 + (uint32_t)(s * a.stage_bytes), a.z + (size_t)(begin + j) * a.W,
-               row_bytes, bars + 8 * s);
-  };
-  if (kRing) {
-    if (lane == 0) {
-      for (int s = 0; s < kStages; ++s) bulk::mbar_init(bars + 8 * s, 1);
-      bulk::mbar_init_fence();
-      for (int j = 0; j < min(kStages, n_items); ++j) issue(j);
-    }
-    __syncwarp();
-  }
 
   int plane_of_t = -1;
   Targets t;
-  for (int j = 0; j < n_items; ++j) {
-    const int item = begin + j;
+  for (int item = begin; item < end; ++item) {
     const int plane = item / a.H;
     if (plane != plane_of_t) {
       t = load_targets(a.centers, a.w, plane / a.L, plane % a.L, a.L);
@@ -275,22 +244,14 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM) wbce_disk_fwd_kerne
     }
     const float row = (float)(item - plane * a.H);
     const bool lbl = label_row(t, row, a.sigma2);  // once per row
-    const float4* src;
-    if (kRing) {
-      const int s = j % kStages;
-      bulk::mbar_wait(bars + 8 * s, (uint32_t)((j / kStages) & 1));
-      src = reinterpret_cast<const float4*>(smem + kBarrierBytes +
-                                            (warp * kStages + s) * a.stage_bytes);
-    } else {
-      src = reinterpret_cast<const float4*>(a.z + (size_t)item * a.W);
-    }
+    const float* src = a.z + (size_t)item * a.W;
     float acc = 0.f;
     for (int q0 = lane; q0 < W4; q0 += kLoadsPerLane * 32) {
       float4 v[kLoadsPerLane];
 #pragma unroll
       for (int u = 0; u < kLoadsPerLane; ++u) {
         const int q = q0 + 32 * u;
-        if (q < W4) v[u] = kRing ? src[q] : ld_nc_v4(reinterpret_cast<const float*>(src + q));
+        if (q < W4) v[u] = ld_nc_v4(src + 4 * q);
       }
 #pragma unroll
       for (int u = 0; u < kLoadsPerLane; ++u) {
@@ -300,10 +261,6 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM) wbce_disk_fwd_kerne
     }
     const float part = warp_sum(acc);
     if (lane == 0) a.partials[item] = part;
-    if (kRing) {
-      __syncwarp();  // every lane is past the stage
-      if (lane == 0 && j + kStages < n_items) issue(j + kStages);
-    }
   }
 
   // The last block to get here sums the partials.
@@ -346,87 +303,74 @@ __global__ void __launch_bounds__(kThreads)
 inline dim3 grid_of(int B, int L, int H) { return dim3((H + kRows - 1) / kRows, L, B); }
 
 // K1's launch plan (ops/wbce_disk.py loss_plan), int64 in this order.
-enum Plan { P_VARIANT, P_ITEMS, P_STAGE_BYTES, P_GRID, P_THREADS, P_SMEM, P_BLOCKS_PER_SM, P_LEN };
-enum Variant { kVariantRing = 0, kVariantDirect = 1 };
+enum Plan { P_ITEMS, P_GRID, P_THREADS, P_LEN };
 
 bool plan_matches(const long long* p, int B, int L, int H, int W) {
-  const bool ring = p[P_VARIANT] == kVariantRing;
-  if (p[P_VARIANT] != kVariantRing && p[P_VARIANT] != kVariantDirect) return false;
   if (B <= 0 || L <= 0 || H <= 0 || W <= 0 || W % 4 || p[P_ITEMS] != (long long)B * L * H ||
       p[P_ITEMS] > 0x7fffffffLL)
     return false;
-  if (p[P_STAGE_BYTES] != (W * 4LL + 127) / 128 * 128) return false;
-  if (ring && p[P_STAGE_BYTES] > kMaxRowBytes) return false;
-  if (p[P_SMEM] != (ring ? kBarrierBytes + kWarps * kStages * p[P_STAGE_BYTES] : 0)) return false;
   return p[P_THREADS] == kThreads && p[P_GRID] >= 1 &&
-         p[P_GRID] <= (p[P_ITEMS] + kWarps - 1) / kWarps &&
-         p[P_BLOCKS_PER_SM] >= 1 && p[P_BLOCKS_PER_SM] <= kMaxBlocksPerSM;
+         p[P_GRID] <= (p[P_ITEMS] + kWarps - 1) / kWarps;
 }
 
-template <bool kRing>
-int launch_fwd(const FwdArgs& a, const long long* p, cudaStream_t stream) {
-  const int smem = (int)p[P_SMEM];
-  auto kernel = wbce_disk_fwd_kernel<kRing>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// The most blocks K1's grid may have on the current device: its SMs times
+// kBlocksPerSM where the occupancy API confirms that many fit on an SM, else
+// 0. Read at the first launch on each device and kept.
+int max_fwd_grid(int* out) {
+  static int cached[kMaxDevices];  // 0: not read yet; -1: read, none fit
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < p[P_BLOCKS_PER_SM] || p[P_GRID] > (long long)sms * p[P_BLOCKS_PER_SM])
-    return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned int)p[P_GRID], kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wbce_disk_fwd_kernel, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    cached[dev] = per_sm >= kBlocksPerSM ? sms * kBlocksPerSM : -1;
+  }
+  *out = cached[dev] > 0 ? cached[dev] : 0;
+  return 0;
 }
 
 }  // namespace
 
 // Probe kernels, never launched: chip_smoke.py counts the SASS instructions
-// of each to read the per-element cost of K1 (a label row, a skipped row)
-// and K2, less the loads, stores and index math that probe_base also has.
-extern "C" __global__ void wbce_probe_base(const float* z, const int* centers, const float* w,
-                                           float* out) {
-  const Targets t = load_targets(centers, w, 0, 0, 1);
+// of each to read the arithmetic one element of K1 needs (on a label row, on
+// a skipped row) and one of K2, less what probe_base also has (its index
+// math, load and store). The targets come in as a kernel parameter, as they
+// are per plane, not per element.
+extern "C" __global__ void wbce_probe_base(const float* z, float* out, Targets t, float sigma2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = z[i] * t.wa;
+  out[i] = z[i];
 }
 
-extern "C" __global__ void wbce_probe_fwd_label(const float* z, const int* centers,
-                                                const float* w, float* out, float sigma2) {
-  const Targets t = load_targets(centers, w, 0, 0, 1);
+extern "C" __global__ void wbce_probe_fwd_label(const float* z, float* out, Targets t,
+                                                float sigma2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = loss_term(z[i], label(t, (float)blockIdx.x, (float)threadIdx.x, sigma2)) * t.wa;
+  out[i] = loss_term(z[i], label(t, (float)blockIdx.x, (float)threadIdx.x, sigma2));
 }
 
-extern "C" __global__ void wbce_probe_fwd_skip(const float* z, const int* centers,
-                                               const float* w, float* out) {
-  const Targets t = load_targets(centers, w, 0, 0, 1);
+extern "C" __global__ void wbce_probe_fwd_skip(const float* z, float* out, Targets t,
+                                               float sigma2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = loss_term_y0(z[i]) * t.wa;
+  out[i] = loss_term_y0(z[i]);
 }
 
-extern "C" __global__ void wbce_probe_bwd(const float* z, const int* centers, const float* w,
-                                          float* out, float sigma2) {
-  const Targets t = load_targets(centers, w, 0, 0, 1);
+extern "C" __global__ void wbce_probe_bwd(const float* z, float* out, Targets t, float sigma2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = grad_term(z[i], label(t, (float)blockIdx.x, (float)threadIdx.x, sigma2)) * t.wa;
+  out[i] = grad_term(z[i], label(t, (float)blockIdx.x, (float)threadIdx.x, sigma2));
 }
 
 extern "C" {
 
 // K1's constants, which ops/wbce_disk.py checks against its own: threads,
-// stages, the largest ring row, the most blocks per SM, the barrier bytes,
-// the plan's length.
+// blocks per SM, the plan's length.
 int wbce_disk_constants(long long* out) {
   out[0] = kThreads;
-  out[1] = kStages;
-  out[2] = kMaxRowBytes;
-  out[3] = kMaxBlocksPerSM;
-  out[4] = kBarrierBytes;
-  out[5] = P_LEN;
+  out[1] = kBlocksPerSM;
+  out[2] = P_LEN;
   return 0;
 }
 
@@ -447,12 +391,14 @@ int wbce_disk_forward(const float* z, const int* centers, const float* w, float*
   a.H = H;
   a.W = W;
   a.items = (int)plan[P_ITEMS];
-  a.stage_bytes = (int)plan[P_STAGE_BYTES];
   a.sigma2 = sigma * sigma;
   a.count = (double)B * L * H * W;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return plan[P_VARIANT] == kVariantRing ? launch_fwd<true>(a, plan, s)
-                                         : launch_fwd<false>(a, plan, s);
+  int max_grid = 0;
+  const int err = max_fwd_grid(&max_grid);
+  if (err != 0) return err;
+  if (plan[P_GRID] > max_grid) return (int)cudaErrorInvalidValue;
+  wbce_disk_fwd_kernel<<<(unsigned int)plan[P_GRID], kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // dz (B, L, H, W) = dL/dz * g[0] / (B*L*H*W).

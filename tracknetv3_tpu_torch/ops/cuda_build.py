@@ -2,9 +2,8 @@
 
 Each source in ``tracknetv3_tpu_torch/csrc/`` has a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
-repository's ``build/`` directory, named by a hash of the source, the
-shared headers (``csrc/*.cuh``) and the flags, at its first use in a
-process. The library is loaded with
+repository's ``build/`` directory, named by a hash of the source and the
+flags, at its first use in a process. The library is loaded with
 ``ctypes``. A missing ``nvcc`` or a failed build raises.
 
 No ``--use_fast_math``: the WBCE backward's clamp masks must test exactly
@@ -43,8 +42,6 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = (CSRC_DIR / source).read_bytes()
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 

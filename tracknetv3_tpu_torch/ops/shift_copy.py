@@ -24,10 +24,12 @@ All three are copies: every bit of an element is kept, whatever its type
 vector (16 down to 1 byte) that divides every pointer, stride, offset and
 extent of the launch; ``vector_bytes`` chooses it here, where the CPU tests
 reach it. ``copy_plan`` chooses ``window_copy``'s route from the launch's
-geometry and computes every size the launch passes in: ``"bulk"`` where
-every run, pointer and stride is a multiple of 16 bytes (a persistent grid
-walking chunks of output rows through a ring of 1-D bulk TMA copies),
-``"staged"`` where asked, ``"vector"`` otherwise.
+geometry and computes every size the launch passes in: ``"bulk"`` for a
+large copy of whole rows whose pointers and strides are multiples of 16
+bytes (a persistent grid whose blocks take even shares of the output's
+bytes and walk them in pieces through a ring of 1-D bulk TMA copies),
+``"staged"`` where asked, ``"vector"`` otherwise. ``LAST_PLAN`` is the plan
+of the last launch.
 
 On a CPU tensor each wrapper returns its plain version (``*_plain``: torch
 indexing, ``repeat_interleave``, ``torch.roll``); on a CUDA tensor it
@@ -55,16 +57,15 @@ LAUNCHES = {"window_copy": 0, "repeat_rows": 0, "roll_cols": 0}
 TILE_BYTES = 32768  # the staged variant's largest shared tile (kTileBytes of the source)
 THREADS, UNROLL = 256, 4  # the vector body: a block copies THREADS * UNROLL vectors
 # the bulk route (the source's constants): a ring of STAGES stages of at most
-# MAX_STAGE_BYTES, loads issued LAG items ahead, one-warp blocks, at most
+# MAX_STAGE_BYTES, loads issued LAG pieces ahead, one-warp blocks, at most
 # MAX_BULK_BLOCKS_PER_SM of them per SM, the stages' mbarriers in the first
 # BARRIER_BYTES of shared memory
 STAGES, LAG, MAX_STAGE_BYTES = 4, 3, 24576
 BULK_THREADS, MAX_BULK_BLOCKS_PER_SM, BARRIER_BYTES = 32, 4, 128
-MIN_CHUNK_BYTES = 4096  # a small copy's chunks shrink to spread it, down to this
 ROUTES = {"vector": 0, "staged": 1, "bulk": 2}  # enum Route of the source
 # the order of the plan's int64s that the C entry point reads (enum Plan)
-PLAN_FIELDS = ("route", "vec", "blocks_per_row", "tile_pix", "chunk_bytes", "chunks_per_row",
-               "runs_per_chunk", "items", "stage_bytes", "grid", "threads", "smem_bytes",
+PLAN_FIELDS = ("route", "vec", "blocks_per_row", "tile_pix", "unit_bytes", "units_per_row",
+               "chunk_units", "units", "stage_bytes", "grid", "threads", "smem_bytes",
                "blocks_per_sm")
 
 _P = ctypes.c_void_p
@@ -183,6 +184,7 @@ class WindowGeometry(NamedTuple):
         return q
 
 
+@functools.lru_cache(maxsize=256)
 def window_geometry(shape: Tuple[int, ...], element_size: int, n: int, rows: int, col0: int,
                     cols: Optional[int], ch0: int, chs: Optional[int]) -> WindowGeometry:
     """Check the ranges against ``shape`` = (R, ..., W, C) and fold them into
@@ -210,18 +212,19 @@ class CopyPlan:
     """``window_copy``'s launch: its route and every size the C entry point
     checks. ``vector`` / ``staged``: ``blocks_per_row`` blocks of THREADS per
     output row (``staged``: each slices a tile of ``tile_pix`` pixels).
-    ``bulk``: ``items`` work items, each ``chunk_bytes`` of an
-    output row (``runs_per_chunk`` runs of a channel range), walked by a grid
-    of ``grid`` one-warp blocks in even contiguous shares."""
+    ``bulk``: the output as ``units`` units of ``unit_bytes`` (16 to 128
+    bytes of a row; ``units_per_row`` a row), split into ``grid`` even
+    contiguous shares, one per one-warp block, each walked in pieces of up
+    to ``chunk_units`` units that end at a row's end."""
 
     route: str
     vec: int
     blocks_per_row: int = 0
     tile_pix: int = 0
-    chunk_bytes: int = 0
-    chunks_per_row: int = 0
-    runs_per_chunk: int = 0
-    items: int = 0
+    unit_bytes: int = 0
+    units_per_row: int = 0
+    chunk_units: int = 0
+    units: int = 0
     stage_bytes: int = 0
     grid: int = 0
     threads: int = THREADS
@@ -229,13 +232,44 @@ class CopyPlan:
     blocks_per_sm: int = 0
 
     def as_array(self) -> np.ndarray:
-        v = dataclasses.asdict(self)
-        v["route"] = ROUTES[self.route]
-        return np.array([v[f] for f in PLAN_FIELDS], dtype=np.int64)
+        return np.array([ROUTES[self.route] if f == "route" else getattr(self, f)
+                         for f in PLAN_FIELDS], dtype=np.int64)
+
+    def block_units(self, b: int) -> range:
+        """The units block ``b`` of a bulk launch moves, as the kernel computes them."""
+        return range(b * self.units // self.grid, (b + 1) * self.units // self.grid)
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def _bulk_plan(g: WindowGeometry, out_rows: int, x_ptr: int, out_ptr: int,
+               num_sms: int) -> Optional[CopyPlan]:
+    """The bulk route's plan, or None where it does not apply: a channel
+    range (runs shorter than the row), a pointer, offset or stride off the
+    16-byte grid, or a copy too small for the ring to fill (fewer than
+    STAGES full pieces a block: there the vector body measured faster)."""
+    segs, _, _, off0 = g.runs()
+    out_row_bytes = g.cols * g.chs_bytes
+    quantities = (x_ptr, out_ptr, g.W * g.pix_bytes, off0, out_row_bytes)
+    if segs != 1 or any(q % 16 for q in quantities):
+        return None
+    # the widest unit up to 128 bytes on which every share and piece starts:
+    # a bulk copy that starts off a 128-byte line is slower
+    unit = next(u for u in (128, 64, 32, 16) if all(q % u == 0 for q in quantities))
+    upr = out_row_bytes // unit
+    chunk_units = min(upr, MAX_STAGE_BYTES // unit)
+    units = out_rows * upr
+    stage = _round_up(chunk_units * unit, 128)
+    smem = BARRIER_BYTES + STAGES * stage
+    per_sm = min(MAX_BULK_BLOCKS_PER_SM, cuda_build.SMEM_PER_SM // (smem + 1024))
+    grid = min(units, num_sms * per_sm)
+    if units < grid * STAGES * chunk_units:
+        return None
+    return CopyPlan("bulk", 16, unit_bytes=unit, units_per_row=upr, chunk_units=chunk_units,
+                    units=units, stage_bytes=stage, grid=grid, threads=BULK_THREADS,
+                    smem_bytes=smem, blocks_per_sm=per_sm)
 
 
 def copy_plan(g: WindowGeometry, n: int, rows: int, staged: bool, x_ptr: int, out_ptr: int,
@@ -245,19 +279,19 @@ def copy_plan(g: WindowGeometry, n: int, rows: int, staged: bool, x_ptr: int, ou
 
     - ``staged``: a shared tile of up to TILE_BYTES holds whole pixels of a
       row; as few pixels as give the grid about four blocks per SM.
-    - ``bulk``: every run, pointer and stride a multiple of 16 bytes (and a
-      channel range's run within a stage). An item is a chunk of one output
-      row: up to MAX_STAGE_BYTES, smaller for a small copy so that two
-      blocks per SM get two items each, but not below MIN_CHUNK_BYTES; a
-      channel range's chunk is whole runs. As many blocks per SM as the
-      ring's shared memory lets reside, up to MAX_BULK_BLOCKS_PER_SM.
+    - ``bulk``: whole pixels (one run per output row), every pointer, offset
+      and stride a multiple of 16 bytes, and enough bytes that every block
+      walks at least STAGES pieces of up to MAX_STAGE_BYTES of a row (on
+      an H100, about 26 MB: the train path's frame gathers and segment
+      expansion at the README configuration). The units are the widest of
+      128, 64, 32 or 16 bytes that the pointers, offsets and strides allow;
+      as many blocks per SM as the ring's shared memory lets reside, up to
+      MAX_BULK_BLOCKS_PER_SM.
     - ``vector``: everything else, with the widest vector that divides it all.
     """
     out_rows = n * rows
     if out_rows < 1:
         raise ValueError(f"no rows to copy: {n} windows of {rows} rows")
-    segs, seg_bytes, _, _ = g.runs()
-    out_row_bytes = g.cols * g.chs_bytes
     vec = vector_bytes(x_ptr, out_ptr, *g.byte_quantities(staged))
     if staged:
         if g.pix_bytes > TILE_BYTES:
@@ -268,28 +302,27 @@ def copy_plan(g: WindowGeometry, n: int, rows: int, staged: bool, x_ptr: int, ou
         bpr = -(-g.W // tile_pix)
         plan = CopyPlan("staged", vec, blocks_per_row=bpr, tile_pix=tile_pix,
                         grid=out_rows * bpr)
-    elif vec == 16 and (segs == 1 or seg_bytes <= MAX_STAGE_BYTES):
-        target = _round_up(-(-out_rows * out_row_bytes // (4 * num_sms)), 16)
-        target = min(MAX_STAGE_BYTES, max(MIN_CHUNK_BYTES, target))
-        if segs == 1:
-            rpc, chunk = 1, min(target, out_row_bytes)
-            cpr = -(-out_row_bytes // chunk)
-        else:
-            rpc = max(1, min(segs, target // seg_bytes))
-            chunk, cpr = rpc * seg_bytes, -(-segs // rpc)
-        items = out_rows * cpr
-        stage = _round_up(chunk, 128)
-        smem = BARRIER_BYTES + STAGES * stage
-        per_sm = min(MAX_BULK_BLOCKS_PER_SM, cuda_build.SMEM_PER_SM // (smem + 1024))
-        plan = CopyPlan("bulk", 16, chunk_bytes=chunk, chunks_per_row=cpr, runs_per_chunk=rpc,
-                        items=items, stage_bytes=stage, grid=min(items, num_sms * per_sm),
-                        threads=BULK_THREADS, smem_bytes=smem, blocks_per_sm=per_sm)
     else:
-        bpr = -(-(out_row_bytes // vec) // (THREADS * UNROLL))
-        plan = CopyPlan("vector", vec, blocks_per_row=bpr, grid=out_rows * bpr)
+        plan = _bulk_plan(g, out_rows, x_ptr, out_ptr, num_sms)
+        if plan is None:
+            bpr = -(-(g.cols * g.chs_bytes // vec) // (THREADS * UNROLL))
+            plan = CopyPlan("vector", vec, blocks_per_row=bpr, grid=out_rows * bpr)
     if plan.grid > 0x7FFFFFFF:
         raise ValueError(f"{plan.grid} blocks do not fit one launch's grid")
     return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(g: WindowGeometry, n: int, rows: int, staged: bool, x_align: int,
+                out_align: int, num_sms: int) -> Tuple[CopyPlan, np.ndarray]:
+    """``copy_plan`` and the int64s the C entry point reads, kept per
+    geometry, pointer alignment (mod 128) and card: a train step asks for
+    the same few launches every time."""
+    plan = copy_plan(g, n, rows, staged, x_align, out_align, num_sms)
+    return plan, plan.as_array()
+
+
+LAST_PLAN: Optional[CopyPlan] = None  # the plan of the last window_copy launch
 
 
 def _check_starts_tensor(x: torch.Tensor, starts: torch.Tensor) -> None:
@@ -325,15 +358,15 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, rows: int, col0: int = 0,
     if x.device.type == "cpu":
         check_starts(starts, rows, x.shape[0])
         return window_copy_plain(x, starts, rows, col0, cols, ch0, chs)
+    global LAST_PLAN
     check_kernel_input(x)
     n = starts.shape[0]
     g = window_geometry(tuple(x.shape), x.element_size(), n, rows, col0, cols, ch0, chs)
     out = torch.empty(g.out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    plan = copy_plan(g, n, rows, staged, x.data_ptr(), out.data_ptr(),
-                     cuda_build.num_sms(x.device))
-    arr = plan.as_array()
+    plan, arr = _plan_array(g, n, rows, staged, x.data_ptr() % 128, out.data_ptr() % 128,
+                            cuda_build.num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _lib().window_copy(
             x.data_ptr(), starts.data_ptr(), int(starts.dtype == torch.int64), out.data_ptr(),
@@ -342,6 +375,7 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, rows: int, col0: int = 0,
         )
     _raise_on(err, "window_copy")
     LAUNCHES["window_copy"] += 1
+    LAST_PLAN = plan
     return out
 
 

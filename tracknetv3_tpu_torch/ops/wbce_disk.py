@@ -23,10 +23,8 @@ The forward (K1) is one launch of a persistent grid whose warps walk a
 fixed partition of the logits into rows (``loss_plan``): one float partial
 per row, summed in double by the last block to finish, so the loss is the
 same bits from run to run and does not depend on the card. Its scratch (the
-partials and the last block's ticket) is kept per device and stream. The
-logits reach a warp either through its ring of bulk TMA copies in shared
-memory (``"ring"``) or by 16-byte loads straight to registers
-(``"direct"``); both add the same terms in the same order.
+partials and the last block's ticket) is kept per device and stream, and
+its plan per shape and card.
 """
 
 from __future__ import annotations
@@ -46,18 +44,12 @@ from .losses import wbce_from_logits
 
 SOURCE = "wbce_disk.cu"
 LAUNCHES = {"fwd": 0, "bwd": 0}
-# K1's constants (csrc/wbce_disk.cu): threads per block (8 warps), ring
-# stages per warp, the longest row the ring takes, the most blocks per SM
-# (the launch bounds), the warps' mbarriers' bytes before the stages
-THREADS, STAGES, MAX_ROW_BYTES, MAX_BLOCKS_PER_SM, BARRIER_BYTES = 256, 3, 8192, 4, 256
+# K1's constants (csrc/wbce_disk.cu): threads per block (8 warps), blocks
+# per SM (the launch bounds)
+THREADS, BLOCKS_PER_SM = 256, 4
 WARPS = THREADS // 32
-VARIANTS = {"ring": 0, "direct": 1}  # enum Variant of the source
-# the faster way in and grid on the H100 (chip_smoke.py kernel_times, PERF.md)
-FWD_VARIANT = "direct"
-FWD_BLOCKS_PER_SM = 4
 # the order of the plan's int64s that the C entry point reads (enum Plan)
-PLAN_FIELDS = ("variant", "items", "stage_bytes", "grid", "threads", "smem_bytes",
-               "blocks_per_sm")
+PLAN_FIELDS = ("items", "grid", "threads")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,10 +65,9 @@ def _lib() -> ctypes.CDLL:
     lib.wbce_disk_backward.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
     for fn in (lib.wbce_disk_forward, lib.wbce_disk_backward):
         fn.restype = _I
-    consts = (ctypes.c_longlong * 6)()
+    consts = (ctypes.c_longlong * 3)()
     lib.wbce_disk_constants(consts)
-    if tuple(consts) != (THREADS, STAGES, MAX_ROW_BYTES, MAX_BLOCKS_PER_SM, BARRIER_BYTES,
-                         len(PLAN_FIELDS)):
+    if tuple(consts) != (THREADS, BLOCKS_PER_SM, len(PLAN_FIELDS)):
         raise RuntimeError("csrc/wbce_disk.cu and ops/wbce_disk.py disagree on their constants")
     return lib
 
@@ -84,21 +75,14 @@ def _lib() -> ctypes.CDLL:
 @dataclasses.dataclass(frozen=True)
 class LossPlan:
     """K1's launch: ``items`` work items, one per row of a (sample, frame)
-    plane, walked by the ``grid * WARPS`` warps in even contiguous shares;
-    a row's stage in the ring and the block's shared memory."""
+    plane, walked by the ``grid * WARPS`` warps in even contiguous shares."""
 
-    variant: str
     items: int
-    stage_bytes: int
     grid: int
-    threads: int
-    smem_bytes: int
-    blocks_per_sm: int
+    threads: int = THREADS
 
     def as_array(self) -> np.ndarray:
-        v = dataclasses.asdict(self)
-        v["variant"] = VARIANTS[self.variant]
-        return np.array([v[f] for f in PLAN_FIELDS], dtype=np.int64)
+        return np.array([getattr(self, f) for f in PLAN_FIELDS], dtype=np.int64)
 
     def warp_items(self, gw: int) -> range:
         """The rows warp ``gw`` of the grid walks, as the kernel computes them."""
@@ -106,32 +90,26 @@ class LossPlan:
         return range(gw * self.items // warps, (gw + 1) * self.items // warps)
 
 
-def loss_plan(B: int, L: int, H: int, W: int, num_sms: int, variant: str = FWD_VARIANT,
-              blocks_per_sm: int = FWD_BLOCKS_PER_SM) -> LossPlan:
+def loss_plan(B: int, L: int, H: int, W: int, num_sms: int) -> LossPlan:
     """K1's partition and grid. An item is one row of one plane: B*L*H
     items, a count that depends on the shape alone, so the loss does not
-    depend on the card. The grid is ``num_sms * blocks_per_sm`` blocks (no
-    more than the ring's shared memory lets reside), or one warp per row
-    where there are fewer rows. Raises where no launch fits:
-    W not a multiple of 4 (16-byte rows for the bulk copies and the float4
-    loads), a row longer than MAX_ROW_BYTES for the ring."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got {variant!r}")
+    depend on the card. The grid is ``num_sms * BLOCKS_PER_SM`` blocks, or
+    one warp per row where there are fewer rows. Raises where no launch
+    fits: an empty shape, W not a multiple of 4 (the float4 loads)."""
     if min(B, L, H, W) < 1:
         raise ValueError(f"empty logits {(B, L, H, W)}")
-    if not 1 <= blocks_per_sm <= MAX_BLOCKS_PER_SM:
-        raise ValueError(f"blocks_per_sm must be in [1, {MAX_BLOCKS_PER_SM}], got {blocks_per_sm}")
     if W % 4:
         raise ValueError(f"the forward kernel needs W a multiple of 4, got {W}")
-    stage = -(-4 * W // 128) * 128
-    if variant == "ring" and stage > MAX_ROW_BYTES:
-        raise ValueError(f"the ring takes rows of at most {MAX_ROW_BYTES // 4} logits, got {W}")
     items = B * L * H
-    smem = BARRIER_BYTES + WARPS * STAGES * stage if variant == "ring" else 0
-    if smem:  # no more blocks than the rings' shared memory lets reside
-        blocks_per_sm = min(blocks_per_sm, cuda_build.SMEM_PER_SM // (smem + 1024))
-    grid = min(num_sms * blocks_per_sm, -(-items // WARPS))
-    return LossPlan(variant, items, stage, grid, THREADS, smem, blocks_per_sm)
+    return LossPlan(items, min(num_sms * BLOCKS_PER_SM, -(-items // WARPS)))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_array(B: int, L: int, H: int, W: int, num_sms: int) -> Tuple[LossPlan, np.ndarray]:
+    """``loss_plan`` and the int64s the C entry point reads, kept per shape
+    and card: a train step asks for the same launch every time."""
+    plan = loss_plan(B, L, H, W, num_sms)
+    return plan, plan.as_array()
 
 
 # (device index, stream) -> (partials, ticket): K1's scratch. The ticket is
@@ -174,17 +152,14 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def wbce_disk_forward(z: torch.Tensor, centers: torch.Tensor, w: torch.Tensor,
-                      sigma: float = SIGMA, variant: str = FWD_VARIANT,
-                      blocks_per_sm: int = FWD_BLOCKS_PER_SM) -> torch.Tensor:
+                      sigma: float = SIGMA) -> torch.Tensor:
     """Kernel K1: mean WBCE of ``z`` (B, L, H, W) -> 0-d float32 tensor, in
-    one launch (``variant``: how the logits reach a warp; ``blocks_per_sm``:
-    the grid's blocks per SM). The loss's bits do not depend on either."""
+    one launch."""
     _check(z, centers, w)
     if z.data_ptr() % 16:
         raise ValueError("the forward kernel needs 16-byte aligned logits")
     B, L, H, W = z.shape
-    plan = loss_plan(B, L, H, W, cuda_build.num_sms(z.device), variant, blocks_per_sm)
-    arr = plan.as_array()
+    plan, arr = _plan_array(B, L, H, W, cuda_build.num_sms(z.device))
     loss = torch.empty((), device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
