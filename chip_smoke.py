@@ -1238,10 +1238,25 @@ def _copy_cases(dev, sc=None):
     seg_rows = _window_rows(seg_starts, L)
     window_case("segment_expand", None, (n_seg, span) + frame, u8, seg_starts, L,
                 lambda x: flat_segs(x)[seg_rows], "advanced indexing", flat=flat_segs)
-    add("median_repeat", "repeat_rows", None, (n_seg,) + frame, u8,
-        lambda x: sc.repeat_rows(x, SEG_WINDOWS), lambda x: sc.repeat_rows_plain(x, SEG_WINDOWS),
-        lambda x: x.repeat_interleave(SEG_WINDOWS, dim=0), "repeat_interleave",
-        lambda x: x.repeat(SEG_WINDOWS, 1, 1, 1), "the tiled repeat")
+    def repeat_case(name, shape, k, wrong, wrong_name):
+        add(name, "repeat_rows", None, shape, u8,
+            lambda x: sc.repeat_rows(x, k), lambda x: sc.repeat_rows_plain(x, k),
+            lambda x: x.repeat_interleave(k, dim=0), "repeat_interleave", wrong, wrong_name)
+
+    tiled_repeat = lambda x: x.repeat(SEG_WINDOWS, 1, 1, 1)  # noqa: E731
+    repeat_case("median_repeat", (n_seg,) + frame, SEG_WINDOWS, tiled_repeat, "the tiled repeat")
+    # k = 1 (a plain copy of the rows), and a row of an odd byte count
+    # (287 x 511 x 3), which takes 1-byte vectors
+    repeat_case("repeat_k1", (n_seg,) + frame, 1, lambda x: x.roll(1, 0), "the rows rolled by one")
+    repeat_case("repeat_odd_row", (n_seg, H - 1, W - 1, 3), SEG_WINDOWS, tiled_repeat,
+                "the tiled repeat")
+    # the bulk form of each 16-byte repeat case, for the comparison (a tree
+    # without the form repeats its own kernel's case, so the cases align)
+    bulk = hasattr(sc, "REPEAT_FORM")
+    for c in [c for c in cases if c["kernel"] == "repeat_rows" and c["name"] != "repeat_odd_row"]:
+        add(c["name"] + "_bulk", "repeat_rows", c["probe"], c["shape"], c["dtype"],
+            (lambda x, call=c["call"]: _bulk_form(sc, call, x)) if bulk else c["call"],
+            c["plain"], c["library"], c["library_name"], c["wrong"], c["wrong_name"])
     n_res = 160  # frames of the synthetic train split: 2 matches x 2 rallies x 40
     res_idx = torch.from_numpy(rng.integers(0, n_res, B * L).astype(np.int32)).to(dev)
     window_case("resident_gather", None, (n_res,) + frame, u8, res_idx, 1,
@@ -1257,6 +1272,15 @@ def _copy_cases(dev, sc=None):
                     lambda x, starts=starts: torch.index_select(flat_win(x), 0, starts)[:, None],
                     "index_select", flat=flat_win)
     return cases
+
+
+def _bulk_form(sc, call, x):
+    """``call(x)`` with repeat_rows launching its bulk form."""
+    sc.REPEAT_FORM = "bulk"
+    try:
+        return call(x)
+    finally:
+        sc.REPEAT_FORM = "vector"
 
 
 def phase_copy(baseline=None):
@@ -1301,6 +1325,10 @@ def phase_copy(baseline=None):
         ms = time_launches(lambda j: c["call"](xs[j % 3]))
         plain_ms = time_launches(lambda j: c["plain"](xs[j % 3]))
         lib_ms = time_launches(lambda j: c["library"](xs[j % 3]))
+        if c["kernel"] == "repeat_rows":  # a plain device copy of the output's bytes
+            dst, src = torch.empty_like(got), got.clone()
+            copy_ms = time_launches(lambda j: dst.copy_(src))
+            del dst, src
         n_in = math.prod(c["shape"]) if c["needed"] is None else c["needed"]
         n_bytes = (n_in + got.numel()) * got.element_size()
         b_ms, b_by = bound_ms(n_bytes, 0)
@@ -1316,6 +1344,8 @@ def phase_copy(baseline=None):
             "bound_by": b_by, "mb_moved": n_bytes / 1e6}
         if plan is not None:
             r["route"] = plan.route
+        if c["kernel"] == "repeat_rows":
+            r["copy_ms"] = copy_ms
         if turns is not None:
             r["turns_old_new_new_old_ms"] = turns
             r["earlier_ms"] = statistics.mean(turns[0::3])

@@ -330,3 +330,149 @@ def test_constants_and_plan_fields_match_the_source():
     for j in range(sc.STAGES, 4 * sc.STAGES):
         newest_done = (j - sc.LAG - 1) - n_pending
         assert newest_done >= j - sc.STAGES
+
+
+# ------------------------------------------------------------ repeat_rows
+
+# name: (R, row bytes, k): the train path's median repeat at the README
+# configuration ((2, 288, 512, 3) uint8 x5), the probe U5 ((32, 256, 128)
+# bf16 x2), k = 1, and an odd row (287 x 511 x 3 bytes: 1-byte vectors)
+REPEAT_CASES = {
+    "median_repeat": (2, 288 * 512 * 3, 5),
+    "U5": (32, 256 * 128 * 2, 2),
+    "k1": (2, 288 * 512 * 3, 1),
+    "odd_row": (2, 287 * 511 * 3, 5),
+}
+REPEAT_FORMS = ("vector", "bulk")
+
+
+def _repeat_vector_model(R, row_bytes, k, p):
+    """repeat_rows_kernel<V, U>: block b = (j * R + r) * chunks_per_row + c,
+    thread t, its units u = c * THREADS * U + t + i * THREADS (i < U)."""
+    V, U = p.vec, p.unroll
+    units = row_bytes // V
+    b = np.arange(p.grid)
+    jr, c = b // p.chunks_per_row, b % p.chunks_per_row
+    j, r = jr // R, jr % R
+    u = (c[:, None, None] * (sc.THREADS * U) + np.arange(sc.THREADS)[None, :, None]
+         + np.arange(U)[None, None, :] * sc.THREADS)
+    ok = u < units
+    shape = u.shape
+    src = (r[:, None, None] * row_bytes + u * V)[ok]
+    dst = ((r * k + j)[:, None, None] * row_bytes + u * V)[ok]
+    byte = np.arange(V)
+    return (src[:, None] + byte).reshape(-1), (dst[:, None] + byte).reshape(-1), shape
+
+
+def _repeat_bulk_model(R, row_bytes, k, p):
+    """repeat_rows_bulk_kernel: block b's even share of the input units,
+    walked in pieces that end at a row's end, each stored k times."""
+    srcs, dsts = [], []
+    for b in range(p.grid):
+        share = p.block_units(b)
+        assert len(share) > 0, "a block without units"
+        u, end = share.start, share.stop
+        while u < end:
+            r, kk = divmod(u, p.units_per_row)
+            m = min(p.chunk_units, p.units_per_row - kk, end - u)
+            nbytes = m * p.unit_bytes
+            assert nbytes <= p.stage_bytes
+            src = u * p.unit_bytes
+            for j in range(k):
+                dst = (r * k + j) * row_bytes + kk * p.unit_bytes
+                assert src % p.unit_bytes == 0 and dst % p.unit_bytes == 0
+                assert nbytes % 16 == 0 and p.unit_bytes % 16 == 0
+                srcs.append(np.arange(src, src + nbytes))
+                dsts.append(np.arange(dst, dst + nbytes))
+            u += m
+    return np.concatenate(srcs), np.concatenate(dsts), None
+
+
+@pytest.mark.parametrize("form", REPEAT_FORMS)
+@pytest.mark.parametrize("name", sorted(REPEAT_CASES))
+def test_repeat_model_writes_every_byte_once(name, form):
+    R, row_bytes, k = REPEAT_CASES[name]
+    if form == "bulk" and row_bytes % 16:
+        with pytest.raises(ValueError):
+            sc.repeat_plan(R, row_bytes, k, 0, 256, SMS, form)
+        return
+    p = sc.repeat_plan(R, row_bytes, k, 0, 256, SMS, form)
+    model = _repeat_vector_model if form == "vector" else _repeat_bulk_model
+    src, dst, _ = model(R, row_bytes, k, p)
+    writes = np.bincount(dst, minlength=R * k * row_bytes)
+    assert writes.size == R * k * row_bytes and (writes == 1).all(), (
+        f"bytes written {writes.min()}..{writes.max()} times")
+    # out[r * k + j] = x[r]: the byte at (row, offset) of the output comes
+    # from (row // k, offset) of the input
+    want = dst // (k * row_bytes) * row_bytes + dst % row_bytes
+    np.testing.assert_array_equal(src, want)
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # the H100 SXM's and PCIe's SMs
+@pytest.mark.parametrize("name", sorted(REPEAT_CASES))
+def test_repeat_plan_fills_the_card(name, sms):
+    R, row_bytes, k = REPEAT_CASES[name]
+    p = sc.repeat_plan(R, row_bytes, k, 0, 256, sms)
+    assert p.route == "vector" and p.threads == sc.THREADS
+    assert p.grid >= sms
+    assert p.grid == R * k * p.chunks_per_row
+    assert p.chunks_per_row == -(-(row_bytes // p.vec) // (sc.THREADS * p.unroll))
+    # the widest unroll whose grid keeps REPEAT_BLOCKS_PER_SM blocks per SM
+    fits = [u for u in sc.REPEAT_UNROLLS
+            if R * k * -(-(row_bytes // p.vec) // (sc.THREADS * u))
+            >= sc.REPEAT_BLOCKS_PER_SM * sms]
+    assert p.unroll == (fits[0] if fits else 1)
+    assert p.vec == (1 if row_bytes % 2 else 16)
+
+
+def test_repeat_plan_is_cached_per_geometry_alignment_and_card():
+    args = (2, 288 * 512 * 3, 5)
+    a = sc._repeat_plan_array(*args, 0, 0, SMS, "vector")
+    assert sc._repeat_plan_array(*args, 0, 0, SMS, "vector") is a
+    assert sc._repeat_plan_array(*args, 8, 0, SMS, "vector")[0].vec == 8
+    assert sc._repeat_plan_array(*args, 0, 0, 114, "vector") is not a
+    np.testing.assert_array_equal(a[1], a[0].as_array())
+
+
+def _repeat_entry_accepts(R, row_bytes, k, x_ptr, out_ptr, arr):
+    """The vector form's checks of the C entry point ``repeat_rows``."""
+    f = dict(zip(sc.REPEAT_PLAN_FIELDS, (int(v) for v in arr)))
+    vec, unroll, cpr = f["vec"], f["unroll"], f["chunks_per_row"]
+    return (f["route"] == sc.REPEAT_ROUTES["vector"] and vec in (1, 2, 4, 8, 16)
+            and x_ptr % vec == 0 and out_ptr % vec == 0 and row_bytes % vec == 0
+            and unroll in (1, 2, 4)
+            and cpr == -(-(row_bytes // vec) // (sc.THREADS * unroll))
+            and 0 < cpr and R * k <= 0x7FFFFFFF // cpr and f["grid"] == R * k * cpr
+            and f["threads"] == sc.THREADS and f["smem_bytes"] == 0)
+
+
+@pytest.mark.parametrize("name", sorted(REPEAT_CASES))
+def test_repeat_entry_point_and_plan_agree(name):
+    R, row_bytes, k = REPEAT_CASES[name]
+    arr = sc.repeat_plan(R, row_bytes, k, 0, 256, SMS).as_array()
+    assert _repeat_entry_accepts(R, row_bytes, k, 0, 256, arr)
+    # a plan for other pointers or another geometry is refused
+    bad = arr.copy()
+    bad[sc.REPEAT_PLAN_FIELDS.index("grid")] += 1
+    assert not _repeat_entry_accepts(R, row_bytes, k, 0, 256, bad)
+    if arr[sc.REPEAT_PLAN_FIELDS.index("vec")] > 1:
+        assert not _repeat_entry_accepts(R, row_bytes, k, 1, 256, arr)
+    # a grid past the launch limit: the entry point would refuse every plan,
+    # and the Python plan raises
+    with pytest.raises(ValueError):
+        sc.repeat_plan(2 ** 22, 16 * sc.THREADS * 64, 64, 0, 0, SMS)
+    with pytest.raises(ValueError):
+        sc.repeat_plan(R, row_bytes, 0, 0, 0, SMS)
+
+
+def test_repeat_constants_match_the_source():
+    with open(SOURCE) as f:
+        src = f.read()
+    enum = re.search(r"enum RepeatPlan \{([^}]*)\}", src).group(1)
+    names = [n.strip() for n in enum.split(",") if n.strip()]
+    want = ["Q_" + f.upper() for f in sc.REPEAT_PLAN_FIELDS]
+    want[want.index("Q_SMEM_BYTES")] = "Q_SMEM"
+    assert names == want + ["Q_LEN"]
+    assert "template <typename V, int U>\n__global__" in src
+    for u in sc.REPEAT_UNROLLS:
+        assert f"CALL_REPEAT_U(V, {u})" in src

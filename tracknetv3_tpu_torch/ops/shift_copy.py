@@ -45,7 +45,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,6 +68,18 @@ PLAN_FIELDS = ("route", "vec", "blocks_per_row", "tile_pix", "unit_bytes", "unit
                "chunk_units", "units", "stage_bytes", "grid", "threads", "smem_bytes",
                "blocks_per_sm")
 
+# repeat_rows' plan: the order of its int64s (enum RepeatPlan of the source),
+# its two forms (enum RepeatRoute) and the vector form's unrolls, widest
+# first; the plan takes the widest that still gives REPEAT_BLOCKS_PER_SM
+# blocks per SM
+REPEAT_PLAN_FIELDS = ("route", "vec", "unroll", "chunks_per_row", "unit_bytes",
+                      "units_per_row", "chunk_units", "units", "stage_bytes", "grid", "threads",
+                      "smem_bytes", "blocks_per_sm")
+REPEAT_ROUTES = {"vector": 0, "bulk": 1}
+REPEAT_UNROLLS = (4, 2, 1)
+REPEAT_BLOCKS_PER_SM = 4
+REPEAT_FORM = "vector"  # the form repeat_rows launches: "vector" or "bulk"
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -80,12 +92,12 @@ def _lib() -> ctypes.CDLL:
     lib.shift_copy_constants.argtypes = [_P]
     lib.shift_copy_constants.restype = _I
     lib.window_copy.argtypes = [_P, _P, _I, _P] + [_LL] * 8 + [_P, _P]
-    lib.repeat_rows.argtypes = [_P, _P, _LL, _LL, _LL, _I, _P]
+    lib.repeat_rows.argtypes = [_P, _P, _LL, _LL, _LL, _P, _P]
     lib.roll_cols.argtypes = [_P, _P, _LL, _LL, _LL, _LL, _I, _P]
     for fn in (lib.window_copy, lib.repeat_rows, lib.roll_cols):
         fn.restype = _I
     ours = (TILE_BYTES, THREADS, UNROLL, STAGES, MAX_STAGE_BYTES, BULK_THREADS,
-            MAX_BULK_BLOCKS_PER_SM, BARRIER_BYTES, LAG, len(PLAN_FIELDS))
+            MAX_BULK_BLOCKS_PER_SM, BARRIER_BYTES, LAG, len(PLAN_FIELDS), len(REPEAT_PLAN_FIELDS))
     consts = (ctypes.c_longlong * len(ours))()
     lib.shift_copy_constants(consts)
     if tuple(consts) != ours:
@@ -322,7 +334,97 @@ def _plan_array(g: WindowGeometry, n: int, rows: int, staged: bool, x_align: int
     return plan, plan.as_array()
 
 
-LAST_PLAN: Optional[CopyPlan] = None  # the plan of the last window_copy launch
+@dataclasses.dataclass(frozen=True)
+class RepeatPlan:
+    """``repeat_rows``' launch: its form and every size the C entry point
+    checks. ``vector``: ``grid`` = R * k * ``chunks_per_row`` blocks of
+    THREADS, block ``(j * R + r) * chunks_per_row + c`` copying piece ``c``
+    (THREADS * ``unroll`` vectors of ``vec`` bytes) of row ``r`` into copy
+    ``j``. ``bulk``: the input as ``units`` units of ``unit_bytes``, split
+    into ``grid`` even shares, each walked in pieces of up to
+    ``chunk_units`` units that end at a row's end, every piece loaded once
+    and stored k times."""
+
+    route: str
+    vec: int
+    unroll: int = 0
+    chunks_per_row: int = 0
+    unit_bytes: int = 0
+    units_per_row: int = 0
+    chunk_units: int = 0
+    units: int = 0
+    stage_bytes: int = 0
+    grid: int = 0
+    threads: int = THREADS
+    smem_bytes: int = 0
+    blocks_per_sm: int = 0
+
+    def as_array(self) -> np.ndarray:
+        return np.array([REPEAT_ROUTES[self.route] if f == "route" else getattr(self, f)
+                         for f in REPEAT_PLAN_FIELDS], dtype=np.int64)
+
+    def block_units(self, b: int) -> range:
+        """The units block ``b`` of a bulk launch moves, as the kernel computes them."""
+        return range(b * self.units // self.grid, (b + 1) * self.units // self.grid)
+
+
+def repeat_plan(R: int, row_bytes: int, k: int, x_ptr: int, out_ptr: int, num_sms: int,
+                form: str = "vector") -> RepeatPlan:
+    """The sizes of one ``repeat_rows`` launch of ``R`` rows of ``row_bytes``
+    bytes repeated ``k`` times, from its geometry and base pointers alone.
+
+    - ``vector``: the widest vector that divides both pointers and the row;
+      the widest unroll of REPEAT_UNROLLS whose grid of R * k * pieces still
+      holds REPEAT_BLOCKS_PER_SM blocks per SM (else 1, the most blocks).
+    - ``bulk``: pointers and rows on the 16-byte grid; units of the widest of
+      128, 64, 32 or 16 bytes they allow; as many one-warp blocks per SM as
+      the ring's shared memory lets reside, each with an even share.
+    Raises ``ValueError`` where no launch of the form fits."""
+    if R < 1 or row_bytes < 1 or k < 1:
+        raise ValueError(f"no rows to repeat: {R} rows of {row_bytes} bytes, k = {k}")
+    if form == "bulk":
+        quantities = (x_ptr, out_ptr, row_bytes)
+        if any(q % 16 for q in quantities):
+            raise ValueError("the bulk form needs pointers and rows on the 16-byte grid")
+        unit = next(u for u in (128, 64, 32, 16) if all(q % u == 0 for q in quantities))
+        upr = row_bytes // unit
+        units = R * upr
+        # pieces no larger than a block's share at the most blocks per SM,
+        # so that small copies get small stages and every block a share
+        share = -(-units // min(units, num_sms * MAX_BULK_BLOCKS_PER_SM))
+        chunk_units = min(upr, MAX_STAGE_BYTES // unit, share)
+        stage = _round_up(chunk_units * unit, 128)
+        smem = BARRIER_BYTES + STAGES * stage
+        per_sm = min(MAX_BULK_BLOCKS_PER_SM, cuda_build.SMEM_PER_SM // (smem + 1024))
+        return RepeatPlan("bulk", 16, unit_bytes=unit, units_per_row=upr,
+                          chunk_units=chunk_units, units=units, stage_bytes=stage,
+                          grid=min(units, num_sms * per_sm), threads=BULK_THREADS,
+                          smem_bytes=smem, blocks_per_sm=per_sm)
+    if form != "vector":
+        raise ValueError(f"unknown repeat form {form!r}")
+    vec = vector_bytes(x_ptr, out_ptr, row_bytes)
+    units = row_bytes // vec
+    for unroll in REPEAT_UNROLLS:
+        cpr = -(-units // (THREADS * unroll))
+        grid = R * k * cpr
+        if grid >= REPEAT_BLOCKS_PER_SM * num_sms:
+            break
+    if grid > 0x7FFFFFFF:
+        raise ValueError(f"{grid} blocks do not fit one launch's grid")
+    return RepeatPlan("vector", vec, unroll=unroll, chunks_per_row=cpr, grid=grid)
+
+
+@functools.lru_cache(maxsize=256)
+def _repeat_plan_array(R: int, row_bytes: int, k: int, x_align: int, out_align: int,
+                       num_sms: int, form: str) -> Tuple[RepeatPlan, np.ndarray]:
+    """``repeat_plan`` and the int64s the C entry point reads, kept per
+    geometry, pointer alignment (mod 128) and card."""
+    plan = repeat_plan(R, row_bytes, k, x_align, out_align, num_sms, form)
+    return plan, plan.as_array()
+
+
+# the plan of the last window_copy or repeat_rows launch
+LAST_PLAN: Optional[Union[CopyPlan, RepeatPlan]] = None
 
 
 def _check_starts_tensor(x: torch.Tensor, starts: torch.Tensor) -> None:
@@ -386,17 +488,21 @@ def repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"need k >= 1, got {k}")
     if x.device.type == "cpu":
         return repeat_rows_plain(x, k)
+    global LAST_PLAN
     check_kernel_input(x)
     out = torch.empty((x.shape[0] * k,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    row_bytes = math.prod(x.shape[1:]) * x.element_size()
-    vec = vector_bytes(x.data_ptr(), out.data_ptr(), row_bytes)
+    R = x.shape[0]
+    row_bytes = x.numel() // R * x.element_size()
+    plan, arr = _repeat_plan_array(R, row_bytes, k, x.data_ptr() % 128, out.data_ptr() % 128,
+                                   cuda_build.num_sms(x.device), REPEAT_FORM)
     with torch.cuda.device(x.device):
-        err = _lib().repeat_rows(x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes, k, vec,
+        err = _lib().repeat_rows(x.data_ptr(), out.data_ptr(), R, row_bytes, k, arr.ctypes.data,
                                  _stream(x))
     _raise_on(err, "repeat_rows")
     LAUNCHES["repeat_rows"] += 1
+    LAST_PLAN = plan
     return out
 
 
