@@ -154,6 +154,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -1250,13 +1251,18 @@ def _copy_cases(dev, sc=None):
     repeat_case("repeat_k1", (n_seg,) + frame, 1, lambda x: x.roll(1, 0), "the rows rolled by one")
     repeat_case("repeat_odd_row", (n_seg, H - 1, W - 1, 3), SEG_WINDOWS, tiled_repeat,
                 "the tiled repeat")
-    # the bulk form of each 16-byte repeat case, for the comparison (a tree
-    # without the form repeats its own kernel's case, so the cases align)
-    bulk = hasattr(sc, "REPEAT_FORM")
-    for c in [c for c in cases if c["kernel"] == "repeat_rows" and c["name"] != "repeat_odd_row"]:
-        add(c["name"] + "_bulk", "repeat_rows", c["probe"], c["shape"], c["dtype"],
-            (lambda x, call=c["call"]: _bulk_form(sc, call, x)) if bulk else c["call"],
-            c["plain"], c["library"], c["library_name"], c["wrong"], c["wrong_name"])
+    # a sweep of the launch's shape (unroll, copies per block) at three
+    # repeat cases, for the comparison (a tree without the override repeats
+    # its own kernel's case, so the cases align)
+    sweep = hasattr(sc, "REPEAT_SHAPE")
+    for c in [c for c in cases if c["name"] in ("U5", "median_repeat", "repeat_k1")]:
+        k = c["plain"](torch.empty((1, 1), device="meta")).shape[0]
+        for shape in dict.fromkeys(((8, 1), (4, 1), (2, 1), (1, 1), (1, k), (2, k), (4, k))):
+            add(f"{c['name']}_u{shape[0]}c{shape[1]}", "repeat_rows", c["probe"], c["shape"],
+                c["dtype"],
+                (lambda x, call=c["call"], shape=shape: _with_shape(sc, shape, call, x))
+                if sweep else c["call"],
+                c["plain"], c["library"], c["library_name"], c["wrong"], c["wrong_name"])
     n_res = 160  # frames of the synthetic train split: 2 matches x 2 rallies x 40
     res_idx = torch.from_numpy(rng.integers(0, n_res, B * L).astype(np.int32)).to(dev)
     window_case("resident_gather", None, (n_res,) + frame, u8, res_idx, 1,
@@ -1274,13 +1280,13 @@ def _copy_cases(dev, sc=None):
     return cases
 
 
-def _bulk_form(sc, call, x):
-    """``call(x)`` with repeat_rows launching its bulk form."""
-    sc.REPEAT_FORM = "bulk"
+def _with_shape(sc, shape, call, x):
+    """``call(x)`` with repeat_rows launching the (unroll, copies per block) ``shape``."""
+    sc.REPEAT_SHAPE = shape
     try:
         return call(x)
     finally:
-        sc.REPEAT_FORM = "vector"
+        sc.REPEAT_SHAPE = None
 
 
 def phase_copy(baseline=None):
@@ -1329,6 +1335,7 @@ def phase_copy(baseline=None):
             dst, src = torch.empty_like(got), got.clone()
             copy_ms = time_launches(lambda j: dst.copy_(src))
             del dst, src
+            empty_ms = time_launches(lambda j: torch.cuda._sleep(0))  # an empty kernel
         n_in = math.prod(c["shape"]) if c["needed"] is None else c["needed"]
         n_bytes = (n_in + got.numel()) * got.element_size()
         b_ms, b_by = bound_ms(n_bytes, 0)
@@ -1346,6 +1353,8 @@ def phase_copy(baseline=None):
             r["route"] = plan.route
         if c["kernel"] == "repeat_rows":
             r["copy_ms"] = copy_ms
+            r["empty_kernel_ms"] = empty_ms
+            r["plan"] = dataclasses.asdict(plan) if plan is not None else None
         if turns is not None:
             r["turns_old_new_new_old_ms"] = turns
             r["earlier_ms"] = statistics.mean(turns[0::3])

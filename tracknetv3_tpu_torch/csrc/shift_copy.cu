@@ -62,7 +62,12 @@
 //   VMEM tile; the vector body moves them. The plan sizes the tile so that
 //   the grid fills the card.
 // A block reads its own window start from the table (no host read-back).
-// repeat_rows and roll_cols keep the vector body.
+// repeat_rows: the vector body with each piece loaded once and stored k
+// times; its plan (ops/shift_copy.py repeat_plan) sizes the pieces so that
+// the grid puts about one block on each SM (fixed 16 KB pieces gave 54
+// blocks at the median repeat). One block per piece and copy, or 1-D bulk
+// copies from shared memory, measured slower on an H100 (PERF.md).
+// roll_cols keeps the vector body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -380,97 +385,35 @@ __global__ void __launch_bounds__(kBulkThreads) window_copy_bulk_kernel(const Bu
 }
 
 // x: (R, row_bytes) -> out: (R * k, row_bytes), out[r * k + j] = x[r].
-// The vector form: block b copies piece c of row r into copy j, with
-// b = (j * R + r) * chunks_per_row + c; a piece is kThreads * U vectors of V,
-// each thread loads its U vectors and stores them once. Every block is in
-// flight at once (the plan picks U so the grid fills the card), and the k
-// blocks of one piece read it from L2 after the first.
+// Block b copies piece c of row r into copies [g * kc, min(k, (g + 1) * kc)),
+// with b = (g * R + r) * chunks_per_row + c; a piece is kThreads * U vectors
+// of V. Each thread loads its U vectors, then stores them once per copy.
 template <typename V, int U>
 __global__ void __launch_bounds__(kThreads)
     repeat_rows_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ out,
-                       i64 R, i64 row_bytes, i64 k, unsigned int chunks_per_row) {
-  const unsigned int jr = blockIdx.x / chunks_per_row;
-  const unsigned int c = blockIdx.x - jr * chunks_per_row;
-  const i64 j = (i64)(jr / (unsigned int)R), r = (i64)jr - j * R;
+                       i64 R, i64 row_bytes, i64 k, i64 kc, unsigned int chunks_per_row) {
+  const unsigned int gr = blockIdx.x / chunks_per_row;
+  const unsigned int c = blockIdx.x - gr * chunks_per_row;
+  const i64 g = (i64)(gr / (unsigned int)R), r = (i64)gr - g * R;
   constexpr i64 kV = (i64)sizeof(V);
   const i64 units = row_bytes / kV;
   const i64 u0 = (i64)c * (kThreads * U) + threadIdx.x;
   const unsigned char* src = x + r * row_bytes;
-  unsigned char* dst = out + (r * k + j) * row_bytes;
   V v[U];
 #pragma unroll
   for (int i = 0; i < U; ++i) {
     const i64 u = u0 + (i64)i * kThreads;
     if (u < units) v[i] = *reinterpret_cast<const V*>(src + u * kV);
   }
+  const i64 j1 = (g + 1) * kc < k ? (g + 1) * kc : k;
+  for (i64 j = g * kc; j < j1; ++j) {
+    unsigned char* dst = out + (r * k + j) * row_bytes;
 #pragma unroll
-  for (int i = 0; i < U; ++i) {
-    const i64 u = u0 + (i64)i * kThreads;
-    if (u < units) *reinterpret_cast<V*>(dst + u * kV) = v[i];
-  }
-}
-
-struct RepeatBulkArgs {
-  const unsigned char* x;
-  unsigned char* out;
-  i64 row_bytes, k;
-  // the input as ``units`` units of unit_bytes (16 to 128), units_per_row a
-  // row; a piece is up to chunk_units units of one row
-  i64 unit_bytes, units_per_row, chunk_units, units;
-  i64 stage_bytes;
-};
-
-// The bulk form: a persistent grid of one-warp blocks, block b taking the
-// input units [b * units / grid, (b + 1) * units / grid) in pieces that end
-// at a row's end. Lane 0 works a ring of kStages stages: the 1-D bulk load
-// of a piece kLag pieces ahead, then, once its mbarrier completes, the k
-// bulk stores of the piece (one bulk group), and a stage is refilled only
-// after wait_group.read says its stores have left shared memory. Each input
-// byte is read once and passes through no registers.
-__global__ void __launch_bounds__(kBulkThreads) repeat_rows_bulk_kernel(const RepeatBulkArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const i64 u_begin = (i64)blockIdx.x * a.units / gridDim.x;
-  const i64 u_end = (i64)(blockIdx.x + 1) * a.units / gridDim.x;
-  if (u_end <= u_begin || threadIdx.x != 0) return;
-  const uint32_t bars = bulk::smem_u32(smem);
-  const uint32_t stage0 = bars + kBarrierBytes;
-  for (int s = 0; s < kStages; ++s) bulk::mbar_init(bars + 8 * s, 1);
-  bulk::mbar_init_fence();
-  // the row, the byte offset within it and the bytes of the piece in each stage
-  i64 st_row[kStages], st_off[kStages];
-  unsigned int st_bytes[kStages];
-  i64 u = u_begin;
-  auto issue = [&](i64 piece) {
-    const int s = (int)(piece % kStages);
-    const i64 r = u / a.units_per_row, kk = u - r * a.units_per_row;
-    i64 m = a.chunk_units;
-    if (a.units_per_row - kk < m) m = a.units_per_row - kk;
-    if (u_end - u < m) m = u_end - u;
-    st_row[s] = r;
-    st_off[s] = kk * a.unit_bytes;
-    st_bytes[s] = (unsigned int)(m * a.unit_bytes);
-    bulk::mbar_arrive_expect_tx(bars + 8 * s, st_bytes[s]);
-    bulk::load(stage0 + (uint32_t)(s * a.stage_bytes), a.x + u * a.unit_bytes, st_bytes[s],
-               bars + 8 * s);
-    u += m;
-  };
-  i64 issued = 0;  // pieces whose loads are issued; kLag ahead of the stores
-  while (issued < kLag && u < u_end) issue(issued++);
-  for (i64 p = 0; p < issued; ++p) {
-    if (u < u_end) {  // piece p + kLag
-      // its stage last held piece p + kLag - kStages, whose stores were
-      // followed by kStages - kLag - 1 newer groups
-      if (issued >= kStages) bulk::wait_group_read<kStages - kLag - 1>();
-      issue(issued++);
+    for (int i = 0; i < U; ++i) {
+      const i64 u = u0 + (i64)i * kThreads;
+      if (u < units) *reinterpret_cast<V*>(dst + u * kV) = v[i];
     }
-    const int s = (int)(p % kStages);
-    bulk::mbar_wait(bars + 8 * s, (uint32_t)((p / kStages) & 1));
-    const uint32_t src = stage0 + (uint32_t)(s * a.stage_bytes);
-    unsigned char* dst = a.out + st_row[s] * a.k * a.row_bytes + st_off[s];
-    for (i64 j = 0; j < a.k; ++j) bulk::store(dst + j * a.row_bytes, src, st_bytes[s]);
-    bulk::commit_group();
   }
-  bulk::wait_group_read<0>();  // the stores' writes finish on their own
 }
 
 // x, out: (R, W, pix_bytes); out[r, w] = x[r, (w - shift) mod W], 0 <= shift < W.
@@ -533,10 +476,10 @@ int launch_window(const WindowArgs& a, i64 out_rows, bool staged, cudaStream_t s
 }
 
 template <typename V, int U>
-int launch_repeat(const void* x, void* out, i64 R, i64 row_bytes, i64 k, i64 chunks_per_row,
-                  i64 grid, cudaStream_t stream) {
+int launch_repeat(const void* x, void* out, i64 R, i64 row_bytes, i64 k, i64 kc,
+                  i64 chunks_per_row, i64 grid, cudaStream_t stream) {
   repeat_rows_kernel<V, U><<<(unsigned int)grid, kThreads, 0, stream>>>(
-      (const unsigned char*)x, (unsigned char*)out, R, row_bytes, k,
+      (const unsigned char*)x, (unsigned char*)out, R, row_bytes, k, kc,
       (unsigned int)chunks_per_row);
   return (int)cudaGetLastError();
 }
@@ -558,11 +501,7 @@ enum Plan {
 };
 enum Route { kRouteVector = 0, kRouteStaged = 1, kRouteBulk = 2 };
 // repeat_rows' launch plan (ops/shift_copy.py repeat_plan), int64 in this order.
-enum RepeatPlan {
-  Q_ROUTE, Q_VEC, Q_UNROLL, Q_CHUNKS_PER_ROW, Q_UNIT_BYTES, Q_UNITS_PER_ROW, Q_CHUNK_UNITS,
-  Q_UNITS, Q_STAGE_BYTES, Q_GRID, Q_THREADS, Q_SMEM, Q_BLOCKS_PER_SM, Q_LEN
-};
-enum RepeatRoute { kRepeatVector = 0, kRepeatBulk = 1 };
+enum RepeatPlan { Q_VEC, Q_UNROLL, Q_COPIES_PER_BLOCK, Q_CHUNKS_PER_ROW, Q_GRID, Q_THREADS, Q_LEN };
 
 // The bulk plan must cover the geometry with pieces that fit their stages.
 bool bulk_plan_matches(const BulkArgs& b, const long long* p) {
@@ -580,32 +519,31 @@ bool bulk_plan_matches(const BulkArgs& b, const long long* p) {
          p[P_GRID] <= 0x7fffffffLL;
 }
 
-// What a bulk kernel's launch needs of the current device, read at its
-// first launch with this shared memory and kept: the dynamic shared memory
-// attribute set, and the most blocks its grid may have there (its SMs times
-// the plan's blocks per SM, where the occupancy API confirms that many fit
-// on an SM; else 0). ``which`` names the kernel: 0 window_copy_bulk_kernel,
-// 1 repeat_rows_bulk_kernel.
-int bulk_max_grid(int which, int smem, long long blocks_per_sm, long long* out) {
+// What the bulk kernel's launch needs of the current device, read at its
+// first bulk launch with this shared memory and kept: the dynamic shared
+// memory attribute set, and the most blocks its grid may have there (its
+// SMs times the plan's blocks per SM, where the occupancy API confirms that
+// many fit on an SM; else 0).
+int bulk_max_grid(int smem, long long blocks_per_sm, long long* out) {
   struct Seen { int smem = -1, attr_smem = -1, sms = 0, per_sm = 0; };
-  static Seen seen[2][kMaxDevices];
-  const void* kernel = which == 0 ? (const void*)window_copy_bulk_kernel
-                                  : (const void*)repeat_rows_bulk_kernel;
+  static Seen seen[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  Seen& d = seen[which][dev];
+  Seen& d = seen[dev];
   if (d.smem != smem) {
     if (smem > d.attr_smem) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      err = cudaFuncSetAttribute(window_copy_bulk_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
       d.attr_smem = smem;
     }
     if ((err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev)) !=
         cudaSuccess)
       return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.per_sm, kernel, kBulkThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.per_sm, window_copy_bulk_kernel,
+                                                        kBulkThreads, smem);
     if (err != cudaSuccess) return (int)err;
     d.smem = smem;
   }
@@ -616,7 +554,7 @@ int bulk_max_grid(int which, int smem, long long blocks_per_sm, long long* out) 
 int launch_bulk(const BulkArgs& b, const long long* p, cudaStream_t stream) {
   const int smem = (int)p[P_SMEM];
   long long max_grid = 0;
-  const int err = bulk_max_grid(0, smem, p[P_BLOCKS_PER_SM], &max_grid);
+  const int err = bulk_max_grid(smem, p[P_BLOCKS_PER_SM], &max_grid);
   if (err != 0) return err;
   if (p[P_GRID] > max_grid) return (int)cudaErrorInvalidValue;
   window_copy_bulk_kernel<<<(unsigned int)p[P_GRID], kBulkThreads, smem, stream>>>(b);
@@ -744,50 +682,20 @@ int window_copy(const void* x, const void* starts, int starts_i64, void* out, lo
 int repeat_rows(const void* x, void* out, long long R, long long row_bytes, long long k,
                 const long long* plan, void* stream) {
   if (R <= 0 || row_bytes <= 0 || k <= 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const i64 grid = plan[Q_GRID];
-  if (plan[Q_ROUTE] == kRepeatBulk) {
-    RepeatBulkArgs b;
-    b.x = (const unsigned char*)x;
-    b.out = (unsigned char*)out;
-    b.row_bytes = row_bytes;
-    b.k = k;
-    b.unit_bytes = plan[Q_UNIT_BYTES];
-    b.units_per_row = plan[Q_UNITS_PER_ROW];
-    b.chunk_units = plan[Q_CHUNK_UNITS];
-    b.units = plan[Q_UNITS];
-    b.stage_bytes = plan[Q_STAGE_BYTES];
-    if (b.unit_bytes < 16 || b.unit_bytes > 128 || (b.unit_bytes & (b.unit_bytes - 1)) ||
-        !aligned(x, b.unit_bytes) || !aligned(out, b.unit_bytes) ||
-        row_bytes % b.unit_bytes || b.units_per_row * b.unit_bytes != row_bytes ||
-        b.units != R * b.units_per_row || b.chunk_units < 1 ||
-        b.stage_bytes <= 0 || b.stage_bytes > kMaxStageBytes || b.stage_bytes % 128 ||
-        b.chunk_units * b.unit_bytes > b.stage_bytes ||
-        plan[Q_SMEM] != kBarrierBytes + kStages * b.stage_bytes ||
-        plan[Q_THREADS] != kBulkThreads || plan[Q_BLOCKS_PER_SM] < 1 ||
-        plan[Q_BLOCKS_PER_SM] > kMaxBulkBlocksPerSM || grid < 1 || grid > b.units ||
-        grid > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
-    const int smem = (int)plan[Q_SMEM];
-    long long max_grid = 0;
-    const int err = bulk_max_grid(1, smem, plan[Q_BLOCKS_PER_SM], &max_grid);
-    if (err != 0) return err;
-    if (grid > max_grid) return (int)cudaErrorInvalidValue;
-    repeat_rows_bulk_kernel<<<(unsigned int)grid, kBulkThreads, smem, st>>>(b);
-    return (int)cudaGetLastError();
-  }
-  const i64 vec = plan[Q_VEC], unroll = plan[Q_UNROLL], cpr = plan[Q_CHUNKS_PER_ROW];
-  if (plan[Q_ROUTE] != kRepeatVector || vec < 1 || vec > 16 || (vec & (vec - 1)) ||
-      !aligned(x, vec) || !aligned(out, vec) || row_bytes % vec ||
-      (unroll != 1 && unroll != 2 && unroll != 4) ||
-      cpr != (row_bytes / vec + kThreads * unroll - 1) / (kThreads * unroll) ||
-      !grid_fits(R * k, cpr) || grid != R * k * cpr || plan[Q_THREADS] != kThreads ||
-      plan[Q_SMEM] != 0)
+  const i64 vec = plan[Q_VEC], unroll = plan[Q_UNROLL], kc = plan[Q_COPIES_PER_BLOCK];
+  const i64 cpr = plan[Q_CHUNKS_PER_ROW], grid = plan[Q_GRID];
+  if (vec < 1 || vec > 16 || (vec & (vec - 1)) || !aligned(x, vec) || !aligned(out, vec) ||
+      row_bytes % vec || (unroll != 1 && unroll != 2 && unroll != 4 && unroll != 8) ||
+      kc < 1 || kc > k || cpr != (row_bytes / vec + kThreads * unroll - 1) / (kThreads * unroll) ||
+      !grid_fits(R * ((k + kc - 1) / kc), cpr) || grid != R * ((k + kc - 1) / kc) * cpr ||
+      plan[Q_THREADS] != kThreads)
     return (int)cudaErrorInvalidValue;
-#define CALL_REPEAT_U(V, U) launch_repeat<V, U>(x, out, R, row_bytes, k, cpr, grid, st)
-#define CALL_REPEAT(V)                                                     \
-  (unroll == 4 ? CALL_REPEAT_U(V, 4)                                       \
-               : unroll == 2 ? CALL_REPEAT_U(V, 2) : CALL_REPEAT_U(V, 1))
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CALL_REPEAT_U(V, U) launch_repeat<V, U>(x, out, R, row_bytes, k, kc, cpr, grid, st)
+#define CALL_REPEAT(V)                                         \
+  (unroll == 8 ? CALL_REPEAT_U(V, 8)                           \
+   : unroll == 4 ? CALL_REPEAT_U(V, 4)                         \
+   : unroll == 2 ? CALL_REPEAT_U(V, 2) : CALL_REPEAT_U(V, 1))
   DISPATCH_VEC(vec, CALL_REPEAT)
 #undef CALL_REPEAT
 #undef CALL_REPEAT_U

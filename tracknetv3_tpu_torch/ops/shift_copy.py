@@ -28,8 +28,10 @@ geometry and computes every size the launch passes in: ``"bulk"`` for a
 large copy of whole rows whose pointers and strides are multiples of 16
 bytes (a persistent grid whose blocks take even shares of the output's
 bytes and walk them in pieces through a ring of 1-D bulk TMA copies),
-``"staged"`` where asked, ``"vector"`` otherwise. ``LAST_PLAN`` is the plan
-of the last launch.
+``"staged"`` where asked, ``"vector"`` otherwise. ``repeat_plan`` sizes
+``repeat_rows``' pieces, each loaded once and stored k times, so that its
+grid puts about one block on each SM. ``LAST_PLAN`` is the plan of the last
+``window_copy`` or ``repeat_rows`` launch.
 
 On a CPU tensor each wrapper returns its plain version (``*_plain``: torch
 indexing, ``repeat_interleave``, ``torch.roll``); on a CUDA tensor it
@@ -68,17 +70,14 @@ PLAN_FIELDS = ("route", "vec", "blocks_per_row", "tile_pix", "unit_bytes", "unit
                "chunk_units", "units", "stage_bytes", "grid", "threads", "smem_bytes",
                "blocks_per_sm")
 
-# repeat_rows' plan: the order of its int64s (enum RepeatPlan of the source),
-# its two forms (enum RepeatRoute) and the vector form's unrolls, widest
-# first; the plan takes the widest that still gives REPEAT_BLOCKS_PER_SM
-# blocks per SM
-REPEAT_PLAN_FIELDS = ("route", "vec", "unroll", "chunks_per_row", "unit_bytes",
-                      "units_per_row", "chunk_units", "units", "stage_bytes", "grid", "threads",
-                      "smem_bytes", "blocks_per_sm")
-REPEAT_ROUTES = {"vector": 0, "bulk": 1}
-REPEAT_UNROLLS = (4, 2, 1)
+# repeat_rows' plan: the order of its int64s (enum RepeatPlan of the source)
+# and the unrolls the source instantiates
+REPEAT_PLAN_FIELDS = ("vec", "unroll", "copies_per_block", "chunks_per_row", "grid", "threads")
+REPEAT_UNROLLS = (8, 4, 2, 1)
 REPEAT_BLOCKS_PER_SM = 4
-REPEAT_FORM = "vector"  # the form repeat_rows launches: "vector" or "bulk"
+# (unroll, copies per block) that every launch takes instead of the plan's
+# own choice, for the sweep of chip_smoke.py; None: the plan chooses
+REPEAT_SHAPE: Optional[Tuple[int, int]] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -336,90 +335,61 @@ def _plan_array(g: WindowGeometry, n: int, rows: int, staged: bool, x_align: int
 
 @dataclasses.dataclass(frozen=True)
 class RepeatPlan:
-    """``repeat_rows``' launch: its form and every size the C entry point
-    checks. ``vector``: ``grid`` = R * k * ``chunks_per_row`` blocks of
-    THREADS, block ``(j * R + r) * chunks_per_row + c`` copying piece ``c``
-    (THREADS * ``unroll`` vectors of ``vec`` bytes) of row ``r`` into copy
-    ``j``. ``bulk``: the input as ``units`` units of ``unit_bytes``, split
-    into ``grid`` even shares, each walked in pieces of up to
-    ``chunk_units`` units that end at a row's end, every piece loaded once
-    and stored k times."""
+    """``repeat_rows``' launch and every size the C entry point checks:
+    ``grid`` = R * ceil(k / ``copies_per_block``) * ``chunks_per_row``
+    blocks of THREADS; block ``(g * R + r) * chunks_per_row + c`` loads
+    piece ``c`` (THREADS * ``unroll`` vectors of ``vec`` bytes) of row ``r``
+    and stores it into copies ``[g * copies_per_block, ...)`` of the row."""
 
-    route: str
     vec: int
-    unroll: int = 0
-    chunks_per_row: int = 0
-    unit_bytes: int = 0
-    units_per_row: int = 0
-    chunk_units: int = 0
-    units: int = 0
-    stage_bytes: int = 0
-    grid: int = 0
+    unroll: int
+    copies_per_block: int
+    chunks_per_row: int
+    grid: int
     threads: int = THREADS
-    smem_bytes: int = 0
-    blocks_per_sm: int = 0
+    route = "vector"
 
     def as_array(self) -> np.ndarray:
-        return np.array([REPEAT_ROUTES[self.route] if f == "route" else getattr(self, f)
-                         for f in REPEAT_PLAN_FIELDS], dtype=np.int64)
-
-    def block_units(self, b: int) -> range:
-        """The units block ``b`` of a bulk launch moves, as the kernel computes them."""
-        return range(b * self.units // self.grid, (b + 1) * self.units // self.grid)
+        return np.array([getattr(self, f) for f in REPEAT_PLAN_FIELDS], dtype=np.int64)
 
 
 def repeat_plan(R: int, row_bytes: int, k: int, x_ptr: int, out_ptr: int, num_sms: int,
-                form: str = "vector") -> RepeatPlan:
+                shape: Optional[Tuple[int, int]] = None) -> RepeatPlan:
     """The sizes of one ``repeat_rows`` launch of ``R`` rows of ``row_bytes``
-    bytes repeated ``k`` times, from its geometry and base pointers alone.
-
-    - ``vector``: the widest vector that divides both pointers and the row;
-      the widest unroll of REPEAT_UNROLLS whose grid of R * k * pieces still
-      holds REPEAT_BLOCKS_PER_SM blocks per SM (else 1, the most blocks).
-    - ``bulk``: pointers and rows on the 16-byte grid; units of the widest of
-      128, 64, 32 or 16 bytes they allow; as many one-warp blocks per SM as
-      the ring's shared memory lets reside, each with an even share.
-    Raises ``ValueError`` where no launch of the form fits."""
+    bytes repeated ``k`` times, from its geometry and base pointers alone:
+    the widest vector that divides both pointers and the row; one copy a
+    block and the widest unroll whose grid still holds REPEAT_BLOCKS_PER_SM
+    blocks per SM (else 1, the most blocks). ``shape`` = (unroll, copies
+    per block) overrides the choice. Raises ``ValueError`` where no launch
+    fits the grid."""
     if R < 1 or row_bytes < 1 or k < 1:
         raise ValueError(f"no rows to repeat: {R} rows of {row_bytes} bytes, k = {k}")
-    if form == "bulk":
-        quantities = (x_ptr, out_ptr, row_bytes)
-        if any(q % 16 for q in quantities):
-            raise ValueError("the bulk form needs pointers and rows on the 16-byte grid")
-        unit = next(u for u in (128, 64, 32, 16) if all(q % u == 0 for q in quantities))
-        upr = row_bytes // unit
-        units = R * upr
-        # pieces no larger than a block's share at the most blocks per SM,
-        # so that small copies get small stages and every block a share
-        share = -(-units // min(units, num_sms * MAX_BULK_BLOCKS_PER_SM))
-        chunk_units = min(upr, MAX_STAGE_BYTES // unit, share)
-        stage = _round_up(chunk_units * unit, 128)
-        smem = BARRIER_BYTES + STAGES * stage
-        per_sm = min(MAX_BULK_BLOCKS_PER_SM, cuda_build.SMEM_PER_SM // (smem + 1024))
-        return RepeatPlan("bulk", 16, unit_bytes=unit, units_per_row=upr,
-                          chunk_units=chunk_units, units=units, stage_bytes=stage,
-                          grid=min(units, num_sms * per_sm), threads=BULK_THREADS,
-                          smem_bytes=smem, blocks_per_sm=per_sm)
-    if form != "vector":
-        raise ValueError(f"unknown repeat form {form!r}")
     vec = vector_bytes(x_ptr, out_ptr, row_bytes)
     units = row_bytes // vec
-    for unroll in REPEAT_UNROLLS:
+
+    def grid_of(unroll, kc):
         cpr = -(-units // (THREADS * unroll))
-        grid = R * k * cpr
-        if grid >= REPEAT_BLOCKS_PER_SM * num_sms:
-            break
+        return cpr, R * -(-k // kc) * cpr
+
+    if shape is not None:
+        unroll, kc = shape[0], min(shape[1], k)
+    else:
+        kc = 1
+        unroll = next((u for u in REPEAT_UNROLLS
+                       if grid_of(u, kc)[1] >= REPEAT_BLOCKS_PER_SM * num_sms), 1)
+    cpr, grid = grid_of(unroll, kc)
     if grid > 0x7FFFFFFF:
         raise ValueError(f"{grid} blocks do not fit one launch's grid")
-    return RepeatPlan("vector", vec, unroll=unroll, chunks_per_row=cpr, grid=grid)
+    return RepeatPlan(vec, unroll, kc, cpr, grid)
 
 
 @functools.lru_cache(maxsize=256)
 def _repeat_plan_array(R: int, row_bytes: int, k: int, x_align: int, out_align: int,
-                       num_sms: int, form: str) -> Tuple[RepeatPlan, np.ndarray]:
+                       num_sms: int, shape: Optional[Tuple[int, int]] = None
+                       ) -> Tuple[RepeatPlan, np.ndarray]:
     """``repeat_plan`` and the int64s the C entry point reads, kept per
     geometry, pointer alignment (mod 128) and card."""
-    plan = repeat_plan(R, row_bytes, k, x_align, out_align, num_sms, form)
+    plan = repeat_plan(R, row_bytes, k, x_align, out_align, num_sms, shape)
     return plan, plan.as_array()
 
 
@@ -496,7 +466,7 @@ def repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     R = x.shape[0]
     row_bytes = x.numel() // R * x.element_size()
     plan, arr = _repeat_plan_array(R, row_bytes, k, x.data_ptr() % 128, out.data_ptr() % 128,
-                                   cuda_build.num_sms(x.device), REPEAT_FORM)
+                                   cuda_build.num_sms(x.device), REPEAT_SHAPE)
     with torch.cuda.device(x.device):
         err = _lib().repeat_rows(x.data_ptr(), out.data_ptr(), R, row_bytes, k, arr.ctypes.data,
                                  _stream(x))
