@@ -108,17 +108,20 @@ exits nonzero.
    chunks also go through both hand conv backends, under the same bound.
 
 11. copy_vs_plain (run after phase 4): the three copy kernels (each
-   ``window_copy`` case names the route ``copy_plan`` took)
+   ``window_copy`` and ``repeat_rows`` case names the route of the plan it
+   launched)
    (``window_copy``, ``repeat_rows``, ``roll_cols``: the halo / shift,
    repeat and roll probes U1-U7) at the probes' shapes ((32, 264, 128)
    bf16, (32, 256, 256) for U4, float32 and bf16 for U6, (2, 32, 264, 128)
    for U7) and at the train path's (segments (2, 12, 288, 512, 3) uint8 ->
-   (10, 8, ...), the median x5, 80 frames of a 160-frame resident buffer,
+   (10, 8, ...), the median x5, and x1, and x5 of a row of an odd byte
+   count (1-byte vectors), 80 frames of a 160-frame resident buffer,
    10 float32 medians, the blend's two gathers), float inputs holding NaN
    payloads, -0.0, inf and denormals: every bit equal to the plain version
    and to one PyTorch call, while a wrong version of each (a start off by
    one, the unshifted tile, the other channels, the tiled repeat, a roll
-   the other way) must differ; times beside the bytes bound;
+   the other way) must differ; times beside the bytes bound (for the repeat
+   cases also a plain ``copy_`` of the output's bytes and an empty kernel);
 12. seg_train (after phase 6): ``train.main`` for one epoch each with
    ``--segment_windows 5``, ``--frame_alpha 0.5`` (alone: the two-disk loss
    kernels; with ``--alpha 0.5``: materialised labels) and
@@ -132,11 +135,24 @@ exits nonzero.
    same windows: the assembled input bit-equal, loss and gradients
    bit-equal (or within phase 6's float32 bounds if a plain step does not
    repeat itself bit for bit).
+13. inpaint_train (after phase 12): InpaintNet at the README configuration
+   (seq_len 16, StepLR, mask_ratio 0.3, batch 32, Adam 1e-3 with its
+   gradients clipped to a global norm of 1.0, float32, TF32 off) through
+   the train CLI on the synthetic dataset's ``predicted_csv`` files: 2
+   epochs, then resumed for a third; the eval (``eval_inpaintnet``) with
+   the trained model; no hand kernel launched; one card step held to the
+   same step on the CPU (same init, batch and mask): the loss, every
+   gradient and the parameters as one vector within relative L2 1e-5
+   (each parameter's reading printed: Adam's first step moves a
+   zero-initialised bias by lr * g / (|g| + eps), so float32 rounding of a
+   gradient element near 0 moves a whole element of such a bias); ms per
+   step (median of 20) and peak memory beside the card's name and power
+   limit.
 
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
-2 and 3; none prints a kernels line. With ``--copy_only`` or
-``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
+2 and 3, ``--inpaint_only`` phases 1 and 13; none prints a kernels line.
+With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
 tree's and times the two in turns (old, new, new, old), with the host time
@@ -858,10 +874,15 @@ def write_synthetic_dataset(root: str, seed: int = 0) -> None:
     """Shuttlecock-layout dataset at 288x512 with numpy only: seeded
     textured backgrounds, a moving bright disk, label CSVs, and the
     loader's npz caches (so no PNG is decoded). Train: 2 matches x 2
-    rallies x 40 frames; val: 1 match x 2 rallies x 40 frames."""
+    rallies x 40 frames; val: 1 match x 2 rallies x 40 frames. Each rally
+    also gets the InpaintNet data, ``predicted_csv/{rally}_ball.csv``: the
+    label with a TrackNet-like prediction beside it (seeded noise of a few
+    pixels, dropped detections) and an ``Inpaint_Mask`` over the gaps,
+    drawn from a generator of its own (the frames do not change with it)."""
     from tracknetv3_tpu_torch.data.dataset import _slide_windows
 
     rng = np.random.default_rng(seed)
+    pred_rng = np.random.default_rng([seed, 1])
     T = 40
     yy, xx = np.mgrid[0:H, 0:W]
     for split, matches, step in (("train", (1, 2), 1), ("val", (1,), L)):
@@ -890,6 +911,7 @@ def write_synthetic_dataset(root: str, seed: int = 0) -> None:
                     wr = csv.writer(f)
                     wr.writerow(["Frame", "Visibility", "X", "Y"])
                     wr.writerows(rows)
+                _write_predicted_csv(match_dir, rally, rows, pred_rng)
                 median = np.median(frames, axis=0).astype(np.uint8)
                 _write_npz(os.path.join(frame_dir, f"cache_{H}x{W}_concat.npz"),
                            rgb=frames, median_resized=median)
@@ -908,6 +930,26 @@ def write_synthetic_dataset(root: str, seed: int = 0) -> None:
                    img_scaler=np.ones((n_rally, 2), np.float64))
         _write_npz(os.path.join(root, f"data_l{L}_s{step}_heatmap_{split}.npz"),
                    **{k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+
+
+def _write_predicted_csv(match_dir: str, rally: str, rows, rng) -> None:
+    """``predicted_csv/{rally}_ball.csv`` from a rally's label rows (t,
+    visibility, x, y): the prediction misses a visible frame with
+    probability 0.15 and is off by a normal 2 px elsewhere; a missed visible
+    frame is masked for inpainting."""
+    out = []
+    for t, vis, x, y in rows:
+        hit = vis and rng.random() >= 0.15
+        px, py = ((int(round(x + rng.normal(0, 2))), int(round(y + rng.normal(0, 2))))
+                  if hit else (0, 0))
+        out.append((t, vis, x, y, int(hit), px, py, int(vis and not hit)))
+    os.makedirs(os.path.join(match_dir, "predicted_csv"), exist_ok=True)
+    with open(os.path.join(match_dir, "predicted_csv", f"{rally}_ball.csv"), "w",
+              newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["Frame", "Visibility_GT", "X_GT", "Y_GT", "Visibility", "X", "Y",
+                     "Inpaint_Mask"])
+        wr.writerows(out)
 
 
 def phase_slice(tmp: str):
@@ -1102,6 +1144,135 @@ def phase_step_parity(data_dir: str):
          torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
 
 
+# ---------------------------------------------------------------- InpaintNet training
+
+INPAINT_SEQ, INPAINT_BATCH = 16, 32  # the README's InpaintNet configuration
+
+
+def _kernel_modules():
+    """The modules of the hand kernels, each with its ``LAUNCHES`` counts."""
+    from tracknetv3_tpu_torch.ops import batchnorm, conv3x3, pool_up2x, shift_copy, wbce_disk
+
+    return batchnorm, conv3x3, pool_up2x, shift_copy, wbce_disk
+
+
+def phase_inpaint(tmp: str, card: str):
+    """inpaint_train: InpaintNet at the README configuration (seq_len 16,
+    StepLR, mask_ratio 0.3, batch 32, Adam 1e-3 clipped to 1.0, float32 with
+    TF32 off) through the train CLI for 2 epochs on the card, resumed for a
+    third, then eval_inpaintnet on the val split with the trained model; one
+    card step held to the same step on the CPU (same init, batch and mask):
+    loss, every gradient and the parameters as one vector within relative L2
+    1e-5, each parameter's reading printed; ms per step (median of 20 after 5
+    warm-up steps, host clock around synchronize) and peak memory."""
+    import torch
+
+    from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.data.dataset import CoordinateBatchLoader, build_split_index
+    from tracknetv3_tpu_torch.evaluation.loops import eval_inpaintnet
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training import optim, steps
+    from tracknetv3_tpu_torch.training.checkpoint import load_model_from_checkpoint
+    from tracknetv3_tpu_torch.training.loop import _COORDINATE_KEYS, prefetch_to_device
+
+    data_dir = os.path.join(tmp, "data")
+    if not os.path.isdir(data_dir):
+        write_synthetic_dataset(data_dir)
+    save_dir = os.path.join(tmp, "inpaint_exp")
+    dev = torch.device(DEVICE)
+    common = ["--model_name", "InpaintNet", "--seq_len", str(INPAINT_SEQ), "--lr_scheduler",
+              "StepLR", "--mask_ratio", "0.3", "--batch_size", str(INPAINT_BATCH),
+              "--data_dir", data_dir, "--save_dir", save_dir]
+    for m in _kernel_modules():  # no hand kernel is on this path
+        m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):  # the CLI's own lines
+        out1 = train_cli.main(common + ["--epochs", "2"])
+        out2 = train_cli.main(common + ["--epochs", "3", "--resume_training"])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES) for m in _kernel_modules()}
+    hist = out1["history"] + out2["history"]
+    losses = [v for h in hist for v in (h["train_loss"], h["val_loss"])]
+    reloaded = [load_model_from_checkpoint(os.path.join(save_dir, f"InpaintNet_{k}.pt"))[1]
+                for k in ("best", "cur")]
+
+    # the eval, with the trained model, on the val split
+    val_index = build_split_index(data_dir, "val", INPAINT_SEQ, INPAINT_SEQ, "coordinate")
+    val_loss, val_res = eval_inpaintnet(
+        steps.make_inpaintnet_eval_step(out2["model"]),
+        prefetch_to_device(CoordinateBatchLoader(val_index, INPAINT_BATCH), dev,
+                           keys=_COORDINATE_KEYS),
+        input_hw=val_index.input_hw)
+
+    # one step on the card against the same step on the CPU
+    index = build_split_index(data_dir, "train", INPAINT_SEQ, 1, "coordinate")
+    loader = CoordinateBatchLoader(index, INPAINT_BATCH, shuffle=True, drop_last=True, seed=13)
+    batch = next(iter(loader))
+    mask = steps.sample_inpaint_mask(np.random.default_rng([13, 0]), batch["vis"].shape, 0.3)
+    init = get_model("InpaintNet", generator=torch.Generator().manual_seed(13))
+
+    def one_step(device):
+        model = copy.deepcopy(init).to(device)
+        opt, sched = optim.build_optimizer("Adam", model.parameters(), 1e-3, "StepLR",
+                                           epochs=3, steps_per_epoch=len(loader), clip_norm=1.0)
+        step = steps.make_inpaintnet_train_step(model, opt, sched)
+        tb = {k: torch.from_numpy(batch[k]).to(device) for k in _COORDINATE_KEYS}
+        loss = float(step(tb, 0, torch.from_numpy(mask).to(device)))
+        return (loss, {n: p.detach().double().cpu() for n, p in model.named_parameters()},
+                {n: p.grad.double().cpu() for n, p in model.named_parameters()}, model, opt,
+                step, tb)
+
+    got_loss, got_p, got_g, model, _, step, tb = one_step(dev)
+    want_loss, want_p, want_g = one_step(torch.device("cpu"))[:3]
+    param_rel = {n: _rel_l2(got_p[n], want_p[n]) for n in want_p}
+    grad_rel = {n: _rel_l2(got_g[n], want_g[n]) for n in want_g}
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    all_rel = _rel_l2(torch.cat([got_p[n].reshape(-1) for n in want_p]),
+                      torch.cat([want_p[n].reshape(-1) for n in want_p]))
+
+    # ms per step on a fixed batch and mask, and the peak memory
+    dmask = torch.from_numpy(mask).to(dev)
+    for i in range(5):
+        step(tb, i, dmask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(20):
+        t1 = time.perf_counter()
+        step(tb, 5 + i, dmask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del model, step, tb
+
+    emit({"phase": "inpaint_train", "card": card,
+          "config": "InpaintNet seq_len 16 StepLR mask_ratio 0.3 batch 32 Adam 1e-3 clip 1.0 "
+                    "float32 TF32 off", "train_steps": out2["step"],
+          "epochs": [h["epoch"] for h in hist], "losses": losses, "train_s": train_s,
+          "val_res": {k: v["accuracy"] for k, v in hist[-1]["val_res"].items()},
+          "eval_loss": val_loss, "eval_accuracy": {k: v["accuracy"] for k, v in val_res.items()},
+          "hand_kernel_launches": launches,
+          "card_vs_cpu": {"loss_rel": loss_rel, "max_grad_rel_l2": max(grad_rel.values()),
+                          "params_rel_l2": all_rel, "param_rel_l2": param_rel},
+          "median_ms_per_step": statistics.median(ms), "ms_per_step": ms,
+          "peak_mem_bytes": peak})
+    if [h["epoch"] for h in hist] != [0, 1, 2]:
+        fail("inpaint_train", "resume did not continue at epoch 3")
+    if not all(math.isfinite(v) for v in losses + [val_loss]):
+        fail("inpaint_train", f"non-finite loss in {losses}, eval {val_loss}")
+    if any(pd.get("model_name") != "InpaintNet" for pd in reloaded):
+        fail("inpaint_train", "checkpoint did not reload as InpaintNet")
+    if sorted(val_res) != ["baseline", "inpaint", "reconstruct"]:
+        fail("inpaint_train", f"eval gave {sorted(val_res)}")
+    if any(n for m in launches.values() for n in m.values()):
+        fail("inpaint_train", f"a hand kernel launched on a path that has none: {launches}")
+    bad = {n: r for n, r in grad_rel.items() if r > 1e-5}
+    if loss_rel > 1e-5 or bad or all_rel > 1e-5:
+        fail("inpaint_train", f"card step vs CPU step: loss {loss_rel}, gradients over 1e-5 "
+             f"{bad}, parameters {all_rel}")
+
+
 # ---------------------------------------------------------------- copy kernels
 
 PROBE_TILE = 8  # the halo / shift probes' row tile: windows start at rows 0, 8, 16, 24
@@ -1251,18 +1422,6 @@ def _copy_cases(dev, sc=None):
     repeat_case("repeat_k1", (n_seg,) + frame, 1, lambda x: x.roll(1, 0), "the rows rolled by one")
     repeat_case("repeat_odd_row", (n_seg, H - 1, W - 1, 3), SEG_WINDOWS, tiled_repeat,
                 "the tiled repeat")
-    # a sweep of the launch's shape (unroll, copies per block) at three
-    # repeat cases, for the comparison (a tree without the override repeats
-    # its own kernel's case, so the cases align)
-    sweep = hasattr(sc, "REPEAT_SHAPE")
-    for c in [c for c in cases if c["name"] in ("U5", "median_repeat", "repeat_k1")]:
-        k = c["plain"](torch.empty((1, 1), device="meta")).shape[0]
-        for shape in dict.fromkeys(((8, 1), (4, 1), (2, 1), (1, 1), (1, k), (2, k), (4, k))):
-            add(f"{c['name']}_u{shape[0]}c{shape[1]}", "repeat_rows", c["probe"], c["shape"],
-                c["dtype"],
-                (lambda x, call=c["call"], shape=shape: _with_shape(sc, shape, call, x))
-                if sweep else c["call"],
-                c["plain"], c["library"], c["library_name"], c["wrong"], c["wrong_name"])
     n_res = 160  # frames of the synthetic train split: 2 matches x 2 rallies x 40
     res_idx = torch.from_numpy(rng.integers(0, n_res, B * L).astype(np.int32)).to(dev)
     window_case("resident_gather", None, (n_res,) + frame, u8, res_idx, 1,
@@ -1278,15 +1437,6 @@ def _copy_cases(dev, sc=None):
                     lambda x, starts=starts: torch.index_select(flat_win(x), 0, starts)[:, None],
                     "index_select", flat=flat_win)
     return cases
-
-
-def _with_shape(sc, shape, call, x):
-    """``call(x)`` with repeat_rows launching the (unroll, copies per block) ``shape``."""
-    sc.REPEAT_SHAPE = shape
-    try:
-        return call(x)
-    finally:
-        sc.REPEAT_SHAPE = None
 
 
 def phase_copy(baseline=None):
@@ -2447,6 +2597,9 @@ def main() -> int:
                     help="build and copy_vs_plain alone; no kernels line")
     ap.add_argument("--loss_only", action="store_true",
                     help="build, kernel_vs_plain and kernel_times alone; no kernels line")
+    ap.add_argument("--inpaint_only", action="store_true",
+                    help="inpaint_train alone (no hand kernel is on its path, so no build); "
+                         "no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -2472,15 +2625,19 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     only = ("conv" if args.conv_only else "copy" if args.copy_only
-            else "loss" if args.loss_only else None)
+            else "loss" if args.loss_only else "inpaint" if args.inpaint_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
     baseline = _baseline_modules(args.baseline) if args.baseline else None
     card = phase_env()
-    phase_build(baseline)
+    if only != "inpaint":
+        phase_build(baseline)
     if only:
-        if only == "conv":
+        if only == "inpaint":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_inpaint(tmp, card)
+        elif only == "conv":
             phase_conv()
             phase_conv_ablate()
         elif only == "copy":
@@ -2501,6 +2658,7 @@ def main() -> int:
         copy_launches = phase_seg_train(tmp, model)
         del model
         phase_seg_parity(os.path.join(tmp, "data"))
+        phase_inpaint(tmp, card)
         torch.cuda.empty_cache()
         pool_up = phase_pool_up()
         conv = phase_conv()

@@ -111,8 +111,10 @@ def test_unported_loader_modes_raise(data_dirs):
                                      **kw)
     with pytest.raises(TypeError):  # the resident loader's device is the caller's to name
         ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"])
-    with pytest.raises(NotImplementedError):
-        ds.build_split_index(data_dirs["port"], "train", SEQ, 1, data_mode="coordinate")
+    with pytest.raises(NotImplementedError):  # coordinate mode is ported, its sharding not
+        ds.CoordinateBatchLoader(idx, 4, process_count=2)
+    with pytest.raises(ValueError):
+        ds.build_split_index(data_dirs["port"], "train", SEQ, 1, data_mode="pixel")
     # as the JAX loader: segments take no frame mixup and must divide the batch
     for kw in (dict(segment_windows=2, frame_alpha=0.5), dict(segment_windows=3)):
         with pytest.raises(AssertionError):

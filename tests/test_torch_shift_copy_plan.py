@@ -1,5 +1,6 @@
-"""What ``window_copy``'s kernels in ``tracknetv3_tpu_torch/csrc/shift_copy.cu``
-do that the card alone can run, rehearsed on the CPU.
+"""What the ``window_copy`` and ``repeat_rows`` kernels in
+``tracknetv3_tpu_torch/csrc/shift_copy.cu`` do that the card alone can run,
+rehearsed on the CPU.
 
 ``copy_plan`` chooses a launch's route from its geometry and computes every
 size the launch passes in. Here, at every geometry ``chip_smoke.py``'s
@@ -19,6 +20,14 @@ configuration's), at a ragged last piece and at a 3-byte-pixel column shift:
   as the ring's shared memory lets reside (two at the largest stages);
 - the plan's field order and the ring's constants agree with the source,
   and the ring's ``wait_group.read`` depth frees a stage before its refill.
+
+``repeat_plan`` sizes ``repeat_rows``' launch. At the median repeat of the
+README configuration, the probe U5, k = 1 and a row of an odd byte count,
+a numpy model of the kernel's blocks, threads and unrolls writes every
+output byte exactly once from the right input byte and reads each input
+byte once; the grid holds a block for three SMs in four (the SM count a
+parameter); the plan is cached per geometry, alignment and card; a plan the
+entry point's checks refuse is refused here too.
 
 Nothing here runs JAX: the copies themselves are held to the JAX package in
 ``tests/test_torch_shift_copy.py``.
@@ -343,69 +352,40 @@ REPEAT_CASES = {
     "k1": (2, 288 * 512 * 3, 1),
     "odd_row": (2, 287 * 511 * 3, 5),
 }
-REPEAT_FORMS = ("vector", "bulk")
 
 
-def _repeat_vector_model(R, row_bytes, k, p):
-    """repeat_rows_kernel<V, U>: block b = (j * R + r) * chunks_per_row + c,
-    thread t, its units u = c * THREADS * U + t + i * THREADS (i < U)."""
+def _repeat_model(R, row_bytes, k, p):
+    """repeat_rows_kernel<V, U>: block b = r * chunks_per_row + c, thread t,
+    its units u = c * THREADS * U + t + i * THREADS (i < U), each loaded
+    once and stored into copies j < k: (source byte, output byte) pairs."""
     V, U = p.vec, p.unroll
     units = row_bytes // V
     b = np.arange(p.grid)
-    jr, c = b // p.chunks_per_row, b % p.chunks_per_row
-    j, r = jr // R, jr % R
+    r, c = b // p.chunks_per_row, b % p.chunks_per_row
     u = (c[:, None, None] * (sc.THREADS * U) + np.arange(sc.THREADS)[None, :, None]
          + np.arange(U)[None, None, :] * sc.THREADS)
     ok = u < units
-    shape = u.shape
-    src = (r[:, None, None] * row_bytes + u * V)[ok]
-    dst = ((r * k + j)[:, None, None] * row_bytes + u * V)[ok]
+    rows = np.broadcast_to(r[:, None, None], u.shape)[ok]
+    u = u[ok]
     byte = np.arange(V)
-    return (src[:, None] + byte).reshape(-1), (dst[:, None] + byte).reshape(-1), shape
+    src = ((rows * row_bytes + u * V)[:, None] + byte).reshape(-1)
+    dst = [(((rows * k + j) * row_bytes + u * V)[:, None] + byte).reshape(-1) for j in range(k)]
+    return np.tile(src, k), np.concatenate(dst)
 
 
-def _repeat_bulk_model(R, row_bytes, k, p):
-    """repeat_rows_bulk_kernel: block b's even share of the input units,
-    walked in pieces that end at a row's end, each stored k times."""
-    srcs, dsts = [], []
-    for b in range(p.grid):
-        share = p.block_units(b)
-        assert len(share) > 0, "a block without units"
-        u, end = share.start, share.stop
-        while u < end:
-            r, kk = divmod(u, p.units_per_row)
-            m = min(p.chunk_units, p.units_per_row - kk, end - u)
-            nbytes = m * p.unit_bytes
-            assert nbytes <= p.stage_bytes
-            src = u * p.unit_bytes
-            for j in range(k):
-                dst = (r * k + j) * row_bytes + kk * p.unit_bytes
-                assert src % p.unit_bytes == 0 and dst % p.unit_bytes == 0
-                assert nbytes % 16 == 0 and p.unit_bytes % 16 == 0
-                srcs.append(np.arange(src, src + nbytes))
-                dsts.append(np.arange(dst, dst + nbytes))
-            u += m
-    return np.concatenate(srcs), np.concatenate(dsts), None
-
-
-@pytest.mark.parametrize("form", REPEAT_FORMS)
 @pytest.mark.parametrize("name", sorted(REPEAT_CASES))
-def test_repeat_model_writes_every_byte_once(name, form):
+def test_repeat_model_writes_every_byte_once(name):
     R, row_bytes, k = REPEAT_CASES[name]
-    if form == "bulk" and row_bytes % 16:
-        with pytest.raises(ValueError):
-            sc.repeat_plan(R, row_bytes, k, 0, 256, SMS, form)
-        return
-    p = sc.repeat_plan(R, row_bytes, k, 0, 256, SMS, form)
-    model = _repeat_vector_model if form == "vector" else _repeat_bulk_model
-    src, dst, _ = model(R, row_bytes, k, p)
+    p = sc.repeat_plan(R, row_bytes, k, 0, 256, SMS)
+    src, dst = _repeat_model(R, row_bytes, k, p)
     writes = np.bincount(dst, minlength=R * k * row_bytes)
     assert writes.size == R * k * row_bytes and (writes == 1).all(), (
         f"bytes written {writes.min()}..{writes.max()} times")
     # out[r * k + j] = x[r]: the byte at (row, offset) of the output comes
     # from (row // k, offset) of the input
-    want = dst // (k * row_bytes) * row_bytes + dst % row_bytes
-    np.testing.assert_array_equal(src, want)
+    np.testing.assert_array_equal(src, dst // (k * row_bytes) * row_bytes + dst % row_bytes)
+    # each input byte is read once (the k stores reuse the loaded vectors)
+    assert np.unique(src).size == R * row_bytes
 
 
 @pytest.mark.parametrize("sms", [132, 114])  # the H100 SXM's and PCIe's SMs
@@ -414,36 +394,34 @@ def test_repeat_plan_fills_the_card(name, sms):
     R, row_bytes, k = REPEAT_CASES[name]
     p = sc.repeat_plan(R, row_bytes, k, 0, 256, sms)
     assert p.route == "vector" and p.threads == sc.THREADS
-    assert p.grid >= sms
-    assert p.grid == R * k * p.chunks_per_row
+    assert p.grid >= sms * 3 // 4  # a block for (nearly) every SM
+    assert p.grid == R * p.chunks_per_row
     assert p.chunks_per_row == -(-(row_bytes // p.vec) // (sc.THREADS * p.unroll))
-    # the widest unroll whose grid keeps REPEAT_BLOCKS_PER_SM blocks per SM
+    # the widest unroll whose grid still holds a block for three SMs in four
     fits = [u for u in sc.REPEAT_UNROLLS
-            if R * k * -(-(row_bytes // p.vec) // (sc.THREADS * u))
-            >= sc.REPEAT_BLOCKS_PER_SM * sms]
-    assert p.unroll == (fits[0] if fits else 1)
+            if 4 * R * -(-(row_bytes // p.vec) // (sc.THREADS * u)) >= 3 * sms]
+    assert p.unroll == fits[0]
     assert p.vec == (1 if row_bytes % 2 else 16)
 
 
 def test_repeat_plan_is_cached_per_geometry_alignment_and_card():
     args = (2, 288 * 512 * 3, 5)
-    a = sc._repeat_plan_array(*args, 0, 0, SMS, "vector")
-    assert sc._repeat_plan_array(*args, 0, 0, SMS, "vector") is a
-    assert sc._repeat_plan_array(*args, 8, 0, SMS, "vector")[0].vec == 8
-    assert sc._repeat_plan_array(*args, 0, 0, 114, "vector") is not a
+    a = sc._repeat_plan_array(*args, 0, 0, SMS)
+    assert sc._repeat_plan_array(*args, 0, 0, SMS) is a
+    assert sc._repeat_plan_array(*args, 8, 0, SMS)[0].vec == 8
+    assert sc._repeat_plan_array(*args, 0, 0, 114) is not a
     np.testing.assert_array_equal(a[1], a[0].as_array())
 
 
 def _repeat_entry_accepts(R, row_bytes, k, x_ptr, out_ptr, arr):
-    """The vector form's checks of the C entry point ``repeat_rows``."""
+    """The checks of the C entry point ``repeat_rows`` on its plan."""
     f = dict(zip(sc.REPEAT_PLAN_FIELDS, (int(v) for v in arr)))
     vec, unroll, cpr = f["vec"], f["unroll"], f["chunks_per_row"]
-    return (f["route"] == sc.REPEAT_ROUTES["vector"] and vec in (1, 2, 4, 8, 16)
-            and x_ptr % vec == 0 and out_ptr % vec == 0 and row_bytes % vec == 0
-            and unroll in (1, 2, 4)
+    return (vec in (1, 2, 4, 8, 16) and x_ptr % vec == 0 and out_ptr % vec == 0
+            and row_bytes % vec == 0 and unroll in (1, 2, 4, 8)
             and cpr == -(-(row_bytes // vec) // (sc.THREADS * unroll))
-            and 0 < cpr and R * k <= 0x7FFFFFFF // cpr and f["grid"] == R * k * cpr
-            and f["threads"] == sc.THREADS and f["smem_bytes"] == 0)
+            and 0 < cpr and R <= 0x7FFFFFFF // cpr and f["grid"] == R * cpr
+            and f["threads"] == sc.THREADS)
 
 
 @pytest.mark.parametrize("name", sorted(REPEAT_CASES))
@@ -455,14 +433,24 @@ def test_repeat_entry_point_and_plan_agree(name):
     bad = arr.copy()
     bad[sc.REPEAT_PLAN_FIELDS.index("grid")] += 1
     assert not _repeat_entry_accepts(R, row_bytes, k, 0, 256, bad)
+    assert not _repeat_entry_accepts(R + 1, row_bytes, k, 0, 256, arr)
     if arr[sc.REPEAT_PLAN_FIELDS.index("vec")] > 1:
         assert not _repeat_entry_accepts(R, row_bytes, k, 1, 256, arr)
-    # a grid past the launch limit: the entry point would refuse every plan,
-    # and the Python plan raises
+
+
+def test_repeat_plan_refuses_what_the_entry_point_refuses():
+    # a grid past the launch limit: every plan is refused, and the Python
+    # plan raises rather than let the wrapper fall back
+    R, row_bytes = 2 ** 26, 16 * sc.THREADS * 8 * 33
+    assert not any(_repeat_entry_accepts(R, row_bytes, 1, 0, 0, np.array(
+        [16, u, -(-(row_bytes // 16) // (sc.THREADS * u)),
+         R * -(-(row_bytes // 16) // (sc.THREADS * u)), sc.THREADS]))
+        for u in sc.REPEAT_UNROLLS)
     with pytest.raises(ValueError):
-        sc.repeat_plan(2 ** 22, 16 * sc.THREADS * 64, 64, 0, 0, SMS)
-    with pytest.raises(ValueError):
-        sc.repeat_plan(R, row_bytes, 0, 0, 0, SMS)
+        sc.repeat_plan(R, row_bytes, 1, 0, 0, SMS)
+    for R, row_bytes, k in ((0, 16, 2), (2, 0, 2), (2, 16, 0)):
+        with pytest.raises(ValueError):
+            sc.repeat_plan(R, row_bytes, k, 0, 0, SMS)
 
 
 def test_repeat_constants_match_the_source():
@@ -470,9 +458,7 @@ def test_repeat_constants_match_the_source():
         src = f.read()
     enum = re.search(r"enum RepeatPlan \{([^}]*)\}", src).group(1)
     names = [n.strip() for n in enum.split(",") if n.strip()]
-    want = ["Q_" + f.upper() for f in sc.REPEAT_PLAN_FIELDS]
-    want[want.index("Q_SMEM_BYTES")] = "Q_SMEM"
-    assert names == want + ["Q_LEN"]
+    assert names == ["Q_" + f.upper() for f in sc.REPEAT_PLAN_FIELDS] + ["Q_LEN"]
     assert "template <typename V, int U>\n__global__" in src
     for u in sc.REPEAT_UNROLLS:
         assert f"CALL_REPEAT_U(V, {u})" in src

@@ -2,7 +2,7 @@
 small synthetic dataset, checkpoints, val metrics with the JAX loop's
 keys, ``resume_training`` to epoch 2, and ``NotImplementedError`` for each
 option not ported (``test_torch_train_options.py`` trains with the ported
-ones)."""
+ones; ``test_torch_inpaintnet_train.py`` trains InpaintNet)."""
 
 import os
 import subprocess
@@ -67,7 +67,7 @@ def test_train_one_epoch_then_resume(data_dir, tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("num_devices", 2), ("exact_decode", "device"), ("fast_bn", True),
-    ("model_name", "InpaintNet"),
+    ("exact_decode", "host"),
 ])
 def test_unported_options_raise(data_dir, tmp_path, field, value):
     with pytest.raises(NotImplementedError):

@@ -31,6 +31,9 @@ BG_MODES = ("", "subtract", "subtract_concat", "concat")
 # Evaluation prediction types: 5-way confusion.
 PRED_TYPES = ("TP", "TN", "FP1", "FP2", "FN")
 PRED_TYPES_MAP = {t: i for i, t in enumerate(PRED_TYPES)}
+# InpaintNet's three confusions: refined vs ground truth, refined vs the
+# TrackNet prediction, the prediction vs ground truth
+INPAINTNET_EVAL_TYPES = ("inpaint", "reconstruct", "baseline")
 
 
 def tracknet_in_channels(seq_len: int, bg_mode: str) -> int:

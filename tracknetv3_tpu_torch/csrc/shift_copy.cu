@@ -385,19 +385,20 @@ __global__ void __launch_bounds__(kBulkThreads) window_copy_bulk_kernel(const Bu
 }
 
 // x: (R, row_bytes) -> out: (R * k, row_bytes), out[r * k + j] = x[r].
-// Block b copies piece c of row r into copies [g * kc, min(k, (g + 1) * kc)),
-// with b = (g * R + r) * chunks_per_row + c; a piece is kThreads * U vectors
-// of V. Each thread loads its U vectors, then stores them once per copy.
+// Block b = r * chunks_per_row + c copies piece c of row r (kThreads * U
+// vectors of V) into all k copies of the row: each thread loads its U
+// vectors once, then stores them k times. The plan (ops/shift_copy.py
+// repeat_plan) sizes U so that the grid puts about one block on each SM:
+// every load is issued at once and each input byte is read once.
 template <typename V, int U>
 __global__ void __launch_bounds__(kThreads)
     repeat_rows_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ out,
-                       i64 R, i64 row_bytes, i64 k, i64 kc, unsigned int chunks_per_row) {
-  const unsigned int gr = blockIdx.x / chunks_per_row;
-  const unsigned int c = blockIdx.x - gr * chunks_per_row;
-  const i64 g = (i64)(gr / (unsigned int)R), r = (i64)gr - g * R;
+                       i64 row_bytes, i64 k, unsigned int chunks_per_row) {
+  const i64 r = (i64)(blockIdx.x / chunks_per_row);
+  const i64 c = (i64)(blockIdx.x % chunks_per_row);
   constexpr i64 kV = (i64)sizeof(V);
   const i64 units = row_bytes / kV;
-  const i64 u0 = (i64)c * (kThreads * U) + threadIdx.x;
+  const i64 u0 = c * (kThreads * U) + threadIdx.x;
   const unsigned char* src = x + r * row_bytes;
   V v[U];
 #pragma unroll
@@ -405,8 +406,7 @@ __global__ void __launch_bounds__(kThreads)
     const i64 u = u0 + (i64)i * kThreads;
     if (u < units) v[i] = *reinterpret_cast<const V*>(src + u * kV);
   }
-  const i64 j1 = (g + 1) * kc < k ? (g + 1) * kc : k;
-  for (i64 j = g * kc; j < j1; ++j) {
+  for (i64 j = 0; j < k; ++j) {
     unsigned char* dst = out + (r * k + j) * row_bytes;
 #pragma unroll
     for (int i = 0; i < U; ++i) {
@@ -476,11 +476,10 @@ int launch_window(const WindowArgs& a, i64 out_rows, bool staged, cudaStream_t s
 }
 
 template <typename V, int U>
-int launch_repeat(const void* x, void* out, i64 R, i64 row_bytes, i64 k, i64 kc,
-                  i64 chunks_per_row, i64 grid, cudaStream_t stream) {
+int launch_repeat(const void* x, void* out, i64 row_bytes, i64 k, i64 chunks_per_row, i64 grid,
+                  cudaStream_t stream) {
   repeat_rows_kernel<V, U><<<(unsigned int)grid, kThreads, 0, stream>>>(
-      (const unsigned char*)x, (unsigned char*)out, R, row_bytes, k, kc,
-      (unsigned int)chunks_per_row);
+      (const unsigned char*)x, (unsigned char*)out, row_bytes, k, (unsigned int)chunks_per_row);
   return (int)cudaGetLastError();
 }
 
@@ -501,7 +500,7 @@ enum Plan {
 };
 enum Route { kRouteVector = 0, kRouteStaged = 1, kRouteBulk = 2 };
 // repeat_rows' launch plan (ops/shift_copy.py repeat_plan), int64 in this order.
-enum RepeatPlan { Q_VEC, Q_UNROLL, Q_COPIES_PER_BLOCK, Q_CHUNKS_PER_ROW, Q_GRID, Q_THREADS, Q_LEN };
+enum RepeatPlan { Q_VEC, Q_UNROLL, Q_CHUNKS_PER_ROW, Q_GRID, Q_THREADS, Q_LEN };
 
 // The bulk plan must cover the geometry with pieces that fit their stages.
 bool bulk_plan_matches(const BulkArgs& b, const long long* p) {
@@ -682,16 +681,15 @@ int window_copy(const void* x, const void* starts, int starts_i64, void* out, lo
 int repeat_rows(const void* x, void* out, long long R, long long row_bytes, long long k,
                 const long long* plan, void* stream) {
   if (R <= 0 || row_bytes <= 0 || k <= 0) return 0;
-  const i64 vec = plan[Q_VEC], unroll = plan[Q_UNROLL], kc = plan[Q_COPIES_PER_BLOCK];
-  const i64 cpr = plan[Q_CHUNKS_PER_ROW], grid = plan[Q_GRID];
+  const i64 vec = plan[Q_VEC], unroll = plan[Q_UNROLL], cpr = plan[Q_CHUNKS_PER_ROW];
+  const i64 grid = plan[Q_GRID];
   if (vec < 1 || vec > 16 || (vec & (vec - 1)) || !aligned(x, vec) || !aligned(out, vec) ||
       row_bytes % vec || (unroll != 1 && unroll != 2 && unroll != 4 && unroll != 8) ||
-      kc < 1 || kc > k || cpr != (row_bytes / vec + kThreads * unroll - 1) / (kThreads * unroll) ||
-      !grid_fits(R * ((k + kc - 1) / kc), cpr) || grid != R * ((k + kc - 1) / kc) * cpr ||
-      plan[Q_THREADS] != kThreads)
+      cpr != (row_bytes / vec + kThreads * unroll - 1) / (kThreads * unroll) ||
+      !grid_fits(R, cpr) || grid != R * cpr || plan[Q_THREADS] != kThreads)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define CALL_REPEAT_U(V, U) launch_repeat<V, U>(x, out, R, row_bytes, k, kc, cpr, grid, st)
+#define CALL_REPEAT_U(V, U) launch_repeat<V, U>(x, out, row_bytes, k, cpr, grid, st)
 #define CALL_REPEAT(V)                                         \
   (unroll == 8 ? CALL_REPEAT_U(V, 8)                           \
    : unroll == 4 ? CALL_REPEAT_U(V, 4)                         \

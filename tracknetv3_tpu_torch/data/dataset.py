@@ -1,11 +1,13 @@
 """Shuttlecock Trajectory Dataset: window index, frame cache, batch loader.
 
-Copy of the heatmap-mode parts of the JAX package's ``data/dataset.py``,
-host-side numpy, with the same on-disk caches so a data directory prepared
-by either package serves both:
+Copy of the heatmap- and coordinate-mode parts of the JAX package's
+``data/dataset.py``, host-side numpy, with the same on-disk caches so a data
+directory prepared by either package serves both:
 
 - ``img_config_{H}x{W}_{split}.npz``: per-rally original (w, h) and scale;
-- ``data_l{L}_s{S}_heatmap_{split}.npz``: the split's sliding-window index;
+- ``data_l{L}_s{S}_{mode}_{split}.npz``: the split's sliding-window index,
+  ``heatmap`` (TrackNet, from the label CSVs) or ``coordinate`` (InpaintNet,
+  from the ``predicted_csv`` files);
 - ``{rally}/cache_{H}x{W}_{tag}.npz``: a rally's frames resized to the
   model resolution once, as uint8 (plus the resized median in concat
   mode).
@@ -16,9 +18,11 @@ segmented ones (``segment_windows`` > 1: each segment's unique frames once,
 expanded into windows on the device) and frame-mixup ones (``frame_alpha``
 > 0: the host blend plan of ``frame_mixup.plan_frame_mixup``).
 ``ResidentHeatmapLoader`` puts the split's frames on the device once and
-yields flat frame indices. PIL and pandas are imported only where a cache
-is missing. Multi-process sharding and resident frames on a mesh are not
-ported yet and raise ``NotImplementedError``.
+yields flat frame indices. ``CoordinateBatchLoader`` yields InpaintNet's
+normalised trajectories with the JAX loader's shuffle. PIL is imported only
+where a cache is missing; CSVs are read without pandas. Multi-process
+sharding and resident frames on a mesh are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from ..utils.io import (
     label_csv_path,
     load_median_for_rally,
     parse_rally_dir,
-    read_label_csv,
+    read_csv_columns,
 )
 from .frame_mixup import plan_frame_mixup
 
@@ -62,14 +66,14 @@ def build_rally_heatmap_index(
 ) -> Dict[str, np.ndarray]:
     """Heatmap-mode window index of one rally (id, frame ids, coor, vis)."""
     match_dir, rally_id = parse_rally_dir(rally_dir)
-    df = read_label_csv(label_csv_path(match_dir, rally_id))
-    frames = df["Frame"].to_numpy()
-    x = df["X"].to_numpy(np.float32)
-    y = df["Y"].to_numpy(np.float32)
-    v = df["Visibility"].to_numpy(np.float32)
+    cols = read_csv_columns(label_csv_path(match_dir, rally_id), ("Frame", "Visibility", "X", "Y"))
+    frames = cols["Frame"]
+    x = cols["X"].astype(np.float32)
+    y = cols["Y"].astype(np.float32)
+    v = cols["Visibility"].astype(np.float32)
 
     padding = padding and sliding_step == seq_len
-    windows = _slide_windows(len(df), seq_len, sliding_step, padding)
+    windows = _slide_windows(len(frames), seq_len, sliding_step, padding)
     if not windows:
         return {
             "id": np.zeros((0, seq_len, 2), np.int32),
@@ -84,6 +88,49 @@ def build_rally_heatmap_index(
         "frame_id": frames[w].astype(np.int64),
         "coor": np.stack([x[w], y[w]], axis=-1),
         "vis": v[w],
+    }
+
+
+# the columns of a predicted_csv file (generate_mask_data's output)
+COORDINATE_COLUMNS = ("Visibility_GT", "X_GT", "Y_GT", "Visibility", "X", "Y", "Inpaint_Mask")
+
+
+def build_rally_coordinate_index(
+    data_dir: str, rally_dir: str, rally_i: int, seq_len: int, sliding_step: int,
+    padding: bool = False,
+) -> Dict[str, np.ndarray]:
+    """Coordinate-mode window index of one rally (InpaintNet data) from its
+    ``predicted_csv/{rally}_ball.csv``: id, ground-truth and predicted
+    coordinates, their visibilities and the inpaint mask."""
+    match_dir, rally_id = parse_rally_dir(rally_dir)
+    csv_file = os.path.join(match_dir, "predicted_csv", f"{rally_id}_ball.csv")
+    if not os.path.exists(csv_file):
+        raise FileNotFoundError(f"{csv_file} does not exist")
+    cols = read_csv_columns(csv_file, COORDINATE_COLUMNS)
+
+    padding = padding and sliding_step == seq_len
+    windows = _slide_windows(len(cols["X"]), seq_len, sliding_step, padding)
+    if not windows:
+        z = np.zeros((0, seq_len), np.float32)
+        return {
+            "id": np.zeros((0, seq_len, 2), np.int32),
+            "coor": np.zeros((0, seq_len, 2), np.float32),
+            "coor_pred": np.zeros((0, seq_len, 2), np.float32),
+            "vis": z, "pred_vis": z, "inpaint_mask": z,
+        }
+    w = np.asarray(windows)
+    ids = np.stack([np.full_like(w, rally_i), w], axis=-1).astype(np.int32)
+
+    def col(name):
+        return cols[name].astype(np.float32)[w]
+
+    return {
+        "id": ids,
+        "coor": np.stack([col("X_GT"), col("Y_GT")], axis=-1),
+        "coor_pred": np.stack([col("X"), col("Y")], axis=-1),
+        "vis": col("Visibility_GT"),
+        "pred_vis": col("Visibility"),
+        "inpaint_mask": col("Inpaint_Mask"),
     }
 
 
@@ -137,9 +184,14 @@ def build_split_index(
     use_cache: bool = True,
     input_hw: Optional[Tuple[int, int]] = None,
 ) -> SplitIndex:
-    """Build (or load from its npz cache) the window index of a split."""
-    if data_mode != "heatmap":
-        raise NotImplementedError("the port's loader has heatmap mode only so far")
+    """Build (or load from its npz cache) the window index of a split:
+    ``data_mode`` ``"heatmap"`` (TrackNet, from the label CSVs) or
+    ``"coordinate"`` (InpaintNet, from ``predicted_csv``). The cache's name
+    carries the mode."""
+    build_fn = {"heatmap": build_rally_heatmap_index,
+                "coordinate": build_rally_coordinate_index}.get(data_mode)
+    if build_fn is None:
+        raise ValueError(f"Invalid data_mode: {data_mode!r}")
     hgt, wdt = input_hw if input_hw is not None else (HEIGHT, WIDTH)
     rally_dirs = [os.path.join(data_dir, rd) for rd in get_rally_dirs(data_dir, split)]
 
@@ -162,7 +214,7 @@ def build_split_index(
             data = {k: loaded[k] for k in loaded.files}
     else:
         parts = [
-            build_rally_heatmap_index(data_dir, rd, i, seq_len, sliding_step, padding)
+            build_fn(data_dir, rd, i, seq_len, sliding_step, padding)
             for i, rd in enumerate(rally_dirs)
         ]
         data = {k: np.concatenate([p[k] for p in parts], axis=0) for k in parts[0]}
@@ -598,3 +650,58 @@ class ResidentHeatmapLoader:
                 batch["res_median_buf"] = self.median_buf
                 batch["res_median_idx"] = rally_i.astype(np.int32)
             yield batch
+
+
+class CoordinateBatchLoader:
+    """InpaintNet batches (coordinate mode) as dicts of numpy arrays:
+
+      id           (B, L, 2) int32   window identity (rally_i, frame pos)
+      coor         (B, L, 2) f32     ground truth, normalised by (W, H)
+      coor_pred    (B, L, 2) f32     TrackNet's prediction, normalised alike
+      vis, pred_vis, inpaint_mask  (B, L, 1) f32
+
+    (W, H) is the index's model input size. The shuffle and ``drop_last``
+    are the JAX loader's: the same ``np.random.default_rng(seed)`` stream
+    gives the same batches."""
+
+    def __init__(
+        self,
+        index: SplitIndex,
+        batch_size: int = 8,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 13,
+        process_id: int = 0,
+        process_count: int = 1,
+    ):
+        if process_count > 1 or process_id != 0:
+            raise NotImplementedError("multi-process loading is not ported yet")
+        self.index = index
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        n = len(self.index)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        n = len(self.index)
+        order = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(order)
+        B = self.batch_size
+        stop = (n // B) * B if self.drop_last else n
+        norm = np.asarray([self.index.input_hw[1], self.index.input_hw[0]], np.float32)
+        d = self.index.data
+        for s in range(0, stop, B):
+            sel = order[s : s + B]
+            yield {
+                "id": d["id"][sel],
+                "coor": d["coor"][sel].astype(np.float32) / norm,
+                "coor_pred": d["coor_pred"][sel].astype(np.float32) / norm,
+                "vis": d["vis"][sel].astype(np.float32)[..., None],
+                "pred_vis": d["pred_vis"][sel].astype(np.float32)[..., None],
+                "inpaint_mask": d["inpaint_mask"][sel].astype(np.float32)[..., None],
+            }

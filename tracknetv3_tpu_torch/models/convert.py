@@ -10,7 +10,8 @@ kernels are HWIO in JAX and OIHW here. ``inpaintnet_from_jax`` /
 ``JAX_PARAM_PATHS`` lists the JAX parameter paths in ``jax.tree_util``'s
 flatten order (dict keys sorted at every level), which is also the order
 of the per-parameter leaves of an optax optimizer state; checkpoints use
-it to write and read optimizer state in the JAX package's format.
+it (``PARAM_MAP``; InpaintNet's is ``INPAINT_PARAM_MAP``) to write and read
+optimizer state in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -124,6 +125,17 @@ def _inpaint_map() -> List[Tuple[Tuple[str, ...], str]]:
 
 
 INPAINT_MAP = _inpaint_map()
+# the same pairs in jax.tree_util's flatten order (sorted paths: bias before
+# kernel), the order of an optax state's per-parameter leaves
+INPAINT_PARAM_MAP = sorted(INPAINT_MAP)
+
+
+def conv1d_to_jax_layout(a: np.ndarray) -> np.ndarray:
+    """torch Conv1d kernel (Co, Ci, k) -> flax (k, Ci, Co); other leaves unchanged."""
+    return np.ascontiguousarray(a.transpose(2, 1, 0)) if a.ndim == 3 else a
+
+
+conv1d_to_torch_layout = conv1d_to_jax_layout  # the same axis swap, its own inverse
 
 
 def inpaintnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -131,10 +143,8 @@ def inpaintnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
     for path, name in INPAINT_MAP:
-        arr = np.asarray(_get(params, path), np.float32)
-        if arr.ndim == 3:  # (k, Ci, Co) -> (Co, Ci, k)
-            arr = arr.transpose(2, 1, 0)
-        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        arr = conv1d_to_torch_layout(np.asarray(_get(params, path), np.float32))
+        sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
     return sd
 
 
@@ -143,8 +153,5 @@ def inpaintnet_to_jax(module: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
     state = module.state_dict() if isinstance(module, torch.nn.Module) else module
     params: Dict[str, Any] = {}
     for path, name in INPAINT_MAP:
-        arr = state[name].detach().cpu().numpy()
-        if arr.ndim == 3:
-            arr = arr.transpose(2, 1, 0)
-        _set(params, path, np.ascontiguousarray(arr))
+        _set(params, path, conv1d_to_jax_layout(state[name].detach().cpu().numpy()))
     return {"params": params}

@@ -8,8 +8,9 @@ concatenates ``[x, skip]`` (x3, x2, x1) before up_1..3 (128, 64, 32); a
 Conv1d(32 -> 2, k=3) head and a float32 sigmoid. Parameter names
 (``down_1.conv.weight``, ...) follow the flax module's paths.
 
-The network is float32 throughout, as in the JAX package; callers on the
-card run it with TF32 off (``device.tf32_off``).
+The network computes in its parameters' dtype: float32 as built, as in the
+JAX package (the parity tests take float64 with ``.double()``); callers on
+the card run it with TF32 off (``device.tf32_off``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class Conv1DBlock(nn.Module):
 
 class InpaintNet(nn.Module):
     """Trajectory inpainting network: (N, L, 2) coords + (N, L, 1) mask ->
-    (N, L, 2) float32 coordinates in [0, 1]."""
+    (N, L, 2) coordinates in [0, 1] in the parameters' dtype."""
 
     def __init__(self):
         super().__init__()
@@ -47,7 +48,8 @@ class InpaintNet(nn.Module):
         self.predictor = nn.Conv1d(32, 2, 3, padding=1)
 
     def forward(self, coords: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([coords, mask], dim=-1).float().transpose(1, 2)  # (N, 3, L)
+        dtype = self.predictor.weight.dtype
+        x = torch.cat([coords, mask], dim=-1).to(dtype).transpose(1, 2)  # (N, 3, L)
         x1 = self.down_1(x)
         x2 = self.down_2(x1)
         x3 = self.down_3(x2)
@@ -55,4 +57,4 @@ class InpaintNet(nn.Module):
         x = self.up_1(torch.cat([x, x3], dim=1))
         x = self.up_2(torch.cat([x, x2], dim=1))
         x = self.up_3(torch.cat([x, x1], dim=1))
-        return torch.sigmoid(self.predictor(x).float()).transpose(1, 2)  # (N, L, 2)
+        return torch.sigmoid(self.predictor(x)).transpose(1, 2)  # (N, L, 2)

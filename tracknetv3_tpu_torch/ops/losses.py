@@ -1,10 +1,12 @@
-"""Weighted BCE losses (plain torch), as the JAX package's ``ops/losses.py``.
+"""Losses (plain torch), as the JAX package's ``ops/losses.py``.
 
 - ``wbce``: the focal-style weighted BCE on probabilities,
   ``-((1-p)^2 y log(clamp(p)) + p^2 (1-y) log(clamp(1-p)))`` with the
   clamp to [1e-7, 1], mean (or per-sample mean) reduction.
 - ``wbce_from_logits``: the same loss from logits through ``logsigmoid``
   (never ``log(sigmoid)``), each log floored at ``log(1e-7)``.
+- ``masked_mse``: InpaintNet's loss, the mean of ``(pred*mask -
+  target*mask)^2``.
 """
 
 from __future__ import annotations
@@ -46,3 +48,11 @@ def wbce_from_logits(
     log_1mp = F.logsigmoid(-z).clamp_min(LOG_FLOOR)
     loss = -((1.0 - p).square() * y * log_p + p.square() * (1.0 - y) * log_1mp)
     return _reduce(loss, reduce)
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``(pred * mask - target * mask)^2`` over every element, in
+    float32 (float64 stays float64)."""
+    acc = torch.promote_types(pred.dtype, torch.float32)
+    pred, target, mask = pred.to(acc), target.to(acc), mask.to(acc)
+    return (pred * mask - target * mask).square().mean()

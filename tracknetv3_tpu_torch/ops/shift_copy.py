@@ -71,13 +71,9 @@ PLAN_FIELDS = ("route", "vec", "blocks_per_row", "tile_pix", "unit_bytes", "unit
                "blocks_per_sm")
 
 # repeat_rows' plan: the order of its int64s (enum RepeatPlan of the source)
-# and the unrolls the source instantiates
-REPEAT_PLAN_FIELDS = ("vec", "unroll", "copies_per_block", "chunks_per_row", "grid", "threads")
+# and the unrolls the source instantiates, widest first
+REPEAT_PLAN_FIELDS = ("vec", "unroll", "chunks_per_row", "grid", "threads")
 REPEAT_UNROLLS = (8, 4, 2, 1)
-REPEAT_BLOCKS_PER_SM = 4
-# (unroll, copies per block) that every launch takes instead of the plan's
-# own choice, for the sweep of chip_smoke.py; None: the plan chooses
-REPEAT_SHAPE: Optional[Tuple[int, int]] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -336,60 +332,52 @@ def _plan_array(g: WindowGeometry, n: int, rows: int, staged: bool, x_align: int
 @dataclasses.dataclass(frozen=True)
 class RepeatPlan:
     """``repeat_rows``' launch and every size the C entry point checks:
-    ``grid`` = R * ceil(k / ``copies_per_block``) * ``chunks_per_row``
-    blocks of THREADS; block ``(g * R + r) * chunks_per_row + c`` loads
-    piece ``c`` (THREADS * ``unroll`` vectors of ``vec`` bytes) of row ``r``
-    and stores it into copies ``[g * copies_per_block, ...)`` of the row."""
+    ``grid`` = R * ``chunks_per_row`` blocks of THREADS; block ``r *
+    chunks_per_row + c`` loads piece ``c`` (THREADS * ``unroll`` vectors of
+    ``vec`` bytes) of row ``r`` once and stores it into the row's k copies."""
 
     vec: int
     unroll: int
-    copies_per_block: int
     chunks_per_row: int
     grid: int
     threads: int = THREADS
-    route = "vector"
+    route = "vector"  # the vector body: repeat_rows has one route
 
     def as_array(self) -> np.ndarray:
         return np.array([getattr(self, f) for f in REPEAT_PLAN_FIELDS], dtype=np.int64)
 
 
-def repeat_plan(R: int, row_bytes: int, k: int, x_ptr: int, out_ptr: int, num_sms: int,
-                shape: Optional[Tuple[int, int]] = None) -> RepeatPlan:
+def repeat_plan(R: int, row_bytes: int, k: int, x_ptr: int, out_ptr: int,
+                num_sms: int) -> RepeatPlan:
     """The sizes of one ``repeat_rows`` launch of ``R`` rows of ``row_bytes``
     bytes repeated ``k`` times, from its geometry and base pointers alone:
-    the widest vector that divides both pointers and the row; one copy a
-    block and the widest unroll whose grid still holds REPEAT_BLOCKS_PER_SM
-    blocks per SM (else 1, the most blocks). ``shape`` = (unroll, copies
-    per block) overrides the choice. Raises ``ValueError`` where no launch
-    fits the grid."""
+    the widest vector that divides both pointers and the row, and the widest
+    unroll of REPEAT_UNROLLS whose grid still holds a block for three SMs
+    in four (else 1, the most blocks). On an H100 about one block per SM,
+    each thread's loads all in flight, measured fastest: a grid of many more
+    blocks (one per piece and copy) and one of fewer both measured slower
+    (PERF.md). Raises ``ValueError`` where no launch fits the grid."""
     if R < 1 or row_bytes < 1 or k < 1:
         raise ValueError(f"no rows to repeat: {R} rows of {row_bytes} bytes, k = {k}")
     vec = vector_bytes(x_ptr, out_ptr, row_bytes)
     units = row_bytes // vec
-
-    def grid_of(unroll, kc):
+    for unroll in REPEAT_UNROLLS:
         cpr = -(-units // (THREADS * unroll))
-        return cpr, R * -(-k // kc) * cpr
-
-    if shape is not None:
-        unroll, kc = shape[0], min(shape[1], k)
-    else:
-        kc = 1
-        unroll = next((u for u in REPEAT_UNROLLS
-                       if grid_of(u, kc)[1] >= REPEAT_BLOCKS_PER_SM * num_sms), 1)
-    cpr, grid = grid_of(unroll, kc)
+        if 4 * R * cpr >= 3 * num_sms:
+            break
+    grid = R * cpr
     if grid > 0x7FFFFFFF:
         raise ValueError(f"{grid} blocks do not fit one launch's grid")
-    return RepeatPlan(vec, unroll, kc, cpr, grid)
+    return RepeatPlan(vec, unroll, cpr, grid)
 
 
 @functools.lru_cache(maxsize=256)
 def _repeat_plan_array(R: int, row_bytes: int, k: int, x_align: int, out_align: int,
-                       num_sms: int, shape: Optional[Tuple[int, int]] = None
-                       ) -> Tuple[RepeatPlan, np.ndarray]:
+                       num_sms: int) -> Tuple[RepeatPlan, np.ndarray]:
     """``repeat_plan`` and the int64s the C entry point reads, kept per
-    geometry, pointer alignment (mod 128) and card."""
-    plan = repeat_plan(R, row_bytes, k, x_align, out_align, num_sms, shape)
+    geometry, pointer alignment (mod 128) and card: a train step asks for
+    the same launch every time."""
+    plan = repeat_plan(R, row_bytes, k, x_align, out_align, num_sms)
     return plan, plan.as_array()
 
 
@@ -466,7 +454,7 @@ def repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     R = x.shape[0]
     row_bytes = x.numel() // R * x.element_size()
     plan, arr = _repeat_plan_array(R, row_bytes, k, x.data_ptr() % 128, out.data_ptr() % 128,
-                                   cuda_build.num_sms(x.device), REPEAT_SHAPE)
+                                   cuda_build.num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _lib().repeat_rows(x.data_ptr(), out.data_ptr(), R, row_bytes, k, arr.ctypes.data,
                                  _stream(x))

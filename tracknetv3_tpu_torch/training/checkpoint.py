@@ -12,8 +12,10 @@ an npz archive holding
   - ``opt/<i>``: optimizer-state leaves in optax's flatten order for the
     same optimizer: Adam is the step count, then ``mu``, then ``nu``; SGD
     the momentum trace; Adadelta ``e_g`` then ``e_x``; a step-based
-    schedule appends its own count. Per-parameter leaves follow the sorted
-    JAX parameter paths (``models.convert.JAX_PARAM_PATHS``).
+    schedule appends its own count (InpaintNet's gradient clip holds no
+    leaves). Per-parameter leaves follow the sorted JAX parameter paths
+    (``models.convert.PARAM_MAP`` / ``INPAINT_PARAM_MAP``) in the JAX
+    layouts.
 
 So the JAX package loads a port checkpoint (``load_model_from_checkpoint``,
 ``unflatten_optimizer_state``) and the port loads a JAX one. Files are
@@ -30,7 +32,10 @@ import numpy as np
 import torch
 
 from ..models.convert import (
+    INPAINT_PARAM_MAP,
     PARAM_MAP,
+    conv1d_to_jax_layout,
+    conv1d_to_torch_layout,
     inpaintnet_from_jax,
     inpaintnet_to_jax,
     jax_to_torch_layout,
@@ -77,16 +82,27 @@ def _params_by_name(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     return dict(model.named_parameters())
 
 
+def _leaf_layout(model: torch.nn.Module):
+    """(param map in optax leaf order, torch -> JAX layout, JAX -> torch
+    layout) of the model's parameters."""
+    if isinstance(model, InpaintNet):
+        return INPAINT_PARAM_MAP, conv1d_to_jax_layout, conv1d_to_torch_layout
+    return PARAM_MAP, torch_to_jax_layout, jax_to_torch_layout
+
+
 def optimizer_to_jax_leaves(
     optimizer: torch.optim.Optimizer, model: torch.nn.Module, optim_name: str,
     step: int, scheduled: bool,
 ) -> List[np.ndarray]:
-    """The optimizer's state as optax state leaves (JAX layouts)."""
+    """The optimizer's state as optax state leaves (JAX layouts). InpaintNet's
+    gradient clip (``optax.chain(clip_by_global_norm, ...)``) has an empty
+    state, so the leaves are the optimizer's alone."""
     params = _params_by_name(model)
+    param_map, to_jax, _ = _leaf_layout(model)
     count = np.asarray(step, np.int32)
     leaves: List[np.ndarray] = [count] if optim_name == "Adam" else []
     for slot in _SLOTS[optim_name]:
-        for _, name in PARAM_MAP:
+        for _, name in param_map:
             p = params[name]
             buf = optimizer.state.get(p, {}).get(slot)
             arr = (
@@ -94,7 +110,7 @@ def optimizer_to_jax_leaves(
                 if buf is None
                 else buf.detach().float().cpu().numpy()
             )
-            leaves.append(torch_to_jax_layout(arr))
+            leaves.append(to_jax(arr))
     if scheduled:
         leaves.append(count.copy())
     return leaves
@@ -107,8 +123,9 @@ def load_optimizer_jax_leaves(
     """Restore optimizer state from optax leaves; ``step`` is the number of
     optimizer steps taken (the checkpoint's ``scheduler.opt_step``)."""
     params = _params_by_name(model)
+    param_map, _, to_torch = _leaf_layout(model)
     slots = _SLOTS[optim_name]
-    n = len(PARAM_MAP)
+    n = len(param_map)
     head = 1 if optim_name == "Adam" else 0
     if len(leaves) not in (head + n * len(slots), head + n * len(slots) + 1):
         raise ValueError(
@@ -116,13 +133,13 @@ def load_optimizer_jax_leaves(
             f"schedule), checkpoint has {len(leaves)}"
         )
     for j, slot in enumerate(slots):
-        for i, (_, name) in enumerate(PARAM_MAP):
+        for i, (_, name) in enumerate(param_map):
             p = params[name]
-            arr = jax_to_torch_layout(np.asarray(leaves[head + j * n + i], np.float32))
+            arr = to_torch(np.asarray(leaves[head + j * n + i], np.float32))
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{slot} of {name}: shape {arr.shape} != {tuple(p.shape)}")
             state = optimizer.state[p]
-            state[slot] = torch.from_numpy(arr.copy()).to(p.device)
+            state[slot] = torch.from_numpy(arr.copy()).to(p.device, p.dtype)
             if optim_name != "SGD":
                 state["step"] = torch.tensor(float(step), dtype=torch.float32)
 

@@ -1,6 +1,6 @@
-"""TrackNet train and eval steps.
+"""TrackNet and InpaintNet train and eval steps.
 
-Port of the JAX package's ``training/steps.py`` (TrackNet): batch assembly
+Port of the JAX package's ``training/steps.py``. TrackNet: batch assembly
 (window expansion of segmented batches, the gather of device-resident
 frames, frame-mixup blending, channel stacking, /255), sample mixup,
 forward, loss, backward and the optimizer update. PyTorch runs eagerly, so
@@ -25,6 +25,15 @@ tensor never exists. On the CPU the same call runs the plain composition.
 Frame mixup together with sample mixup needs four disks per label, which
 the kernels' two-disk form does not hold: that step materialises the
 labels and takes ``wbce_from_logits``, as the JAX step does.
+
+InpaintNet: the train step masks a Bernoulli(``mask_ratio``) share of the
+visible frames (``inpaint_mask = (vis > 0) * mask``), feeds the prediction
+with those frames zeroed and takes ``masked_mse`` against the ground truth on
+them; the eval step composites the network's output into the masked frames,
+takes the same loss and zeroes the points under ``COOR_TH``. The mask is
+drawn on the host (``sample_inpaint_mask``), as the mixup parameters are:
+``jax.random.bernoulli``'s stream has no torch counterpart, so the tests
+hand one mask to both packages. Both steps run with TF32 off.
 """
 
 from __future__ import annotations
@@ -34,8 +43,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import COOR_TH
+from ..device import tf32_off
 from ..ops.heatmap import make_heatmaps
-from ..ops.losses import wbce, wbce_from_logits
+from ..ops.losses import masked_mse, wbce, wbce_from_logits
 from ..ops.preprocess import window_channels
 from ..ops.shift_copy import repeat_rows, window_copy
 from ..ops.wbce_disk import (
@@ -211,5 +222,62 @@ def make_tracknet_eval_step(model: torch.nn.Module, bg_mode: str):
         y = assemble_tracknet_labels(batch, x.shape[1], x.shape[2])
         probs = torch.sigmoid(model(_to_model_input(x))).movedim(1, -1)
         return wbce(probs, y), probs
+
+    return step
+
+
+def sample_inpaint_mask(rng: np.random.Generator, shape: Tuple[int, ...],
+                        mask_ratio: float) -> np.ndarray:
+    """Bernoulli(``mask_ratio``) draws of ``shape`` as float32 0 / 1, on the host."""
+    return (rng.random(shape) < mask_ratio).astype(np.float32)
+
+
+def make_inpaintnet_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    schedule: Optional[Callable[[int], float]] = None,
+):
+    """Returns ``step(batch, step_idx, mask) -> loss``: ``batch`` holds the
+    device tensors ``coor_pred``, ``coor`` and ``vis`` (B, L, 1) of a
+    ``CoordinateBatchLoader`` batch, ``mask`` the step's Bernoulli draws of
+    ``vis``'s shape (``sample_inpaint_mask``); ``step_idx`` is the optimizer
+    step (from 0) that ``schedule`` reads. The optimizer clips (built with
+    ``clip_norm=1.0``)."""
+
+    def step(batch: Batch, step_idx: int, mask: torch.Tensor) -> torch.Tensor:
+        model.train()
+        coor_pred, coor_gt, vis = batch["coor_pred"], batch["coor"], batch["vis"]
+        inpaint_mask = (vis > 0).to(coor_pred.dtype) * mask
+        coor_in = coor_pred * (1.0 - inpaint_mask)
+        if schedule is not None:
+            for group in optimizer.param_groups:
+                group["lr"] = schedule(step_idx)
+        optimizer.zero_grad(set_to_none=True)
+        with tf32_off():
+            loss = masked_mse(model(coor_in, inpaint_mask), coor_gt, inpaint_mask)
+            loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_inpaintnet_eval_step(model: torch.nn.Module):
+    """Returns ``step(batch) -> (loss, coor_inpaint (B, L, 2))``: the network
+    on the prediction and its ``inpaint_mask``, its output composited into
+    the masked frames, ``masked_mse`` against ``coor``, then every point with
+    both coordinates under ``COOR_TH`` set to (0, 0)."""
+
+    @torch.no_grad()
+    def step(batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.eval()
+        coor_pred, coor_gt, m = batch["coor_pred"], batch["coor"], batch["inpaint_mask"]
+        with tf32_off():
+            out = model(coor_pred, m)
+        coor_inpaint = out * m + coor_pred * (1.0 - m)
+        loss = masked_mse(coor_inpaint, coor_gt, m)
+        th = (coor_inpaint[..., 0] < COOR_TH) & (coor_inpaint[..., 1] < COOR_TH)
+        coor_inpaint = coor_inpaint.masked_fill(th[..., None], 0.0)
+        return loss, coor_inpaint
 
     return step

@@ -6,13 +6,13 @@ Dataset layout (the reference's Shuttlecock Trajectory Dataset):
 
     {data_dir}/{split}/match{id}/csv/{rally}_ball.csv          (train/val)
     {data_dir}/{split}/match{id}/corrected_csv/{rally}_ball.csv (test)
+    {data_dir}/{split}/match{id}/predicted_csv/{rally}_ball.csv (InpaintNet)
     {data_dir}/{split}/match{id}/frame/{rally}/{n}.png
     {data_dir}/{split}/match{id}/frame/{rally}/median.npz
     {data_dir}/{split}/match{id}/median.npz
 
-pandas is imported only where a label CSV is read, which happens only
-when a split's index cache is missing; the prediction CSV is written with
-the ``csv`` module in pandas' ``to_csv(index=False)`` format. ``cv2`` is
+Label and prediction CSVs are read and written with the ``csv`` module
+(no pandas), in pandas' ``to_csv(index=False)`` format. ``cv2`` is
 imported only where a video file is opened.
 """
 
@@ -63,11 +63,21 @@ def label_csv_path(match_dir: str, rally_id: str) -> str:
     return os.path.join(match_dir, "csv", f"{rally_id}_ball.csv")
 
 
-def read_label_csv(csv_file: str):
-    """Label CSV as a pandas DataFrame sorted by Frame, blanks -> 0."""
-    import pandas as pd
-
-    return pd.read_csv(csv_file, encoding="utf8").sort_values(by="Frame").fillna(0)
+def read_csv_columns(csv_file: str, columns) -> Dict[str, np.ndarray]:
+    """The named columns of a label or prediction CSV as float64 arrays,
+    rows sorted by ``Frame`` and blank fields read as 0 (the JAX package's
+    pandas reader's rules), read with the ``csv`` module: the card's
+    machine has no pandas."""
+    with open(csv_file, newline="", encoding="utf8") as f:
+        rows = list(csv.reader(f))
+    header, rows = rows[0], [r for r in rows[1:] if r]
+    cols = {name: np.array([float(r[i]) if r[i].strip() else 0.0 for r in rows], np.float64)
+            for i, name in enumerate(header) if name in ("Frame", *columns)}
+    missing = [c for c in ("Frame", *columns) if c not in cols]
+    if missing:
+        raise KeyError(f"{csv_file} has no column {missing}")
+    order = np.argsort(cols["Frame"], kind="stable")
+    return {name: cols[name][order] for name in columns}
 
 
 def load_median_for_rally(match_dir: str, rally_id: str) -> np.ndarray:
