@@ -116,7 +116,8 @@ exits nonzero.
    for U7) and at the train path's (segments (2, 12, 288, 512, 3) uint8 ->
    (10, 8, ...), the median x5, and x1, and x5 of a row of an odd byte
    count (1-byte vectors), 80 frames of a 160-frame resident buffer,
-   10 float32 medians, the blend's two gathers), float inputs holding NaN
+   10 float32 medians, the blend's two gathers) and the rally evaluation's
+   (16 windows of 8 frames from a padded 200-frame rally), float inputs holding NaN
    payloads, -0.0, inf and denormals: every bit equal to the plain version
    and to one PyTorch call, while a wrong version of each (a start off by
    one, the unshifted tile, the other channels, the tiled repeat, a roll
@@ -149,9 +150,33 @@ exits nonzero.
    step (median of 20) and peak memory beside the card's name and power
    limit.
 
+14. rally (after phase 13): rally evaluation at the same width (seq_len 8,
+   concat, 288x512, batch 16, bf16 on the default ``hand_9tap`` route) on
+   the synthetic dataset's test split (2 rallies x 200 frames, corrected
+   labels, a drop-frame window, a ``0.png`` per rally), with phase 5's
+   TrackNet with its predictor's bias lowered (``detecting_checkpoint``):
+   ``generate_mask_data`` over the three splits (one ``predicted_csv`` row
+   per label row), one epoch of InpaintNet training on those files, then
+   the ``test`` CLI in ``weight``, ``nonoverlap``, ``--exact_decode``,
+   ``--exact_decode host``, ``--linear_interp``, with the InpaintNet
+   checkpoint and with ``--output_bbox`` (mAP): one row per label row,
+   coordinates inside the frame, per chunk forwarded 17 conv-kernel
+   launches, 3 of P6 and of P7 and 1 ``window_copy`` (none with
+   InpaintNet); frames/s of each run (``last_eval_stats``);
+   rally_vs_cpu: the card's window probabilities of each chunk replayed
+   through a CPU engine, whose rows must equal the card's (InpaintNet's
+   too, over the generated files with an occlusion cut into each 40-frame
+   pass: a masked frame within 1 px); the card's ``decode_heatmaps_exact``
+   equal to ``decode_heatmaps_host`` on every ensembled test frame and on a
+   seeded multi-blob corpus at 288x512 (area ties, blobs larger than the
+   crop), on which two wrong rules (ties kept last, a fill capped at the
+   crop) must differ; the exact, the peak-blob and the host decoders' ms
+   per frame over the first rally's ensembled frames in chunks of 16.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
-2 and 3, ``--inpaint_only`` phases 1 and 13; none prints a kernels line.
+2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
+and 14 (from a TrackNet made from a seed); none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -177,10 +202,12 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -870,21 +897,63 @@ def _write_npz(path: str, **arrays) -> None:
         np.savez(f, **arrays)
 
 
+def _write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG of ``rgb`` (h, w, 3), written with zlib and struct."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))  # filter 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _draw_rally(rng, T: int, occluded: bool):
+    """A rally's (T, H, W, 3) uint8 frames (a seeded textured background, a
+    bright disk of radius 4 on a parabolic arc, one 40-frame pass after
+    another) and its label rows (frame, visibility, x, y); with ``occluded``
+    the disk is hidden on frames 12-15 of each pass."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    bg = np.full((H, W, 3), (40, 90, 40), np.int32)
+    bg = (bg + rng.integers(0, 40, (H, W, 3))).astype(np.uint8)
+    frames = np.repeat(bg[None], T, axis=0)
+    rows = []
+    for t in range(T):
+        u = (t % 40) / 39
+        visible = not (occluded and 12 <= t % 40 < 16)
+        x = int(W * 0.1 + W * 0.8 * u)
+        y = int(H * 0.7 - H * 0.5 * math.sin(math.pi * u))
+        if visible:
+            frames[t][(yy - y) ** 2 + (xx - x) ** 2 <= 16] = 255
+        rows.append((t, int(visible), x if visible else 0, y if visible else 0))
+    return frames, rows
+
+
+RALLY_T = 200  # frames of each rally of the synthetic test split
+RALLY_BATCH = 16  # the test CLI's default batch
+RALLY_DROP = 8  # frames left out at each end of a test rally (drop_frame.json)
+
+
 def write_synthetic_dataset(root: str, seed: int = 0) -> None:
     """Shuttlecock-layout dataset at 288x512 with numpy only: seeded
     textured backgrounds, a moving bright disk, label CSVs, and the
     loader's npz caches (so no PNG is decoded). Train: 2 matches x 2
-    rallies x 40 frames; val: 1 match x 2 rallies x 40 frames. Each rally
-    also gets the InpaintNet data, ``predicted_csv/{rally}_ball.csv``: the
-    label with a TrackNet-like prediction beside it (seeded noise of a few
-    pixels, dropped detections) and an ``Inpaint_Mask`` over the gaps,
+    rallies x 40 frames; val: 1 match x 2 rallies x 40 frames; test: 1 match
+    x 2 rallies x ``RALLY_T`` frames with ``corrected_csv`` labels and a
+    ``drop_frame.json`` window. Each rally's first frame is also written as
+    ``0.png`` (the evaluation reads the source size from it). Each train and
+    val rally also gets the InpaintNet data, ``predicted_csv/{rally}_ball.csv``:
+    the label with a TrackNet-like prediction beside it (seeded noise of a
+    few pixels, dropped detections) and an ``Inpaint_Mask`` over the gaps,
     drawn from a generator of its own (the frames do not change with it)."""
     from tracknetv3_tpu_torch.data.dataset import _slide_windows
 
     rng = np.random.default_rng(seed)
     pred_rng = np.random.default_rng([seed, 1])
     T = 40
-    yy, xx = np.mgrid[0:H, 0:W]
     for split, matches, step in (("train", (1, 2), 1), ("val", (1,), L)):
         parts = []
         rally_i = 0
@@ -895,17 +964,7 @@ def write_synthetic_dataset(root: str, seed: int = 0) -> None:
                 rally = f"1_{r:02d}_00"
                 frame_dir = os.path.join(match_dir, "frame", rally)
                 os.makedirs(frame_dir, exist_ok=True)
-                bg = np.full((H, W, 3), (40, 90, 40), np.int32)
-                bg = (bg + rng.integers(0, 40, (H, W, 3))).astype(np.uint8)
-                frames = np.repeat(bg[None], T, axis=0)
-                rows = []
-                for t in range(T):
-                    visible = not (r == 1 and 12 <= t < 16)  # a short occlusion
-                    x = int(W * 0.1 + W * 0.8 * t / (T - 1))
-                    y = int(H * 0.7 - H * 0.5 * math.sin(math.pi * t / (T - 1)))
-                    if visible:
-                        frames[t][(yy - y) ** 2 + (xx - x) ** 2 <= 16] = 255
-                    rows.append((t, int(visible), x if visible else 0, y if visible else 0))
+                frames, rows = _draw_rally(rng, T, occluded=r == 1)
                 with open(os.path.join(match_dir, "csv", f"{rally}_ball.csv"), "w",
                           newline="") as f:
                     wr = csv.writer(f)
@@ -915,6 +974,7 @@ def write_synthetic_dataset(root: str, seed: int = 0) -> None:
                 median = np.median(frames, axis=0).astype(np.uint8)
                 _write_npz(os.path.join(frame_dir, f"cache_{H}x{W}_concat.npz"),
                            rgb=frames, median_resized=median)
+                _write_png(os.path.join(frame_dir, "0.png"), frames[0])
                 lab = np.asarray(rows, np.float32)
                 win = np.asarray(_slide_windows(T, L, step, False))
                 parts.append({
@@ -930,6 +990,26 @@ def write_synthetic_dataset(root: str, seed: int = 0) -> None:
                    img_scaler=np.ones((n_rally, 2), np.float64))
         _write_npz(os.path.join(root, f"data_l{L}_s{step}_heatmap_{split}.npz"),
                    **{k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+    match_dir = os.path.join(root, "test", "match1")
+    os.makedirs(os.path.join(match_dir, "corrected_csv"), exist_ok=True)
+    drop = {"start": {}, "end": {}}
+    for r in (1, 2):
+        rally = f"1_{r:02d}_00"
+        frame_dir = os.path.join(match_dir, "frame", rally)
+        os.makedirs(frame_dir, exist_ok=True)
+        frames, rows = _draw_rally(rng, RALLY_T, occluded=r == 1)
+        with open(os.path.join(match_dir, "corrected_csv", f"{rally}_ball.csv"), "w",
+                  newline="") as f:
+            wr = csv.writer(f)
+            wr.writerow(["Frame", "Visibility", "X", "Y"])
+            wr.writerows(rows)
+        _write_npz(os.path.join(frame_dir, f"cache_{H}x{W}_concat.npz"), rgb=frames,
+                   median_resized=np.median(frames, axis=0).astype(np.uint8))
+        _write_png(os.path.join(frame_dir, "0.png"), frames[0])
+        drop["start"][f"1_{rally}"] = RALLY_DROP
+        drop["end"][f"1_{rally}"] = RALLY_T - RALLY_DROP
+    with open(os.path.join(root, "drop_frame.json"), "w") as f:
+        json.dump(drop, f)
 
 
 def _write_predicted_csv(match_dir: str, rally: str, rows, rng) -> None:
@@ -1183,8 +1263,7 @@ def phase_inpaint(tmp: str, card: str):
     common = ["--model_name", "InpaintNet", "--seq_len", str(INPAINT_SEQ), "--lr_scheduler",
               "StepLR", "--mask_ratio", "0.3", "--batch_size", str(INPAINT_BATCH),
               "--data_dir", data_dir, "--save_dir", save_dir]
-    for m in _kernel_modules():  # no hand kernel is on this path
-        m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+    _zero_launches()  # no hand kernel is on this path
     t0 = time.time()
     with contextlib.redirect_stdout(sys.stderr):  # the CLI's own lines
         out1 = train_cli.main(common + ["--epochs", "2"])
@@ -1429,6 +1508,13 @@ def _copy_cases(dev, sc=None):
     med_idx = torch.from_numpy(rng.integers(0, 4, B).astype(np.int32)).to(dev)
     window_case("resident_median_gather", None, (4,) + frame, f32, med_idx, 1,
                 lambda x: torch.index_select(x, 0, med_idx)[:, None], "index_select")
+    # the rally evaluation's window gather: one chunk of 16 windows from a
+    # staged 200-frame rally (padded with L-1 repeats of its last frame)
+    rally_starts = torch.arange(32, 32 + RALLY_BATCH, dtype=torch.int32, device=dev)
+    rally_rows = _window_rows(rally_starts, L)
+    window_case("rally_gather", None, (RALLY_T + L - 1,) + frame, u8, rally_starts, L,
+                lambda x: torch.index_select(x, 0, rally_rows.reshape(-1)).reshape(
+                    (RALLY_BATCH, L) + frame), "index_select")
     pair = torch.from_numpy(rng.integers(0, L, (B, L, 2))).to(dev)
     flat_win = lambda x: x.reshape((B * L,) + frame)  # noqa: E731
     for k in (0, 1):
@@ -2569,6 +2655,429 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
         del p, staged, x, out, model, ref, hand
 
 
+# ---------------------------------------------------------------- rally evaluation
+
+# the test CLI's runs: (name, its flags, how TrackNet forwards the chunks:
+# carried-tail ensemble, disjoint windows, or not at all with InpaintNet)
+RALLY_RUNS = (
+    ("weight", [], "overlap"),
+    ("nonoverlap", ["--eval_mode", "nonoverlap"], "nonoverlap"),
+    ("exact_device", ["--exact_decode"], "overlap"),
+    ("exact_host", ["--exact_decode", "host"], "overlap"),
+    ("linear_interp", ["--linear_interp"], "overlap"),
+    ("inpaintnet", ["--inpaintnet_file", None], None),
+    ("output_bbox", ["--output_bbox"], "overlap"),
+)
+RALLY_KERNELS = ("conv3x3_9tap", "maxpool2x2", "up2x_nearest", "window_copy")
+EXACT_CORPUS_N = 24  # maps of the seeded multi-blob corpus at 288x512
+
+
+def _rally_chunks(T: int, mode: str) -> int:
+    """Chunks of RALLY_BATCH windows that TrackNet forwards for a T-frame rally."""
+    n_win = -(-T // L) if mode == "nonoverlap" else max(T - L + 1, 1)
+    return -(-n_win // RALLY_BATCH)
+
+
+def _path_launches():
+    """The launch counts of the kernels on the rally path."""
+    from tracknetv3_tpu_torch.ops import conv3x3, pool_up2x, shift_copy
+
+    counts = {**conv3x3.LAUNCHES, **pool_up2x.LAUNCHES, **shift_copy.LAUNCHES}
+    return {k: counts[k] for k in RALLY_KERNELS}
+
+
+def _zero_launches():
+    for m in _kernel_modules():
+        m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+
+
+def _rally_label_counts(data_dir: str, split: str):
+    """{rally key: label rows} of a split."""
+    from tracknetv3_tpu_torch.utils.io import get_rally_dirs, label_csv_path, parse_rally_dir
+
+    out = {}
+    for rd in get_rally_dirs(data_dir, split):
+        match_dir, rally = parse_rally_dir(os.path.join(data_dir, rd))
+        with open(label_csv_path(match_dir, rally)) as f:
+            out[f"{match_dir.split('match')[-1]}_{rally}", match_dir, rally] = sum(1 for _ in f) - 1
+    return out
+
+
+def _exact_corpus(seed: int) -> np.ndarray:
+    """Seeded multi-blob maps at 288x512: random rectangles and disks above
+    0.5 on sub-threshold noise, in every third map two blobs of equal
+    bounding-box area larger than the others (the raster-later one
+    brighter), in every fourth a blob larger than the 96-pixel crop, and an
+    empty map."""
+    rng = np.random.default_rng(seed)
+    maps = rng.uniform(0.0, 0.5, (EXACT_CORPUS_N, H, W)).astype(np.float32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for i in range(EXACT_CORPUS_N - 1):
+        for _ in range(int(rng.integers(1, 8))):
+            v = np.float32(rng.uniform(0.55, 1.0))
+            if rng.random() < 0.5:
+                y0, x0 = int(rng.integers(0, H - 16)), int(rng.integers(0, W - 16))
+                maps[i, y0 : y0 + int(rng.integers(1, 16)), x0 : x0 + int(rng.integers(1, 16))] = v
+            else:
+                cy, cx = int(rng.integers(4, H - 4)), int(rng.integers(4, W - 4))
+                maps[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= int(rng.integers(2, 40))] = v
+        if i % 3 == 0:  # 20 x 30 boxes: larger than any random blob
+            maps[i, 2:22, 3:33] = 0.6
+            maps[i, H - 24 : H - 4, W - 34 : W - 4] = 0.97
+        if i % 4 == 0:
+            maps[i, 40:160, 100:300] = 0.56
+    maps[-1] = 0.25
+    return maps
+
+
+def _decode_differs(got, want) -> int:
+    """Frames whose integer fields or confidence differ."""
+    bad = np.zeros(np.asarray(want["cx"]).shape, bool)
+    for k in ("cx", "cy", "vis", "conf"):
+        bad |= np.asarray(got[k]) != np.asarray(want[k])
+    bad |= (np.asarray(got["bbox"]) != np.asarray(want["bbox"])).any(axis=-1)
+    return int(bad.sum())
+
+
+def _on_host(dec):
+    return {k: v.cpu().numpy() for k, v in dec.items()}
+
+
+def _occlude_predicted_csv(rally_dir: str) -> None:
+    """Rewrite a rally's ``predicted_csv`` file with frames 12-15 of every
+    40-frame pass missed (visibility and coordinates 0) and masked for
+    inpainting, as ``serve_vs_cpu`` cuts its occlusions."""
+    from tracknetv3_tpu_torch.utils.io import parse_rally_dir
+
+    match_dir, rally = parse_rally_dir(rally_dir)
+    path = os.path.join(match_dir, "predicted_csv", f"{rally}_ball.csv")
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    col = {name: i for i, name in enumerate(rows[0])}
+    for r in rows[1:]:
+        if 12 <= int(r[col["Frame"]]) % 40 < 16:
+            r[col["Visibility"]] = r[col["X"]] = r[col["Y"]] = "0"
+            r[col["Inpaint_Mask"]] = "1"
+    with open(path, "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows(rows)
+
+
+def _rally_engine(tn: str, inp=None, device=None, **kw):
+    import torch
+
+    from tracknetv3_tpu_torch.evaluation.test_engine import RallyTestEngine
+    from tracknetv3_tpu_torch.training.checkpoint import load_model_from_checkpoint
+
+    model, pd = load_model_from_checkpoint(tn, dtype=torch.float32)
+    inpaint = load_model_from_checkpoint(inp)[0] if inp else None
+    return RallyTestEngine(model, inpaint, tracknet_seq_len=pd["seq_len"],
+                           bg_mode=pd["bg_mode"], batch_size=RALLY_BATCH,
+                           device=device or DEVICE, **kw)
+
+
+def rally_vs_cpu(tn: str, inp: str, data_dir: str) -> dict:
+    """The card's test split, replayed on the CPU: each chunk's window
+    probabilities are copied to the host and a CPU engine runs its own
+    ensemble and decode on them; its rows must equal the card's. InpaintNet's
+    rows likewise, over the ``predicted_csv`` files with occlusions cut in (a
+    masked frame may be 1 px off). Then the card's ``decode_heatmaps_exact``
+    against ``decode_heatmaps_host`` on every ensembled test frame and on a
+    seeded multi-blob corpus, where two wrong rules must fail; and the
+    decoders' ms per frame over the first rally's ensembled frames."""
+    import torch
+    from scipy import ndimage
+
+    from tracknetv3_tpu_torch.ops import detect
+    from tracknetv3_tpu_torch.utils.io import get_rally_dirs, read_csv_columns
+
+    card = _rally_engine(tn)
+    forward = card._forward_cached
+    host_probs = []
+
+    def recording(staged, starts):
+        probs = forward(staged, starts)
+        host_probs.append(probs.cpu())
+        return probs
+
+    card._forward_cached = recording
+    got = card.test(data_dir, "test")
+    cpu = _rally_engine(tn, device="cpu")
+    replay = iter(host_probs)
+    cpu._forward_cached = lambda staged, starts: next(replay)
+    want = cpu.test(data_dir, "test")
+    fields = ("X", "Y", "Visibility", "Type")
+    differ = {k: sum(any(got[k][f][t] != want[k][f][t] for f in fields)
+                     for t in range(len(want[k]["Frame"]))) for k in want}
+
+    # InpaintNet over the generated predicted_csv files, with an occlusion
+    # cut into each 40-frame pass (frames 12-15 missed and masked) so that
+    # InpaintNet's own output reaches the rows
+    for rd in get_rally_dirs(data_dir, "test"):
+        _occlude_predicted_csv(os.path.join(data_dir, rd))
+    got_i = _rally_engine(tn, inp).test(data_dir, "test")
+    want_i = _rally_engine(tn, inp, device="cpu").test(data_dir, "test")
+    inpaint = {}
+    for key, pred in want_i.items():
+        match_id, rally = key.split("_", 1)
+        csv_file = os.path.join(data_dir, "test", f"match{match_id}", "predicted_csv",
+                                f"{rally}_ball.csv")
+        mask = read_csv_columns(csv_file, ("Inpaint_Mask",))["Inpaint_Mask"]
+        off = far = 0
+        for t, m in enumerate(mask):
+            g = (got_i[key]["X"][t], got_i[key]["Y"][t], got_i[key]["Visibility"][t])
+            w = (pred["X"][t], pred["Y"][t], pred["Visibility"][t])
+            if not m:
+                off += g != w
+            else:
+                far += abs(g[0] - w[0]) > 1 or abs(g[1] - w[1]) > 1 or g[2] != w[2]
+        inpaint[key] = {"masked": int(mask.sum()), "unmasked_differ": off,
+                        "masked_differ_over_1px": far}
+
+    # the exact rule on the card against the host oracle: every ensembled frame
+    exact_differ = frames_n = multi_blob = 0
+    timed = exact_ms = None  # the first rally's frames, and the exact decode's ms a frame
+    for rd in get_rally_dirs(data_dir, "test"):
+        staged = card._staged_rallies[os.path.join(data_dir, rd)]
+        frames = card.ensembled_frames(staged)
+        host = detect.decode_heatmaps_host(frames.cpu().numpy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():  # in the engine's chunks
+            dev = [detect.decode_heatmaps_exact(frames[i : i + RALLY_BATCH])
+                   for i in range(0, staged.T, RALLY_BATCH)]
+        torch.cuda.synchronize()
+        if timed is None:
+            timed, exact_ms = frames, (time.perf_counter() - t0) * 1e3 / staged.T
+        dev = {k: np.concatenate([d[k].cpu().numpy() for d in dev]) for k in dev[0]}
+        exact_differ += _decode_differs(dev, host)
+        frames_n += staged.T
+        multi_blob += sum(ndimage.label(m, np.ones((3, 3)))[1] > 1
+                          for m in frames.cpu().numpy() > 0.5)
+
+    # a seeded corpus: area ties, blobs larger than the crop, an empty map
+    corpus = _exact_corpus(41)
+    want_c = detect.decode_heatmaps_host(corpus)
+    dcorpus = torch.from_numpy(corpus).to(DEVICE)
+    with torch.inference_mode():
+        corpus_differ = _decode_differs(_on_host(detect.decode_heatmaps_exact(dcorpus)), want_c)
+        wrong = {}
+        for name, attr, fn in (
+                ("ties_kept_last", "_better", lambda area, first, best_area, best_first:
+                 (area > best_area) | ((area == best_area) & (first > best_first))),
+                ("fill_capped_at_crop", "_expand", lambda region, remaining, active: region)):
+            with mock.patch.object(detect, attr, fn):
+                wrong[name] = _decode_differs(
+                    _on_host(detect.decode_heatmaps_exact(dcorpus)), want_c)
+
+        # ms per frame of the other decoders over the same frames and chunks,
+        # and of the peak blob and the exact rule on the corpus
+        def per_frame_ms(decode, maps, n=3):
+            chunks = [maps[i : i + RALLY_BATCH] for i in range(0, maps.shape[0], RALLY_BATCH)]
+            ts = []
+            for _ in range(n + 1):  # the first is a warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for c in chunks:
+                    decode(c)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3 / maps.shape[0])
+            return statistics.median(ts[1:])
+
+        peak_ms = per_frame_ms(detect.decode_heatmaps, timed)
+        host_ms = per_frame_ms(lambda c: detect.decode_heatmaps_host(c.cpu().numpy()), timed)
+        corpus_ms = {"exact": per_frame_ms(detect.decode_heatmaps_exact, dcorpus, n=1),
+                     "peak_blob": per_frame_ms(detect.decode_heatmaps, dcorpus)}
+    blobs = [int(ndimage.label(m, np.ones((3, 3)))[1]) for m in timed.cpu().numpy() > 0.5]
+    res = {"rows_differ": differ, "visible_rows": {k: sum(p["Visibility"]) for k, p in got.items()},
+           "chunks_replayed": len(host_probs), "inpaint": inpaint,
+           "exact_vs_host": {"frames": frames_n, "differ": exact_differ,
+                             "multi_blob_frames": int(multi_blob),
+                             "corpus_maps": EXACT_CORPUS_N, "corpus_differ": corpus_differ,
+                             "wrong_rules_differ": wrong,
+                             "host_backend": detect.host_backend()},
+           "decode_ms_per_frame": {"exact": exact_ms, "peak_blob": peak_ms,
+                                   "host_oracle_with_fetch": host_ms,
+                                   "frames": int(timed.shape[0]),
+                                   "blobs_per_frame_max": max(blobs),
+                                   "blobs_per_frame_mean": statistics.mean(blobs),
+                                   "corpus": corpus_ms}}
+    if any(differ.values()):
+        fail("rally_vs_cpu", f"rows differ from the CPU replay: {differ}")
+    if not sum(res["visible_rows"].values()):
+        fail("rally_vs_cpu", "no detection in the rows compared")
+    for key, r in inpaint.items():
+        if r["unmasked_differ"] or r["masked_differ_over_1px"]:
+            fail("rally_vs_cpu", f"InpaintNet rows of {key}: {r}")
+        if not r["masked"]:
+            fail("rally_vs_cpu", f"InpaintNet rows of {key}: no frame was masked")
+    if exact_differ or corpus_differ:
+        fail("rally_vs_cpu", f"decode_heatmaps_exact differs from the host oracle on "
+             f"{exact_differ} of {frames_n} test frames and {corpus_differ} corpus maps")
+    if not all(wrong.values()):
+        fail("rally_vs_cpu", f"a wrong exact rule passes the comparison: {wrong}")
+    return res
+
+
+def _eval_breakdown(tn: str, data_dir: str) -> dict:
+    """Where a ``weight`` run's wall time goes (host clock): reading the test
+    rallies' frame caches from disk, staging them on the card, and the
+    rallies' chunk loops with the host's work around them (each ends in the
+    rally's one fetch)."""
+    import torch
+
+    from tracknetv3_tpu_torch.data.dataset import FrameCache
+    from tracknetv3_tpu_torch.utils.io import get_rally_dirs
+
+    engine = _rally_engine(tn)
+    rally_dirs = [os.path.join(data_dir, rd) for rd in get_rally_dirs(data_dir, "test")]
+    cache = FrameCache(data_dir, engine.bg_mode, input_hw=(H, W))
+    t0 = time.perf_counter()
+    for rally_dir in rally_dirs:
+        cache.load(rally_dir)
+    t1 = time.perf_counter()
+    engine.prestage(data_dir, rally_dirs, cache)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for rally_dir in rally_dirs:
+        engine.test_rally(data_dir, rally_dir, cache)
+    t3 = time.perf_counter()
+    return {"cache_load": t1 - t0, "stage": t2 - t1, "rallies": t3 - t2,
+            "frames": sum(s.T for s in engine._staged_rallies.values())}
+
+
+def phase_rally(tmp: str, card: str, tn=None) -> dict:
+    """rally: generate_mask_data -> InpaintNet training -> test on the card at
+    288x512, seq_len 8, concat, batch 16, bf16 on the default conv route,
+    through the two CLIs and the train CLI; launch counts per run; then
+    rally_vs_cpu. ``tn``: a TrackNet checkpoint (phase 5's); without one a
+    seeded TrackNet is saved. Returns the kernels' launches over the phase's
+    CLI runs."""
+    import torch
+
+    from tracknetv3_tpu_torch import generate_mask_data as mask_cli
+    from tracknetv3_tpu_torch import test as test_cli
+    from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+
+    t_phase = time.time()
+    data_dir = os.path.join(tmp, "data")
+    if not os.path.isdir(os.path.join(data_dir, "test")):
+        write_synthetic_dataset(data_dir)
+    if tn is None:
+        tn = os.path.join(tmp, "TrackNet_seed13.pt")
+        model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(13))
+        save_checkpoint(tn, epoch=0, max_val_acc=0.0, model=model,
+                        param_dict={"model_name": "TrackNet", "seq_len": L, "bg_mode": "concat"})
+    with np.load(os.path.join(data_dir, "test", "match1", "frame", "1_01_00",
+                              f"cache_{H}x{W}_concat.npz")) as z:
+        frames = z["rgb"]
+    tn = detecting_checkpoint(tn, frames, os.path.join(tmp, "TrackNet_rally_detect.pt"))
+    total = dict.fromkeys(RALLY_KERNELS, 0)
+    runs = {}
+
+    # generate_mask_data over the three splits
+    _zero_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = mask_cli.main(["--tracknet_file", tn, "--data_dir", data_dir,
+                               "--batch_size", str(RALLY_BATCH), "--device", DEVICE])
+    launches = _path_launches()
+    labels = {split: _rally_label_counts(data_dir, split) for split in ("train", "val", "test")}
+    chunks = sum(_rally_chunks(n, "overlap") for rows in labels.values() for n in rows.values())
+    csv_rows = {}
+    for split, rows in labels.items():
+        for (key, match_dir, rally), n in rows.items():
+            with open(os.path.join(match_dir, "predicted_csv", f"{rally}_ball.csv")) as f:
+                csv_rows[f"{split}/{key}"] = (sum(1 for _ in f) - 1, n)
+    runs["generate_mask_data"] = {"s": time.time() - t0, "chunks": chunks, "launches": launches,
+                                  "fps": {k: v["fps"] for k, v in stats.items()}}
+    want = {"conv3x3_9tap": CONV_LAYERS * chunks, "maxpool2x2": 3 * chunks,
+            "up2x_nearest": 3 * chunks, "window_copy": chunks}
+    if launches != want:
+        fail("rally", f"generate_mask_data: launches {launches} != {want} ({chunks} chunks)")
+    bad = {k: v for k, v in csv_rows.items() if v[0] != v[1]}
+    if bad:
+        fail("rally", f"predicted_csv rows != label rows (got, want): {bad}")
+    for k in total:
+        total[k] += launches[k]
+
+    # one epoch of InpaintNet on the generated files (the stale coordinate-mode
+    # caches of the inpaint_train phase go first)
+    for name in os.listdir(data_dir):
+        if "_coordinate_" in name:
+            os.remove(os.path.join(data_dir, name))
+    inp_dir = os.path.join(tmp, "rally_inpaint")
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = train_cli.main(["--model_name", "InpaintNet", "--seq_len", str(INPAINT_SEQ),
+                              "--lr_scheduler", "StepLR", "--mask_ratio", "0.3",
+                              "--batch_size", str(INPAINT_BATCH), "--epochs", "1",
+                              "--data_dir", data_dir, "--save_dir", inp_dir,
+                              "--device", DEVICE])
+    inp = os.path.join(inp_dir, "InpaintNet_best.pt")
+    h = out["history"][0]
+    runs["inpaint_train"] = {"s": time.time() - t0, "steps": out["step"],
+                             "losses": [h["train_loss"], h["val_loss"]]}
+    if not (out["step"] and math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])):
+        fail("rally", f"InpaintNet training: {runs['inpaint_train']}")
+
+    # the test CLI
+    test_rows = labels["test"]
+    for name, flags, mode in RALLY_RUNS:
+        flags = [inp if f is None else f for f in flags]
+        save = os.path.join(tmp, f"rally_{name}")
+        _zero_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = test_cli.main(["--tracknet_file", tn, "--data_dir", data_dir,
+                                 "--batch_size", str(RALLY_BATCH), "--save_dir", save,
+                                 "--device", DEVICE] + flags)
+        launches = _path_launches()
+        chunks = sum(_rally_chunks(n, mode) for n in test_rows.values()) if mode else 0
+        pred = out["pred_dict"]
+        n_rows = {k: len(p["Frame"]) for k, p in pred.items()}
+        inside = all(0 <= x < W and 0 <= y < H for p in pred.values()
+                     for x, y in zip(p["X"], p["Y"]))
+        res = out["res"]
+        runs[name] = {"s": time.time() - t0, "fps": res["eval_speed"]["fps"],
+                      "chunks": chunks, "launches": launches,
+                      "f1": res["f1"], "accuracy": res["accuracy"],
+                      "visible": sum(sum(p["Visibility"]) for p in pred.values())}
+        if out["mAP"] is not None:
+            runs[name]["mAP"] = out["mAP"]
+        want = {"conv3x3_9tap": CONV_LAYERS * chunks, "maxpool2x2": 3 * chunks,
+                "up2x_nearest": 3 * chunks, "window_copy": chunks}
+        if launches != want:
+            fail("rally", f"test {name}: launches {launches} != {want} ({chunks} chunks)")
+        if n_rows != {k: n for (k, _, _), n in test_rows.items()}:
+            fail("rally", f"test {name}: rows {n_rows} != label rows {test_rows}")
+        if not inside:
+            fail("rally", f"test {name}: a coordinate lies outside the {W}x{H} frame")
+        if out["mAP"] is not None and not all(math.isfinite(v) for v in out["mAP"].values()):
+            fail("rally", f"test {name}: mAP {out['mAP']}")
+        for k in total:
+            total[k] += launches[k]
+    if not os.path.exists(os.path.join(tmp, "rally_output_bbox", "test_coco_res_weight.json")):
+        fail("rally", "--output_bbox wrote no COCO result")
+
+    breakdown = _eval_breakdown(tn, data_dir)
+    t0 = time.time()
+    vs = rally_vs_cpu(tn, inp, data_dir)
+    vs_s = time.time() - t0
+    emit({"phase": "rally_vs_cpu", "card": card, "s": vs_s, **vs})
+    emit({"phase": "rally", "card": card,
+          "config": "TrackNet seq_len 8 concat 288x512 batch 16 bf16 hand_9tap; test split 2 "
+                    f"rallies x {RALLY_T} frames",
+          "fps_by_run": {k: r["fps"] for k, r in runs.items() if "fps" in r},
+          "decode_ms_per_frame": vs["decode_ms_per_frame"],
+          "weight_breakdown_s": breakdown, "launches_total": total,
+          "phase_s": time.time() - t_phase})
+    for k, r in runs.items():
+        emit({"phase": "rally", "run": k, **r}, detail=True)
+    return total
+
+
 def _baseline_modules(root: str):
     """The copy and loss kernel modules of the port in another checkout,
     imported under another package name so that both trees live in one
@@ -2600,6 +3109,9 @@ def main() -> int:
     ap.add_argument("--inpaint_only", action="store_true",
                     help="inpaint_train alone (no hand kernel is on its path, so no build); "
                          "no kernels line")
+    ap.add_argument("--rally_only", action="store_true",
+                    help="build and rally (generate_mask_data, InpaintNet training, the test "
+                         "CLI, rally_vs_cpu) alone, from a seeded TrackNet; no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -2625,7 +3137,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     only = ("conv" if args.conv_only else "copy" if args.copy_only
-            else "loss" if args.loss_only else "inpaint" if args.inpaint_only else None)
+            else "loss" if args.loss_only else "inpaint" if args.inpaint_only
+            else "rally" if args.rally_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -2637,6 +3150,9 @@ def main() -> int:
         if only == "inpaint":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_inpaint(tmp, card)
+        elif only == "rally":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_rally(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -2659,6 +3175,7 @@ def main() -> int:
         del model
         phase_seg_parity(os.path.join(tmp, "data"))
         phase_inpaint(tmp, card)
+        rally_launches = phase_rally(tmp, card, os.path.join(tmp, "exp", "TrackNet_best.pt"))
         torch.cuda.empty_cache()
         pool_up = phase_pool_up()
         conv = phase_conv()
@@ -2685,6 +3202,8 @@ def main() -> int:
     lines += [
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/pool_up2x.cu",
          "replaces": replaces[k], "launches": serve_launches["cudnn", 16][k],
+         "launches_by_path": {"serve cudnn batch 16": serve_launches["cudnn", 16][k],
+                              "rally": rally_launches[k]},
          "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
          "library_ms": v["plain_ms"]}
@@ -2715,12 +3234,16 @@ def main() -> int:
         {"name": f"conv3x3_{k}", "route": "cuda",
          "source": "tracknetv3_tpu_torch/csrc/conv3x3.cu", "replaces": replaces[k],
          "also_replaces": also[k],
-         "launches": serve_launches[served[k]][f"conv3x3_{k}"], **v}
+         "launches": serve_launches[served[k]][f"conv3x3_{k}"],
+         "launches_by_path": {f"serve {served[k][0]} batch 16":
+                              serve_launches[served[k]][f"conv3x3_{k}"],
+                              "rally": rally_launches.get(f"conv3x3_{k}", 0)}, **v}
         for k, v in conv.items()
     ]
     # P8/P9: each kernel at the train path's shape of copy_vs_plain (the roll,
     # which no path of the system runs, at its probe's); launches summed over
-    # seg_train's four runs of the train CLI
+    # seg_train's four runs of the train CLI and, for window_copy, the rally
+    # phase's runs of the two evaluation CLIs
     replaces = {"window_copy": "tools/probe_mosaic_caps.py:88",
                 "repeat_rows": "tools/probe_mosaic_caps.py:164",
                 "roll_cols": "tools/probe_mosaic_caps.py:201"}
@@ -2731,7 +3254,9 @@ def main() -> int:
             "repeat_rows": [], "roll_cols": []}
     lines += [
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/shift_copy.cu",
-         "replaces": replaces[k], "also_replaces": also[k], "launches": copy_launches[k],
+         "replaces": replaces[k], "also_replaces": also[k],
+         "launches": copy_launches[k] + rally_launches.get(k, 0),
+         "launches_by_path": {"seg_train": copy_launches[k], "rally": rally_launches.get(k, 0)},
          "on_a_ported_path": k != "roll_cols", **copies[k]}
         for k in COPY_KERNELS
     ]

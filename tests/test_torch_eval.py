@@ -2,7 +2,9 @@
 
 ``eval_tracknet`` of both packages reads the same heatmaps and labels
 through a fixed eval step: equal mean loss and equal 5-way confusion, with
-the repeated frame ids of a padded window counted once. The metric helpers
+the repeated frame ids of a padded window counted once; with
+``exact_decode`` (the largest-bbox-area rule on the device or on the host)
+too, on heatmaps where a larger, dimmer blob sits beside the bright one. The metric helpers
 (``gt_center_from_label``, ``classify_detections``, ``get_metric``) give the
 JAX package's values on random inputs.
 """
@@ -64,6 +66,21 @@ def test_eval_tracknet_matches_jax(seed, tolerance):
     counted = sum(got[k] for k in ("TP", "TN", "FP1", "FP2", "FN"))
     assert counted == 3 * (B * L - 2)  # each batch's two padded repeats are not counted
     assert min(got["TP"], got["TN"], got["FP1"], got["FP2"], got["FN"]) > 0
+
+
+@pytest.mark.parametrize("exact_decode", ["device", "host"])
+def test_eval_tracknet_exact_decode_matches_jax(exact_decode):
+    batches = _batches(3)
+    for b in batches:  # a larger, dimmer blob away from the bright one in half the frames
+        b["probs"][:, 30:36, 2:14, ::2] = 0.6
+    kw = dict(tolerance=4.0, exact_decode=exact_decode)
+    want_loss, want = jax_eval_tracknet(
+        None, lambda state, b: (b["loss"], jnp.asarray(b["probs"])), batches, **kw)
+    step = lambda b: (torch.tensor(b["loss"]), torch.from_numpy(b["probs"]))  # noqa: E731
+    got_loss, got = eval_tracknet(step, batches, **kw)
+    assert got_loss == pytest.approx(want_loss, rel=1e-12)
+    assert got == want
+    assert got != eval_tracknet(step, batches, 4.0)[1]  # the rule changed the confusion
 
 
 def test_metric_helpers_match_jax():

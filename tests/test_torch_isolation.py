@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``tracknetv3_tpu_torch``
 (the serving and kernel modules included) loads neither ``jax`` nor the JAX package,
 no source of the port (nor ``chip_smoke.py``) imports them, and its entry
-points (training, the predictor, ``predict_video`` and the predict CLI)
-refuse to run without a card unless the CPU is asked for."""
+points (training, the predictor, ``predict_video``, the predict CLI, the
+rally engine and the ``test`` and ``generate_mask_data`` CLIs) refuse to run
+without a card unless the CPU is asked for."""
 
 import os
 import pkgutil
@@ -42,6 +43,13 @@ KERNEL_MODULES = {
     "tracknetv3_tpu_torch.ops.shift_copy",
     "tracknetv3_tpu_torch.ops.wbce_disk",
 }
+EVAL_MODULES = {  # rally evaluation
+    "tracknetv3_tpu_torch.evaluation.test_engine",
+    "tracknetv3_tpu_torch.evaluation.coco",
+    "tracknetv3_tpu_torch.native_ccl",
+    "tracknetv3_tpu_torch.test",
+    "tracknetv3_tpu_torch.generate_mask_data",
+}
 INPUT_PATH_MODULES = {  # segmented, frame-mixup and device-resident batches
     "tracknetv3_tpu_torch.data.dataset",
     "tracknetv3_tpu_torch.data.frame_mixup",
@@ -52,7 +60,7 @@ INPUT_PATH_MODULES = {  # segmented, frame-mixup and device-resident batches
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) > 20
-    assert SERVING_MODULES | KERNEL_MODULES | INPUT_PATH_MODULES <= set(mods)
+    assert SERVING_MODULES | KERNEL_MODULES | INPUT_PATH_MODULES | EVAL_MODULES <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -113,3 +121,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
         predict_video(str(tmp_path / "v.mp4"), ckpt)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict.main(["--video_file", "v.mp4", "--tracknet_file", ckpt])
+
+    from tracknetv3_tpu_torch import generate_mask_data, test
+    from tracknetv3_tpu_torch.evaluation.test_engine import RallyTestEngine
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RallyTestEngine(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test.main(["--tracknet_file", ckpt, "--data_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate_mask_data.main(["--tracknet_file", ckpt, "--data_dir", str(tmp_path)])

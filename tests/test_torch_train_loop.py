@@ -65,13 +65,33 @@ def test_train_one_epoch_then_resume(data_dir, tmp_path):
     assert ckpt.load_checkpoint(str(tmp_path / "TrackNet_cur.pt"))["epoch"] == 1
 
 
-@pytest.mark.parametrize("field,value", [
-    ("num_devices", 2), ("exact_decode", "device"), ("fast_bn", True),
-    ("exact_decode", "host"),
-])
+@pytest.mark.parametrize("field,value", [("num_devices", 2), ("fast_bn", True)])
 def test_unported_options_raise(data_dir, tmp_path, field, value):
     with pytest.raises(NotImplementedError):
         train(_cfg(tmp_path, **{field: value}), data_dir, device="cpu", verbose_print=str)
+
+
+@pytest.mark.parametrize("exact_decode", ["device", "host"])
+def test_exact_decode_reaches_eval_tracknet(data_dir, tmp_path, monkeypatch, exact_decode):
+    """``exact_decode`` passes ``check_supported`` and validation decodes with
+    it: the same metrics as the eval run again on the batches with that
+    decoder."""
+    from tracknetv3_tpu_torch.training import loop
+
+    seen = []
+    real = loop.eval_tracknet
+
+    def recording(eval_step, loader, tolerance, exact_decode=False):
+        batches = list(loader)
+        seen.append((exact_decode, real(eval_step, batches, tolerance, exact_decode)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(loop, "eval_tracknet", recording)
+    cfg = _cfg(tmp_path, exact_decode=exact_decode, batch_size=8)  # 5 steps
+    loop.check_supported(cfg)
+    out = train(cfg, data_dir, device="cpu", verbose_print=str)
+    assert [e for e, _ in seen] == [exact_decode]
+    assert out["history"][0]["val_res"] == seen[0][1][1]
 
 
 def test_cli_multihost_raises():

@@ -61,8 +61,8 @@ class TrainConfig:
     package's ``TrainConfig`` so ``param_dict`` round-trips.
 
     Fields that select machinery not ported yet (``num_devices`` > 1,
-    ``fast_bn``, ``exact_decode``) are kept for the round trip; the port's
-    training loop raises ``NotImplementedError`` when one is set.
+    ``fast_bn``) are kept for the round trip; the port's training loop
+    raises ``NotImplementedError`` when one is set.
     ``split_up_entry`` and ``sync_bn`` are formulation choices of the TPU
     step that do not change the function: the port ignores them.
     """

@@ -40,6 +40,7 @@ from ..utils.io import (
     label_csv_path,
     load_median_for_rally,
     parse_rally_dir,
+    png_size,
     read_csv_columns,
 )
 from .frame_mixup import plan_frame_mixup
@@ -162,12 +163,9 @@ class SplitIndex:
 
 
 def _rally_geometry(rally_dirs: List[str], input_hw: Tuple[int, int]):
-    from PIL import Image
-
     shapes, scalers = [], []
     for rd in rally_dirs:
-        with Image.open(os.path.join(rd, f"0.{IMG_FORMAT}")) as im:
-            w, h = im.size
+        w, h = png_size(os.path.join(rd, f"0.{IMG_FORMAT}"))
         shapes.append((w, h))
         scalers.append((w / input_hw[1], h / input_hw[0]))
     return np.asarray(shapes, np.float64), np.asarray(scalers, np.float64)

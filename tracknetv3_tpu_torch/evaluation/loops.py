@@ -2,8 +2,9 @@
 
 The port of the JAX package's ``evaluation/loops.py``:
 
-- ``eval_tracknet`` (default decoder): WBCE loss + 5-way confusion; the eval
-  step's heatmaps are decoded on the device for the whole batch, and
+- ``eval_tracknet``: WBCE loss + 5-way confusion; the eval step's heatmaps
+  are decoded on the device for the whole batch (``exact_decode``: the
+  largest-bbox-area rule on the device, or ``"host"``: on the host), and
   ground-truth centers come from the analytic disk center
   (``metrics.gt_center_from_label``);
 - ``eval_inpaintnet``: masked-MSE loss + the three confusions of
@@ -14,12 +15,12 @@ The port of the JAX package's ``evaluation/loops.py``:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 
 from ..config import HEIGHT, INPAINTNET_EVAL_TYPES, WIDTH
-from ..ops.detect import decode_heatmaps
+from ..ops.detect import decode_heatmaps, decode_heatmaps_exact, decode_heatmaps_host
 from .metrics import classify_detections, confusion_from_types, gt_center_from_label, metrics_dict
 
 
@@ -31,18 +32,27 @@ def _dedup_mask(ids: np.ndarray) -> np.ndarray:
     return np.logical_and.accumulate(keep, axis=1)
 
 
-def eval_tracknet(eval_step: Callable, loader: Iterable, tolerance: float = 4.0) -> Tuple[float, Dict]:
+def eval_tracknet(eval_step: Callable, loader: Iterable, tolerance: float = 4.0,
+                  exact_decode: Union[bool, str] = False) -> Tuple[float, Dict]:
     """``eval_step(batch) -> (loss, probs (B, H, W, L))``; ``loader`` yields
     batches whose ``cxcy`` and ``id`` are host numpy arrays (or tensors).
-    Returns (mean batch loss, metrics dict)."""
+    ``exact_decode``: False, the serving decoder (peak blob); True (or
+    ``"device"``), the largest-bbox-area rule on the device; ``"host"``, the
+    same rule on the host. Returns (mean batch loss, metrics dict)."""
     losses = []
     confusion = np.zeros(5)
     for batch in loader:
         loss, probs = eval_step(batch)
         losses.append(float(loss))
-        dec = decode_heatmaps(probs.movedim(-1, 1))  # (B, L, H, W)
-        cx_p = dec["cx"].cpu().numpy()
-        cy_p = dec["cy"].cpu().numpy()
+        wins = probs.movedim(-1, 1)  # (B, L, H, W)
+        if exact_decode == "host":
+            dec = decode_heatmaps_host(wins.float().cpu().numpy())
+        elif exact_decode:
+            dec = decode_heatmaps_exact(wins)
+        else:
+            dec = decode_heatmaps(wins)
+        cx_p = np.asarray(_host(dec["cx"]))
+        cy_p = np.asarray(_host(dec["cy"]))
         cxcy = np.asarray(_host(batch["cxcy"]))
         cx_t, cy_t = gt_center_from_label(cxcy[..., 0], cxcy[..., 1], 1.0, 1.0)
         types = classify_detections(cx_p, cy_p, cx_t, cy_t, tolerance)

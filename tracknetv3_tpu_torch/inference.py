@@ -52,6 +52,13 @@ from .training.checkpoint import load_model_from_checkpoint
 from .utils.io import VideoReader, write_pred_csv
 
 
+def zero_below_th(out: torch.Tensor) -> torch.Tensor:
+    """InpaintNet coordinates (..., 2) with both below ``COOR_TH`` set to 0
+    (no detection)."""
+    th = (out[..., 0] < COOR_TH) & (out[..., 1] < COOR_TH)
+    return torch.where(th[..., None], torch.zeros((), device=out.device), out)
+
+
 class StagedVideo(NamedTuple):
     """A video staged on the card at model resolution."""
 
@@ -263,14 +270,14 @@ class TrackNetPredictor:
         with torch.inference_mode(), tf32_off():
             out = self.inpaintnet(cw, mw)
             out = out * mw + cw * (1.0 - mw)
-            out = self._zero_below_th(out)
+            out = zero_below_th(out)
             if nonoverlap:
                 flat = out.reshape(-1, 2)[: S * L][:T]
             else:
                 weights = torch.from_numpy(get_ensemble_weight(L, self.eval_mode))
                 lead = torch.zeros((L - 1,) + tuple(out.shape[1:]), device=self.device)
                 ens = ensemble_chunk(torch.cat([lead, out]), weights, 0, S)
-                flat = self._zero_below_th(ens)[:T]
+                flat = zero_below_th(ens)[:T]
             flat = flat.cpu().numpy()
 
         # the reference's float32 two-multiply int(c * WIDTH * (w / WIDTH))
@@ -286,11 +293,6 @@ class TrackNetPredictor:
             "Y": cy.tolist(),
             "Visibility": vis.tolist(),
         }
-
-    @staticmethod
-    def _zero_below_th(out: torch.Tensor) -> torch.Tensor:
-        th = (out[..., 0] < COOR_TH) & (out[..., 1] < COOR_TH)
-        return torch.where(th[..., None], torch.zeros((), device=out.device), out)
 
 
 def predict_video(

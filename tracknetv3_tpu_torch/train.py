@@ -6,9 +6,10 @@ The flags of the JAX package's ``train.py`` plus ``--device`` (default
 ``predicted_csv`` files (``--mask_ratio``, ``--seq_len 16`` in the README).
 ``--segment_windows N`` ships each N-window segment's frames once,
 ``--frame_alpha A`` turns frame mixup on, ``--resident_frames`` keeps the
-splits' frames on the device (TrackNet). Flags whose machinery is not
-ported yet (``--num_devices`` > 1, ``--multihost``, ``--exact_decode``,
-``--fast_bn``) raise ``NotImplementedError``.
+splits' frames on the device (TrackNet); ``--exact_decode [host]``
+validates with the largest-bbox-area decode rule. Flags whose machinery is
+not ported yet (``--num_devices`` > 1, ``--multihost``, ``--fast_bn``)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

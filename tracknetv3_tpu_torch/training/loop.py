@@ -80,7 +80,6 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for options this slice does not port."""
     unsupported = {
         "num_devices > 1": (cfg.num_devices or 1) > 1,
-        "exact_decode": bool(cfg.exact_decode),
         "fast_bn": bool(cfg.fast_bn),
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -249,7 +248,8 @@ def train(
 
         val_batches = prefetch_to_device(val_loader, dev, keys=keys)
         if tracknet:
-            val_loss, val_res = eval_tracknet(eval_step, val_batches, cfg.tolerance)
+            val_loss, val_res = eval_tracknet(eval_step, val_batches, cfg.tolerance,
+                                              exact_decode=cfg.exact_decode)
             cur_val_acc = val_res["accuracy"]
         else:
             val_loss, val_res = eval_inpaintnet(eval_step, val_batches, cfg.tolerance,

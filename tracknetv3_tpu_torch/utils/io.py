@@ -1,7 +1,7 @@
 """Dataset layout, label and prediction CSVs, video reading (host side).
 
-Copy of the parts of the JAX package's ``utils/io.py`` that training and
-single-video serving use.
+Copy of the parts of the JAX package's ``utils/io.py`` that training,
+single-video serving and rally evaluation use.
 Dataset layout (the reference's Shuttlecock Trajectory Dataset):
 
     {data_dir}/{split}/match{id}/csv/{rally}_ball.csv          (train/val)
@@ -12,8 +12,9 @@ Dataset layout (the reference's Shuttlecock Trajectory Dataset):
     {data_dir}/{split}/match{id}/median.npz
 
 Label and prediction CSVs are read and written with the ``csv`` module
-(no pandas), in pandas' ``to_csv(index=False)`` format. ``cv2`` is
-imported only where a video file is opened.
+(no pandas), in pandas' ``to_csv(index=False)`` format; a frame's size is
+read from its PNG header (no PIL). ``cv2`` is imported only where a video
+file is opened.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import csv
 import os
 import re
+import struct
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -78,6 +80,17 @@ def read_csv_columns(csv_file: str, columns) -> Dict[str, np.ndarray]:
         raise KeyError(f"{csv_file} has no column {missing}")
     order = np.argsort(cols["Frame"], kind="stable")
     return {name: cols[name][order] for name in columns}
+
+
+def png_size(path: str) -> Tuple[int, int]:
+    """(width, height) of a PNG image from its IHDR chunk, as PIL's
+    ``Image.open(path).size`` reads them."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if len(head) < 24 or head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG image")
+    width, height = struct.unpack(">II", head[16:24])
+    return width, height
 
 
 def load_median_for_rally(match_dir: str, rally_id: str) -> np.ndarray:
