@@ -62,7 +62,8 @@ exits nonzero.
 8. conv_vs_plain: the two 3x3 conv kernels (``k3c``: P1, P2 with the sheet,
    P3 ``full``; ``9tap``: P2 without, P3 ``full-9mm``) against
    ``conv3x3_bias_relu_plain`` at the 11 distinct shapes of the serving
-   forward's 17 convs at batch 16 and at two shapes with odd H and W, with
+   forward's 17 convs at batch 16 and at batch 23 (the B+L-1 windows of
+   the stateless chunks of phase 15) and at two shapes with odd H and W, with
    and without the bias + ReLU epilogue, on inputs with exact zeros, a NaN
    and an inf: NaN and inf positions equal (and the NaN exactly on its 3x3
    neighbourhood), every other element within ``CONV_ULPS_BOUND`` bfloat16
@@ -173,10 +174,34 @@ exits nonzero.
    crop) must differ; the exact, the peak-blob and the host decoders' ms
    per frame over the first rally's ensembled frames in chunks of 16.
 
+15. serve_paths (after phase 10): the rest of serving at the same width
+   (seq_len 8, concat, 288x512, batch 16, bf16, ``hand_9tap``) on videos
+   drawn in memory at 1280x720 (``synthetic_reader`` installed at
+   ``inference.open_video``: the card's machine has no decoder), with a
+   TrackNet from a seeded init holding one hand-set path that finds the
+   disk (``disk_detector_checkpoint``) and InpaintNet (seed 17):
+   ``predict_video(device_resize=True)`` over 480 frames in ``weight`` and
+   ``nonoverlap`` (CSV rows, every visible row within 4 model pixels of
+   the disk, 17 / 3 / 3 launches a chunk; run_fps, e2e_fps from frames in
+   memory to CSV, the median's and a chunk's resize ms, peak memory; over
+   the first 160 frames the card's window probabilities replayed by a CPU
+   predictor give the same rows); the resize of one chunk within ``RESIZE_BOUND`` of a float64
+   resize, which a TF32 resize must fail; ``predict_video_streaming``
+   without the host resize (cv2) in both modes: rows within 1 px of the
+   device-resize rows (the differing ones counted), frames/s, peak memory
+   at 480 and 960 frames within 10%, a reader failing at frame 200 raising
+   ``RuntimeError`` before any CSV; ``predict_videos`` over five videos
+   (480, 300, 97, 33 frames and one failing mid-read) under a budget of
+   two 600-frame waves: the waves, the failing video skipped (raised under
+   ``on_error="raise"``), rows equal to ``predict_video`` on the same
+   predictor, peak memory within two waves, one video and a video's
+   working memory, frames/s against the single calls in sequence.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
-and 14 (from a TrackNet made from a seed); none prints a kernels line.
+and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
+2 and 15; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -1966,6 +1991,9 @@ CONV_SHAPES = {(288, 512, 27, 64): 1, (288, 512, 64, 64): 2, (288, 512, 192, 64)
                (36, 64, 256, 512): 1, (36, 64, 512, 512): 2}
 CONV_LAYERS = sum(CONV_SHAPES.values())
 CONV_BATCH = 16
+# the stateless overlap steps (device resize, streaming) forward B+L-1 = 23
+# windows a chunk at batch 16: every serving shape is held at that N too
+CONV_STATELESS_BATCH = 16 + 8 - 1
 # N, H, W, Ci, Co where no tile divides H or W: BN = 128, and BN = 64 (the 9tap
 # kernel's M = 256 tile) with a partial last input-channel chunk
 CONV_ODD_SHAPES = ((3, 37, 61, 96, 128), (3, 37, 61, 40, 64))
@@ -2152,8 +2180,9 @@ def _conv_check_shape(c3, shape, seed: int, dev, timed: bool):
 
 
 def phase_conv():
-    """conv_vs_plain at the serving forward's shapes (timed) and at one odd
-    shape; returns per kernel the sums over the 17 convs of one forward."""
+    """conv_vs_plain at the serving forward's shapes at batch 16 (timed) and
+    23 (the stateless chunks' windows), and at two odd shapes; returns per
+    kernel the sums over the 17 convs of one batch-16 forward."""
     import torch
 
     from tracknetv3_tpu_torch.ops import conv3x3 as c3
@@ -2180,6 +2209,10 @@ def phase_conv():
         for key in shared:
             shared[key] += layers * r[key]
         bound_by[r["bound_by"]] += layers * r["bound_ms"]
+        torch.cuda.empty_cache()
+    for i, (H, W, Ci, Co) in enumerate(CONV_SHAPES):
+        checked.append(_conv_check_shape(c3, (CONV_STATELESS_BATCH, H, W, Ci, Co), 70 + i, dev,
+                                         timed=False))
         torch.cuda.empty_cache()
     for i, shape in enumerate(CONV_ODD_SHAPES):
         checked.append(_conv_check_shape(c3, shape, 60 + i, dev, timed=False))
@@ -2255,22 +2288,11 @@ def phase_conv_ablate():
 def synthetic_video(T: int, seed: int):
     """(T, H, W, 3) RGB uint8 frames drawn as ``write_synthetic_dataset``
     draws a rally (seeded textured background, a bright disk of radius 4
-    on a parabolic arc, one 40-frame pass after another) and the disk's
-    (x, y) per frame."""
-    rng = np.random.default_rng(seed)
-    bg = np.full((H, W, 3), (40, 90, 40), np.int32)
-    bg = (bg + rng.integers(0, 40, (H, W, 3))).astype(np.uint8)
-    frames = np.repeat(bg[None], T, axis=0)
-    dy, dx = np.mgrid[-4:5, -4:5]
-    disk = dy ** 2 + dx ** 2 <= 16
-    centers = []
-    for t in range(T):
-        u = (t % 40) / 39
-        x = int(W * 0.1 + W * 0.8 * u)
-        y = int(H * 0.7 - H * 0.5 * math.sin(math.pi * u))
-        frames[t, y - 4 : y + 5, x - 4 : x + 5][disk] = 255
-        centers.append((x, y))
-    return frames, np.asarray(centers)
+    on a parabolic arc, one 40-frame pass after another; ``_Scene``) and
+    the disk's (x, y) per frame."""
+    scene = _Scene(seed)
+    frames = np.stack([scene.frame(t, W, H) for t in range(T)])
+    return frames, np.asarray([scene.center(t, W, H) for t in range(T)])
 
 
 def phase_serve(tmp: str):
@@ -2653,6 +2675,496 @@ def phase_serve_parity(tmp: str, frames: np.ndarray) -> None:
                       **({"must_fail": True} if v in WRONG_FORWARDS else {})}
                   for v, m in worst.items()}})
         del p, staged, x, out, model, ref, hand
+
+
+# ---------------------------------------------------------------- serving paths
+
+PATHS_SRC = (1280, 720)  # source (width, height) of serve_paths' videos
+PATHS_T = 480
+PATHS_BATCH = 16  # the predict CLI's default
+PATHS_MODES = ("weight", "nonoverlap")
+PATHS_REPLAY_T = 160  # frames of the CPU replay (10 chunks): depth cut for time
+PATHS_KERNELS = ("conv3x3_9tap", "maxpool2x2", "up2x_nearest")  # the default route's
+# |card resize - float64 resize| in grey levels: the sound float32 resize and
+# a TF32 one must fall on either side (PERF.md)
+RESIZE_BOUND = 2e-3
+# the batch: (name, frames, frame where reading fails); a wave holds 600
+# model-resolution frames, so the waves are [480] and [300, 97, 33] with the
+# failing video skipped in the second
+BATCH_VIDEOS = (("b480", 480, None), ("b300", 300, None), ("bbad", 200, 100),
+                ("b97", 97, None), ("b33", 33, None))
+BATCH_WAVE_FRAMES = 600
+STREAM_MEMORY_SAMPLES = 240  # the median's frames in the bounded-memory runs
+
+
+class _Scene:
+    """A synthetic rally at any size: a seeded textured background and a
+    bright disk (radius 4 at 512 wide, scaled) on a parabolic arc, one
+    40-frame pass after another; the background is drawn once per size."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self._bg = {}
+
+    def center(self, t: int, w: int, h: int):
+        u = (t % 40) / 39
+        return int(w * 0.1 + w * 0.8 * u), int(h * 0.7 - h * 0.5 * math.sin(math.pi * u))
+
+    def frame(self, t: int, w: int, h: int) -> np.ndarray:
+        if (w, h) not in self._bg:
+            rng = np.random.default_rng(self.seed)
+            bg = np.full((h, w, 3), (40, 90, 40), np.int32)
+            self._bg[w, h] = (bg + rng.integers(0, 40, (h, w, 3))).astype(np.uint8)
+        f = self._bg[w, h].copy()
+        r = 4 * w / W
+        x, y = self.center(t, w, h)
+        y0, y1, x0, x1 = int(y - r), int(y + r) + 1, int(x - r), int(x + r) + 1
+        dy, dx = np.mgrid[y0:y1, x0:x1]
+        f[y0:y1, x0:x1][(dy - y) ** 2 + (dx - x) ** 2 <= r * r] = 255
+        return f
+
+
+def synthetic_reader(videos: dict):
+    """A reader class with the port ``VideoReader``'s interface over the
+    videos of ``videos`` ({path: (frames, scene, frame where reading
+    fails or None)}), drawn in memory at ``PATHS_SRC``: the card's machine
+    has no decoder. ``read_resized_bgr`` draws at the asked size (the
+    staged path's frames); a read of the failing frame raises, except right
+    after a seek (the median's sampling reads it). ``read_all`` and
+    ``sample_median`` are the port's own."""
+    from tracknetv3_tpu_torch.utils.io import VideoReader
+
+    class SyntheticReader(VideoReader):
+        def __init__(self, path: str):
+            self.path = path
+            self.video_len, self.scene, self.fail_at = videos[path]
+            self.fps = 30.0
+            self.w, self.h = PATHS_SRC
+            self.pos, self.sought = 0, False
+
+        def _check(self, t: int) -> None:
+            if t == self.fail_at:
+                raise OSError(f"synthetic decode failure at frame {t} of {self.path}")
+
+        def seek(self, frame_idx: int) -> None:
+            self.pos, self.sought = frame_idx, True
+
+        def read(self):
+            if self.pos >= self.video_len:
+                return None
+            if not self.sought:
+                self._check(self.pos)
+            self.sought = False
+            self.pos += 1
+            return self.scene.frame(self.pos - 1, self.w, self.h)
+
+        def read_resized_bgr(self, width: int, height: int) -> np.ndarray:
+            out = np.empty((self.video_len, height, width, 3), np.uint8)
+            for t in range(self.video_len):
+                self._check(t)
+                out[t] = self.scene.frame(t, width, height)[..., ::-1]
+            return out
+
+        def release(self) -> None:
+            pass
+
+    return SyntheticReader
+
+
+def disk_detector_checkpoint(path: str, seed: int) -> str:
+    """The README TrackNet (seq_len 8, concat) from a seeded random init
+    with one path set by hand so that it finds ``_Scene``'s disk: in the
+    first and the last two conv layers, channel i (i < 8) is ReLU(frame i
+    - median, summed over colours) at the centre tap, carried through
+    unchanged, and the predictor maps it to frame i's logit (x10, -5). No
+    other channel feeds those channels, so the random rest of the network
+    (the pools, upsamples, the deep blocks) runs at full width beside it."""
+    import torch
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+
+    model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        first = model.down_block_1.conv_1.conv.weight  # (64, 3 + 3L, 3, 3)
+        first[:L] = 0
+        for i in range(L):
+            first[i, 3 + 3 * i : 6 + 3 * i, 1, 1] = 1.0
+            first[i, 0:3, 1, 1] = -1.0
+        for conv, offset in ((model.down_block_1.conv_2.conv, 0),
+                             (model.up_block_3.conv_1.conv, 128),  # [up2x(x), skip]
+                             (model.up_block_3.conv_2.conv, 0)):
+            conv.weight[:L] = 0
+            for i in range(L):
+                conv.weight[i, offset + i, 1, 1] = 1.0
+        model.predictor.weight.zero_()
+        for i in range(L):
+            model.predictor.weight[i, i, 0, 0] = 10.0
+        model.predictor.bias.fill_(-5.0)
+    save_checkpoint(path, epoch=0, max_val_acc=0.0, model=model,
+                    param_dict={"model_name": "TrackNet", "seq_len": L, "bg_mode": "concat"})
+    return path
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """The wrong resize: ``preprocess.tf32_off`` swapped for TF32 on."""
+    import torch
+
+    m = torch.backends.cuda.matmul
+    before = m.allow_tf32
+    m.allow_tf32 = True
+    try:
+        yield
+    finally:
+        m.allow_tf32 = before
+
+
+def _resize_f64(frames, hw):
+    """PIL-bicubic resize of uint8 frames in float64 on the CPU, from the
+    same float32 matrices."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops.preprocess import _pil_bicubic_matrix
+
+    h0, w0 = frames.shape[-3], frames.shape[-2]
+    rh = torch.tensor(_pil_bicubic_matrix(h0, hw[0]), dtype=torch.float64)
+    rw = torch.tensor(_pil_bicubic_matrix(w0, hw[1]), dtype=torch.float64)
+    x = frames.cpu().movedim(-1, -3).double()
+    return (rh @ x @ rw.t()).clamp(0, 255).movedim(-3, -1)
+
+
+def _rows(pred):
+    return list(zip(pred["X"], pred["Y"], pred["Visibility"]))
+
+
+def _track_check(pred, scene, T: int):
+    """(visible frames, visible frames farther than 4 model pixels from the
+    disk, coordinates outside the source frame)."""
+    sx, sy = PATHS_SRC[0] / W, PATHS_SRC[1] / H
+    far = outside = 0
+    for t, (x, y, v) in enumerate(_rows(pred)[:T]):
+        if v:
+            cx, cy = scene.center(t, *PATHS_SRC)
+            far += abs(x - cx) > 4 * sx or abs(y - cy) > 4 * sy
+            outside += not (0 <= x < PATHS_SRC[0] and 0 <= y < PATHS_SRC[1])
+    return sum(pred["Visibility"][:T]), far, outside
+
+
+def _chunks_of(T: int, mode: str, staged: bool = False) -> int:
+    """Chunks TrackNet forwards for T frames at PATHS_BATCH: a chunk per
+    PATHS_BATCH disjoint windows (nonoverlap), per PATHS_BATCH real windows
+    (the staged overlap path), or per PATHS_BATCH frames (the stateless
+    overlap steps of the resident and streaming paths)."""
+    if mode == "nonoverlap":
+        n = -(-T // L)
+    else:
+        n = max(T - L + 1, 1) if staged else T
+    return -(-n // PATHS_BATCH)
+
+
+def _want_launches(chunks: int):
+    return {"conv3x3_9tap": CONV_LAYERS * chunks, "maxpool2x2": 3 * chunks,
+            "up2x_nearest": 3 * chunks, "window_copy": 0}
+
+
+def phase_serve_paths(tmp: str, card: str) -> dict:
+    """serve_paths: device-resize, streaming and batch serving at full width
+    on videos read from memory (``synthetic_reader`` at ``open_video``)."""
+    import torch
+
+    from tracknetv3_tpu_torch import inference as tinf
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import preprocess
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+    from tracknetv3_tpu_torch.utils.io import write_pred_csv
+
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True  # as the predict CLI sets it
+    tn = disk_detector_checkpoint(os.path.join(tmp, "TrackNet_disk.pt"), seed=29)
+    inp = os.path.join(tmp, "InpaintNet_paths.pt")
+    save_checkpoint(inp, epoch=0, max_val_acc=0.0,
+                    model=get_model("InpaintNet", generator=torch.Generator().manual_seed(17)),
+                    param_dict={"model_name": "InpaintNet", "seq_len": 16})
+    scene = _Scene(seed=21)
+    src, failing = f"synthetic://720p_{PATHS_T}.mp4", "synthetic://720p_failing.mp4"
+    videos = {src: (PATHS_T, scene, None),
+              f"synthetic://720p_{2 * PATHS_T}.mp4": (2 * PATHS_T, scene, None),
+              failing: (PATHS_T, scene, PATHS_T * 5 // 12)}  # 200 of 480
+    batch = [f"synthetic://{name}.mp4" for name, _, _ in BATCH_VIDEOS]
+    videos.update({f: (T, _Scene(seed=40 + i), fail)
+                   for i, (f, (_, T, fail)) in enumerate(zip(batch, BATCH_VIDEOS))})
+    decode = "synthetic, in memory"
+    launches_by = {}
+    out_dir = os.path.join(tmp, "serve_paths")
+    dev = torch.device(DEVICE)
+
+    def run_counted(fn):
+        _zero_launches()
+        out = fn()
+        return out, _path_launches()
+
+    with mock.patch.object(tinf, "open_video", synthetic_reader(videos)):
+        # ---- 1. device_resize
+        reader = tinf.open_video(src)
+        t0 = time.perf_counter()
+        frames = reader.read_all()  # what decode would hand over, not timed
+        draw_s = time.perf_counter() - t0
+        tn_rows = {}
+        for mode in PATHS_MODES:
+            p = tinf.TrackNetPredictor(tn, inp, eval_mode=mode, batch_size=PATHS_BATCH,
+                                       device=DEVICE)  # bf16, hand_9tap
+            t0 = time.perf_counter()
+            pred, launches = run_counted(lambda: tinf.predict_video(
+                src, tn, device_resize=True, predictor=p, save_dir=out_dir,
+                video_name=f"device_resize_{mode}"))
+            entry_s = time.perf_counter() - t0  # the first call: cold pinned memory
+            chunks = _chunks_of(PATHS_T, mode)
+            with open(os.path.join(out_dir, f"device_resize_{mode}_ball.csv")) as f:
+                n_rows = sum(1 for _ in f) - 1
+            visible, far, outside = _track_check(pred, scene, PATHS_T)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run_s, e2e_s = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                buf, T = p.stage_resident(frames)
+                med = p.median_of_resident(buf, T)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rows = p.run_resident(buf, T, med, (PATHS_SRC[0] / W, PATHS_SRC[1] / H))
+                t2 = time.perf_counter()
+                write_pred_csv(p.inpaint_trajectory(rows, PATHS_SRC),
+                               os.path.join(tmp, "paths_timed_ball.csv"))
+                t3 = time.perf_counter()
+                run_s.append(t2 - t1)
+                e2e_s.append(t3 - t0)
+                del buf
+            peak = torch.cuda.max_memory_allocated()
+            tn_rows[mode] = rows
+            buf, T = p.stage_resident(frames)
+            median_ms = time_launches(lambda i: p.median_of_resident(buf, T), n=3, windows=3)
+            span = buf[:PATHS_BATCH + 2 * L - 2]  # one overlap chunk's frames
+            resize_ms = time_launches(lambda i: preprocess.resize_frames(span, H, W), n=10,
+                                      windows=3)
+            del buf, span
+            buf, T = p.stage_resident(frames[:PATHS_REPLAY_T])
+            replay = _replay_resident(p, tn, inp, buf, T, mode)
+            del buf
+            res = {"phase": "serve_paths", "case": "device_resize", "eval_mode": mode,
+                   "decode": decode, "source_wh": list(PATHS_SRC), "frames": PATHS_T,
+                   "batch_size": PATHS_BATCH, "conv_backend": p.params["conv_backend"],
+                   "chunks": chunks, "launches": launches,
+                   "launches_per_chunk": {k: launches[k] / chunks for k in PATHS_KERNELS},
+                   "csv_rows": n_rows, "visible_frames": visible, "far_from_disk": far,
+                   "outside_frame": outside, "run_fps": PATHS_T / statistics.median(run_s),
+                   "e2e_fps": PATHS_T / statistics.median(e2e_s), "run_s": run_s,
+                   "e2e_s": e2e_s, "median_ms": median_ms,
+                   "resize_ms_per_chunk": resize_ms, "resize_chunk_frames": PATHS_BATCH + 2 * L - 2,
+                   "peak_mem_bytes": peak, "replay": replay, "drawing_the_frames_s": draw_s,
+                   "entry_point_s": entry_s,
+                   "card": card}
+            emit(res)
+            if launches != _want_launches(chunks):
+                fail("serve_paths", f"device_resize {mode}: launches {launches} != "
+                     f"{_want_launches(chunks)}")
+            if n_rows != PATHS_T or outside or far or visible < PATHS_T // 2:
+                fail("serve_paths", f"device_resize {mode}: {n_rows} rows, {visible} visible, "
+                     f"{far} farther than 4 px from the disk, {outside} outside the frame")
+            if replay["rows_differ"]:
+                fail("serve_paths", f"device_resize {mode}: rows differ from the CPU replay: "
+                     f"{replay}")
+            launches_by[f"device_resize {mode}"] = launches
+            del p
+        _resize_check(frames)
+        del frames, reader
+
+        # ---- 2. streaming (raw frames resized on the card; the kernels are warm)
+        t0 = time.perf_counter()
+        tinf.open_video(src).sample_median(device=dev)
+        torch.cuda.synchronize()
+        median_s = time.perf_counter() - t0  # of each streaming run below
+        for mode in PATHS_MODES:
+            p = tinf.TrackNetPredictor(tn, eval_mode=mode, batch_size=PATHS_BATCH,
+                                       device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred, launches = run_counted(lambda: p.predict_video_streaming(src, host_resize=False))
+            stream_s = time.perf_counter() - t0
+            chunks = _chunks_of(PATHS_T, mode)
+            want = _rows(tn_rows[mode])
+            got = _rows(pred)
+            differ = [t for t in range(PATHS_T) if got[t] != want[t]]
+            over_1px = [t for t in differ if abs(got[t][0] - want[t][0]) > 1
+                        or abs(got[t][1] - want[t][1]) > 1 or got[t][2] != want[t][2]]
+            peaks = {}
+            for T in (PATHS_T, 2 * PATHS_T) if mode == "weight" else ():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                n = len(p.predict_video_streaming(f"synthetic://720p_{T}.mp4", host_resize=False,
+                                                  max_sample_num=STREAM_MEMORY_SAMPLES)["Frame"])
+                peaks[T] = torch.cuda.max_memory_allocated()
+                if n != T:
+                    fail("serve_paths", f"streaming {mode}: {n} rows of {T} frames")
+            failed = None
+            csv_path = os.path.join(out_dir, f"stream_fail_{mode}_ball.csv")
+            try:
+                write_pred_csv(p.predict_video_streaming(failing, host_resize=False), csv_path)
+            except RuntimeError as e:
+                failed = f"{e} (from {type(e.__cause__).__name__}: {e.__cause__})"
+            res = {"phase": "serve_paths", "case": "streaming", "eval_mode": mode,
+                   "host_resize": False, "decode": decode, "frames": PATHS_T, "chunks": chunks,
+                   "launches": launches, "frames_per_s": PATHS_T / stream_s, "seconds": stream_s,
+                   "of_which_sample_median_s": median_s,
+                   "rows_differ_from_device_resize": len(differ),
+                   "differ_by_more_than_1px": len(over_1px), "first_differ": differ[:5],
+                   "peak_mem_bytes_by_frames": peaks,
+                   "peak_ratio_960_to_480": (peaks[2 * PATHS_T] / peaks[PATHS_T]
+                                             if peaks else None),
+                   "median_samples_in_memory_runs": STREAM_MEMORY_SAMPLES,
+                   "failing_reader": failed, "csv_written": os.path.exists(csv_path),
+                   "host_resize_variant": "needs cv2: held on the CPU only "
+                                          "(tests/test_torch_streaming.py)", "card": card}
+            emit(res)
+            if launches != _want_launches(chunks):
+                fail("serve_paths", f"streaming {mode}: launches {launches} != "
+                     f"{_want_launches(chunks)}")
+            if over_1px:
+                fail("serve_paths", f"streaming {mode}: rows {over_1px[:5]} differ from the "
+                     "device_resize rows by more than 1 px")
+            if peaks and not 0.9 <= res["peak_ratio_960_to_480"] <= 1.1:
+                fail("serve_paths", f"streaming {mode}: peak memory grows with the video: {peaks}")
+            if failed is None or res["csv_written"]:
+                fail("serve_paths", f"streaming {mode}: a reader failing at frame 200 gave "
+                     f"{failed!r}, CSV written: {res['csv_written']}")
+            launches_by[f"streaming {mode}"] = launches
+            del p
+
+        # ---- 3. batch serving
+        p = tinf.TrackNetPredictor(tn, inp, batch_size=PATHS_BATCH, device=DEVICE)
+        fb = H * W * 3
+        budget = 2 * BATCH_WAVE_FRAMES * fb
+        good = [f for f, (_, _, fail_at) in zip(batch, BATCH_VIDEOS) if fail_at is None]
+        tinf.predict_video(good[-1], tn, predictor=p)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        single, single_s, single_peak = {}, 0.0, 0
+        for f in good:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            single[f] = tinf.predict_video(f, tn, predictor=p)
+            single_s += time.perf_counter() - t0
+            single_peak = max(single_peak, torch.cuda.max_memory_allocated() - base
+                              - videos[f][0] * fb)
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, launches = run_counted(lambda: tinf.predict_videos(
+            batch, tn, predictor=p, staging_budget_bytes=budget, on_error="skip", stats=stats,
+            save_dir=out_dir))
+        batch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        peak_bound = budget + max(videos[f][0] for f in good) * fb + single_peak
+        raised = None
+        try:
+            tinf.predict_videos(batch, tn, predictor=p, staging_budget_bytes=budget)
+        except (RuntimeError, OSError) as e:
+            raised = f"{type(e).__name__}: {e}"
+        want_waves = [[batch[0]], [batch[1], batch[3], batch[4]]]
+        want_buckets = [[videos[f][0] for f in w] for w in want_waves]
+        chunks = sum(_chunks_of(videos[f][0], "weight", staged=True) for f in good)
+        frames_total = sum(videos[f][0] for f in good)
+        res = {"phase": "serve_paths", "case": "batch", "decode": decode,
+               "videos": {f: videos[f][0] for f in batch}, "failing": batch[2],
+               "staging_budget_frames": 2 * BATCH_WAVE_FRAMES,
+               "waves": stats["waves"], "streaming": stats["streaming"],
+               "results": sorted(got), "rows_equal_single": all(got.get(f) == single[f]
+                                                                 for f in good),
+               "raise_mode": raised, "chunks": chunks, "launches": launches,
+               "frames_per_s": frames_total / batch_s,
+               "sequential_frames_per_s": frames_total / single_s,
+               "batch_vs_sequential": single_s / batch_s,
+               "peak_mem_bytes_over_weights": peak, "peak_bound_bytes": peak_bound,
+               "single_video_working_bytes": single_peak, "card": card}
+        emit(res)
+        if sorted(got) != sorted(good) or not res["rows_equal_single"]:
+            fail("serve_paths", f"batch: results {sorted(got)} of {good}; rows equal to single "
+                 f"calls: {res['rows_equal_single']}")
+        if ([w["videos"] for w in stats["waves"]] != want_waves or stats["streaming"]
+                or [w["slots"] for w in stats["waves"]] != [1, 1]
+                or [w["buckets"] for w in stats["waves"]] != want_buckets):
+            fail("serve_paths", f"batch: waves {stats['waves']} (want {want_waves}), "
+                 f"streaming {stats['streaming']}")
+        if raised is None:
+            fail("serve_paths", "batch: on_error='raise' did not raise on the failing video")
+        if launches != _want_launches(chunks):
+            fail("serve_paths", f"batch: launches {launches} != {_want_launches(chunks)}")
+        if peak > peak_bound:
+            fail("serve_paths", f"batch: peak {peak} B over the weights > {peak_bound} B "
+                 "(two waves, one video and a video's working memory)")
+        launches_by["batch"] = launches
+    return launches_by
+
+
+def _replay_resident(p, tn: str, inp: str, buf, T: int, mode: str) -> dict:
+    """One more ``run_resident`` with each chunk's window probabilities
+    copied to the host; a CPU predictor replays them through its own
+    ``run_resident`` (ensemble, decode, collect), whose rows must equal the
+    card's."""
+    import torch
+
+    from tracknetv3_tpu_torch.inference import TrackNetPredictor
+
+    forward = p._forward_windows
+    host = []
+
+    def recording(frames, median, starts):
+        probs = forward(frames, median, starts)
+        host.append(probs.cpu())
+        return probs
+
+    p._forward_windows = recording
+    try:
+        med = p.median_of_resident(buf, T)
+        card = p.run_resident(buf, T, med, (PATHS_SRC[0] / W, PATHS_SRC[1] / H))
+    finally:
+        del p._forward_windows
+    cpu = TrackNetPredictor(tn, inp, eval_mode=mode, batch_size=PATHS_BATCH, device="cpu")
+    replay = iter(host)
+    cpu._forward_windows = lambda frames, median, starts: next(replay)
+    dummy = torch.zeros((buf.shape[0], 1, 1, 3), dtype=torch.uint8)  # never read
+    want = cpu.run_resident(dummy, T, None, (PATHS_SRC[0] / W, PATHS_SRC[1] / H))
+    differ = [t for t in range(T) if _rows(card)[t] != _rows(want)[t]]
+    return {"chunks": len(host), "rows": T, "visible": sum(card["Visibility"]),
+            "rows_differ": len(differ), "first_differ": differ[:5]}
+
+
+def _resize_check(frames) -> None:
+    """The card's resize of one overlap chunk's 30 frames against a float64
+    CPU resize of its first 4: within RESIZE_BOUND; the same resize with
+    TF32 on must fall outside it."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import preprocess
+
+    chunk = torch.from_numpy(frames[: PATHS_BATCH + 2 * L - 2]).to(DEVICE)
+    ref = _resize_f64(chunk[:4], (H, W))
+    sound = preprocess.resize_frames(chunk, H, W)
+    with mock.patch.object(preprocess, "tf32_off", _tf32_on):
+        wrong = preprocess.resize_frames(chunk, H, W)
+    err = float((sound[:4].cpu().double() - ref).abs().max())
+    err_tf32 = float((wrong[:4].cpu().double() - ref).abs().max())
+    emit({"phase": "serve_paths", "case": "resize_vs_float64", "frames": 4,
+          "chunk_frames": int(chunk.shape[0]), "source_wh": list(PATHS_SRC),
+          "max_abs_err": err, "tf32_max_abs_err": err_tf32, "bound": RESIZE_BOUND,
+          "tf32_must_fail": True})
+    if not err <= RESIZE_BOUND:
+        fail("serve_paths", f"the card's resize is {err} grey levels off float64 "
+             f"(bound {RESIZE_BOUND})")
+    if err_tf32 <= RESIZE_BOUND:
+        fail("serve_paths", f"a TF32 resize ({err_tf32} off float64) passes the bound "
+             f"{RESIZE_BOUND}")
 
 
 # ---------------------------------------------------------------- rally evaluation
@@ -3109,6 +3621,9 @@ def main() -> int:
     ap.add_argument("--inpaint_only", action="store_true",
                     help="inpaint_train alone (no hand kernel is on its path, so no build); "
                          "no kernels line")
+    ap.add_argument("--serve_paths_only", action="store_true",
+                    help="build and serve_paths (device resize, streaming, batch serving "
+                         "from videos drawn in memory) alone; no kernels line")
     ap.add_argument("--rally_only", action="store_true",
                     help="build and rally (generate_mask_data, InpaintNet training, the test "
                          "CLI, rally_vs_cpu) alone, from a seeded TrackNet; no kernels line")
@@ -3138,7 +3653,8 @@ def main() -> int:
 
     only = ("conv" if args.conv_only else "copy" if args.copy_only
             else "loss" if args.loss_only else "inpaint" if args.inpaint_only
-            else "rally" if args.rally_only else None)
+            else "rally" if args.rally_only
+            else "serve_paths" if args.serve_paths_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -3153,6 +3669,9 @@ def main() -> int:
         elif only == "rally":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_rally(tmp, card)
+        elif only == "serve_paths":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_serve_paths(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -3182,6 +3701,8 @@ def main() -> int:
         phase_conv_ablate()
         serve_launches, frames = phase_serve(tmp)
         phase_serve_parity(tmp, frames)
+        del frames
+        paths_launches = phase_serve_paths(tmp, card)
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
@@ -3203,7 +3724,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/pool_up2x.cu",
          "replaces": replaces[k], "launches": serve_launches["cudnn", 16][k],
          "launches_by_path": {"serve cudnn batch 16": serve_launches["cudnn", 16][k],
-                              "rally": rally_launches[k]},
+                              "rally": rally_launches[k],
+                              **{f"serve_paths {p}": n[k] for p, n in paths_launches.items()}},
          "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
          "library_ms": v["plain_ms"]}
@@ -3237,7 +3759,9 @@ def main() -> int:
          "launches": serve_launches[served[k]][f"conv3x3_{k}"],
          "launches_by_path": {f"serve {served[k][0]} batch 16":
                               serve_launches[served[k]][f"conv3x3_{k}"],
-                              "rally": rally_launches.get(f"conv3x3_{k}", 0)}, **v}
+                              "rally": rally_launches.get(f"conv3x3_{k}", 0),
+                              **{f"serve_paths {p}": n.get(f"conv3x3_{k}", 0)
+                                 for p, n in paths_launches.items()}}, **v}
         for k, v in conv.items()
     ]
     # P8/P9: each kernel at the train path's shape of copy_vs_plain (the roll,

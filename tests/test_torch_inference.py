@@ -15,8 +15,12 @@ sizes of ``tests/test_staged.py`` (32x64, seq_len 3, batch 4):
   does ``predict_video(conv_backend="hand_k3c")`` / ``"hand_9tap"``, whose
   3x3 convs go through the plain version of ``ops/conv3x3.py`` on the CPU.
 - Without a card the serving entry points raise unless the CPU is asked
-  for, and the options this slice does not port raise
-  ``NotImplementedError``.
+  for; the JAX package's TPU options and flags raise
+  ``NotImplementedError``, and the serving options the port took since
+  (streaming, device resize, the overlay video, ``--video_dir``) run on
+  the CPU. Their parity with the JAX package is in
+  ``tests/test_torch_serve_resident.py``, ``test_torch_streaming.py``,
+  ``test_torch_batch_serving.py`` and ``test_torch_predict_cli.py``.
 """
 
 import functools
@@ -250,14 +254,37 @@ def test_serving_entry_points_need_a_card_or_an_explicit_cpu(ckpts, clip_and_wan
                           "--save_dir", str(tmp_path)])
 
 
+# options and flags of the JAX package that the port serves since streaming,
+# device resize, the overlay video and batch serving came in
+PORTED_OPTIONS = {"large_video", "device_resize", "output_video", "video_range"}
+PORTED_FLAGS = {"--video_dir", "--large_video", "--output_video", "--device_resize",
+                "--traj_len", "--video_range", "--fail_fast"}
+
+
+def _served(save_dir, n_rows=17):
+    """The CSV a served run wrote: its row count."""
+    with open(os.path.join(save_dir, "clip_ball.csv")) as f:
+        assert sum(1 for _ in f) - 1 == n_rows
+
+
 @pytest.mark.parametrize("option", [
     dict(large_video=True), dict(device_resize=True), dict(output_video=True),
     dict(native_decode=True), dict(num_devices=2), dict(stage_format="yuv420"),
     dict(bucket_quantum=256), dict(program_cache_dir="x"), dict(video_range=(0, 1)),
 ])
-def test_predict_video_unported_options_raise(ckpts, clip_and_want, option):
+def test_predict_video_unported_options_raise(ckpts, clip_and_want, option, tmp_path):
+    """The JAX package's TPU options raise ``NotImplementedError``; those the
+    port serves (``PORTED_OPTIONS``) run on the CPU and write the CSV (and
+    the overlay video)."""
     tn, _ = ckpts
     clip, _ = clip_and_want
+    if set(option) <= PORTED_OPTIONS:
+        pred = tinf.predict_video(clip, tn, input_hw=(H, W), device="cpu", batch_size=B,
+                                  save_dir=str(tmp_path), **option)
+        assert pred["Frame"] == list(range(17))
+        _served(tmp_path)
+        assert os.path.exists(tmp_path / "clip.mp4") == ("output_video" in option)
+        return
     with pytest.raises(NotImplementedError):
         tinf.predict_video(clip, tn, input_hw=(H, W), device="cpu", **option)
 
@@ -267,10 +294,25 @@ def test_predict_video_unported_options_raise(ckpts, clip_and_want, option):
     ["--num_devices", "2"], ["--stage_format", "bgr"], ["--bucket_quantum", "16"],
     ["--traj_len", "4"], ["--video_range", "0,1"], ["--profile", "p"], ["--fail_fast"],
 ])
-def test_predict_cli_unported_flags_raise(ckpts, flags):
-    with pytest.raises(NotImplementedError):
-        predict_cli.main(["--video_file", "v.mp4", "--tracknet_file", ckpts[0],
-                          "--device", "cpu"] + flags)
+def test_predict_cli_unported_flags_raise(ckpts, clip_and_want, flags, tmp_path, monkeypatch):
+    """The JAX CLI's TPU flags raise ``NotImplementedError``; those the port
+    serves (``PORTED_FLAGS``) run on the CPU (``--video_dir`` over the
+    clip's directory) and write the CSV."""
+    tn, _ = ckpts
+    clip, _ = clip_and_want
+    if flags[0] not in PORTED_FLAGS:
+        with pytest.raises(NotImplementedError):
+            predict_cli.main(["--video_file", "v.mp4", "--tracknet_file", tn,
+                              "--device", "cpu"] + flags)
+        return
+    monkeypatch.setattr(tinf, "HEIGHT", H)
+    monkeypatch.setattr(tinf, "WIDTH", W)
+    source = ["--video_file", clip]
+    if flags[0] == "--video_dir":
+        source, flags = ["--video_dir", os.path.dirname(clip)], []
+    predict_cli.main(source + ["--tracknet_file", tn, "--device", "cpu", "--batch_size", str(B),
+                               "--save_dir", str(tmp_path)] + flags)
+    _served(tmp_path)
 
 
 def test_stage_frames_checks_its_input(ckpts):

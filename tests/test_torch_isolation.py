@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of ``tracknetv3_tpu_torch``
 (the serving and kernel modules included) loads neither ``jax`` nor the JAX package,
 no source of the port (nor ``chip_smoke.py``) imports them, and its entry
-points (training, the predictor, ``predict_video``, the predict CLI, the
-rally engine and the ``test`` and ``generate_mask_data`` CLIs) refuse to run
-without a card unless the CPU is asked for."""
+points (training, the predictor, ``predict_video``, ``predict_videos``, the
+predict CLI with ``--video_file`` and ``--video_dir``, the rally engine and
+the ``test`` and ``generate_mask_data`` CLIs) refuse to run without a card
+unless the CPU is asked for."""
 
 import os
 import pkgutil
@@ -35,6 +36,10 @@ SERVING_MODULES = {
     "tracknetv3_tpu_torch.ops.ensemble",
     "tracknetv3_tpu_torch.ops.pool_up2x",
     "tracknetv3_tpu_torch.ops.postprocess",
+    # device resize, streaming, batch serving, the overlay video
+    "tracknetv3_tpu_torch.ops.preprocess",
+    "tracknetv3_tpu_torch.utils.io",
+    "tracknetv3_tpu_torch.device",
 }
 KERNEL_MODULES = {
     "tracknetv3_tpu_torch.ops.batchnorm",
@@ -112,7 +117,7 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
     from tracknetv3_tpu_torch import predict
-    from tracknetv3_tpu_torch.inference import TrackNetPredictor, predict_video
+    from tracknetv3_tpu_torch.inference import TrackNetPredictor, predict_video, predict_videos
 
     ckpt = str(tmp_path / "TrackNet_best.pt")  # the device is checked first
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -121,6 +126,14 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
         predict_video(str(tmp_path / "v.mp4"), ckpt)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict.main(["--video_file", "v.mp4", "--tracknet_file", ckpt])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict_video(str(tmp_path / "v.mp4"), ckpt, large_video=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict_videos([str(tmp_path / "v.mp4")], ckpt)
+    (tmp_path / "videos").mkdir()
+    (tmp_path / "videos" / "v.mp4").write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict.main(["--video_dir", str(tmp_path / "videos"), "--tracknet_file", ckpt])
 
     from tracknetv3_tpu_torch import generate_mask_data, test
     from tracknetv3_tpu_torch.evaluation.test_engine import RallyTestEngine

@@ -26,9 +26,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 @contextlib.contextmanager
 def tf32_off() -> Iterator[None]:
-    """cuDNN convolutions in full float32 (no TF32) inside the block; the
-    other cuDNN flags keep their current values."""
+    """cuDNN convolutions and cuBLAS matrix products in full float32 (no
+    TF32) inside the block; the other cuDNN flags keep their current values
+    and the matrix-product flag gets its value back after the block."""
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        yield
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = before

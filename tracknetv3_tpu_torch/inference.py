@@ -1,35 +1,55 @@
-"""Single-video serving: frames -> TrackNet -> ensemble -> decode ->
-InpaintNet -> CSV (the port of the JAX package's ``inference.py`` staged
-path, ``predict_video`` and ``TrackNetPredictor``).
+"""Serving: frames -> TrackNet -> ensemble -> decode -> InpaintNet -> CSV
+(the port of the JAX package's ``inference.py``: ``TrackNetPredictor``,
+``predict_video`` and ``predict_videos``).
 
-The pipeline, as in the JAX package:
+Three ways a video reaches the card, as in the JAX package:
 
-1. stage: model-resolution uint8 frames go to the card in one copy from
-   pinned host memory (``stage_frames``), and the exact per-pixel median
-   background is taken there (all frames, capped at 4096, stride T//k);
-2. ``run_staged``: chunks of ``batch_size`` windows, each one window
-   gather + channel stack (``ops/preprocess.py``), the folded-BN TrackNet
-   forward (``models/fused_forward.py``, pool/upsample kernels on the
-   card), the carried-tail temporal ensemble (``ops/ensemble.py``) and the
-   heatmap decode, packed ``[cx, cy, vis]`` rows kept on the card; then the
-   ensemble flush and one fetch per video. ``nonoverlap`` forwards
-   disjoint windows and decodes every frame of each;
-3. ``inpaint_trajectory``: InpaintNet over windows of the normalised
-   trajectory (padded to multiples of 64 windows), composited where the
-   mask says, thresholded at ``COOR_TH``, ensembled, denormalised with the
-   reference's float32 two-multiply;
-4. ``write_pred_csv``.
+1. staged (the default): frames resized on the host to model resolution
+   (cv2 ``INTER_LINEAR``, BGR kept) go to the card in one copy from pinned
+   memory (``upload_staged`` on a side stream, then ``finalize_staged``:
+   the wait and the exact per-pixel median over all frames, capped at
+   4096, stride T//k); ``run_staged`` then forwards chunks of
+   ``batch_size`` windows (window gather + channel stack,
+   ``ops/preprocess.py``; the folded-BN TrackNet forward,
+   ``models/fused_forward.py``, pool/upsample and conv kernels on the
+   card), carries the ensemble's tail across chunks (``ops/ensemble.py``),
+   decodes the heatmaps and keeps the packed ``[cx, cy, vis]`` rows on the
+   card until one fetch per video. ``nonoverlap`` forwards disjoint
+   windows and decodes every frame of each;
+2. resident, ``device_resize`` (``predict_frames``): the raw frames go to
+   the card once, padded with L-1 copies of the first frame and copies of
+   the last (``stage_resident``); each chunk resizes its span with PIL's
+   bicubic (``make_window_preprocessor``) and forwards B+L-1 windows with
+   the stateless ensemble (``ensemble_chunk``); the median is taken on the
+   card over all frames, capped at 1024;
+3. streaming, ``large_video`` (``predict_video_streaming``): a producer
+   thread reads the chunks' frames (host-resized with cv2 ``INTER_AREA``
+   by default, raw otherwise) four chunks ahead into pinned memory; each
+   chunk goes to the card with a non-blocking copy and runs the stateless
+   step; the median comes from frames sampled over ``video_range``.
+
+Then ``inpaint_trajectory`` (InpaintNet over windows of the normalised
+trajectory, padded to multiples of 64 windows, composited where the mask
+says, thresholded at ``COOR_TH``, ensembled, denormalised with the
+reference's float32 two-multiply), ``write_pred_csv`` and, on request,
+``write_pred_video``. ``predict_videos`` serves many videos in waves
+under a staging budget. Every video this module reads is opened through
+``open_video``.
 
 Serving runs under ``torch.inference_mode()``. The JAX package's TPU
 runtime machinery is not ported: bucket padding of the staged buffer, the
-AOT program cache, meshes, streaming, ``device_resize``, the native libav
-decoder and YUV420 staging raise ``NotImplementedError``.
+AOT program cache, meshes, the native libav decoder and YUV420 staging
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+import queue
+import sys
+import threading
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,9 +67,27 @@ from .ops.ensemble import (
     get_ensemble_weight,
 )
 from .ops.postprocess import generate_inpaint_mask
-from .ops.preprocess import make_staged_preprocessor, median_of_u8_stack
+from .ops.preprocess import (
+    gather_windows,
+    make_staged_preprocessor,
+    make_window_preprocessor,
+    median_of_u8_stack,
+    window_channels,
+)
 from .training.checkpoint import load_model_from_checkpoint
-from .utils.io import VideoReader, write_pred_csv
+from .utils.io import VideoReader, _require_cv2, write_pred_csv, write_pred_video
+
+# bytes of model-resolution uint8 frames past which a video streams instead
+# of staging (the JAX package's device-memory budget)
+STAGING_BUDGET_BYTES = 8e9
+PREFETCH_CHUNKS = 4  # streaming: chunks read ahead of the card
+
+
+def open_video(path: str) -> VideoReader:
+    """Open a video for serving. Every read of a video file in this module
+    goes through this one name, so a reader of frames in memory can stand
+    in for cv2 by replacing it."""
+    return VideoReader(path)
 
 
 def zero_below_th(out: torch.Tensor) -> torch.Tensor:
@@ -69,6 +107,18 @@ class StagedVideo(NamedTuple):
     src_wh: Tuple[int, int]  # source (width, height) for coordinate scaling
 
 
+class UploadedVideo(NamedTuple):
+    """The first half of staging: model-resolution frames on their way to
+    the card (``upload_staged``), before ``finalize_staged``."""
+
+    buf: torch.Tensor  # (T, h, w, 3) uint8, allocated on the copy stream
+    T: int
+    bgr: bool
+    src_wh: Tuple[int, int]
+    ready: Optional[torch.cuda.Event]  # recorded after the copy (None on the CPU)
+    host: Optional[torch.Tensor]  # the pinned source, kept until the copy is waited on
+
+
 def _refuse_unported(**options) -> None:
     """Raise ``NotImplementedError`` naming each option that is set."""
     bad = [k for k, v in options.items() if v]
@@ -78,6 +128,50 @@ def _refuse_unported(**options) -> None:
 
 def _pack(dec: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.stack([dec["cx"], dec["cy"], dec["vis"]], dim=-1).to(torch.int32)
+
+
+def _prefetched(items: Iterator, what: str, depth: int = PREFETCH_CHUNKS) -> Iterator:
+    """Yield ``items`` as a producer thread makes them, at most ``depth``
+    ahead. An error of the producer is raised, after the items it made, as
+    ``RuntimeError(what)``: a swallowed one would silently truncate the
+    prediction CSV. Leaving the loop early stops and joins the producer."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    err: List[BaseException] = []
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for item in items:
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
+            err.append(e)
+        finally:
+            put(done)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            yield item
+    finally:
+        stop.set()
+        thread.join()
+    if err:
+        raise RuntimeError(what) from err[0]
 
 
 class TrackNetPredictor:
@@ -120,6 +214,10 @@ class TrackNetPredictor:
             self.seq_len, eval_mode if eval_mode != "nonoverlap" else "average"
         )
         self._weights = torch.from_numpy(weights).to(self.device)
+        self._preproc = make_window_preprocessor(self.bg_mode, self.seq_len, (self.h, self.w))
+        # staging copies run here, beside the chunks on the default stream
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
         self.inpaintnet = None
         if inpaintnet_file:
             model, in_pd = load_model_from_checkpoint(inpaintnet_file)
@@ -128,17 +226,14 @@ class TrackNetPredictor:
 
     # ------------------------------------------------------------ staging
 
-    def stage_frames(
-        self,
-        frames_u8: np.ndarray,
-        bgr: bool = False,
-        src_wh: Optional[Tuple[int, int]] = None,
-        max_sample_num: Optional[int] = None,
-    ) -> StagedVideo:
-        """Stage (T, h, w, 3) uint8 frames already at model resolution: one
-        copy from pinned host memory, then the median background on the card
-        (``bg_mode`` needs one). ``src_wh`` is the source video's (width,
-        height), the model resolution by default."""
+    def upload_staged(
+        self, frames_u8: np.ndarray, bgr: bool = False, src_wh: Optional[Tuple[int, int]] = None
+    ) -> UploadedVideo:
+        """Start staging (T, h, w, 3) uint8 frames already at model
+        resolution: pinned, then one non-blocking copy on the predictor's
+        copy stream, with an event recorded after it. ``src_wh`` is the
+        source video's (width, height), the model resolution by default.
+        Safe from a producer thread (``predict_videos``)."""
         frames_u8 = np.ascontiguousarray(frames_u8)
         if frames_u8.dtype != np.uint8 or frames_u8.shape[1:] != (self.h, self.w, 3):
             raise ValueError(f"need (T, {self.h}, {self.w}, 3) uint8 frames, got "
@@ -146,13 +241,52 @@ class TrackNetPredictor:
         T = int(frames_u8.shape[0])
         if T == 0:
             raise ValueError("no frames to stage: the video yielded zero frames")
+        src_wh = src_wh or (self.w, self.h)
         host = torch.from_numpy(frames_u8)
-        if self.device.type == "cuda":
-            buf = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            buf = host.to(self.device)
+        if self._copy_stream is None:
+            return UploadedVideo(host.to(self.device), T, bgr, src_wh, None, None)
+        host = host.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            buf = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        return UploadedVideo(buf, T, bgr, src_wh, ready, host)
+
+    def finalize_staged(self, up: UploadedVideo,
+                        max_sample_num: Optional[int] = None) -> StagedVideo:
+        """Finish staging on the current stream: wait for the copy, then
+        the median background (``bg_mode`` needs one)."""
+        buf = up.buf
+        if up.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(up.ready)
+            buf.record_stream(stream)  # allocated on the copy stream, read on this one
         median = self._median_staged(buf, max_sample_num) if self.bg_mode else None
-        return StagedVideo(buf, T, median, bgr, src_wh or (self.w, self.h))
+        return StagedVideo(buf, up.T, median, up.bgr, up.src_wh)
+
+    def stage_frames(
+        self,
+        frames_u8: np.ndarray,
+        bgr: bool = False,
+        src_wh: Optional[Tuple[int, int]] = None,
+        max_sample_num: Optional[int] = None,
+    ) -> StagedVideo:
+        """Stage (T, h, w, 3) uint8 frames already at model resolution
+        (the JAX package's ``stage_frames_host`` / ``finalize_staged``):
+        ``upload_staged``, then ``finalize_staged``."""
+        return self.finalize_staged(self.upload_staged(frames_u8, bgr, src_wh), max_sample_num)
+
+    def upload_video(self, video_file: str) -> UploadedVideo:
+        """Read a video resized to model resolution on the host (cv2
+        ``INTER_LINEAR``, BGR kept) and start its upload: the first half of
+        the JAX package's ``stage_video`` (``upload_video_slabs``)."""
+        reader = open_video(video_file)
+        try:
+            src_wh = (reader.w, reader.h)
+            frames = reader.read_resized_bgr(self.w, self.h)
+        finally:
+            reader.release()
+        return self.upload_staged(frames, bgr=True, src_wh=src_wh)
 
     @staticmethod
     def _median_staged(buf: torch.Tensor, max_sample_num: Optional[int]) -> torch.Tensor:
@@ -169,14 +303,103 @@ class TrackNetPredictor:
 
     # ------------------------------------------------------------ TrackNet
 
-    def _windows(self, pre, buf, med, starts) -> torch.Tensor:
-        """Forward the windows starting at ``starts``: (B, L, h, w) float32
-        probabilities."""
-        with record_function("serve::preprocess"):
-            x = pre(buf, med, starts)
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, C_in) model input -> (B, L, h, w) float32 probabilities."""
         with record_function("serve::forward"):
             probs = tracknet_fused_forward(self.params, x)  # (B, h, w, L)
         return probs.permute(0, 3, 1, 2)
+
+    def _windows(self, pre, buf, med, starts) -> torch.Tensor:
+        """Forward the windows of staged frames starting at ``starts``."""
+        with record_function("serve::preprocess"):
+            x = pre(buf, med, starts)
+        return self._forward(x)
+
+    def _forward_windows(self, frames_u8, median, starts) -> torch.Tensor:
+        """Forward the windows of raw frames (at source resolution)
+        starting at ``starts``: each frame resized once on the card."""
+        with record_function("serve::preprocess"):
+            x = self._preproc(frames_u8, median, starts)
+        return self._forward(x)
+
+    def _preresized_windows(self, rgb, diff, median_resized, starts) -> torch.Tensor:
+        """Forward the windows of host-resized uint8 frames (and background
+        differences) starting at ``starts``."""
+        L = self.seq_len
+        with record_function("serve::preprocess"):
+            rgb_w = gather_windows(rgb.to(torch.float32), starts, L) if rgb is not None else None
+            diff_w = (gather_windows(diff.to(torch.float32), starts, L)
+                      if diff is not None else None)
+            med = median_resized.to(torch.float32) if median_resized is not None else None
+            x = window_channels(rgb_w, diff_w, med, self.bg_mode)
+        return self._forward(x)
+
+    def _ensemble_decode(self, wins: torch.Tensor, t0: int, num_windows: int) -> torch.Tensor:
+        """Stateless ensemble of B+L-1 windows, then decode: packed (B, 3)
+        rows of frames t0 .. t0+B-1."""
+        with record_function("serve::ensemble"):
+            frames = ensemble_chunk(wins, self._weights, t0, num_windows)
+        with record_function("serve::decode"):
+            return _pack(decode_heatmaps(frames))
+
+    def _decode_all(self, wins: torch.Tensor) -> torch.Tensor:
+        """Decode every frame of disjoint windows: packed (B*L, 3) rows."""
+        with record_function("serve::decode"):
+            return _pack(decode_heatmaps(wins.reshape((-1,) + tuple(wins.shape[2:]))))
+
+    def _arange(self, n: int) -> torch.Tensor:
+        return torch.arange(n, device=self.device)
+
+    def _overlap_step(self, frames_u8, median, t0: int, num_windows: int) -> torch.Tensor:
+        """Stateless chunk (JAX ``_overlap_step_impl``): raw frames of
+        global frames [t0-L+1, t0+B+L-1) (clipped at the video's bounds);
+        forwards the B+L-1 windows, ensembles and decodes frames t0 ..
+        t0+B-1."""
+        nwin = frames_u8.shape[0] - (self.seq_len - 1)
+        return self._ensemble_decode(
+            self._forward_windows(frames_u8, median, self._arange(nwin)), t0, num_windows)
+
+    def _nonoverlap_step(self, frames_u8, median) -> torch.Tensor:
+        """Disjoint windows of B*L raw frames (JAX ``_nonoverlap_step_impl``)."""
+        L = self.seq_len
+        n_win = frames_u8.shape[0] // L
+        return self._decode_all(self._forward_windows(frames_u8, median, self._arange(n_win) * L))
+
+    def _overlap_step_preresized(self, rgb, diff, median_resized, t0: int,
+                                 num_windows: int) -> torch.Tensor:
+        """``_overlap_step`` on host-resized frames (JAX
+        ``_overlap_step_preresized_impl``)."""
+        nwin = (rgb if rgb is not None else diff).shape[0] - (self.seq_len - 1)
+        return self._ensemble_decode(
+            self._preresized_windows(rgb, diff, median_resized, self._arange(nwin)),
+            t0, num_windows)
+
+    def _nonoverlap_step_preresized(self, rgb, diff, median_resized) -> torch.Tensor:
+        """``_nonoverlap_step`` on host-resized frames (JAX
+        ``_nonoverlap_step_preresized_impl``)."""
+        L = self.seq_len
+        n_win = (rgb if rgb is not None else diff).shape[0] // L
+        return self._decode_all(
+            self._preresized_windows(rgb, diff, median_resized, self._arange(n_win) * L))
+
+    def _overlap_step_resident(self, all_frames, median, t0: int,
+                               num_windows: int) -> torch.Tensor:
+        """The overlap chunk of output frames t0 .. t0+B-1 against the
+        resident padded buffer: its span starts at padded index t0."""
+        L, B = self.seq_len, self.batch_size
+        return self._overlap_step(all_frames[t0 : t0 + B + 2 * L - 2], median, t0, num_windows)
+
+    def _nonoverlap_step_resident(self, all_frames, median, w0: int,
+                                  num_frames: int) -> torch.Tensor:
+        """Windows w0 .. w0+B-1 against the resident buffer, their start
+        frames clipped into the video (the reference's repeat-last-frame
+        padding). Only the chunk's B*L+L-1-frame span is resized; rows
+        past the buffer's end read its last row, a copy of the last frame."""
+        L, B = self.seq_len, self.batch_size
+        base = min(w0 * L, max(num_frames - 1, 0)) + (L - 1)
+        starts = ((w0 + self._arange(B)) * L).clamp_(0, max(num_frames - 1, 0)) + (L - 1 - base)
+        idx = (base + self._arange(B * L + L - 1)).clamp_(max=all_frames.shape[0] - 1)
+        return self._decode_all(self._forward_windows(all_frames[idx], median, starts))
 
     def run_staged(
         self, staged: StagedVideo, img_scaler: Optional[Tuple[float, float]] = None
@@ -193,16 +416,14 @@ class TrackNetPredictor:
         if med is None:
             med = torch.zeros((self.h, self.w, 3), dtype=torch.float32, device=dev)
         pre = make_staged_preprocessor(self.bg_mode, L, staged.bgr, out_dtype=self.compute_dtype)
-        arange_b = torch.arange(B, device=dev)
+        arange_b = self._arange(B)
         rows: List[torch.Tensor] = []
         with torch.inference_mode():
             if self.eval_mode == "nonoverlap":
                 n_win = -(-T // L)
                 for w0 in range(0, n_win, B):
                     wins = self._windows(pre, staged.buf, med, (w0 + arange_b) * L)
-                    with record_function("serve::decode"):
-                        dec = decode_heatmaps(wins.reshape(B * L, self.h, self.w))
-                    rows.append(_pack(dec)[: min(B, n_win - w0) * L])
+                    rows.append(self._decode_all(wins)[: min(B, n_win - w0) * L])
                 arr = torch.cat(rows).cpu().numpy()[:T]
                 return self._rows_to_pred(arr, img_scaler)
 
@@ -232,6 +453,246 @@ class TrackNetPredictor:
             "Y": [int(v) for v in (arr[:, 1] * h_s).astype(np.int64)],
             "Visibility": [int(v) for v in arr[:, 2]],
         }
+
+    def _collect_packed(self, results: Sequence[Tuple[torch.Tensor, int]], total_frames: int,
+                        img_scaler) -> Dict[str, list]:
+        """Each chunk's first ``n_valid`` packed rows, in order, fetched in
+        one copy; at most ``total_frames`` of them."""
+        if not results:
+            return self._rows_to_pred(np.zeros((0, 3), np.int32), img_scaler)
+        rows = torch.cat([packed[:n_valid] for packed, n_valid in results])
+        return self._rows_to_pred(rows.cpu().numpy()[:total_frames], img_scaler)
+
+    # ---------------------------------------- resident raw frames (device resize)
+
+    def stage_resident(self, frames: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """Put a whole raw video (T, H0, W0, 3) uint8 on the card once,
+        padded for the chunks: L-1 copies of frame 0, the frames, then
+        copies of the last frame up to the last overlap chunk's span. One
+        non-blocking copy from pinned memory into the middle of the buffer
+        (the JAX package's ``upload_frames`` + ``build_resident``, there
+        called ``stage_frames``; without its 256-frame bucket). Returns the
+        buffer and T."""
+        frames = np.ascontiguousarray(frames)
+        if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"need (T, H, W, 3) uint8 frames, got {frames.dtype} {frames.shape}")
+        T = int(frames.shape[0])
+        if T == 0:
+            raise ValueError("no frames to stage: the video yielded zero frames")
+        L, B = self.seq_len, self.batch_size
+        total = (L - 1) + -(-T // B) * B + (L - 1)
+        buf = torch.empty((total,) + frames.shape[1:], dtype=torch.uint8, device=self.device)
+        host = torch.from_numpy(frames)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        buf[L - 1 : L - 1 + T].copy_(host, non_blocking=True)
+        buf[: L - 1] = buf[L - 1]
+        buf[L - 1 + T :] = buf[L - 2 + T]
+        return buf, T
+
+    def median_of_resident(self, all_frames: torch.Tensor, T: int,
+                           max_sample_num: Optional[int] = None) -> torch.Tensor:
+        """Median background of the resident buffer's frames, on the card:
+        all of them by default (the reference's in-memory path), capped at
+        1024 frames at a stride of T // k. (H0, W0, 3) float32."""
+        L = self.seq_len
+        k = T if max_sample_num is None else min(int(max_sample_num), T)
+        k = min(k, 1024)
+        step = max(T // k, 1)
+        idx = torch.arange(L - 1, L - 1 + T, step, device=all_frames.device)[:k]
+        return median_of_u8_stack(all_frames[idx])
+
+    def run_resident(self, all_frames: torch.Tensor, T: int, median=None,
+                     img_scaler: Tuple[float, float] = (1.0, 1.0)) -> Dict[str, list]:
+        """Every chunk against a resident buffer (both eval modes); the
+        packed rows stay on the card until one fetch."""
+        L, B = self.seq_len, self.batch_size
+        med = (torch.as_tensor(median, dtype=torch.float32).to(self.device)
+               if median is not None else None)
+        results = []
+        with torch.inference_mode():
+            if self.eval_mode == "nonoverlap":
+                n_win = -(-T // L)
+                for w0 in range(0, n_win, B):
+                    packed = self._nonoverlap_step_resident(all_frames, med, w0, T)
+                    results.append((packed, min(B, n_win - w0) * L))
+            else:
+                S = max(T - L + 1, 1)
+                for t0 in range(0, T, B):
+                    packed = self._overlap_step_resident(all_frames, med, t0, S)
+                    results.append((packed, min(B, T - t0)))
+            return self._collect_packed(results, T, img_scaler)
+
+    def predict_frames(
+        self,
+        frames: np.ndarray,
+        median: Optional[np.ndarray] = None,
+        img_scaler: Tuple[float, float] = (1.0, 1.0),
+        max_sample_num: Optional[int] = None,
+    ) -> Dict[str, list]:
+        """TrackNet over in-memory raw RGB uint8 frames (T, H0, W0, 3),
+        resized on the card with PIL's bicubic: ``stage_resident``, the
+        median on the card where ``bg_mode`` needs one and none is given,
+        then ``run_resident``."""
+        all_frames, T = self.stage_resident(frames)
+        if median is None and self.bg_mode:
+            median = self.median_of_resident(all_frames, T, max_sample_num)
+        return self.run_resident(all_frames, T, median, img_scaler)
+
+    # ------------------------------------------------------------ streaming
+
+    def _host_stack(self, frames: Sequence[np.ndarray]) -> torch.Tensor:
+        """Stack frames in one copy, into pinned memory when serving on the
+        card (the producer thread does this, ahead of the chunk)."""
+        out = torch.empty((len(frames),) + frames[0].shape, dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        dst = out.numpy()
+        for j, f in enumerate(frames):
+            dst[j] = f
+        return out
+
+    def _window_chunks(self, read: Callable[[], object], T: int) -> Iterator:
+        """Read items (frames) in order and yield each chunk's as
+        ``(items, t0, n_valid)``. ``nonoverlap``: B*L items (the last chunk
+        padded by repeats of its last item), ``t0`` None. Overlap: global
+        frames [t0-L+1, t0+B+L-1) clipped into the video. Stops gracefully
+        where the container counted more frames than decode."""
+        L, B = self.seq_len, self.batch_size
+        buf: list = []
+        if self.eval_mode == "nonoverlap":
+            total = -(-T // L) * L
+            emitted = 0
+            while emitted < total:
+                while len(buf) < B * L:
+                    item = read()
+                    if item is None:
+                        break
+                    buf.append(item)
+                if not buf:
+                    break
+                valid = min(len(buf), total - emitted)
+                chunk = buf[: B * L]
+                yield chunk + [chunk[-1]] * (B * L - len(chunk)), None, valid
+                emitted += B * L
+                buf = buf[B * L :]
+            return
+        base = 0  # global index of buf[0]
+        for t0 in range(0, T, B):
+            hi = min(t0 + B + L - 1, T)
+            while base + len(buf) < hi:
+                item = read()
+                if item is None:
+                    break
+                buf.append(item)
+            lo = max(t0 - L + 1, 0)
+            if lo > base:  # drop frames before t0-L+1
+                buf = buf[lo - base :]
+                base = lo
+            if not buf:
+                break
+            idx = np.clip(np.arange(t0 - L + 1, t0 + B + L - 1) - base, 0, len(buf) - 1)
+            yield [buf[i] for i in idx], t0, min(B, T - t0)
+
+    def _run_pipeline(self, chunks: Iterator, total_frames: int, img_scaler, step,
+                      what: str) -> Dict[str, list]:
+        """Drive ``step(*tensors, t0)`` over chunks of host tensors that a
+        producer thread makes ``PREFETCH_CHUNKS`` ahead; each tensor goes to
+        the card with a non-blocking copy; the rows are fetched once."""
+        results = []
+        with torch.inference_mode(), contextlib.closing(_prefetched(chunks, what)) as items:
+            for *host, t0, n_valid in items:
+                dev = [t.to(self.device, non_blocking=True) if t is not None else None
+                       for t in host]
+                results.append((step(*dev, t0), n_valid))
+            return self._collect_packed(results, total_frames, img_scaler)
+
+    def predict_video_streaming(
+        self,
+        video_file: str,
+        max_sample_num: int = 1800,
+        video_range: Optional[Tuple[int, int]] = None,
+        median: Optional[np.ndarray] = None,
+        host_resize: bool = True,
+    ) -> Dict[str, list]:
+        """TrackNet over a video streamed from its file in bounded memory
+        (``--large_video``). The median background (``bg_mode`` needs one)
+        comes from at most ``max_sample_num`` frames sampled over
+        ``video_range`` seconds (``VideoReader.sample_median``, on the
+        card). With ``host_resize`` the frames are resized on the host
+        (``_streaming_host_resize``, cv2); without, raw frames go to the
+        card and are resized there (``_overlap_step`` /
+        ``_nonoverlap_step``). A decode error raises ``RuntimeError``."""
+        reader = open_video(video_file)
+        try:
+            img_scaler = (reader.w / self.w, reader.h / self.h)
+            if median is None and self.bg_mode:
+                median = reader.sample_median(max_sample_num, video_range, device=self.device)
+            if host_resize:
+                return self._streaming_host_resize(reader, median, img_scaler)
+            T = reader.video_len
+
+            def chunks():
+                reader.seek(0)
+                for frames, t0, n_valid in self._window_chunks(reader.read, T):
+                    yield self._host_stack(frames), t0, n_valid
+
+            med = (torch.as_tensor(median, dtype=torch.float32).to(self.device)
+                   if median is not None else None)
+            S = max(T - self.seq_len + 1, 1)
+            if self.eval_mode == "nonoverlap":
+                step = lambda frames, t0: self._nonoverlap_step(frames, med)  # noqa: E731
+            else:
+                step = lambda frames, t0: self._overlap_step(frames, med, t0, S)  # noqa: E731
+            return self._run_pipeline(chunks(), T, img_scaler, step,
+                                      f"video decode failed mid-stream: {video_file}")
+        finally:
+            reader.release()
+
+    def _streaming_host_resize(self, reader, median, img_scaler) -> Dict[str, list]:
+        """Streaming with the resize on the host: each frame resized with
+        cv2 ``INTER_AREA`` (and, for the subtract modes, the mod-256
+        background difference taken at source resolution and resized), the
+        median resized from ``median.astype(uint8)``: the JAX package's
+        cv2 recipe. Only 288x512 uint8 frames cross to the card. The JAX
+        package's native libav branch is not ported (the port has no
+        native decoder)."""
+        cv2 = _require_cv2()
+        T = reader.video_len
+        H, W = self.h, self.w
+        need_diff = self.bg_mode in ("subtract", "subtract_concat")
+        need_rgb = self.bg_mode in ("", "subtract_concat", "concat")
+        med_resized = None
+        if self.bg_mode == "concat":
+            med_resized = torch.from_numpy(cv2.resize(
+                median.astype(np.uint8), (W, H), interpolation=cv2.INTER_AREA)).to(self.device)
+
+        def read_processed():
+            frame = reader.read()
+            if frame is None:
+                return None
+            rgb = cv2.resize(frame, (W, H), interpolation=cv2.INTER_AREA) if need_rgb else None
+            diff = None
+            if need_diff:
+                d = np.sum(np.abs(frame - median), axis=2).astype("uint8")
+                diff = cv2.resize(d, (W, H), interpolation=cv2.INTER_AREA)[..., None]
+            return rgb, diff
+
+        def chunks():
+            reader.seek(0)
+            for items, t0, n_valid in self._window_chunks(read_processed, T):
+                rgb = self._host_stack([i[0] for i in items]) if need_rgb else None
+                diff = self._host_stack([i[1] for i in items]) if need_diff else None
+                yield rgb, diff, t0, n_valid
+
+        S = max(T - self.seq_len + 1, 1)
+        if self.eval_mode == "nonoverlap":
+            step = lambda rgb, diff, t0: self._nonoverlap_step_preresized(  # noqa: E731
+                rgb, diff, med_resized)
+        else:
+            step = lambda rgb, diff, t0: self._overlap_step_preresized(  # noqa: E731
+                rgb, diff, med_resized, t0, S)
+        return self._run_pipeline(chunks(), T, img_scaler, step,
+                                  f"video decode failed mid-stream: {reader.path}")
 
     # ------------------------------------------------------------ InpaintNet
 
@@ -295,6 +756,23 @@ class TrackNetPredictor:
         }
 
 
+def _finish(predictor: TrackNetPredictor, video_file: str, pred: Dict[str, list],
+            src_wh: Tuple[int, int], save_dir: Optional[str], name: Optional[str],
+            output_video: bool, traj_len: int) -> Dict[str, list]:
+    """InpaintNet where a checkpoint is given, then ``{save_dir}/{name}_ball.csv``
+    and, with ``output_video``, ``{save_dir}/{name}.mp4``."""
+    if predictor.inpaintnet is not None:
+        pred = predictor.inpaint_trajectory(pred, src_wh)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        name = name or os.path.splitext(os.path.basename(video_file))[0]
+        write_pred_csv(pred, os.path.join(save_dir, f"{name}_ball.csv"))
+        if output_video:
+            write_pred_video(video_file, pred, os.path.join(save_dir, f"{name}.mp4"),
+                             traj_len=traj_len)
+    return pred
+
+
 def predict_video(
     video_file: str,
     tracknet_file: str,
@@ -311,48 +789,266 @@ def predict_video(
     video_range: Optional[Tuple[int, int]] = None,
     large_video: bool = False,
     output_video: bool = False,
+    traj_len: int = 8,
     device_resize: bool = False,
+    predictor: Optional[TrackNetPredictor] = None,
     native_decode: bool = False,
     num_devices: Optional[int] = None,
     stage_format: str = "bgr",
     bucket_quantum: Optional[int] = None,
     program_cache_dir: Optional[str] = None,
 ) -> Dict[str, list]:
-    """The predict CLI's flow (reference predict.py:71-312): decode the
-    video with cv2 and resize each frame on the host to model resolution
-    (``cv2.INTER_LINEAR``, BGR kept), stage, run TrackNet, InpaintNet where
-    a checkpoint is given, and write ``{save_dir}/{name}_ball.csv``.
+    """The predict CLI's flow (reference predict.py:71-312): TrackNet,
+    InpaintNet where a checkpoint is given, ``{save_dir}/{name}_ball.csv``
+    and, with ``output_video``, the overlay ``{name}.mp4`` (comets of
+    ``traj_len`` frames; cv2).
 
-    As in the JAX package the staged path takes the median over all frames;
-    ``max_sample_num`` only bounds the streaming path's median, which is
-    not ported. ``conv_backend`` is ``TrackNetPredictor``'s. The options
-    after it are the JAX
-    package's and raise ``NotImplementedError`` when set.
+    The frames reach the card one of three ways (the module docstring):
+    staged after a host ``INTER_LINEAR`` resize (the default, median over
+    all frames); ``device_resize``: raw frames resized on the card with
+    PIL's bicubic (``predict_frames``, median over all frames, capped at
+    1024); ``large_video``: streamed with host ``INTER_AREA`` resize
+    (``predict_video_streaming``), its median over at most
+    ``max_sample_num`` frames of ``video_range`` (start, end) seconds,
+    which only this path reads. A video whose model-resolution frames pass
+    ``STAGING_BUDGET_BYTES`` streams too unless ``device_resize`` is set.
+    ``predictor`` reuses a ``TrackNetPredictor`` (the model and eval
+    arguments are then ignored). ``native_decode``, ``num_devices`` > 1,
+    ``stage_format="yuv420"``, ``bucket_quantum`` and
+    ``program_cache_dir`` are the JAX package's and raise
+    ``NotImplementedError``.
     """
-    _refuse_unported(video_range=video_range, large_video=large_video,
-                     output_video=output_video, device_resize=device_resize,
-                     native_decode=native_decode, num_devices=(num_devices or 1) > 1,
+    _refuse_unported(native_decode=native_decode, num_devices=(num_devices or 1) > 1,
                      stage_format_yuv420=stage_format == "yuv420",
                      bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
-    predictor = TrackNetPredictor(
-        tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
-        compute_dtype=compute_dtype, input_hw=input_hw, device=device,
-        conv_backend=conv_backend,
-    )
-    reader = VideoReader(video_file)
+    if predictor is None:
+        predictor = TrackNetPredictor(
+            tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
+            compute_dtype=compute_dtype, input_hw=input_hw, device=device,
+            conv_backend=conv_backend,
+        )
+    reader = open_video(video_file)
     try:
         w, h = reader.w, reader.h
-        if reader.video_len * predictor.h * predictor.w * 3 > 8e9:
-            _refuse_unported(streaming_for_videos_past_the_staging_budget=True)
-        frames = reader.read_resized_bgr(predictor.w, predictor.h)
+        oversized = reader.video_len * predictor.h * predictor.w * 3 > STAGING_BUDGET_BYTES
+        frames = reader.read_all() if device_resize and not large_video else None
     finally:
         reader.release()
-    staged = predictor.stage_frames(frames, bgr=True, src_wh=(w, h))
-    pred = predictor.run_staged(staged, img_scaler=(w / predictor.w, h / predictor.h))
-    if predictor.inpaintnet is not None:
-        pred = predictor.inpaint_trajectory(pred, (w, h))
-    if save_dir:
-        os.makedirs(save_dir, exist_ok=True)
-        name = video_name or os.path.splitext(os.path.basename(video_file))[0]
-        write_pred_csv(pred, os.path.join(save_dir, f"{name}_ball.csv"))
-    return pred
+    img_scaler = (w / predictor.w, h / predictor.h)
+    if frames is not None:
+        pred = predictor.predict_frames(frames, img_scaler=img_scaler)
+    elif large_video or oversized:
+        pred = predictor.predict_video_streaming(video_file, max_sample_num=max_sample_num,
+                                                 video_range=video_range)
+    else:
+        staged = predictor.finalize_staged(predictor.upload_video(video_file))
+        pred = predictor.run_staged(staged, img_scaler=img_scaler)
+    return _finish(predictor, video_file, pred, (w, h), save_dir, video_name, output_video,
+                   traj_len)
+
+
+def predict_videos(
+    video_files: Sequence[str],
+    tracknet_file: str,
+    inpaintnet_file: str = "",
+    eval_mode: str = "weight",
+    batch_size: int = 16,
+    max_sample_num: int = 1800,
+    save_dir: Optional[str] = None,
+    output_video: bool = False,
+    traj_len: int = 8,
+    staging_budget_bytes: float = STAGING_BUDGET_BYTES,
+    input_hw: Optional[Tuple[int, int]] = None,
+    on_error: str = "raise",
+    predictor: Optional[TrackNetPredictor] = None,
+    stats: Optional[dict] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    conv_backend: Optional[str] = None,
+    native_decode: bool = False,
+    num_devices: Optional[int] = None,
+    stage_format: str = "bgr",
+    bucket_quantum: Optional[int] = None,
+    program_cache_dir: Optional[str] = None,
+) -> Dict[str, Dict[str, list]]:
+    """Serve many videos with one model load (the JAX package's
+    ``predict_videos``): returns {video path: prediction dict}; with
+    ``save_dir`` each video also writes ``{name}_ball.csv`` (and, with
+    ``output_video``, ``{name}.mp4``).
+
+    Videos are staged in waves. A producer thread reads each video (host
+    resize) and starts its upload (``upload_video``: pinned memory, the
+    copy stream, an event) while the caller's thread finalizes and serves
+    the wave before. A semaphore keeps at most two waves on the card, so a
+    wave holds half of ``staging_budget_bytes``; a video over half the
+    budget runs alone in a wave that holds both slots, and one over the
+    whole budget streams (``predict_video_streaming``, host resize) after
+    the waves. The port has no bucket padding: a video's bytes are its
+    ``T * h * w * 3`` model-resolution frames, and ``stats["waves"][i]
+    ["buckets"]`` holds real frame counts.
+
+    ``on_error="skip"`` reports a failing video to stderr and drops it
+    (one corrupt file must not stop the rest); ``"raise"``, the default,
+    propagates. ``predictor`` reuses a ``TrackNetPredictor`` (the model and
+    eval arguments are then ignored). ``stats``, a dict, receives
+    ``"waves"`` (``{"videos", "slots", "buckets"}`` in compute order) and
+    ``"streaming"`` (the files that streamed). ``native_decode``,
+    ``num_devices`` > 1, ``stage_format="yuv420"``, ``bucket_quantum`` and
+    ``program_cache_dir`` raise ``NotImplementedError``.
+    """
+    _refuse_unported(native_decode=native_decode, num_devices=(num_devices or 1) > 1,
+                     stage_format_yuv420=stage_format == "yuv420",
+                     bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
+    if on_error not in ("raise", "skip"):
+        raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
+    if predictor is None:
+        predictor = TrackNetPredictor(
+            tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
+            compute_dtype=compute_dtype, input_hw=input_hw, device=device,
+            conv_backend=conv_backend,
+        )
+    if stats is None:
+        stats = {}
+    stats["waves"] = []
+    stats["streaming"] = []
+    frame_bytes = predictor.h * predictor.w * 3
+
+    def finish(f: str, pred: Dict[str, list], src_wh) -> Dict[str, list]:
+        return _finish(predictor, f, pred, src_wh, save_dir, None, output_video, traj_len)
+
+    def guard(f: str, fn):
+        """(fn(), True); under on_error="skip" a failure is reported and
+        gives (None, False)."""
+        if on_error == "raise":
+            return fn(), True
+        try:
+            return fn(), True
+        except Exception as e:  # noqa: BLE001 - one video's failure, reported
+            print(f"warning: skipping {f}: {e}", file=sys.stderr)
+            return None, False
+
+    results: Dict[str, Dict[str, list]] = {}
+    wave_budget = staging_budget_bytes / 2
+    streaming: List[str] = []
+    wave_q: "queue.Queue" = queue.Queue()
+    done = object()
+    inflight = threading.Semaphore(2)  # waves uploaded and not yet served
+    stop = threading.Event()  # the caller's thread has stopped serving
+    producer_err: List[BaseException] = []
+
+    def acquire(n: int) -> bool:
+        """n slots, or False (and none held) once serving has stopped."""
+        got = 0
+        while got < n:
+            if stop.is_set():
+                for _ in range(got):
+                    inflight.release()
+                return False
+            got += inflight.acquire(timeout=0.05)
+        return True
+
+    def producer():
+        wave: List[Tuple[str, UploadedVideo]] = []
+        wave_bytes = 0
+        wave_slots = 0
+
+        def emit():
+            nonlocal wave, wave_bytes, wave_slots
+            if wave:
+                wave_q.put((wave_slots, wave))
+                wave, wave_bytes, wave_slots = [], 0, 0
+
+        def probe(f):
+            reader = open_video(f)
+            try:
+                return reader.video_len
+            finally:
+                reader.release()
+
+        try:
+            for f in video_files:
+                if stop.is_set():
+                    return
+                T, ok = guard(f, lambda f=f: probe(f))
+                if not ok:
+                    continue
+                vid_bytes = max(T, 1) * frame_bytes
+                if vid_bytes > staging_budget_bytes:
+                    streaming.append(f)  # served after the waves
+                    continue
+                solo = vid_bytes > wave_budget
+                if wave and (solo or wave_bytes + vid_bytes > wave_budget):
+                    emit()
+                if not wave:
+                    if not acquire(2 if solo else 1):
+                        return
+                    wave_slots = 2 if solo else 1
+                up, ok = guard(f, lambda f=f: predictor.upload_video(f))
+                if ok:
+                    wave.append((f, up))
+                    wave_bytes += vid_bytes
+                    if solo:
+                        emit()
+                elif not wave:  # the wave's first video failed: give its slots back
+                    for _ in range(wave_slots):
+                        inflight.release()
+                    wave_slots = 0
+            emit()
+        except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
+            producer_err.append(e)
+            for _ in range(wave_slots):
+                inflight.release()
+        finally:
+            wave_q.put(done)
+
+    def serve_wave(slots: int, wave: List[Tuple[str, UploadedVideo]]) -> None:
+        wave_stat = {"videos": [f for f, _ in wave], "slots": slots, "buckets": []}
+        stats["waves"].append(wave_stat)
+        staged_wave = []
+        for k, (f, up) in enumerate(wave):
+            staged, ok = guard(f, lambda up=up: predictor.finalize_staged(up))
+            wave[k] = None  # the pinned host copy goes with it
+            if ok:
+                wave_stat["buckets"].append(staged.T)
+                staged_wave.append((f, staged))
+        for f, staged in staged_wave:
+            pred, ok = guard(f, lambda f=f, staged=staged: finish(
+                f, predictor.run_staged(staged), staged.src_wh))
+            if ok:
+                results[f] = pred
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = wave_q.get()
+            if item is done:
+                break
+            slots, wave = item
+            try:
+                serve_wave(slots, wave)
+            finally:
+                del wave, item  # the wave's buffers go before its slots return
+                for _ in range(slots):
+                    inflight.release()
+    finally:
+        stop.set()
+        thread.join()
+    if producer_err:
+        raise producer_err[0]
+
+    stats["streaming"] = list(streaming)
+    for f in streaming:
+        def stream(f=f):
+            reader = open_video(f)
+            try:
+                src_wh = (reader.w, reader.h)
+            finally:
+                reader.release()
+            return finish(f, predictor.predict_video_streaming(f, max_sample_num=max_sample_num),
+                          src_wh)
+
+        pred, ok = guard(f, stream)
+        if ok:
+            results[f] = pred
+    return results

@@ -1,22 +1,87 @@
 """Model-input assembly from frame windows (plain torch).
 
 Copies of the JAX package's ``ops/preprocess.py`` functions that the
-training and staged serving paths use, with the same results:
+training and serving paths use, with the same results:
 ``window_channels``, ``gather_windows`` (indices clipped at the last
 frame), ``background_diff`` (the reference's mod-256 wrap),
-``median_of_u8_stack`` (exact ``np.median``) and
+``median_of_u8_stack`` (exact ``np.median``),
 ``make_staged_preprocessor`` (window gather, BGR flip, the four bg modes,
-/255 in float32, then the output dtype).
+/255 in float32, then the output dtype), and the device resize:
+``_pil_bicubic_matrix`` (PIL's antialiased bicubic weights),
+``resize_frames`` (two float32 matrix products, TF32 off) and
+``make_window_preprocessor`` (raw frames resized once, then windowed).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from functools import lru_cache
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..config import HEIGHT, WIDTH
+from ..device import tf32_off
+
 _INV_255 = float(np.float32(1.0 / 255.0))
+
+
+@lru_cache(maxsize=32)
+def _pil_bicubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Dense (n_out, n_in) float32 resampling matrix of PIL's antialiased
+    bicubic resize (Keys kernel a = -0.5, support scaled by the downscale
+    factor, each row normalised): PIL's ``precompute_coeffs`` recipe, as
+    the JAX package's copy builds it, bit for bit."""
+
+    def keys(x, a=-0.5):
+        x = np.abs(x)
+        return np.where(
+            x < 1,
+            ((a + 2) * x - (a + 3)) * x * x + 1,
+            np.where(x < 2, (((x - 5) * x + 8) * x - 4) * a, 0.0),
+        )
+
+    scale = n_in / n_out
+    fscale = max(scale, 1.0)
+    support = 2.0 * fscale
+    M = np.zeros((n_out, n_in), np.float64)
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        xs = np.arange(lo, hi)
+        w = keys((xs + 0.5 - center) / fscale)
+        M[i, lo:hi] = w / w.sum()
+    M = M.astype(np.float32)
+    M.flags.writeable = False  # the cache hands the same array to every caller
+    return M
+
+
+@lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``_pil_bicubic_matrix`` on ``device``, copied there once (a copy from
+    pageable memory on every chunk would stall the host)."""
+    return torch.tensor(_pil_bicubic_matrix(n_in, n_out), device=device)
+
+
+def resize_frames(frames: torch.Tensor, height: int = HEIGHT, width: int = WIDTH) -> torch.Tensor:
+    """Resize (..., H0, W0, C) frames to (..., height, width, C) float32
+    with PIL's antialiased bicubic, clipped to [0, 255], not normalised.
+
+    Two float32 matrix products in the JAX function's order, first over
+    the height, then over the width, with the channel axis moved ahead of
+    (H0, W0). The JAX package asks for ``precision="highest"``; here TF32
+    is off for both products (``tf32_off``): a TF32 resize is off by about
+    a quarter of a grey level at 255.
+    """
+    h0, w0 = frames.shape[-3], frames.shape[-2]
+    rh = _resize_matrix(h0, height, frames.device)  # (height, H0)
+    rw = _resize_matrix(w0, width, frames.device)  # (width, W0)
+    x = frames.movedim(-1, -3).to(torch.float32, memory_format=torch.contiguous_format)
+    with tf32_off():
+        x = torch.matmul(rh, x)  # (..., C, height, W0)
+        x = torch.matmul(x, rw.t())  # (..., C, height, width)
+    return x.clamp_(0.0, 255.0).movedim(-3, -1)
 
 
 def window_channels(
@@ -117,5 +182,40 @@ def make_staged_preprocessor(
         rgb = wins.to(torch.float32) if needs_rgb else None
         out = window_channels(rgb, diffs, med if bg_mode == "concat" else None, bg_mode)
         return out.to(out_dtype) if out_dtype is not None else out
+
+    return run
+
+
+def make_window_preprocessor(
+    bg_mode: str, seq_len: int, hw: Optional[Tuple[int, int]] = None
+) -> Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor], torch.Tensor]:
+    """Build ``run(frames_u8, median_orig, starts)`` -> model input for raw
+    frames at source resolution (the device-resize path).
+
+    ``frames_u8``: (T, H0, W0, 3) uint8 RGB frames covering the windows'
+    span; ``median_orig``: (H0, W0, 3) float32 RGB median (or None where
+    ``bg_mode`` needs none); ``starts``: (B,) window starts relative to
+    ``frames_u8``'s first frame. ``hw`` is the model's (height, width).
+    Every frame of the span is resized once and the windows are gathered
+    from the resized frames. The subtract modes take the background
+    difference at source resolution before the resize (the reference's
+    order); ``concat`` resizes the median. Returns (B, height, width, C_in)
+    float32 in [0, 1].
+    """
+    height, width = hw if hw is not None else (HEIGHT, WIDTH)
+    needs_diff = bg_mode in ("subtract", "subtract_concat")
+    needs_rgb = bg_mode in ("", "subtract_concat", "concat")
+
+    def run(frames_u8, median_orig, starts):
+        rgb = diffs = med_resized = None
+        if needs_rgb:
+            rgb = resize_frames(frames_u8, height, width)
+        if needs_diff:
+            diffs = resize_frames(background_diff(frames_u8, median_orig), height, width)
+        if bg_mode == "concat":
+            med_resized = resize_frames(median_orig, height, width)
+        rgb_w = gather_windows(rgb, starts, seq_len) if rgb is not None else None
+        diff_w = gather_windows(diffs, starts, seq_len) if diffs is not None else None
+        return window_channels(rgb_w, diff_w, med_resized, bg_mode)
 
     return run

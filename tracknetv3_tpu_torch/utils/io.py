@@ -1,7 +1,8 @@
-"""Dataset layout, label and prediction CSVs, video reading (host side).
+"""Dataset layout, label and prediction CSVs, video reading and writing.
 
 Copy of the parts of the JAX package's ``utils/io.py`` that training,
-single-video serving and rally evaluation use.
+serving (one video, streaming, batches, the overlay video) and rally
+evaluation use.
 Dataset layout (the reference's Shuttlecock Trajectory Dataset):
 
     {data_dir}/{split}/match{id}/csv/{rally}_ball.csv          (train/val)
@@ -23,9 +24,13 @@ import csv
 import os
 import re
 import struct
-from typing import Dict, List, Optional, Tuple
+from collections import deque
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..ops.preprocess import median_of_u8_stack
 
 
 def list_dirs(directory: str) -> List[str]:
@@ -146,6 +151,61 @@ class VideoReader:
             return None
         return frame[..., ::-1]  # BGR -> RGB
 
+    def seek(self, frame_idx: int) -> None:
+        self.cap.set(_require_cv2().CAP_PROP_POS_FRAMES, frame_idx)
+
+    def read_all(self) -> np.ndarray:
+        """Every frame from the start: (T, h, w, 3) RGB uint8."""
+        self.seek(0)
+        frames = []
+        while True:
+            f = self.read()
+            if f is None:
+                break
+            frames.append(f)
+        return np.stack(frames) if frames else np.zeros((0, self.h, self.w, 3), np.uint8)
+
+    def sample_median(
+        self,
+        max_sample_num: int = 1800,
+        video_range: Optional[Tuple[int, int]] = None,
+        device=None,
+    ) -> np.ndarray:
+        """Median background of frames sampled at a uniform stride
+        (reference dataset.py:748-781): (h, w, 3) float32 RGB.
+
+        ``video_range`` is (start, end) in seconds; frames that do not
+        decode are skipped. The frames are those the JAX package's reader
+        samples and the values its ``np.median`` gives; the median itself
+        is the exact ``median_of_u8_stack`` over the uint8 frames on
+        ``device`` (the CPU by default), which at 720p is seconds faster
+        than ``np.median`` on the host.
+        """
+        if video_range is None:
+            start, end = 0, self.video_len
+        else:
+            start = max(0, int(video_range[0] * self.fps))
+            end = min(int(video_range[1] * self.fps), self.video_len)
+        seg = end - start
+        step = seg // max_sample_num if seg > max_sample_num else 1
+        frames = []
+        for i in range(start, end, max(step, 1)):
+            self.seek(i)
+            f = self.read()
+            if f is None:
+                # one bad frame mid-video should not bias the median toward
+                # the clip's start: skip it and keep sampling
+                continue
+            frames.append(f)
+        if not frames:
+            raise ValueError(
+                f"no frames decodable for the median background "
+                f"(video_len={self.video_len}, range={video_range}) - "
+                f"corrupt video or a range outside the clip?"
+            )
+        stack = torch.from_numpy(np.stack(frames)).to(device or "cpu")
+        return median_of_u8_stack(stack).cpu().numpy()
+
     def read_resized_bgr(self, width: int, height: int) -> np.ndarray:
         """Decode every frame from the start, resized to (height, width) with
         ``cv2.INTER_LINEAR`` and kept in BGR: the JAX package's cv2 staging
@@ -163,3 +223,61 @@ class VideoReader:
 
     def release(self) -> None:
         self.cap.release()
+
+
+def draw_traj_comet(
+    frame_bgr: np.ndarray, traj: Sequence[Optional[Tuple[int, int]]], color=(0, 255, 255)
+) -> np.ndarray:
+    """Draw the trailing-comet trajectory dots (reference general.py:227-250)."""
+    cv2 = _require_cv2()
+    for p in traj:
+        if p is not None:
+            cv2.circle(frame_bgr, (int(p[0]), int(p[1])), 3, (255, 255, 255), -1)
+            cv2.circle(frame_bgr, (int(p[0]), int(p[1])), 3, color, 1)
+    return frame_bgr
+
+
+def write_pred_video(
+    video_file: str,
+    pred_dict: Dict,
+    save_file: str,
+    traj_len: int = 8,
+    label: Optional[Mapping[str, Sequence]] = None,
+) -> None:
+    """Overlay the predicted (and, given ``label``, the labelled)
+    trajectory on the video as an mp4v file (reference contract:
+    general.py:252-320). ``label`` holds the label CSV's ``Visibility``,
+    ``X`` and ``Y`` columns (the JAX package takes a pandas frame; the
+    card's machine has no pandas). Needs cv2."""
+    cv2 = _require_cv2()
+    cap = cv2.VideoCapture(video_file)
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    out = cv2.VideoWriter(save_file, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+
+    x_pred, y_pred, vis_pred = pred_dict["X"], pred_dict["Y"], pred_dict["Visibility"]
+    pred_q: deque = deque()
+    gt_q: deque = deque()
+    i = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok or i >= len(x_pred):
+            break
+        if len(pred_q) >= traj_len:
+            pred_q.pop()
+        if label is not None and len(gt_q) >= traj_len:
+            gt_q.pop()
+        if label is not None:
+            if i < len(label["Visibility"]) and label["Visibility"][i]:
+                gt_q.appendleft((label["X"][i], label["Y"][i]))
+            else:
+                gt_q.appendleft(None)
+        pred_q.appendleft((x_pred[i], y_pred[i]) if vis_pred[i] else None)
+        if label is not None:
+            frame = draw_traj_comet(frame, gt_q, color=(0, 0, 255))
+        frame = draw_traj_comet(frame, pred_q, color=(0, 255, 255))
+        out.write(frame)
+        i += 1
+    out.release()
+    cap.release()
