@@ -56,9 +56,10 @@ exits nonzero.
    ``STEP_PARITY_BOUNDS``, which the two wrong backwards must fail;
 7. pool_up_vs_plain: the 2x2 max pool (P6) and nearest-2x upsample (P7)
    kernels vs ``F.max_pool2d`` / ``F.interpolate`` at the serving forward's
-   six shapes at batch 16, bf16 with NaN and -inf entries: bit-exact (max
-   abs error 0, NaN positions equal); median kernel and plain times beside
-   each shape's bytes bound;
+   six shapes at batch 16 and at batch 23 (the B+L-1 windows of the
+   stateless chunks of phase 15), bf16 with NaN and -inf entries:
+   bit-exact (max abs error 0, NaN positions equal); at batch 16 median
+   kernel and plain times beside each shape's bytes bound;
 8. conv_vs_plain: the two 3x3 conv kernels (``k3c``: P1, P2 with the sheet,
    P3 ``full``; ``9tap``: P2 without, P3 ``full-9mm``) against
    ``conv3x3_bias_relu_plain`` at the 11 distinct shapes of the serving
@@ -189,13 +190,16 @@ exits nonzero.
    resize, which a TF32 resize must fail; ``predict_video_streaming``
    without the host resize (cv2) in both modes: rows within 1 px of the
    device-resize rows (the differing ones counted), frames/s, peak memory
-   at 480 and 960 frames within 10%, a reader failing at frame 200 raising
-   ``RuntimeError`` before any CSV; ``predict_videos`` over five videos
-   (480, 300, 97, 33 frames and one failing mid-read) under a budget of
-   two 600-frame waves: the waves, the failing video skipped (raised under
-   ``on_error="raise"``), rows equal to ``predict_video`` on the same
-   predictor, peak memory within two waves, one video and a video's
-   working memory, frames/s against the single calls in sequence.
+   at 480 and 960 frames within 10% (the median over the default
+   ``max_sample_num`` of 1800, so over every frame), the median's seconds
+   and peak over 1800 sampled frames below that peak, a reader failing at
+   frame 200 raising ``RuntimeError`` before any CSV; ``predict_videos``
+   over five videos (480, 300, 97, 33 frames and one failing mid-read)
+   under a budget of two 600-frame waves: the waves, the failing video
+   skipped (raised under ``on_error="raise"``), rows equal to each video
+   served alone on the same predictor, peak memory within two waves, one
+   video and a video's working memory, frames/s against the single calls
+   in sequence.
 
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
@@ -1902,6 +1906,9 @@ HAND_BACKENDS = ("hand_k3c", "hand_9tap")  # the 3x3 convs on the kernels of con
 # NHWC input shape of each pool and upsample call of one forward at batch 16
 POOL_SHAPES = ((16, 288, 512, 64), (16, 144, 256, 128), (16, 72, 128, 256))
 UP_SHAPES = ((16, 36, 64, 512), (16, 72, 128, 256), (16, 144, 256, 128))
+# the stateless overlap steps (device resize, streaming) forward B+L-1 = 23
+# windows a chunk at batch 16: every serving shape is held at that N too
+STATELESS_BATCH = 16 + 8 - 1
 
 
 def _special_bf16(shape, seed: int, dev):
@@ -1945,36 +1952,42 @@ def phase_pool_up():
     totals = {}
     for name, kern, plain, shapes, ratio, ops in kernels:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "bound_by": []}
-        for i, shape in enumerate(shapes):
+        # batch 16 timed; the stateless chunks' N checked untimed
+        cases = [(shape, True) for shape in shapes] + [
+            ((STATELESS_BATCH,) + shape[1:], False) for shape in shapes]
+        for i, (shape, timed) in enumerate(cases):
             # three copies so each timed call reads cold data, as in the forward
-            xs = [_special_bf16(shape, 100 * i + k, dev) for k in range(3)]
+            xs = [_special_bf16(shape, 100 * i + k, dev) for k in range(3 if timed else 1)]
             got, want = kern(xs[0]), plain(xs[0])
             torch.cuda.synchronize()
             same_nan, unequal, err = _bit_compare(got, want)
             layout = got.is_contiguous(memory_format=torch.channels_last)
-            ms = time_launches(lambda j: kern(xs[j % 3]))
-            plain_ms = time_launches(lambda j: plain(xs[j % 3]))
-            n_in = math.prod(shape)
-            n_out = int(n_in * ratio)
-            b_ms, b_by = bound_ms(2 * (n_in + n_out), ops * n_out)
-            emit({"phase": "pool_up_vs_plain", "kernel": name, "shape_NHWC": list(shape),
-                  "nan_positions_equal": same_nan, "unequal": unequal, "max_abs_err": err,
-                  "channels_last_out": layout, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": b_ms, "bound_by": b_by, "mb_moved": 2 * (n_in + n_out) / 1e6},
-                 detail=True)
+            rec = {"phase": "pool_up_vs_plain", "kernel": name, "shape_NHWC": list(shape),
+                   "nan_positions_equal": same_nan, "unequal": unequal, "max_abs_err": err,
+                   "channels_last_out": layout}
+            if timed:
+                ms = time_launches(lambda j: kern(xs[j % 3]))
+                plain_ms = time_launches(lambda j: plain(xs[j % 3]))
+                n_in = math.prod(shape)
+                n_out = int(n_in * ratio)
+                b_ms, b_by = bound_ms(2 * (n_in + n_out), ops * n_out)
+                rec.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "mb_moved": 2 * (n_in + n_out) / 1e6})
+                tot["ms"] += ms
+                tot["plain_ms"] += plain_ms
+                tot["bound_ms"] += b_ms
+                tot["bound_by"].append(b_by)
+            emit(rec, detail=True)
             if not (same_nan and unequal == 0 and err == 0.0 and layout
                     and tuple(got.shape) == tuple(want.shape)):
                 fail("pool_up_vs_plain", f"{name} at {shape}: nan_equal={same_nan} "
                      f"unequal={unequal} err={err} channels_last={layout}")
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bound_ms"] += b_ms
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            tot["bound_by"].append(b_by)
             del xs, got, want
         totals[name] = tot
     emit({"phase": "pool_up_vs_plain", "what": "the three calls of one serving forward at "
-          "batch 16, bf16 with NaN and -inf, ms summed; every shape bit-exact",
+          f"batch 16 (timed, ms summed) and {STATELESS_BATCH} (checked), bf16 with NaN and "
+          "-inf; every shape bit-exact",
           "kernels": {k: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                       for k, v in totals.items()}})
     return totals
@@ -1991,9 +2004,6 @@ CONV_SHAPES = {(288, 512, 27, 64): 1, (288, 512, 64, 64): 2, (288, 512, 192, 64)
                (36, 64, 256, 512): 1, (36, 64, 512, 512): 2}
 CONV_LAYERS = sum(CONV_SHAPES.values())
 CONV_BATCH = 16
-# the stateless overlap steps (device resize, streaming) forward B+L-1 = 23
-# windows a chunk at batch 16: every serving shape is held at that N too
-CONV_STATELESS_BATCH = 16 + 8 - 1
 # N, H, W, Ci, Co where no tile divides H or W: BN = 128, and BN = 64 (the 9tap
 # kernel's M = 256 tile) with a partial last input-channel chunk
 CONV_ODD_SHAPES = ((3, 37, 61, 96, 128), (3, 37, 61, 40, 64))
@@ -2211,7 +2221,7 @@ def phase_conv():
         bound_by[r["bound_by"]] += layers * r["bound_ms"]
         torch.cuda.empty_cache()
     for i, (H, W, Ci, Co) in enumerate(CONV_SHAPES):
-        checked.append(_conv_check_shape(c3, (CONV_STATELESS_BATCH, H, W, Ci, Co), 70 + i, dev,
+        checked.append(_conv_check_shape(c3, (STATELESS_BATCH, H, W, Ci, Co), 70 + i, dev,
                                          timed=False))
         torch.cuda.empty_cache()
     for i, shape in enumerate(CONV_ODD_SHAPES):
@@ -2694,7 +2704,7 @@ RESIZE_BOUND = 2e-3
 BATCH_VIDEOS = (("b480", 480, None), ("b300", 300, None), ("bbad", 200, 100),
                 ("b97", 97, None), ("b33", 33, None))
 BATCH_WAVE_FRAMES = 600
-STREAM_MEMORY_SAMPLES = 240  # the median's frames in the bounded-memory runs
+MEDIAN_SAMPLES = 1800  # VideoReader.sample_frames' default max_sample_num
 
 
 class _Scene:
@@ -2731,7 +2741,7 @@ def synthetic_reader(videos: dict):
     has no decoder. ``read_resized_bgr`` draws at the asked size (the
     staged path's frames); a read of the failing frame raises, except right
     after a seek (the median's sampling reads it). ``read_all`` and
-    ``sample_median`` are the port's own."""
+    ``sample_frames`` are the port's own."""
     from tracknetv3_tpu_torch.utils.io import VideoReader
 
     class SyntheticReader(VideoReader):
@@ -2888,8 +2898,10 @@ def phase_serve_paths(tmp: str, card: str) -> dict:
                     param_dict={"model_name": "InpaintNet", "seq_len": 16})
     scene = _Scene(seed=21)
     src, failing = f"synthetic://720p_{PATHS_T}.mp4", "synthetic://720p_failing.mp4"
+    long = f"synthetic://720p_{MEDIAN_SAMPLES}.mp4"  # the median at its default sample count
     videos = {src: (PATHS_T, scene, None),
               f"synthetic://720p_{2 * PATHS_T}.mp4": (2 * PATHS_T, scene, None),
+              long: (MEDIAN_SAMPLES, scene, None),
               failing: (PATHS_T, scene, PATHS_T * 5 // 12)}  # 200 of 480
     batch = [f"synthetic://{name}.mp4" for name, _, _ in BATCH_VIDEOS]
     videos.update({f: (T, _Scene(seed=40 + i), fail)
@@ -2912,13 +2924,13 @@ def phase_serve_paths(tmp: str, card: str) -> dict:
         draw_s = time.perf_counter() - t0
         tn_rows = {}
         for mode in PATHS_MODES:
-            p = tinf.TrackNetPredictor(tn, inp, eval_mode=mode, batch_size=PATHS_BATCH,
-                                       device=DEVICE)  # bf16, hand_9tap
             t0 = time.perf_counter()
             pred, launches = run_counted(lambda: tinf.predict_video(
-                src, tn, device_resize=True, predictor=p, save_dir=out_dir,
-                video_name=f"device_resize_{mode}"))
-            entry_s = time.perf_counter() - t0  # the first call: cold pinned memory
+                src, tn, inp, eval_mode=mode, batch_size=PATHS_BATCH, device=DEVICE,
+                device_resize=True, save_dir=out_dir, video_name=f"device_resize_{mode}"))
+            entry_s = time.perf_counter() - t0  # the first call: the model load, cold memory
+            p = tinf.TrackNetPredictor(tn, inp, eval_mode=mode, batch_size=PATHS_BATCH,
+                                       device=DEVICE)  # bf16, hand_9tap, as predict_video's
             chunks = _chunks_of(PATHS_T, mode)
             with open(os.path.join(out_dir, f"device_resize_{mode}_ball.csv")) as f:
                 n_rows = sum(1 for _ in f) - 1
@@ -2981,28 +2993,44 @@ def phase_serve_paths(tmp: str, card: str) -> dict:
 
         # ---- 2. streaming (raw frames resized on the card; the kernels are warm)
         t0 = time.perf_counter()
-        tinf.open_video(src).sample_median(device=dev)
+        sampled = tinf.open_video(src).sample_frames()
+        t1 = time.perf_counter()
+        preprocess.median_of_host_frames(sampled, dev)
         torch.cuda.synchronize()
-        median_s = time.perf_counter() - t0  # of each streaming run below
+        median_s = {"sampling_s": t1 - t0, "median_s": time.perf_counter() - t1}  # a 480 run's
+        del sampled
+        sampled = tinf.open_video(long).sample_frames()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        preprocess.median_of_host_frames(sampled, dev)
+        torch.cuda.synchronize()
+        median_1800 = {"frames": len(sampled), "median_s": time.perf_counter() - t0,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
+                       "host_bytes": sampled.nbytes}
+        del sampled
         for mode in PATHS_MODES:
             p = tinf.TrackNetPredictor(tn, eval_mode=mode, batch_size=PATHS_BATCH,
                                        device=DEVICE)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             pred, launches = run_counted(lambda: p.predict_video_streaming(src, host_resize=False))
             stream_s = time.perf_counter() - t0
+            # the bounded-memory contract: this run's peak beside a 960-frame run's
+            peaks = {PATHS_T: torch.cuda.max_memory_allocated()} if mode == "weight" else {}
             chunks = _chunks_of(PATHS_T, mode)
             want = _rows(tn_rows[mode])
             got = _rows(pred)
             differ = [t for t in range(PATHS_T) if got[t] != want[t]]
             over_1px = [t for t in differ if abs(got[t][0] - want[t][0]) > 1
                         or abs(got[t][1] - want[t][1]) > 1 or got[t][2] != want[t][2]]
-            peaks = {}
-            for T in (PATHS_T, 2 * PATHS_T) if mode == "weight" else ():
+            for T in (2 * PATHS_T,) if peaks else ():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                n = len(p.predict_video_streaming(f"synthetic://720p_{T}.mp4", host_resize=False,
-                                                  max_sample_num=STREAM_MEMORY_SAMPLES)["Frame"])
+                n = len(p.predict_video_streaming(f"synthetic://720p_{T}.mp4",
+                                                  host_resize=False)["Frame"])
                 peaks[T] = torch.cuda.max_memory_allocated()
                 if n != T:
                     fail("serve_paths", f"streaming {mode}: {n} rows of {T} frames")
@@ -3015,13 +3043,15 @@ def phase_serve_paths(tmp: str, card: str) -> dict:
             res = {"phase": "serve_paths", "case": "streaming", "eval_mode": mode,
                    "host_resize": False, "decode": decode, "frames": PATHS_T, "chunks": chunks,
                    "launches": launches, "frames_per_s": PATHS_T / stream_s, "seconds": stream_s,
-                   "of_which_sample_median_s": median_s,
+                   "of_which_median": median_s,
                    "rows_differ_from_device_resize": len(differ),
                    "differ_by_more_than_1px": len(over_1px), "first_differ": differ[:5],
                    "peak_mem_bytes_by_frames": peaks,
                    "peak_ratio_960_to_480": (peaks[2 * PATHS_T] / peaks[PATHS_T]
                                              if peaks else None),
-                   "median_samples_in_memory_runs": STREAM_MEMORY_SAMPLES,
+                   "median_samples_in_memory_runs": "every frame (max_sample_num "
+                                                    f"{MEDIAN_SAMPLES})",
+                   "median_over_1800_samples": median_1800,
                    "failing_reader": failed, "csv_written": os.path.exists(csv_path),
                    "host_resize_variant": "needs cv2: held on the CPU only "
                                           "(tests/test_torch_streaming.py)", "card": card}
@@ -3034,6 +3064,9 @@ def phase_serve_paths(tmp: str, card: str) -> dict:
                      "device_resize rows by more than 1 px")
             if peaks and not 0.9 <= res["peak_ratio_960_to_480"] <= 1.1:
                 fail("serve_paths", f"streaming {mode}: peak memory grows with the video: {peaks}")
+            if peaks and median_1800["peak_mem_bytes"] >= peaks[PATHS_T]:
+                fail("serve_paths", f"streaming {mode}: the median over {MEDIAN_SAMPLES} frames "
+                     f"takes {median_1800['peak_mem_bytes']} B, not below the stream's peak")
             if failed is None or res["csv_written"]:
                 fail("serve_paths", f"streaming {mode}: a reader failing at frame 200 gave "
                      f"{failed!r}, CSV written: {res['csv_written']}")
@@ -3045,14 +3078,14 @@ def phase_serve_paths(tmp: str, card: str) -> dict:
         fb = H * W * 3
         budget = 2 * BATCH_WAVE_FRAMES * fb
         good = [f for f, (_, _, fail_at) in zip(batch, BATCH_VIDEOS) if fail_at is None]
-        tinf.predict_video(good[-1], tn, predictor=p)  # warm-up
+        tinf.predict_videos([good[-1]], tn, predictor=p)  # warm-up
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         single, single_s, single_peak = {}, 0.0, 0
         for f in good:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            single[f] = tinf.predict_video(f, tn, predictor=p)
+            single[f] = tinf.predict_videos([f], tn, predictor=p)[f]
             single_s += time.perf_counter() - t0
             single_peak = max(single_peak, torch.cuda.max_memory_allocated() - base
                               - videos[f][0] * fb)

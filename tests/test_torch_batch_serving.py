@@ -25,7 +25,7 @@ torch.set_num_threads(1)  # the suite's workers share a few cores
 
 import tracknetv3_tpu.inference as jinf  # noqa: E402
 from tests.torch_serving_data import (  # noqa: E402
-    H, W, csv_text, detecting_checkpoint, inpaint_checkpoint, jax_predictor,
+    H, PORT_ARGS, W, csv_text, detecting_checkpoint, inpaint_checkpoint, jax_predictor,
     port_predictor, visible, write_clip,
 )
 from tracknetv3_tpu_torch import inference as tinf  # noqa: E402
@@ -44,8 +44,9 @@ def data(tmp_path_factory):
     return clips, tn, inpaint_checkpoint(str(d / "inp.pt")), bad
 
 
-def _single(p, clips):
-    return {f: tinf.predict_video(f, "", predictor=p) for f in clips}
+def _single(clips, tn, inp=""):
+    """Each clip served alone by ``predict_video``."""
+    return {f: tinf.predict_video(f, tn, inp, **PORT_ARGS) for f in clips}
 
 
 def test_predict_videos_matches_single_and_jax(data, tmp_path):
@@ -53,7 +54,7 @@ def test_predict_videos_matches_single_and_jax(data, tmp_path):
     files = [clips[10], clips[17]]
     p = port_predictor(tn, inp=inp)
     got = tinf.predict_videos(files, "", predictor=p, save_dir=str(tmp_path / "port"))
-    assert got == _single(p, files)
+    assert got == _single(files, tn, inp)
     want = jinf.predict_videos(files, "", predictor=jax_predictor(tn, inp=inp),
                                save_dir=str(tmp_path / "jax"))
     assert got == want
@@ -81,7 +82,7 @@ def test_predict_videos_wave_accounting_and_reuse(data):
     clips, tn, _, _ = data
     files = [clips[10], clips[17], clips[9], clips[20]]
     p = port_predictor(tn)
-    want = _single(p, files)
+    want = _single(files, tn)
     stats = {}
     got = tinf.predict_videos(files, "", predictor=p, staging_budget_bytes=2 * 48 * FB,
                               stats=stats)

@@ -6,7 +6,9 @@ on the CPU, both at float32 with cv2 decode (``tests/torch_serving_data.py``):
   resized on the device), in ``weight`` and ``nonoverlap``; ``subtract``
   (the mod-256 difference at source resolution) both ways;
 - ``VideoReader.sample_median``: the JAX reader's values, over the whole
-  clip and over a ``video_range`` of seconds at a sampling stride;
+  clip and over a ``video_range`` of seconds at a sampling stride, and so
+  does the streaming path's median of ``sample_frames`` taken in slabs of
+  rows (``median_of_host_frames``);
 - ``predict_video(large_video=True, video_range=...)``: the JAX CSV, byte
   for byte;
 - a reader that fails mid-stream raises ``RuntimeError`` and no CSV is
@@ -30,10 +32,11 @@ torch.set_num_threads(1)  # the suite's workers share a few cores
 
 import tracknetv3_tpu.inference as jinf  # noqa: E402
 from tests.torch_serving_data import (  # noqa: E402
-    B, H, JAX_F32, W, csv_text, detecting_checkpoint, jax_predictor, port_predictor,
+    B, H, JAX_F32, PORT_ARGS, W, csv_text, detecting_checkpoint, jax_predictor, port_predictor,
     visible, write_clip,
 )
 from tracknetv3_tpu_torch import inference as tinf  # noqa: E402
+from tracknetv3_tpu_torch.ops import preprocess as tpre  # noqa: E402
 from tracknetv3_tpu_torch.utils.io import VideoReader  # noqa: E402
 
 T = 21
@@ -66,17 +69,23 @@ def test_predict_video_streaming_matches_jax(data, bg_mode, eval_mode, host_resi
 
 
 @pytest.mark.parametrize("max_sample_num,video_range", [(1800, None), (4, (1, 2)), (3, (0, 9))])
-def test_sample_median_matches_jax(data, max_sample_num, video_range):
+def test_sample_median_matches_jax(data, monkeypatch, max_sample_num, video_range):
     clip, _ = data
     jr, tr = jinf.VideoReader(clip), VideoReader(clip)
     try:
         want = jr.sample_median(max_sample_num, video_range)
         got = tr.sample_median(max_sample_num, video_range)
+        frames = tr.sample_frames(max_sample_num, video_range)
     finally:
         jr.release()
         tr.release()
     assert got.dtype == np.float32 and got.shape == (2 * H, 2 * W, 3)
     np.testing.assert_array_equal(got, want)
+    # 5 rows a slab: 13 slabs of the 64 rows, the last one short
+    monkeypatch.setattr(tpre, "MEDIAN_SLAB_BYTES", 5 * frames[:, 0].nbytes)
+    slabs = tpre.median_of_host_frames(frames, torch.device("cpu"))
+    assert slabs.dtype == np.float32
+    np.testing.assert_array_equal(slabs, want)
 
 
 def test_predict_video_large_video_csv_matches_jax(data, tmp_path, monkeypatch):
@@ -118,8 +127,8 @@ def test_failing_reader_raises_and_writes_no_csv(data, tmp_path, monkeypatch, ho
         p.predict_video_streaming(clip, host_resize=host_resize)
     assert isinstance(e.value.__cause__, OSError)
     with pytest.raises(RuntimeError, match="video decode failed mid-stream"):
-        tinf.predict_video(clip, tns["concat"], large_video=True, predictor=p,
-                           save_dir=str(tmp_path))
+        tinf.predict_video(clip, tns["concat"], large_video=True, save_dir=str(tmp_path),
+                           **PORT_ARGS)
     assert not os.listdir(tmp_path)
 
 

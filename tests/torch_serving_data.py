@@ -100,6 +100,10 @@ def jax_predictor(tn: str, eval_mode: str = "weight", inp=None, batch_size: int 
                                   native_decode=False, stage_format="bgr")
 
 
+# the port's serving settings here, as ``predict_video`` takes them
+PORT_ARGS = {"batch_size": B, "input_hw": (H, W), "compute_dtype": torch.float32, "device": "cpu"}
+
+
 def port_predictor(tn: str, eval_mode: str = "weight", inp=None, batch_size: int = B):
     return tinf.TrackNetPredictor(tn, inp, eval_mode=eval_mode, batch_size=batch_size,
                                   input_hw=(H, W), compute_dtype=torch.float32, device="cpu")

@@ -71,6 +71,7 @@ from .ops.preprocess import (
     gather_windows,
     make_staged_preprocessor,
     make_window_preprocessor,
+    median_of_host_frames,
     median_of_u8_stack,
     window_channels,
 )
@@ -130,15 +131,18 @@ def _pack(dec: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.stack([dec["cx"], dec["cy"], dec["vis"]], dim=-1).to(torch.int32)
 
 
-def _prefetched(items: Iterator, what: str, depth: int = PREFETCH_CHUNKS) -> Iterator:
+def _prefetched(items: Iterator, what: Optional[str], depth: int = PREFETCH_CHUNKS,
+                stop: Optional[threading.Event] = None) -> Iterator:
     """Yield ``items`` as a producer thread makes them, at most ``depth``
-    ahead. An error of the producer is raised, after the items it made, as
-    ``RuntimeError(what)``: a swallowed one would silently truncate the
-    prediction CSV. Leaving the loop early stops and joins the producer."""
+    ahead. An error of the producer is raised after the items it made: as
+    ``RuntimeError(what)`` where ``what`` is given (a swallowed one would
+    silently truncate the prediction CSV), else as it was. Leaving the loop
+    early sets ``stop``, which ``items`` may poll where it waits, and joins
+    the producer."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     err: List[BaseException] = []
-    stop = threading.Event()
+    stop = stop if stop is not None else threading.Event()
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -171,6 +175,8 @@ def _prefetched(items: Iterator, what: str, depth: int = PREFETCH_CHUNKS) -> Ite
         stop.set()
         thread.join()
     if err:
+        if what is None:
+            raise err[0]
         raise RuntimeError(what) from err[0]
 
 
@@ -617,8 +623,10 @@ class TrackNetPredictor:
         """TrackNet over a video streamed from its file in bounded memory
         (``--large_video``). The median background (``bg_mode`` needs one)
         comes from at most ``max_sample_num`` frames sampled over
-        ``video_range`` seconds (``VideoReader.sample_median``, on the
-        card). With ``host_resize`` the frames are resized on the host
+        ``video_range`` seconds (``VideoReader.sample_frames``), taken on
+        the card one slab of rows at a time (``median_of_host_frames``), so
+        that its device memory does not grow with ``max_sample_num``. With
+        ``host_resize`` the frames are resized on the host
         (``_streaming_host_resize``, cv2); without, raw frames go to the
         card and are resized there (``_overlap_step`` /
         ``_nonoverlap_step``). A decode error raises ``RuntimeError``."""
@@ -626,7 +634,8 @@ class TrackNetPredictor:
         try:
             img_scaler = (reader.w / self.w, reader.h / self.h)
             if median is None and self.bg_mode:
-                median = reader.sample_median(max_sample_num, video_range, device=self.device)
+                median = median_of_host_frames(reader.sample_frames(max_sample_num, video_range),
+                                               self.device)
             if host_resize:
                 return self._streaming_host_resize(reader, median, img_scaler)
             T = reader.video_len
@@ -791,7 +800,6 @@ def predict_video(
     output_video: bool = False,
     traj_len: int = 8,
     device_resize: bool = False,
-    predictor: Optional[TrackNetPredictor] = None,
     native_decode: bool = False,
     num_devices: Optional[int] = None,
     stage_format: str = "bgr",
@@ -812,21 +820,17 @@ def predict_video(
     ``max_sample_num`` frames of ``video_range`` (start, end) seconds,
     which only this path reads. A video whose model-resolution frames pass
     ``STAGING_BUDGET_BYTES`` streams too unless ``device_resize`` is set.
-    ``predictor`` reuses a ``TrackNetPredictor`` (the model and eval
-    arguments are then ignored). ``native_decode``, ``num_devices`` > 1,
-    ``stage_format="yuv420"``, ``bucket_quantum`` and
-    ``program_cache_dir`` are the JAX package's and raise
-    ``NotImplementedError``.
+    ``native_decode``, ``num_devices`` > 1, ``stage_format="yuv420"``,
+    ``bucket_quantum`` and ``program_cache_dir`` are the JAX package's and
+    raise ``NotImplementedError``.
     """
     _refuse_unported(native_decode=native_decode, num_devices=(num_devices or 1) > 1,
                      stage_format_yuv420=stage_format == "yuv420",
                      bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
-    if predictor is None:
-        predictor = TrackNetPredictor(
-            tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
-            compute_dtype=compute_dtype, input_hw=input_hw, device=device,
-            conv_backend=conv_backend,
-        )
+    predictor = TrackNetPredictor(
+        tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
+        compute_dtype=compute_dtype, input_hw=input_hw, device=device, conv_backend=conv_backend,
+    )
     reader = open_video(video_file)
     try:
         w, h = reader.w, reader.h
@@ -930,41 +934,33 @@ def predict_videos(
     results: Dict[str, Dict[str, list]] = {}
     wave_budget = staging_budget_bytes / 2
     streaming: List[str] = []
-    wave_q: "queue.Queue" = queue.Queue()
-    done = object()
     inflight = threading.Semaphore(2)  # waves uploaded and not yet served
     stop = threading.Event()  # the caller's thread has stopped serving
-    producer_err: List[BaseException] = []
 
     def acquire(n: int) -> bool:
         """n slots, or False (and none held) once serving has stopped."""
         got = 0
         while got < n:
             if stop.is_set():
-                for _ in range(got):
-                    inflight.release()
+                if got:
+                    inflight.release(got)
                 return False
             got += inflight.acquire(timeout=0.05)
         return True
 
-    def producer():
+    def probe(f: str) -> int:
+        reader = open_video(f)
+        try:
+            return reader.video_len
+        finally:
+            reader.release()
+
+    def waves() -> Iterator[Tuple[int, List[Tuple[str, UploadedVideo]]]]:
+        """The staged waves in order, as (slots, [(file, upload)]): a wave
+        takes its slots before its first upload, and they pass with it to
+        the caller's thread, which returns them once it has served it."""
         wave: List[Tuple[str, UploadedVideo]] = []
-        wave_bytes = 0
-        wave_slots = 0
-
-        def emit():
-            nonlocal wave, wave_bytes, wave_slots
-            if wave:
-                wave_q.put((wave_slots, wave))
-                wave, wave_bytes, wave_slots = [], 0, 0
-
-        def probe(f):
-            reader = open_video(f)
-            try:
-                return reader.video_len
-            finally:
-                reader.release()
-
+        wave_bytes = slots = 0
         try:
             for f in video_files:
                 if stop.is_set():
@@ -978,28 +974,28 @@ def predict_videos(
                     continue
                 solo = vid_bytes > wave_budget
                 if wave and (solo or wave_bytes + vid_bytes > wave_budget):
-                    emit()
+                    out, wave, wave_bytes, slots = (slots, wave), [], 0, 0
+                    yield out
                 if not wave:
                     if not acquire(2 if solo else 1):
                         return
-                    wave_slots = 2 if solo else 1
+                    slots = 2 if solo else 1
                 up, ok = guard(f, lambda f=f: predictor.upload_video(f))
                 if ok:
                     wave.append((f, up))
                     wave_bytes += vid_bytes
                     if solo:
-                        emit()
+                        out, wave, wave_bytes, slots = (slots, wave), [], 0, 0
+                        yield out
                 elif not wave:  # the wave's first video failed: give its slots back
-                    for _ in range(wave_slots):
-                        inflight.release()
-                    wave_slots = 0
-            emit()
-        except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
-            producer_err.append(e)
-            for _ in range(wave_slots):
-                inflight.release()
+                    inflight.release(slots)
+                    slots = 0
+            if wave:
+                out, slots = (slots, wave), 0
+                yield out
         finally:
-            wave_q.put(done)
+            if slots:  # a wave that was never handed over
+                inflight.release(slots)
 
     def serve_wave(slots: int, wave: List[Tuple[str, UploadedVideo]]) -> None:
         wave_stat = {"videos": [f for f, _ in wave], "slots": slots, "buckets": []}
@@ -1017,25 +1013,13 @@ def predict_videos(
             if ok:
                 results[f] = pred
 
-    thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
-    try:
-        while True:
-            item = wave_q.get()
-            if item is done:
-                break
-            slots, wave = item
+    # a producer thread reads and uploads the next wave while this one is served
+    with contextlib.closing(_prefetched(waves(), None, depth=1, stop=stop)) as staged_waves:
+        for slots, wave in staged_waves:
             try:
                 serve_wave(slots, wave)
             finally:
-                del wave, item  # the wave's buffers go before its slots return
-                for _ in range(slots):
-                    inflight.release()
-    finally:
-        stop.set()
-        thread.join()
-    if producer_err:
-        raise producer_err[0]
+                inflight.release(slots)  # the wave's buffers went in serve_wave
 
     stats["streaming"] = list(streaming)
     for f in streaming:

@@ -4,7 +4,8 @@ Copies of the JAX package's ``ops/preprocess.py`` functions that the
 training and serving paths use, with the same results:
 ``window_channels``, ``gather_windows`` (indices clipped at the last
 frame), ``background_diff`` (the reference's mod-256 wrap),
-``median_of_u8_stack`` (exact ``np.median``),
+``median_of_u8_stack`` (exact ``np.median``; ``median_of_host_frames``
+takes it over a host stack in slabs of image rows),
 ``make_staged_preprocessor`` (window gather, BGR flip, the four bg modes,
 /255 in float32, then the output dtype), and the device resize:
 ``_pil_bicubic_matrix`` (PIL's antialiased bicubic weights),
@@ -154,6 +155,31 @@ def median_of_u8_stack(frames_u8: torch.Tensor) -> torch.Tensor:
 
     med = kth(T // 2 + 1) if T % 2 else (kth(T // 2) + kth(T // 2 + 1)) / 2.0
     return med.reshape(frames_u8.shape[1:])
+
+
+MEDIAN_SLAB_BYTES = 1 << 28  # frame bytes on the device at once in median_of_host_frames
+
+
+def median_of_host_frames(frames: np.ndarray, device: torch.device) -> np.ndarray:
+    """``np.median`` over the leading axis of a host (k, h, w, C) uint8
+    stack, taken with ``median_of_u8_stack`` on ``device`` one slab of
+    image rows at a time: each pixel's median is its own, so the device
+    holds at most ``MEDIAN_SLAB_BYTES`` of frames (and the working copies
+    of one slab) whatever k is. Each slab is gathered into one reused host
+    buffer, pinned for the card. Returns (h, w, C) float32 on the host."""
+    k, h = frames.shape[:2]
+    row = frames[0, 0].size  # elements of one image row of one frame
+    rows = min(h, max(1, MEDIAN_SLAB_BYTES // max(1, k * row)))
+    src = torch.from_numpy(frames)
+    buf = torch.empty(k * rows * row, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    out = np.empty(frames.shape[1:], np.float32)
+    for r in range(0, h, rows):
+        n = min(rows, h - r)
+        slab = buf[: k * n * row].view((k, n) + frames.shape[2:])
+        slab.copy_(src[:, r:r + n])
+        # .cpu() waits for the copy, so the next slab may overwrite the buffer
+        out[r:r + n] = median_of_u8_stack(slab.to(device, non_blocking=True)).cpu().numpy()
+    return out
 
 
 def make_staged_preprocessor(

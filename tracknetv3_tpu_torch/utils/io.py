@@ -28,9 +28,6 @@ from collections import deque
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
-
-from ..ops.preprocess import median_of_u8_stack
 
 
 def list_dirs(directory: str) -> List[str]:
@@ -165,22 +162,15 @@ class VideoReader:
             frames.append(f)
         return np.stack(frames) if frames else np.zeros((0, self.h, self.w, 3), np.uint8)
 
-    def sample_median(
+    def sample_frames(
         self,
         max_sample_num: int = 1800,
         video_range: Optional[Tuple[int, int]] = None,
-        device=None,
     ) -> np.ndarray:
-        """Median background of frames sampled at a uniform stride
-        (reference dataset.py:748-781): (h, w, 3) float32 RGB.
-
-        ``video_range`` is (start, end) in seconds; frames that do not
-        decode are skipped. The frames are those the JAX package's reader
-        samples and the values its ``np.median`` gives; the median itself
-        is the exact ``median_of_u8_stack`` over the uint8 frames on
-        ``device`` (the CPU by default), which at 720p is seconds faster
-        than ``np.median`` on the host.
-        """
+        """The frames the median background is taken over: at most about
+        ``max_sample_num`` at a uniform stride (reference
+        dataset.py:748-781), over ``video_range`` (start, end) seconds;
+        frames that do not decode are skipped. (k, h, w, 3) RGB uint8."""
         if video_range is None:
             start, end = 0, self.video_len
         else:
@@ -203,8 +193,17 @@ class VideoReader:
                 f"(video_len={self.video_len}, range={video_range}) - "
                 f"corrupt video or a range outside the clip?"
             )
-        stack = torch.from_numpy(np.stack(frames)).to(device or "cpu")
-        return median_of_u8_stack(stack).cpu().numpy()
+        return np.stack(frames)
+
+    def sample_median(
+        self,
+        max_sample_num: int = 1800,
+        video_range: Optional[Tuple[int, int]] = None,
+    ) -> np.ndarray:
+        """Median background of ``sample_frames`` on the host, as the JAX
+        package's reader takes it: (h, w, 3) float32 RGB."""
+        return np.median(self.sample_frames(max_sample_num, video_range).astype(np.float32),
+                         axis=0)
 
     def read_resized_bgr(self, width: int, height: int) -> np.ndarray:
         """Decode every frame from the start, resized to (height, width) with
