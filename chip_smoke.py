@@ -85,7 +85,8 @@ exits nonzero.
    to CSV) and peak device memory; then the same through
    ``conv_backend="hand_k3c"`` and ``"hand_9tap"`` at batch 16 and 120 (17
    launches of the conv kernel per chunk forwarded);
-   serve_vs_cpu, after each of these: one more served run, with the
+   serve_vs_cpu, after each of these: one more served run of the video's
+   first 160 frames (``SERVE_REPLAY_T``, a depth cut for time), with the
    trained checkpoint's predictor bias lowered so that its heatmaps hold
    detections (``detecting_checkpoint``), whose chunks' window
    probabilities are copied to the host. Each chunk is held to the
@@ -201,11 +202,31 @@ exits nonzero.
    video and a video's working memory, frames/s against the single calls
    in sequence.
 
+16. yuv_stage (after phase 15): YUV420 staging, the default of the native
+   decoder, which the card's machine lacks (no libav there): first
+   ``yuv420_to_rgb`` on one reader slab (120 seeded frames at 288x512
+   spanning 0..255, so that c < 0 and both clips occur) bit-equal to its
+   CPU run and to the numpy version (``yuv420_to_rgb_np``), ms a slab
+   beside its bytes bound; then a stand-in native reader
+   (``synthetic_native_reader`` at ``inference.open_native_video``: the
+   ``_Scene`` frames drawn at model size, planar YUV420 from them by the
+   BT.601 forward transform with 2x2-averaged chroma; a 1280x720 source)
+   and ``predict_video`` of a 480-frame video at the same width (batch 16,
+   bf16, ``hand_9tap``, InpaintNet seed 17) under ``stage_format="yuv420"``
+   and ``"bgr"``: ``decode_backend``, 17 / 3 / 3 launches a chunk, CSV
+   rows, every visible row within 4 model pixels of the disk, H2D bytes (the
+   YUV420 video half of BGR's), upload s, finalize ms (the conversion and
+   the median), run_fps, e2e_fps (median of 3 after the entry-point call),
+   peak memory; the YUV420 run's staged frames, median and rows equal to a
+   CPU predictor staging the same planes and replaying the card's window
+   probabilities; YUV420 rows within a model pixel of the BGR rows; a forced
+   ``yuv420`` at an odd model width raises, where ``auto`` stages packed BGR.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
 and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
-2 and 15; none prints a kernels line.
+2 and 15, ``--yuv_only`` phases 1, 2 and 16; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -366,8 +387,11 @@ def phase_build(baseline=None):
         sources[mod.SOURCE] = {"kernels": len(used), "max_registers": max(used, default=None),
                                "max_spill_bytes": max(spills, default=0)}
     path = {mod: p for mod, (p, _) in zip(modules, builds)}
-    sass = {"conv3x3": _sass_counts(path[conv3x3], ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")),
-            "shift_copy": _sass_counts(path[shift_copy], BULK_OPCODES)}
+    with ThreadPoolExecutor(2) as pool:  # one cuobjdump per library, both at once
+        sass = dict(zip(("conv3x3", "shift_copy"), pool.map(
+            lambda a: _sass_counts(*a),
+            ((path[conv3x3], ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")),
+             (path[shift_copy], BULK_OPCODES)))))
     emit({"phase": "build", "nvcc": "one process per source, all at once",
           "seconds": round(seconds, 3), "sources": sources,
           **{f"{k}_sass": v for k, v in sass.items()}})
@@ -1890,6 +1914,7 @@ def phase_seg_parity(data_dir: str):
 SERVE_T = 480  # frames of the synthetic video
 # (conv_backend, batch size, frames served): each route at the predict CLI's
 # default batch and bench.py's, over the whole video
+SERVE_REPLAY_T = 160  # frames of serve_vs_cpu's run and CPU replay: depth cut for time
 SERVE_RUNS = (("cudnn", 16, SERVE_T), ("cudnn", 120, SERVE_T), ("hand_k3c", 16, SERVE_T),
               ("hand_k3c", 120, SERVE_T), ("hand_9tap", 16, SERVE_T), ("hand_9tap", 120, SERVE_T))
 # (max, mean) |dp| of the folded forward vs the unfolded TrackNet, on the
@@ -2323,7 +2348,7 @@ def phase_serve(tmp: str):
     frames, centers = synthetic_video(SERVE_T, seed=21)
     torch.backends.cudnn.benchmark = True  # as the predict CLI sets it
     tn_detect = detecting_checkpoint(tn, frames, os.path.join(tmp, "TrackNet_detect.pt"))
-    launches_by = {}
+    launches_by, cpu_staged = {}, {}
     for backend, bs, T in SERVE_RUNS:
         video, track = frames[:T], centers[:T]
         p = TrackNetPredictor(tn, inp, batch_size=bs, device=DEVICE,
@@ -2382,7 +2407,8 @@ def phase_serve(tmp: str):
             fail("serve", f"{backend} batch {bs}: a coordinate lies outside the {W}x{H} frame")
         launches_by[backend, bs] = launches
         del p
-        serve_vs_cpu(tn_detect, inp, video, track, bs, backend)
+        serve_vs_cpu(tn_detect, inp, video[:SERVE_REPLAY_T], track[:SERVE_REPLAY_T], bs,
+                     backend, cpu_staged)
         torch.cuda.empty_cache()
     return launches_by, frames
 
@@ -2451,12 +2477,14 @@ def detecting_checkpoint(tn: str, frames: np.ndarray, path: str) -> str:
 
 
 def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
-                 bs: int, backend: str) -> None:
+                 bs: int, backend: str, cpu_staged: dict) -> None:
     """One more served run on the card (bf16, the kernels) with each
     chunk's window probabilities copied to the host and held to the
     unfolded TrackNet on the same input; then a CPU predictor replays those
     probabilities through its ``run_staged`` and ``inpaint_trajectory``,
-    which must give the card's rows."""
+    which must give the card's rows. The CPU's staged video (its median
+    over every frame) depends on the frames alone: it is made at the first
+    call and kept in ``cpu_staged`` for the others."""
     import torch
 
     from tracknetv3_tpu_torch.inference import TrackNetPredictor
@@ -2487,7 +2515,9 @@ def serve_vs_cpu(tn: str, inp: str, frames: np.ndarray, centers: np.ndarray,
     cpu = TrackNetPredictor(tn, inp, batch_size=bs, device="cpu")
     replay = iter(host_probs)
     cpu._windows = lambda pre, buf, med, starts: next(replay)
-    want = cpu.run_staged(cpu.stage_frames(frames))
+    if T not in cpu_staged:
+        cpu_staged[T] = cpu.stage_frames(frames)
+    want = cpu.run_staged(cpu_staged[T])
     differ = [t for t in range(T) if _row(card, t) != _row(want, t)]
     # InpaintNet over the served rows, and over the disk's drawn track with
     # an occlusion cut into every 40-frame pass (frames 12-15, as in the
@@ -2710,28 +2740,53 @@ MEDIAN_SAMPLES = 1800  # VideoReader.sample_frames' default max_sample_num
 class _Scene:
     """A synthetic rally at any size: a seeded textured background and a
     bright disk (radius 4 at 512 wide, scaled) on a parabolic arc, one
-    40-frame pass after another; the background is drawn once per size."""
+    ``PERIOD``-frame pass after another. The frames repeat with the pass, so
+    each of a pass's frames is drawn once per size and handed out read-only
+    (drawing a 720p frame took 3.5 ms, a copy of it a tenth of that)."""
+
+    PERIOD = 40
 
     def __init__(self, seed: int):
         self.seed = seed
         self._bg = {}
+        self._frames = {}
 
     def center(self, t: int, w: int, h: int):
-        u = (t % 40) / 39
+        u = (t % self.PERIOD) / (self.PERIOD - 1)
         return int(w * 0.1 + w * 0.8 * u), int(h * 0.7 - h * 0.5 * math.sin(math.pi * u))
 
     def frame(self, t: int, w: int, h: int) -> np.ndarray:
-        if (w, h) not in self._bg:
-            rng = np.random.default_rng(self.seed)
-            bg = np.full((h, w, 3), (40, 90, 40), np.int32)
-            self._bg[w, h] = (bg + rng.integers(0, 40, (h, w, 3))).astype(np.uint8)
-        f = self._bg[w, h].copy()
-        r = 4 * w / W
-        x, y = self.center(t, w, h)
-        y0, y1, x0, x1 = int(y - r), int(y + r) + 1, int(x - r), int(x + r) + 1
-        dy, dx = np.mgrid[y0:y1, x0:x1]
-        f[y0:y1, x0:x1][(dy - y) ** 2 + (dx - x) ** 2 <= r * r] = 255
-        return f
+        key = (t % self.PERIOD, w, h)
+        if key not in self._frames:
+            if (w, h) not in self._bg:
+                rng = np.random.default_rng(self.seed)
+                bg = np.full((h, w, 3), (40, 90, 40), np.int32)
+                self._bg[w, h] = (bg + rng.integers(0, 40, (h, w, 3))).astype(np.uint8)
+            f = self._bg[w, h].copy()
+            r = 4 * w / W
+            x, y = self.center(t, w, h)
+            y0, y1, x0, x1 = int(y - r), int(y + r) + 1, int(x - r), int(x + r) + 1
+            dy, dx = np.mgrid[y0:y1, x0:x1]
+            f[y0:y1, x0:x1][(dy - y) ** 2 + (dx - x) ** 2 <= r * r] = 255
+            f.flags.writeable = False
+            self._frames[key] = f
+        return self._frames[key]
+
+    def _derived(self, kind: str, t: int, w: int, h: int, make) -> np.ndarray:
+        key = (kind, t % self.PERIOD, w, h)
+        if key not in self._frames:
+            f = make(self.frame(t, w, h))
+            f.flags.writeable = False
+            self._frames[key] = f
+        return self._frames[key]
+
+    def bgr(self, t: int, w: int, h: int) -> np.ndarray:
+        """``frame`` with its channels reversed, contiguous."""
+        return self._derived("bgr", t, w, h, lambda f: np.ascontiguousarray(f[..., ::-1]))
+
+    def yuv420(self, t: int, w: int, h: int) -> np.ndarray:
+        """``frame`` as a planar YUV420 row (``bt601_yuv420``)."""
+        return self._derived("yuv420", t, w, h, bt601_yuv420)
 
 
 def synthetic_reader(videos: dict):
@@ -2772,7 +2827,7 @@ def synthetic_reader(videos: dict):
             out = np.empty((self.video_len, height, width, 3), np.uint8)
             for t in range(self.video_len):
                 self._check(t)
-                out[t] = self.scene.frame(t, width, height)[..., ::-1]
+                out[t] = self.scene.bgr(t, width, height)
             return out
 
         def release(self) -> None:
@@ -3198,6 +3253,350 @@ def _resize_check(frames) -> None:
     if err_tf32 <= RESIZE_BOUND:
         fail("serve_paths", f"a TF32 resize ({err_tf32} off float64) passes the bound "
              f"{RESIZE_BOUND}")
+
+
+# ---------------------------------------------------------------- YUV420 staging
+
+YUV_T = 480  # frames of yuv_stage's video
+YUV_SLAB = 120  # frames the native reader hands over at once, and the timed conversion's
+YUV_FORMATS = ("yuv420", "bgr")
+YUV_SEED = 31
+YUV_NUMPY_FRAMES = 16  # frames of the slab the numpy version converts too: its time
+
+
+def bt601_yuv420(rgb: np.ndarray) -> np.ndarray:
+    """One (h, w, 3) RGB uint8 frame as a planar YUV420 row (Y[h*w],
+    U[h/2*w/2], V[h/2*w/2]): the BT.601 limited-range forward transform in
+    float64, chroma averaged over 2x2 blocks, rounded: what a decoder's
+    4:2:0 output holds."""
+    f = rgb.astype(np.float64)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + (65.481 * r + 128.553 * g + 24.966 * b) / 255
+    u = 128 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255
+    v = 128 + (112.0 * r - 93.786 * g - 18.214 * b) / 255
+    h, w = y.shape
+
+    def pooled(c):
+        return c.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+
+    return np.concatenate([np.clip(np.rint(p), 0, 255).astype(np.uint8).ravel()
+                           for p in (y, pooled(u), pooled(v))])
+
+
+def yuv420_to_rgb_np(flat: np.ndarray, h: int, w: int) -> np.ndarray:
+    """The plain version of ``ops.preprocess.yuv420_to_rgb`` in numpy int64
+    (``>>`` on negative numbers is numpy's arithmetic shift)."""
+    T, yn, cn = flat.shape[0], h * w, (h // 2) * (w // 2)
+    y = flat[:, :yn].reshape(T, h, w).astype(np.int64)
+
+    def up(a):
+        return np.repeat(np.repeat(flat[:, a:a + cn].reshape(T, h // 2, w // 2).astype(np.int64)
+                                   - 128, 2, axis=1), 2, axis=2)
+
+    c, d, e = 298 * (y - 16) + 128, up(yn), up(yn + cn)
+    rgb = np.stack([(c + 409 * e) >> 8, (c - 100 * d - 208 * e) >> 8, (c + 516 * d) >> 8], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def synthetic_native_reader(videos: dict, opened: list):
+    """``open_native_video`` over the videos of ``videos`` ({path: (frames,
+    scene, unused)}), drawn in memory as ``synthetic_reader`` draws them: a
+    reader with ``NativeVideoReader``'s interface that draws ``_Scene``
+    frames at the asked (model) size and hands out planar YUV420 made from
+    them (``bt601_yuv420``; each frame of a pass made once, ``_Scene``) for
+    ``read_into_yuv``, the drawn BGR (or RGB) for ``read_into``. The source
+    is ``PATHS_SRC``; an odd output size fails at the first YUV read, as
+    the library does. Each reader it opens is appended to ``opened``."""
+
+    class SyntheticNativeReader:
+        def __init__(self, path, out_w, out_h, lowres=0, bgr=True):
+            self.video_len, self.scene, _ = videos[path]
+            self.out_w, self.out_h, self.bgr = out_w, out_h, bgr
+            self.src_w, self.src_h = PATHS_SRC
+            self.n_frames, self.fps, self.applied_lowres = self.video_len, 30.0, 0
+            self.pos = 0
+
+        def _fill(self, out, frame_of) -> int:
+            n = min(len(out), self.video_len - self.pos)
+            for i in range(n):
+                out[i] = frame_of(self.pos + i)
+            self.pos += n
+            return n
+
+        def read_into(self, out) -> int:
+            draw = self.scene.bgr if self.bgr else self.scene.frame
+            return self._fill(out, lambda t: draw(t, self.out_w, self.out_h))
+
+        def read_into_yuv(self, out) -> int:
+            if self.out_w % 2 or self.out_h % 2:
+                raise RuntimeError("native video decode error (yuv420)")
+            return self._fill(out, lambda t: self.scene.yuv420(t, self.out_w, self.out_h))
+
+        def close(self) -> None:
+            pass
+
+    def open_native_video(path, out_w, out_h, lowres=0, bgr=True):
+        if path not in videos:
+            return None
+        opened.append(SyntheticNativeReader(path, out_w, out_h, lowres, bgr))
+        return opened[-1]
+
+    return open_native_video
+
+
+def _yuv_convert_check(card: str) -> dict:
+    """``yuv420_to_rgb`` on the card against its CPU run and the numpy
+    version, on seeded planes at the model size spanning 0..255 (a slab of
+    dark luma under saturated chroma, so that c < 0 and both clips occur),
+    one reader slab (the numpy version over its first ``YUV_NUMPY_FRAMES``,
+    the dark ones among them); ms a slab beside the bytes bound."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops.preprocess import yuv420_to_rgb
+
+    rng = np.random.default_rng(YUV_SEED)
+    flat = rng.integers(0, 256, (YUV_SLAB, H * W * 3 // 2), dtype=np.uint8)
+    flat[:8, : H * W] = rng.integers(0, 16, (8, H * W), dtype=np.uint8)
+    flat[:8, H * W:] = np.where(rng.random((8, H * W // 2)) < 0.5, 0, 255).astype(np.uint8)
+    plain = yuv420_to_rgb_np(flat[:YUV_NUMPY_FRAMES], H, W)
+    cpu = yuv420_to_rgb(torch.from_numpy(flat), H, W).numpy()
+    dev = torch.from_numpy(flat).to(DEVICE)
+    out = torch.empty((YUV_SLAB, H, W, 3), dtype=torch.uint8, device=DEVICE)
+    got = yuv420_to_rgb(dev, H, W, out=out).cpu().numpy()
+    y = flat[:, : H * W].astype(np.int64)
+    ms = time_launches(lambda i: yuv420_to_rgb(dev, H, W, out=out), n=10, windows=5)
+    n_bytes = YUV_SLAB * H * W * 3 // 2 + YUV_SLAB * H * W * 3  # planes read, RGB written
+    bound, by = bound_ms(n_bytes, 0)
+    res = {"phase": "yuv_stage", "case": "yuv420_to_rgb", "frames": YUV_SLAB,
+           "hw": [H, W], "unequal_card_vs_cpu": int((got != cpu).sum()),
+           "unequal_cpu_vs_numpy": int((cpu[:YUV_NUMPY_FRAMES] != plain).sum()),
+           "numpy_frames": YUV_NUMPY_FRAMES,
+           "c_negative": int((298 * (y - 16) + 128 < 0).sum()),
+           "clipped_at_0": int((plain == 0).sum()), "clipped_at_255": int((plain == 255).sum()),
+           "ms": ms, "bytes": n_bytes, "bound_ms": bound, "bound_by": by,
+           "share_of_bound": bound / ms, "card": card}
+    emit(res)
+    if res["unequal_card_vs_cpu"] or res["unequal_cpu_vs_numpy"]:
+        fail("yuv_stage", f"yuv420_to_rgb: card, CPU and numpy differ: {res}")
+    if not (res["c_negative"] and res["clipped_at_0"] and res["clipped_at_255"]):
+        fail("yuv_stage", f"yuv420_to_rgb: the planes miss c < 0 or a clip: {res}")
+    return res
+
+
+def _video_copy_ms(n_bytes: int, fmt: str):
+    """(ms of one pinned host-to-card copy of a staged video's ``n_bytes``,
+    ms of converting the video on the card, or None for BGR): device
+    times of what YUV420 staging saves and what it adds."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops.preprocess import yuv420_to_rgb
+
+    host = torch.zeros(n_bytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n_bytes, dtype=torch.uint8, device=DEVICE)
+    copy_ms = time_launches(lambda i: dev.copy_(host, non_blocking=True), n=3, windows=3)
+    convert_ms = None
+    if fmt == "yuv420":
+        flat = dev.view(-1, H * W * 3 // 2)
+        out = torch.empty((flat.shape[0], H, W, 3), dtype=torch.uint8, device=DEVICE)
+        convert_ms = time_launches(lambda i: yuv420_to_rgb(flat, H, W, out=out), n=3, windows=3)
+    return copy_ms, convert_ms
+
+
+def _replay_yuv(p, tn: str, opened: list, src: str, T: int) -> dict:
+    """One YUV420-staged run of ``src`` (T frames) with each chunk's window
+    probabilities copied to the host; a CPU predictor stages the same
+    planes (read again from the stand-in reader the run opened, the last of
+    ``opened``), converts them and
+    replays the probabilities through its ``run_staged``: its staged
+    frames, median and rows must equal the card's."""
+    import torch
+
+    from tracknetv3_tpu_torch.inference import TrackNetPredictor
+
+    forward, host = p._windows, []
+
+    def recording(pre, buf, med, starts):
+        probs = forward(pre, buf, med, starts)
+        host.append(probs.cpu())
+        return probs
+
+    p._windows = recording
+    try:
+        staged = p.finalize_staged(p.upload_video(src))
+        card = p.run_staged(staged)
+    finally:
+        del p._windows
+    planes = np.empty((T, H * W * 3 // 2), np.uint8)
+    reader = opened[-1]
+    reader.pos = 0
+    reader.read_into_yuv(planes)
+    cpu = TrackNetPredictor(tn, batch_size=PATHS_BATCH, device="cpu")
+    cpu_staged = cpu.finalize_staged(cpu.upload_staged(planes, src_wh=PATHS_SRC, yuv=True))
+    replay = iter(host)
+    cpu._windows = lambda pre, buf, med, starts: next(replay)
+    want = cpu.run_staged(cpu_staged)
+    differ = [t for t in range(T) if _rows(card)[t] != _rows(want)[t]]
+    return {"chunks": len(host), "rows": T, "visible": sum(card["Visibility"]),
+            "staged_unequal": int((staged.buf.cpu() != cpu_staged.buf).sum()),
+            "median_unequal": int((staged.median.cpu() != cpu_staged.median).sum()),
+            "rows_differ": len(differ), "first_differ": differ[:5]}
+
+
+def phase_yuv_stage(tmp: str, card: str) -> dict:
+    """yuv_stage: ``yuv420_to_rgb`` on the card; then ``predict_video`` of a
+    480-frame video from a stand-in native reader (``synthetic_native_reader``
+    at ``inference.open_native_video``, ``synthetic_reader`` at
+    ``open_video``: the card's machine has no libav) under
+    ``stage_format="yuv420"`` and ``"bgr"``, at full width (seq_len 8,
+    concat, 288x512, batch 16, bf16, ``hand_9tap``, InpaintNet seed 17)."""
+    import torch
+
+    from tracknetv3_tpu_torch import inference as tinf
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+    from tracknetv3_tpu_torch.utils.io import write_pred_csv
+
+    t_phase = time.time()
+    conversion = _yuv_convert_check(card)
+    torch.cuda.empty_cache()
+    tn = disk_detector_checkpoint(os.path.join(tmp, "TrackNet_yuv.pt"), seed=29)
+    inp = os.path.join(tmp, "InpaintNet_yuv.pt")
+    save_checkpoint(inp, epoch=0, max_val_acc=0.0,
+                    model=get_model("InpaintNet", generator=torch.Generator().manual_seed(17)),
+                    param_dict={"model_name": "InpaintNet", "seq_len": 16})
+    scene = _Scene(seed=21)
+    src = f"synthetic://yuv_{YUV_T}.mp4"
+    replay_src = f"synthetic://yuv_{PATHS_REPLAY_T}.mp4"  # the CPU replay's: depth cut for time
+    videos = {src: (YUV_T, scene, None), replay_src: (PATHS_REPLAY_T, scene, None)}
+    opened = []
+    out_dir = os.path.join(tmp, "yuv_stage")
+    chunks = _chunks_of(YUV_T, "weight", staged=True)
+    sx, sy = PATHS_SRC[0] / W, PATHS_SRC[1] / H
+    launches_by, rows_by, res_by = {}, {}, {}
+    with mock.patch.object(tinf, "open_video", synthetic_reader(videos)), \
+            mock.patch.object(tinf, "open_native_video", synthetic_native_reader(videos, opened)):
+        for fmt in YUV_FORMATS:
+            made = []
+            real = tinf.TrackNetPredictor
+
+            def recording(*args, **kwargs):
+                made.append(real(*args, **kwargs))
+                return made[-1]
+
+            _zero_launches()
+            t0 = time.perf_counter()
+            with mock.patch.object(tinf, "TrackNetPredictor", recording):
+                pred = tinf.predict_video(src, tn, inp, batch_size=PATHS_BATCH, device=DEVICE,
+                                          stage_format=fmt, save_dir=out_dir,
+                                          video_name=f"yuv_stage_{fmt}")
+            entry_s = time.perf_counter() - t0
+            launches = _path_launches()
+            backend = made[0].decode_backend
+            with open(os.path.join(out_dir, f"yuv_stage_{fmt}_ball.csv")) as f:
+                n_rows = sum(1 for _ in f) - 1
+            p = tinf.TrackNetPredictor(tn, inp, batch_size=PATHS_BATCH, device=DEVICE,
+                                       stage_format=fmt)  # bf16, hand_9tap, as predict_video's
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            upload_s, finalize_ms, run_s, e2e_s = [], [], [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                up = p.upload_video(src)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                staged = p.finalize_staged(up)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                rows = p.run_staged(staged, (sx, sy))
+                t3 = time.perf_counter()
+                write_pred_csv(p.inpaint_trajectory(rows, PATHS_SRC),
+                               os.path.join(tmp, "yuv_timed_ball.csv"))
+                t4 = time.perf_counter()
+                upload_s.append(t1 - t0)
+                finalize_ms.append((t2 - t1) * 1e3)
+                run_s.append(t3 - t2)
+                e2e_s.append(t4 - t0)
+                h2d = up.buf.nbytes
+                del up, staged
+            peak = torch.cuda.max_memory_allocated()
+            copy_ms, convert_ms = _video_copy_ms(h2d, fmt)
+            replay = (_replay_yuv(p, tn, opened, replay_src, PATHS_REPLAY_T)
+                      if fmt == "yuv420" else None)
+            visible, far, outside = _track_check(rows, scene, YUV_T)
+            rows_by[fmt] = rows
+            launches_by[fmt] = launches
+            res = {"phase": "yuv_stage", "case": "predict_video", "stage_format": fmt,
+                   "decode": "stand-in native reader, drawn in memory",
+                   "decode_backend": backend, "source_wh": list(PATHS_SRC), "frames": YUV_T,
+                   "batch_size": PATHS_BATCH, "conv_backend": p.params["conv_backend"],
+                   "chunks": chunks, "launches": launches,
+                   "launches_per_chunk": {k: launches[k] / chunks for k in PATHS_KERNELS},
+                   "csv_rows": n_rows, "entry_rows": len(pred["Frame"]),
+                   "h2d_bytes": h2d, "h2d_copy_ms": copy_ms, "conversion_ms": convert_ms,
+                   "upload_s": upload_s, "finalize_ms": finalize_ms,
+                   "run_fps": YUV_T / statistics.median(run_s),
+                   "e2e_fps": YUV_T / statistics.median(e2e_s), "run_s": run_s,
+                   "e2e_s": e2e_s, "peak_mem_bytes": peak, "visible_frames": visible,
+                   "far_from_disk": far, "outside_frame": outside, "replay": replay,
+                   "entry_point_s": entry_s, "card": card}
+            res_by[fmt] = res
+            emit(res)
+            want_backend = "native-lowres0" + ("+yuv420" if fmt == "yuv420" else "")
+            if backend != want_backend or p.decode_backend != want_backend:
+                fail("yuv_stage", f"{fmt}: decode_backend {backend} / {p.decode_backend}, "
+                     f"want {want_backend}")
+            if launches != _want_launches(chunks):
+                fail("yuv_stage", f"{fmt}: launches {launches} != {_want_launches(chunks)}")
+            if n_rows != YUV_T or outside or far or visible < YUV_T // 2:
+                fail("yuv_stage", f"{fmt}: {n_rows} rows, {visible} visible, {far} farther "
+                     f"than 4 px from the disk, {outside} outside the frame")
+            want_h2d = YUV_T * H * W * 3 // (2 if fmt == "yuv420" else 1)
+            if h2d != want_h2d:
+                fail("yuv_stage", f"{fmt}: {h2d} bytes crossed to the card, want {want_h2d}")
+            if replay and (replay["rows_differ"] or replay["staged_unequal"]
+                           or replay["median_unequal"]):
+                fail("yuv_stage", f"{fmt}: the card differs from the CPU replay: {replay}")
+            del p
+
+        # a forced yuv420 at an odd model width raises; auto stages packed BGR there
+        odd = {}
+        for fmt in ("yuv420", "auto"):
+            p = tinf.TrackNetPredictor(tn, batch_size=PATHS_BATCH, device=DEVICE,
+                                       input_hw=(H, W - 1), stage_format=fmt)
+            try:
+                up = p.upload_video(src)
+                odd[fmt] = {"yuv": up.yuv, "shape": list(up.buf.shape),
+                            "decode_backend": p.decode_backend}
+                del up
+            except RuntimeError as e:
+                odd[fmt] = {"raised": str(e)}
+            del p
+    a, b = _rows(rows_by["yuv420"]), _rows(rows_by["bgr"])
+    differ = [t for t in range(YUV_T) if a[t] != b[t]]
+    over_1px = [t for t in differ if abs(a[t][0] - b[t][0]) > sx or abs(a[t][1] - b[t][1]) > sy
+                or a[t][2] != b[t][2]]
+    ratio = res_by["yuv420"]["h2d_bytes"] / res_by["bgr"]["h2d_bytes"]
+    emit({"phase": "yuv_stage", "case": "summary", "h2d_ratio_yuv_to_bgr": ratio,
+          "rows_differ_yuv_vs_bgr": len(differ), "differ_by_more_than_1_model_px": len(over_1px),
+          "first_differ": differ[:5], "odd_width": odd,
+          "upload_s_median": {f: statistics.median(r["upload_s"]) for f, r in res_by.items()},
+          "finalize_ms_median": {f: statistics.median(r["finalize_ms"])
+                                 for f, r in res_by.items()},
+          "conversion_ms_per_slab": conversion["ms"],
+          "h2d_copy_ms_saved": res_by["bgr"]["h2d_copy_ms"] - res_by["yuv420"]["h2d_copy_ms"],
+          "conversion_ms_per_video": res_by["yuv420"]["conversion_ms"],
+          "phase_s": time.time() - t_phase,
+          "card": card})
+    if ratio != 0.5:
+        fail("yuv_stage", f"YUV420 staging moved {ratio} of BGR's bytes, not half")
+    if over_1px:
+        fail("yuv_stage", f"YUV420 rows {over_1px[:5]} differ from the BGR rows by more than "
+             "a model pixel")
+    if "raised" not in odd["yuv420"] or "not even" not in odd["yuv420"]["raised"]:
+        fail("yuv_stage", f"a forced yuv420 at width {W - 1} did not raise: {odd}")
+    if odd["auto"].get("yuv", True) or odd["auto"]["decode_backend"] != "native-lowres0":
+        fail("yuv_stage", f"auto at width {W - 1} did not stage packed BGR: {odd}")
+    return {f"yuv_stage {fmt}": n for fmt, n in launches_by.items()}
 
 
 # ---------------------------------------------------------------- rally evaluation
@@ -3642,6 +4041,12 @@ def _baseline_modules(root: str):
             importlib.import_module(f"{name}.ops.wbce_disk"))
 
 
+def _path_name(path: str) -> str:
+    """The kernels line's name of a serving path: ``serve_paths <path>``, or
+    ``yuv_stage <format>`` as it is."""
+    return path if path.startswith("yuv_stage") else f"serve_paths {path}"
+
+
 def main() -> int:
     global VERBOSE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3657,6 +4062,9 @@ def main() -> int:
     ap.add_argument("--serve_paths_only", action="store_true",
                     help="build and serve_paths (device resize, streaming, batch serving "
                          "from videos drawn in memory) alone; no kernels line")
+    ap.add_argument("--yuv_only", action="store_true",
+                    help="build and yuv_stage (YUV420 staging from a stand-in native reader) "
+                         "alone; no kernels line")
     ap.add_argument("--rally_only", action="store_true",
                     help="build and rally (generate_mask_data, InpaintNet training, the test "
                          "CLI, rally_vs_cpu) alone, from a seeded TrackNet; no kernels line")
@@ -3687,7 +4095,8 @@ def main() -> int:
     only = ("conv" if args.conv_only else "copy" if args.copy_only
             else "loss" if args.loss_only else "inpaint" if args.inpaint_only
             else "rally" if args.rally_only
-            else "serve_paths" if args.serve_paths_only else None)
+            else "serve_paths" if args.serve_paths_only
+            else "yuv" if args.yuv_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -3705,6 +4114,9 @@ def main() -> int:
         elif only == "serve_paths":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_serve_paths(tmp, card)
+        elif only == "yuv":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_yuv_stage(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -3736,6 +4148,7 @@ def main() -> int:
         phase_serve_parity(tmp, frames)
         del frames
         paths_launches = phase_serve_paths(tmp, card)
+        paths_launches.update(phase_yuv_stage(tmp, card))
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
@@ -3758,7 +4171,7 @@ def main() -> int:
          "replaces": replaces[k], "launches": serve_launches["cudnn", 16][k],
          "launches_by_path": {"serve cudnn batch 16": serve_launches["cudnn", 16][k],
                               "rally": rally_launches[k],
-                              **{f"serve_paths {p}": n[k] for p, n in paths_launches.items()}},
+                              **{_path_name(p): n[k] for p, n in paths_launches.items()}},
          "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
          "library_ms": v["plain_ms"]}
@@ -3793,7 +4206,7 @@ def main() -> int:
          "launches_by_path": {f"serve {served[k][0]} batch 16":
                               serve_launches[served[k]][f"conv3x3_{k}"],
                               "rally": rally_launches.get(f"conv3x3_{k}", 0),
-                              **{f"serve_paths {p}": n.get(f"conv3x3_{k}", 0)
+                              **{_path_name(p): n.get(f"conv3x3_{k}", 0)
                                  for p, n in paths_launches.items()}}, **v}
         for k, v in conv.items()
     ]

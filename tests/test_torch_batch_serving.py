@@ -13,7 +13,8 @@ JAX ``predict_videos`` (both at float32, cv2 decode;
 - a first video whose upload fails gives its slots back, and a failure
   while serving stops the producer (under a timeout, so that a deadlock
   fails instead of hanging);
-- the JAX package's TPU options raise.
+- the JAX package's TPU options raise; the native decoder and the
+  staging format, which the port took since, run.
 """
 
 import threading
@@ -186,6 +187,14 @@ def test_a_failure_while_serving_stops_the_producer(data):
     dict(stage_format="yuv420"), dict(program_cache_dir="x"), dict(on_error="ignore"),
 ])
 def test_predict_videos_refuses_the_tpu_options(data, option):
+    """The TPU options raise; ``native_decode`` and ``stage_format``, ported
+    since, serve the clip (the forced ``yuv420`` staging YUV420 rows)."""
     clips, tn, _, _ = data
+    if set(option) <= {"native_decode", "stage_format"}:
+        p = tinf.TrackNetPredictor(tn, input_hw=(H, W), device="cpu", batch_size=4, **option)
+        got = tinf.predict_videos([clips[9]], tn, predictor=p)
+        assert len(got[clips[9]]["Frame"]) == 9
+        assert p.decode_backend == "native-lowres1+yuv420"
+        return
     with pytest.raises(ValueError if "on_error" in option else NotImplementedError):
         tinf.predict_videos([clips[9]], tn, device="cpu", **option)

@@ -178,8 +178,7 @@ def test_native_loader_says_what_runs(monkeypatch, capfd):
     assert "native_ccl: decode_heatmaps_host runs" in capfd.readouterr().err
     monkeypatch.setattr(native_ccl, "_lib", None)
     monkeypatch.setattr(native_ccl, "_build_failed", False)  # restored after the test
-    monkeypatch.setattr(native_ccl, "_LIB_PATH", "/nonexistent/libtrackdecode.so")
-    monkeypatch.setattr(native_ccl, "_NATIVE_DIR", "/nonexistent")
+    monkeypatch.setattr(native_ccl, "SOURCE", "missing_ccl_decode.cpp")  # nothing to build
     assert native_ccl.decode_heatmaps_native(np.zeros((2, 4, 4), np.float32)) is None
     assert "runs scipy.ndimage" in capfd.readouterr().err
     assert detect.host_backend() == "scipy"

@@ -10,17 +10,19 @@ sizes of ``tests/test_staged.py`` (32x64, seq_len 3, batch 4):
   pixel within 1e-4 of the 0.5 threshold; such frames are counted.
 - ``inpaint_trajectory``: equal rows in all three eval modes.
 - ``predict_video`` and the predict CLI (``--device cpu``) on an mp4
-  written by cv2 write the CSV of the JAX ``predict_video``
-  (``native_decode=False``, its predictor at float32), byte for byte; so
-  does ``predict_video(conv_backend="hand_k3c")`` / ``"hand_9tap"``, whose
-  3x3 convs go through the plain version of ``ops/conv3x3.py`` on the CPU.
+  written by cv2 write the CSV of the JAX ``predict_video``, both decoding
+  with cv2 (``native_decode=False``, ``--cv2_decode``; the JAX predictor at
+  float32), byte for byte; so does
+  ``predict_video(conv_backend="hand_k3c")`` / ``"hand_9tap"``, whose 3x3
+  convs go through the plain version of ``ops/conv3x3.py`` on the CPU.
 - Without a card the serving entry points raise unless the CPU is asked
   for; the JAX package's TPU options and flags raise
   ``NotImplementedError``, and the serving options the port took since
-  (streaming, device resize, the overlay video, ``--video_dir``) run on
-  the CPU. Their parity with the JAX package is in
-  ``tests/test_torch_serve_resident.py``, ``test_torch_streaming.py``,
-  ``test_torch_batch_serving.py`` and ``test_torch_predict_cli.py``.
+  (streaming, device resize, the overlay video, ``--video_dir``, the native
+  decoder and the staging format, ``--profile``) run on the CPU. Their
+  parity with the JAX package is in ``tests/test_torch_serve_resident.py``,
+  ``test_torch_streaming.py``, ``test_torch_batch_serving.py``,
+  ``test_torch_predict_cli.py`` and ``test_torch_native_*.py``.
 """
 
 import functools
@@ -185,7 +187,8 @@ def test_predict_video_csv_matches_jax(ckpts, clip_and_want, tmp_path):
     clip, want = clip_and_want
     tn, inp = ckpts
     pred = tinf.predict_video(clip, tn, inp, batch_size=B, input_hw=(H, W), device="cpu",
-                              compute_dtype=torch.float32, save_dir=str(tmp_path))
+                              compute_dtype=torch.float32, save_dir=str(tmp_path),
+                              native_decode=False)
     with open(tmp_path / "clip_ball.csv") as f:
         assert f.read() == want
     assert len(pred["Frame"]) == 17
@@ -198,7 +201,7 @@ def test_predict_video_hand_conv_backend_csv_matches_jax(ckpts, clip_and_want, t
     tn, inp = ckpts
     pred = tinf.predict_video(clip, tn, inp, batch_size=B, input_hw=(H, W), device="cpu",
                               compute_dtype=torch.float32, conv_backend=backend,
-                              save_dir=str(tmp_path))
+                              save_dir=str(tmp_path), native_decode=False)
     with open(tmp_path / "clip_ball.csv") as f:
         assert f.read() == want
     assert len(pred["Frame"]) == 17
@@ -234,7 +237,8 @@ def test_predict_cli_csv_matches_jax(ckpts, clip_and_want, tmp_path, monkeypatch
 
     monkeypatch.setattr(tinf, "TrackNetPredictor", predictor_f32)
     predict_cli.main(["--video_file", clip, "--tracknet_file", tn, "--inpaintnet_file", inp,
-                      "--batch_size", str(B), "--save_dir", str(tmp_path), "--device", "cpu"])
+                      "--batch_size", str(B), "--save_dir", str(tmp_path), "--device", "cpu",
+                      "--cv2_decode"])
     assert asked == [None]  # the CLI serves at the predictor's default, bfloat16
     with open(tmp_path / "clip_ball.csv") as f:
         assert f.read() == want
@@ -255,10 +259,12 @@ def test_serving_entry_points_need_a_card_or_an_explicit_cpu(ckpts, clip_and_wan
 
 
 # options and flags of the JAX package that the port serves since streaming,
-# device resize, the overlay video and batch serving came in
-PORTED_OPTIONS = {"large_video", "device_resize", "output_video", "video_range"}
+# device resize, the overlay video, batch serving, the native decoder and
+# YUV420 staging came in
+PORTED_OPTIONS = {"large_video", "device_resize", "output_video", "video_range",
+                  "native_decode", "stage_format"}
 PORTED_FLAGS = {"--video_dir", "--large_video", "--output_video", "--device_resize",
-                "--traj_len", "--video_range", "--fail_fast"}
+                "--traj_len", "--video_range", "--fail_fast", "--stage_format", "--profile"}
 
 
 def _served(save_dir, n_rows=17):
@@ -275,13 +281,26 @@ def _served(save_dir, n_rows=17):
 def test_predict_video_unported_options_raise(ckpts, clip_and_want, option, tmp_path):
     """The JAX package's TPU options raise ``NotImplementedError``; those the
     port serves (``PORTED_OPTIONS``) run on the CPU and write the CSV (and
-    the overlay video)."""
+    the overlay video); the forced ``yuv420`` stages YUV420 rows through
+    the native reader."""
     tn, _ = ckpts
     clip, _ = clip_and_want
     if set(option) <= PORTED_OPTIONS:
-        pred = tinf.predict_video(clip, tn, input_hw=(H, W), device="cpu", batch_size=B,
-                                  save_dir=str(tmp_path), **option)
+        seen = []
+        real = tinf.TrackNetPredictor.upload_video
+
+        def upload(p, *args, **kwargs):
+            up = real(p, *args, **kwargs)
+            seen.append((p.decode_backend, up.yuv))
+            return up
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tinf.TrackNetPredictor, "upload_video", upload)
+            pred = tinf.predict_video(clip, tn, input_hw=(H, W), device="cpu", batch_size=B,
+                                      save_dir=str(tmp_path), **option)
         assert pred["Frame"] == list(range(17))
+        if option.get("stage_format") == "yuv420":
+            assert seen == [("native-lowres1+yuv420", True)]
         _served(tmp_path)
         assert os.path.exists(tmp_path / "clip.mp4") == ("output_video" in option)
         return
@@ -297,7 +316,8 @@ def test_predict_video_unported_options_raise(ckpts, clip_and_want, option, tmp_
 def test_predict_cli_unported_flags_raise(ckpts, clip_and_want, flags, tmp_path, monkeypatch):
     """The JAX CLI's TPU flags raise ``NotImplementedError``; those the port
     serves (``PORTED_FLAGS``) run on the CPU (``--video_dir`` over the
-    clip's directory) and write the CSV."""
+    clip's directory; ``--profile`` into the test's directory, where the
+    trace must be) and write the CSV."""
     tn, _ = ckpts
     clip, _ = clip_and_want
     if flags[0] not in PORTED_FLAGS:
@@ -310,9 +330,13 @@ def test_predict_cli_unported_flags_raise(ckpts, clip_and_want, flags, tmp_path,
     source = ["--video_file", clip]
     if flags[0] == "--video_dir":
         source, flags = ["--video_dir", os.path.dirname(clip)], []
+    if flags[:1] == ["--profile"]:
+        flags = ["--profile", str(tmp_path / "profile")]
     predict_cli.main(source + ["--tracknet_file", tn, "--device", "cpu", "--batch_size", str(B),
                                "--save_dir", str(tmp_path)] + flags)
     _served(tmp_path)
+    if flags[:1] == ["--profile"]:
+        assert os.path.getsize(tmp_path / "profile" / "trace.json") > 0
 
 
 def test_stage_frames_checks_its_input(ckpts):

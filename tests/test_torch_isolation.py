@@ -40,6 +40,9 @@ SERVING_MODULES = {
     "tracknetv3_tpu_torch.ops.preprocess",
     "tracknetv3_tpu_torch.utils.io",
     "tracknetv3_tpu_torch.device",
+    # the native libav decoder and the g++ build of the host libraries
+    "tracknetv3_tpu_torch.native_video",
+    "tracknetv3_tpu_torch.native_build",
 }
 KERNEL_MODULES = {
     "tracknetv3_tpu_torch.ops.batchnorm",

@@ -3,7 +3,8 @@ tracknetv3_tpu_torch.generate_mask_data --device cpu`` writes the
 ``predicted_csv`` files of the JAX package's engine, byte for byte, on the
 data and checkpoints of ``tests/torch_rally_data.py`` (both engines at
 float32). The flags the port's evaluation CLIs do not take raise
-``NotImplementedError``; ``--exact_decode`` takes the JAX CLIs' values.
+``NotImplementedError`` (the test CLI's ``--video_file`` runs since it was
+ported); ``--exact_decode`` takes the JAX CLIs' values.
 """
 
 import os
@@ -70,8 +71,16 @@ def test_generate_mask_data_cli_writes_the_jax_csvs(setup, tmp_path, monkeypatch
     ("generate_mask_data", ["--num_devices", "2"]),
 ])
 def test_unported_flags_raise(setup, cli, flags):
+    """``--num_devices`` above 1 raises ``NotImplementedError``; the test
+    CLI's ``--video_file``, ported since, takes the path and refuses one
+    outside a dataset's ``video/`` directory (its run on a rally video is
+    ``tests/test_torch_native_cli.py``'s)."""
     _, tn = setup
     main = test_cli.main if cli == "test" else mask_cli.main
+    if flags[0] == "--video_file":
+        with pytest.raises(ValueError, match="Not a dataset video path"):
+            main(["--tracknet_file", tn, "--device", "cpu"] + flags)
+        return
     with pytest.raises(NotImplementedError):
         main(["--tracknet_file", tn, "--device", "cpu"] + flags)
 

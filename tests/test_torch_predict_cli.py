@@ -3,8 +3,8 @@ the CPU with the JAX CLI's serving flags, against the JAX package
 (``tests/torch_serving_data.py``; the CLI's model resolution cut to 32x64
 and its predictor made at float32, as the JAX side's):
 
-- ``--video_dir``: one CSV per video, each the JAX ``predict_videos``'s
-  byte for byte; a corrupt file is skipped with ``Predicted n/N``,
+- ``--video_dir`` (with ``--cv2_decode``, as the JAX side decodes): one
+  CSV per video, each the JAX ``predict_videos``'s byte for byte; a corrupt file is skipped with ``Predicted n/N``,
   ``--fail_fast`` raises at it, ``SystemExit`` when every video fails;
 - the JAX CLI's parser errors: exactly one of ``--video_file`` /
   ``--video_dir``, and ``--video_dir`` without ``--large_video`` /
@@ -64,7 +64,8 @@ def test_video_dir_writes_the_jax_csvs(data, tmp_path, small_cli, capsys):
         f.write("not a video either")
     try:
         got = predict_cli.main(["--video_dir", vids, "--tracknet_file", tn, "--device", "cpu",
-                                "--batch_size", str(B), "--save_dir", str(tmp_path / "port")])
+                                "--batch_size", str(B), "--save_dir", str(tmp_path / "port"),
+                                "--cv2_decode"])
         assert "Predicted 2/3 videos (1 skipped" in capsys.readouterr().out
         with pytest.raises(Exception):
             predict_cli.main(["--video_dir", vids, "--tracknet_file", tn, "--device", "cpu",

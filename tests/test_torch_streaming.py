@@ -95,7 +95,8 @@ def test_predict_video_large_video_csv_matches_jax(data, tmp_path, monkeypatch):
                        save_dir=str(tmp_path / "jax"), input_hw=(H, W), native_decode=False)
     pred = tinf.predict_video(clip, tns["concat"], batch_size=B, large_video=True,
                               video_range=(1, 2), save_dir=str(tmp_path / "port"),
-                              input_hw=(H, W), device="cpu", compute_dtype=torch.float32)
+                              input_hw=(H, W), device="cpu", compute_dtype=torch.float32,
+                              native_decode=False)
     assert (csv_text(tmp_path / "port" / "clip_ball.csv")
             == csv_text(tmp_path / "jax" / "clip_ball.csv"))
     assert len(pred["Frame"]) == T and visible(pred) > 0

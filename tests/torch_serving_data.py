@@ -8,8 +8,9 @@ Clips are mp4 files written with cv2 at twice the 32x64 model resolution
 scales coordinates. The TrackNet checkpoints are JAX random inits whose
 predictor is scaled and shifted so that about 2% of the clip's pixels pass
 0.5 (``detecting_checkpoint``): the rows compared hold detections. Both
-packages serve at float32; the JAX side reads video with cv2
-(``native_decode=False``), as the port does.
+packages serve at float32 and read video with cv2 (``native_decode=False``,
+``jax_predictor``, ``PORT_ARGS``, ``port_predictor``); the native decoder's parity is in
+``tests/test_torch_native_*.py``.
 """
 
 import functools
@@ -101,12 +102,14 @@ def jax_predictor(tn: str, eval_mode: str = "weight", inp=None, batch_size: int 
 
 
 # the port's serving settings here, as ``predict_video`` takes them
-PORT_ARGS = {"batch_size": B, "input_hw": (H, W), "compute_dtype": torch.float32, "device": "cpu"}
+PORT_ARGS = {"batch_size": B, "input_hw": (H, W), "compute_dtype": torch.float32, "device": "cpu",
+             "native_decode": False}
 
 
 def port_predictor(tn: str, eval_mode: str = "weight", inp=None, batch_size: int = B):
     return tinf.TrackNetPredictor(tn, inp, eval_mode=eval_mode, batch_size=batch_size,
-                                  input_hw=(H, W), compute_dtype=torch.float32, device="cpu")
+                                  input_hw=(H, W), compute_dtype=torch.float32, device="cpu",
+                                  native_decode=False)
 
 
 def visible(pred) -> int:

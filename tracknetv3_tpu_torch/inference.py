@@ -4,11 +4,18 @@
 
 Three ways a video reaches the card, as in the JAX package:
 
-1. staged (the default): frames resized on the host to model resolution
-   (cv2 ``INTER_LINEAR``, BGR kept) go to the card in one copy from pinned
-   memory (``upload_staged`` on a side stream, then ``finalize_staged``:
-   the wait and the exact per-pixel median over all frames, capped at
-   4096, stride T//k); ``run_staged`` then forwards chunks of
+1. staged (the default): ``upload_video`` decodes the video at model
+   resolution, with the native libav reader (``native_video.py``:
+   libswscale's scale during decode, DCT-domain lowres on large mpeg4
+   sources) where it builds and opens the file, else with cv2 (host
+   ``INTER_LINEAR`` resize, BGR kept). With the native reader and even
+   model dims (``stage_format`` ``auto`` or ``yuv420``) the frames cross as
+   planar YUV420, half the bytes of packed BGR. A producer thread decodes
+   slabs of 120 frames into pinned memory while each is copied to the card
+   on a side stream; ``finalize_staged`` waits for the copy, converts
+   YUV420 to RGB on the card (``yuv420_to_rgb``, slab by slab) and takes
+   the exact per-pixel median over all frames (capped at 4096, stride
+   T//k); ``run_staged`` then forwards chunks of
    ``batch_size`` windows (window gather + channel stack,
    ``ops/preprocess.py``; the folded-BN TrackNet forward,
    ``models/fused_forward.py``, pool/upsample and conv kernels on the
@@ -24,7 +31,9 @@ Three ways a video reaches the card, as in the JAX package:
    card over all frames, capped at 1024;
 3. streaming, ``large_video`` (``predict_video_streaming``): a producer
    thread reads the chunks' frames (host-resized with cv2 ``INTER_AREA``
-   by default, raw otherwise) four chunks ahead into pinned memory; each
+   by default, or, for the bg modes without a full-resolution difference,
+   scaled during decode by the native reader; raw otherwise) four chunks
+   ahead into pinned memory; each
    chunk goes to the card with a non-blocking copy and runs the stateless
    step; the median comes from frames sampled over ``video_range``.
 
@@ -34,22 +43,23 @@ says, thresholded at ``COOR_TH``, ensembled, denormalised with the
 reference's float32 two-multiply), ``write_pred_csv`` and, on request,
 ``write_pred_video``. ``predict_videos`` serves many videos in waves
 under a staging budget. Every video this module reads is opened through
-``open_video``.
+``open_video`` (cv2) or ``open_native_video`` (the native reader).
 
 Serving runs under ``torch.inference_mode()``. The JAX package's TPU
 runtime machinery is not ported: bucket padding of the staged buffer, the
-AOT program cache, meshes, the native libav decoder and YUV420 staging
-raise ``NotImplementedError``.
+AOT program cache and meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import queue
 import sys
 import threading
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -58,6 +68,7 @@ from torch.profiler import record_function
 from .config import COOR_TH, HEIGHT, WIDTH
 from .device import resolve_device, tf32_off
 from .models.fused_forward import fold_batchnorm, fused_params, tracknet_fused_forward
+from .native_video import open_native_video
 from .ops.detect import decode_heatmaps
 from .ops.ensemble import (
     ensemble_chunk,
@@ -74,6 +85,7 @@ from .ops.preprocess import (
     median_of_host_frames,
     median_of_u8_stack,
     window_channels,
+    yuv420_to_rgb,
 )
 from .training.checkpoint import load_model_from_checkpoint
 from .utils.io import VideoReader, _require_cv2, write_pred_csv, write_pred_video
@@ -82,12 +94,15 @@ from .utils.io import VideoReader, _require_cv2, write_pred_csv, write_pred_vide
 # of staging (the JAX package's device-memory budget)
 STAGING_BUDGET_BYTES = 8e9
 PREFETCH_CHUNKS = 4  # streaming: chunks read ahead of the card
+SLAB_FRAMES = 120  # staging: frames the native reader decodes at once
+STAGE_FORMATS = ("auto", "yuv420", "bgr")
 
 
 def open_video(path: str) -> VideoReader:
     """Open a video for serving. Every read of a video file in this module
-    goes through this one name, so a reader of frames in memory can stand
-    in for cv2 by replacing it."""
+    goes through this one name or through ``open_native_video`` (the
+    staged path's and the streaming path's native decoder), so a reader of
+    frames in memory can stand in for a decoder by replacing them."""
     return VideoReader(path)
 
 
@@ -110,14 +125,16 @@ class StagedVideo(NamedTuple):
 
 class UploadedVideo(NamedTuple):
     """The first half of staging: model-resolution frames on their way to
-    the card (``upload_staged``), before ``finalize_staged``."""
+    the card (``upload_staged``, ``upload_video``), before
+    ``finalize_staged``."""
 
-    buf: torch.Tensor  # (T, h, w, 3) uint8, allocated on the copy stream
+    buf: torch.Tensor  # (T, h, w, 3) uint8, or (T, h*w*3//2) YUV420 rows; on the copy stream
     T: int
     bgr: bool
     src_wh: Tuple[int, int]
     ready: Optional[torch.cuda.Event]  # recorded after the copy (None on the CPU)
-    host: Optional[torch.Tensor]  # the pinned source, kept until the copy is waited on
+    host: Tuple[torch.Tensor, ...]  # the pinned sources, kept until the copy is waited on
+    yuv: bool = False  # buf holds planar YUV420 rows, converted in finalize_staged
 
 
 def _refuse_unported(**options) -> None:
@@ -191,6 +208,15 @@ class TrackNetPredictor:
     hand-written kernels ``"hand_k3c"`` / ``"hand_9tap"``
     (``ops/conv3x3.py``; bfloat16 only on the card); unset, the rule of
     ``models.fused_forward.resolve_conv_backend`` picks it.
+
+    ``native_decode`` lets the staged and streaming paths decode with the
+    native libav reader where it builds and opens the video (else cv2).
+    ``stage_format``: ``"yuv420"`` stages planar YUV420 (half the bytes of
+    packed BGR; converted to RGB on the card), ``"bgr"`` packed BGR, and
+    ``"auto"`` YUV420 wherever the native reader serves the video and the
+    model dims are even, else BGR. ``decode_backend`` says what the last
+    staging or stream decoded with: ``"cv2"``, ``"native-lowres{n}"``, with
+    ``"+yuv420"`` where it staged YUV420.
     """
 
     def __init__(
@@ -203,9 +229,13 @@ class TrackNetPredictor:
         input_hw: Optional[Tuple[int, int]] = None,
         device: Optional[Union[str, torch.device]] = None,
         conv_backend: Optional[str] = None,
+        native_decode: bool = True,
+        stage_format: str = "auto",
     ):
         if eval_mode not in ("nonoverlap", "average", "weight"):
             raise ValueError(f"Invalid eval_mode: {eval_mode!r}")
+        if stage_format not in STAGE_FORMATS:
+            raise ValueError(f"stage_format must be auto|yuv420|bgr: {stage_format}")
         self.device = resolve_device(device)
         self.h, self.w = (int(input_hw[0]), int(input_hw[1])) if input_hw else (HEIGHT, WIDTH)
         self.compute_dtype = compute_dtype if compute_dtype is not None else torch.bfloat16
@@ -216,6 +246,9 @@ class TrackNetPredictor:
         self.bg_mode = tn_pd.get("bg_mode", "")
         self.eval_mode = eval_mode
         self.batch_size = int(batch_size)
+        self.native_decode = bool(native_decode)
+        self.stage_format = stage_format
+        self.decode_backend = "unused"
         weights = get_ensemble_weight(
             self.seq_len, eval_mode if eval_mode != "nonoverlap" else "average"
         )
@@ -232,43 +265,71 @@ class TrackNetPredictor:
 
     # ------------------------------------------------------------ staging
 
+    def _upload_parts(self, parts: Iterable[torch.Tensor], bgr: bool, yuv: bool,
+                      src_wh: Tuple[int, int]) -> UploadedVideo:
+        """Copy host tensors of frames (pinned when serving on the card) to
+        the card as they come, each with a non-blocking copy on the
+        predictor's copy stream, then join them there into one buffer and
+        record an event after it."""
+        on_card = self._copy_stream is not None
+        host, bufs, ready = [], [], None
+        with torch.cuda.stream(self._copy_stream) if on_card else contextlib.nullcontext():
+            for part in parts:
+                host.append(part)
+                bufs.append(part.to(self.device, non_blocking=True))
+            if not bufs:
+                raise ValueError("no frames to stage: the video yielded zero frames")
+            buf = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
+            if on_card:
+                ready = torch.cuda.Event()
+                ready.record()
+        return UploadedVideo(buf, int(buf.shape[0]), bgr, src_wh, ready, tuple(host), yuv)
+
     def upload_staged(
-        self, frames_u8: np.ndarray, bgr: bool = False, src_wh: Optional[Tuple[int, int]] = None
+        self, frames_u8: np.ndarray, bgr: bool = False, src_wh: Optional[Tuple[int, int]] = None,
+        yuv: bool = False,
     ) -> UploadedVideo:
         """Start staging (T, h, w, 3) uint8 frames already at model
-        resolution: pinned, then one non-blocking copy on the predictor's
-        copy stream, with an event recorded after it. ``src_wh`` is the
-        source video's (width, height), the model resolution by default.
-        Safe from a producer thread (``predict_videos``)."""
+        resolution, or with ``yuv`` (T, h*w*3//2) planar YUV420 rows:
+        pinned, then one non-blocking copy on the predictor's copy stream,
+        with an event recorded after it. ``src_wh`` is the source video's
+        (width, height), the model resolution by default. Safe from a
+        producer thread (``predict_videos``)."""
         frames_u8 = np.ascontiguousarray(frames_u8)
-        if frames_u8.dtype != np.uint8 or frames_u8.shape[1:] != (self.h, self.w, 3):
-            raise ValueError(f"need (T, {self.h}, {self.w}, 3) uint8 frames, got "
+        shape = (self.h * self.w * 3 // 2,) if yuv else (self.h, self.w, 3)
+        if frames_u8.dtype != np.uint8 or frames_u8.shape[1:] != shape:
+            raise ValueError(f"need (T, {', '.join(map(str, shape))}) uint8 frames, got "
                              f"{frames_u8.dtype} {frames_u8.shape}")
-        T = int(frames_u8.shape[0])
-        if T == 0:
+        if frames_u8.shape[0] == 0:
             raise ValueError("no frames to stage: the video yielded zero frames")
-        src_wh = src_wh or (self.w, self.h)
         host = torch.from_numpy(frames_u8)
-        if self._copy_stream is None:
-            return UploadedVideo(host.to(self.device), T, bgr, src_wh, None, None)
-        host = host.pin_memory()
-        with torch.cuda.stream(self._copy_stream):
-            buf = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        return UploadedVideo(buf, T, bgr, src_wh, ready, host)
+        if self._copy_stream is not None:
+            host = host.pin_memory()
+        return self._upload_parts([host], bgr and not yuv, yuv, src_wh or (self.w, self.h))
 
     def finalize_staged(self, up: UploadedVideo,
                         max_sample_num: Optional[int] = None) -> StagedVideo:
-        """Finish staging on the current stream: wait for the copy, then
-        the median background (``bg_mode`` needs one)."""
+        """Finish staging on the current stream: wait for the copy, convert
+        YUV420 rows to RGB (``yuv420_to_rgb``, slab by slab, into a new
+        buffer; the staged video is then ``bgr=False``), then the median
+        background (``bg_mode`` needs one). ``up.yuv`` must say what
+        ``up.buf`` holds (the JAX package's layout contract): a flag that
+        does not match raises ``ValueError``."""
         buf = up.buf
+        if up.yuv != (buf.dim() == 2):
+            raise ValueError(f"yuv={up.yuv} does not match the staged layout (ndim="
+                             f"{buf.dim()}): pass the UploadedVideo the upload returned")
         if up.ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(up.ready)
             buf.record_stream(stream)  # allocated on the copy stream, read on this one
+        bgr = up.bgr
+        if up.yuv:
+            with record_function("serve::yuv420_to_rgb"):
+                buf = yuv420_to_rgb(buf, self.h, self.w)
+            bgr = False
         median = self._median_staged(buf, max_sample_num) if self.bg_mode else None
-        return StagedVideo(buf, up.T, median, up.bgr, up.src_wh)
+        return StagedVideo(buf, up.T, median, bgr, up.src_wh)
 
     def stage_frames(
         self,
@@ -282,17 +343,68 @@ class TrackNetPredictor:
         ``upload_staged``, then ``finalize_staged``."""
         return self.finalize_staged(self.upload_staged(frames_u8, bgr, src_wh), max_sample_num)
 
-    def upload_video(self, video_file: str) -> UploadedVideo:
-        """Read a video resized to model resolution on the host (cv2
-        ``INTER_LINEAR``, BGR kept) and start its upload: the first half of
-        the JAX package's ``stage_video`` (``upload_video_slabs``)."""
-        reader = open_video(video_file)
+    def upload_video(self, video_file: str, slab_frames: int = SLAB_FRAMES) -> UploadedVideo:
+        """Decode a video at model resolution and start its upload: the
+        first half of the JAX package's ``stage_video``
+        (``upload_video_slabs``), with its choice of decoder.
+
+        With ``native_decode`` the native reader (``open_native_video``,
+        ``lowres=-1``) decodes slabs of ``slab_frames`` frames in a producer
+        thread (the foreign call releases the GIL) into pinned memory,
+        planar YUV420 where ``stage_format`` allows it and the model dims
+        are even, else packed BGR; each slab is copied to the card as it
+        comes. A decode error raises ``RuntimeError`` (no truncated video).
+        A forced ``"yuv420"`` that cannot be honoured raises
+        ``RuntimeError``; only ``"auto"`` falls back, to packed BGR and,
+        where the native reader does not open the file, to cv2 (host
+        ``INTER_LINEAR`` resize, BGR kept). The source (width, height)
+        comes from the decoder, at full resolution under lowres."""
+        H, W = self.h, self.w
+        reader = open_native_video(video_file, W, H, lowres=-1, bgr=True) \
+            if self.native_decode else None
+        use_yuv = (reader is not None and self.stage_format in ("auto", "yuv420")
+                   and H % 2 == 0 and W % 2 == 0)
+        if self.stage_format == "yuv420" and not use_yuv:
+            # a forced format must not quietly become packed BGR (it would void
+            # an A/B staging measurement): only "auto" falls back
+            reason = ("the native decoder is unavailable for this video" if reader is None
+                      else f"model dims {H}x{W} are not even")
+            if reader is not None:
+                reader.close()
+            raise RuntimeError(f"stage_format='yuv420' cannot be honored: {reason}; use "
+                               "stage_format='auto' to allow packed-BGR fallback")
+        if reader is None:
+            self.decode_backend = "cv2"
+            cv = open_video(video_file)
+            try:
+                src_wh = (cv.w, cv.h)
+                frames = cv.read_resized_bgr(W, H)
+            finally:
+                cv.release()
+            return self.upload_staged(frames, bgr=True, src_wh=src_wh)
+
+        self.decode_backend = f"native-lowres{reader.applied_lowres}" + (
+            "+yuv420" if use_yuv else "")
+        shape = (H * W * 3 // 2,) if use_yuv else (H, W, 3)
+        read = reader.read_into_yuv if use_yuv else reader.read_into
+        pin = self._copy_stream is not None
+
+        def slabs() -> Iterator[torch.Tensor]:
+            while True:
+                host = torch.empty((slab_frames,) + shape, dtype=torch.uint8, pin_memory=pin)
+                n = read(host.numpy())
+                if n <= 0:
+                    return
+                yield host[:n]
+
         try:
-            src_wh = (reader.w, reader.h)
-            frames = reader.read_resized_bgr(self.w, self.h)
+            with contextlib.closing(_prefetched(
+                    slabs(), f"video decode failed mid-stream: {video_file}",
+                    depth=2)) as parts:
+                return self._upload_parts(parts, not use_yuv, use_yuv,
+                                          (reader.src_w, reader.src_h))
         finally:
-            reader.release()
-        return self.upload_staged(frames, bgr=True, src_wh=src_wh)
+            reader.close()
 
     @staticmethod
     def _median_staged(buf: torch.Tensor, max_sample_num: Optional[int]) -> torch.Tensor:
@@ -662,14 +774,23 @@ class TrackNetPredictor:
         cv2 ``INTER_AREA`` (and, for the subtract modes, the mod-256
         background difference taken at source resolution and resized), the
         median resized from ``median.astype(uint8)``: the JAX package's
-        cv2 recipe. Only 288x512 uint8 frames cross to the card. The JAX
-        package's native libav branch is not ported (the port has no
-        native decoder)."""
+        cv2 recipe. Only 288x512 uint8 frames cross to the card. For the bg
+        modes without a full-resolution difference (``''``, ``concat``) and
+        with ``native_decode``, the native reader (``lowres=-1``) decodes
+        RGB straight at model resolution in batches of 64 where it opens
+        the file, and the cv2 reader is released (JAX's native branch)."""
         cv2 = _require_cv2()
         T = reader.video_len
         H, W = self.h, self.w
         need_diff = self.bg_mode in ("subtract", "subtract_concat")
         need_rgb = self.bg_mode in ("", "subtract_concat", "concat")
+        native = (open_native_video(reader.path, W, H, lowres=-1, bgr=False)
+                  if self.native_decode and not need_diff else None)
+        if native is not None:
+            self.decode_backend = f"native-lowres{native.applied_lowres}"
+            reader.release()
+        else:
+            self.decode_backend = "cv2"
         med_resized = None
         if self.bg_mode == "concat":
             med_resized = torch.from_numpy(cv2.resize(
@@ -686,9 +807,21 @@ class TrackNetPredictor:
                 diff = cv2.resize(d, (W, H), interpolation=cv2.INTER_AREA)[..., None]
             return rgb, diff
 
+        def native_frames() -> Iterator[Tuple[np.ndarray, None]]:
+            while True:
+                batch = native.read_batch(64)  # model-resolution RGB; releases the GIL
+                if batch is None:
+                    return
+                for f in batch:
+                    yield f, None
+
         def chunks():
-            reader.seek(0)
-            for items, t0, n_valid in self._window_chunks(read_processed, T):
+            if native is None:
+                reader.seek(0)
+                read = read_processed
+            else:
+                read = functools.partial(next, native_frames(), None)
+            for items, t0, n_valid in self._window_chunks(read, T):
                 rgb = self._host_stack([i[0] for i in items]) if need_rgb else None
                 diff = self._host_stack([i[1] for i in items]) if need_diff else None
                 yield rgb, diff, t0, n_valid
@@ -700,8 +833,12 @@ class TrackNetPredictor:
         else:
             step = lambda rgb, diff, t0: self._overlap_step_preresized(  # noqa: E731
                 rgb, diff, med_resized, t0, S)
-        return self._run_pipeline(chunks(), T, img_scaler, step,
-                                  f"video decode failed mid-stream: {reader.path}")
+        try:
+            return self._run_pipeline(chunks(), T, img_scaler, step,
+                                      f"video decode failed mid-stream: {reader.path}")
+        finally:
+            if native is not None:
+                native.close()
 
     # ------------------------------------------------------------ InpaintNet
 
@@ -800,9 +937,9 @@ def predict_video(
     output_video: bool = False,
     traj_len: int = 8,
     device_resize: bool = False,
-    native_decode: bool = False,
+    native_decode: bool = True,
     num_devices: Optional[int] = None,
-    stage_format: str = "bgr",
+    stage_format: str = "auto",
     bucket_quantum: Optional[int] = None,
     program_cache_dir: Optional[str] = None,
 ) -> Dict[str, list]:
@@ -812,24 +949,26 @@ def predict_video(
     ``traj_len`` frames; cv2).
 
     The frames reach the card one of three ways (the module docstring):
-    staged after a host ``INTER_LINEAR`` resize (the default, median over
-    all frames); ``device_resize``: raw frames resized on the card with
+    staged (the default, median over all frames), decoded at model
+    resolution by the native libav reader where ``native_decode`` and the
+    library allow it, in planar YUV420 as ``stage_format`` allows
+    (``TrackNetPredictor``), else by cv2 with a host ``INTER_LINEAR``
+    resize; ``device_resize``: raw frames (cv2) resized on the card with
     PIL's bicubic (``predict_frames``, median over all frames, capped at
     1024); ``large_video``: streamed with host ``INTER_AREA`` resize
     (``predict_video_streaming``), its median over at most
     ``max_sample_num`` frames of ``video_range`` (start, end) seconds,
     which only this path reads. A video whose model-resolution frames pass
     ``STAGING_BUDGET_BYTES`` streams too unless ``device_resize`` is set.
-    ``native_decode``, ``num_devices`` > 1, ``stage_format="yuv420"``,
-    ``bucket_quantum`` and ``program_cache_dir`` are the JAX package's and
-    raise ``NotImplementedError``.
+    ``num_devices`` > 1, ``bucket_quantum`` and ``program_cache_dir`` are
+    the JAX package's and raise ``NotImplementedError``.
     """
-    _refuse_unported(native_decode=native_decode, num_devices=(num_devices or 1) > 1,
-                     stage_format_yuv420=stage_format == "yuv420",
-                     bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
+    _refuse_unported(num_devices=(num_devices or 1) > 1, bucket_quantum=bucket_quantum,
+                     program_cache_dir=program_cache_dir)
     predictor = TrackNetPredictor(
         tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
         compute_dtype=compute_dtype, input_hw=input_hw, device=device, conv_backend=conv_backend,
+        native_decode=native_decode, stage_format=stage_format,
     )
     reader = open_video(video_file)
     try:
@@ -869,9 +1008,9 @@ def predict_videos(
     device: Optional[Union[str, torch.device]] = None,
     compute_dtype: Optional[torch.dtype] = None,
     conv_backend: Optional[str] = None,
-    native_decode: bool = False,
+    native_decode: bool = True,
     num_devices: Optional[int] = None,
-    stage_format: str = "bgr",
+    stage_format: str = "auto",
     bucket_quantum: Optional[int] = None,
     program_cache_dir: Optional[str] = None,
 ) -> Dict[str, Dict[str, list]]:
@@ -880,36 +1019,37 @@ def predict_videos(
     ``save_dir`` each video also writes ``{name}_ball.csv`` (and, with
     ``output_video``, ``{name}.mp4``).
 
-    Videos are staged in waves. A producer thread reads each video (host
-    resize) and starts its upload (``upload_video``: pinned memory, the
+    Videos are staged in waves. A producer thread reads each video and
+    starts its upload (``upload_video``: the native reader or cv2, YUV420
+    or BGR as ``native_decode`` and ``stage_format`` say; pinned memory, the
     copy stream, an event) while the caller's thread finalizes and serves
     the wave before. A semaphore keeps at most two waves on the card, so a
     wave holds half of ``staging_budget_bytes``; a video over half the
     budget runs alone in a wave that holds both slots, and one over the
     whole budget streams (``predict_video_streaming``, host resize) after
     the waves. The port has no bucket padding: a video's bytes are its
-    ``T * h * w * 3`` model-resolution frames, and ``stats["waves"][i]
-    ["buckets"]`` holds real frame counts.
+    ``T * h * w * 3`` model-resolution frames (the JAX rule, whatever the
+    staging format), and ``stats["waves"][i]["buckets"]`` holds real frame
+    counts.
 
     ``on_error="skip"`` reports a failing video to stderr and drops it
     (one corrupt file must not stop the rest); ``"raise"``, the default,
     propagates. ``predictor`` reuses a ``TrackNetPredictor`` (the model and
     eval arguments are then ignored). ``stats``, a dict, receives
     ``"waves"`` (``{"videos", "slots", "buckets"}`` in compute order) and
-    ``"streaming"`` (the files that streamed). ``native_decode``,
-    ``num_devices`` > 1, ``stage_format="yuv420"``, ``bucket_quantum`` and
-    ``program_cache_dir`` raise ``NotImplementedError``.
+    ``"streaming"`` (the files that streamed). ``num_devices`` > 1,
+    ``bucket_quantum`` and ``program_cache_dir`` raise
+    ``NotImplementedError``.
     """
-    _refuse_unported(native_decode=native_decode, num_devices=(num_devices or 1) > 1,
-                     stage_format_yuv420=stage_format == "yuv420",
-                     bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
+    _refuse_unported(num_devices=(num_devices or 1) > 1, bucket_quantum=bucket_quantum,
+                     program_cache_dir=program_cache_dir)
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
     if predictor is None:
         predictor = TrackNetPredictor(
             tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
             compute_dtype=compute_dtype, input_hw=input_hw, device=device,
-            conv_backend=conv_backend,
+            conv_backend=conv_backend, native_decode=native_decode, stage_format=stage_format,
         )
     if stats is None:
         stats = {}

@@ -1,8 +1,8 @@
 """ctypes bindings for the native connected-components decoder.
 
-The port's copy of the JAX package's loader: builds
-``native/libtrackdecode.so`` from ``native/ccl_decode.cpp`` with ``make -C
-native`` at first use (g++, no other dependency) and exposes
+The port's copy of the JAX package's loader: builds ``native/ccl_decode.cpp``
+with g++ into ``build/`` at first use (``native_build``: no other
+dependency, a name hashed from the source, an atomic rename) and exposes
 ``decode_heatmaps_native``, the exact largest-bbox-area decode rule on a
 thread pool. Returns None where the library cannot be built or loaded;
 ``ops.detect.decode_heatmaps_host`` then runs ``scipy.ndimage``. The first
@@ -12,17 +12,15 @@ load says on stderr which of the two the process runs.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import sys
 import threading
 from typing import Dict, Optional
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libtrackdecode.so")
+from . import native_build
+
+SOURCE = "ccl_decode.cpp"
 
 _lib = None
 _lock = threading.Lock()
@@ -36,26 +34,13 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        # make no-ops on an up-to-date library and rebuilds a stale one
         try:
-            subprocess.run(["make", "-s", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception as e:
-            if not os.path.exists(_LIB_PATH):
-                _build_failed = True
-                print(f"native_ccl: {_LIB_PATH} did not build; decode_heatmaps_host runs "
-                      "scipy.ndimage", file=sys.stderr)
-                return None
-            err = getattr(e, "stderr", b"") or b""
-            print("warning: rebuilding native/libtrackdecode.so failed; using the existing "
-                  "(possibly stale) library. make said:\n"
-                  f"{err.decode(errors='replace').strip()}", file=sys.stderr)
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError as e:
+            path = native_build.build(SOURCE)
+            lib = ctypes.CDLL(str(path))
+        except (RuntimeError, OSError) as e:
             _build_failed = True
-            print(f"native_ccl: {_LIB_PATH} did not load ({e}); decode_heatmaps_host runs "
-                  "scipy.ndimage", file=sys.stderr)
+            print(f"native_ccl: native/{SOURCE} did not build or load ({e}); "
+                  "decode_heatmaps_host runs scipy.ndimage", file=sys.stderr)
             return None
         lib.decode_heatmaps_ccl.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -63,7 +48,7 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
         ]
         lib.decode_heatmaps_ccl.restype = None
-        print(f"native_ccl: decode_heatmaps_host runs {_LIB_PATH}", file=sys.stderr)
+        print(f"native_ccl: decode_heatmaps_host runs {path}", file=sys.stderr)
         _lib = lib
         return _lib
 

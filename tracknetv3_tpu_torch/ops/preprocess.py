@@ -5,7 +5,8 @@ training and serving paths use, with the same results:
 ``window_channels``, ``gather_windows`` (indices clipped at the last
 frame), ``background_diff`` (the reference's mod-256 wrap),
 ``median_of_u8_stack`` (exact ``np.median``; ``median_of_host_frames``
-takes it over a host stack in slabs of image rows),
+takes it over a host stack in slabs of image rows), ``yuv420_to_rgb``
+(the BT.601 conversion of YUV420-staged frames, slab by slab),
 ``make_staged_preprocessor`` (window gather, BGR flip, the four bg modes,
 /255 in float32, then the output dtype), and the device resize:
 ``_pil_bicubic_matrix`` (PIL's antialiased bicubic weights),
@@ -155,6 +156,46 @@ def median_of_u8_stack(frames_u8: torch.Tensor) -> torch.Tensor:
 
     med = kth(T // 2 + 1) if T % 2 else (kth(T // 2) + kth(T // 2 + 1)) / 2.0
     return med.reshape(frames_u8.shape[1:])
+
+
+YUV_SLAB_FRAMES = 120  # frames converted at once by yuv420_to_rgb (the reader's slab)
+
+
+def yuv420_to_rgb(flat: torch.Tensor, h: int, w: int, out: Optional[torch.Tensor] = None,
+                  slab_frames: int = YUV_SLAB_FRAMES) -> torch.Tensor:
+    """Planar YUV420 frames -> (T, h, w, 3) RGB uint8 (the JAX function).
+
+    ``flat`` is (T, h*w*3//2) uint8, each row Y[h*w], U[h/2*w/2],
+    V[h/2*w/2] as ``NativeVideoReader.read_into_yuv`` writes it. BT.601
+    limited range in int32 with nearest 2x chroma upsampling:
+    ``c = 298*(y-16)+128``, ``r = (c+409e)>>8``, ``g = (c-100d-208e)>>8``,
+    ``b = (c+516d)>>8`` with ``d = u-128``, ``e = v-128`` (``>>`` is an
+    arithmetic shift on int32, as XLA's), clipped to 0..255. Converted
+    ``slab_frames`` frames at a time into ``out`` (allocated beside
+    ``flat`` if not given), so the int32 temporaries stay the size of a
+    slab whatever T is."""
+    T = flat.shape[0]
+    y_n, c_n = h * w, (h // 2) * (w // 2)
+    if flat.dtype != torch.uint8 or flat.dim() != 2 or flat.shape[1] != y_n + 2 * c_n:
+        raise ValueError(f"need (T, {y_n + 2 * c_n}) uint8 YUV420 rows for {h}x{w}, got "
+                         f"{flat.dtype} {tuple(flat.shape)}")
+    if out is None:
+        out = torch.empty((T, h, w, 3), dtype=torch.uint8, device=flat.device)
+    for lo in range(0, T, slab_frames):
+        part = flat[lo:lo + slab_frames]
+        n = part.shape[0]
+
+        def chroma(a: int) -> torch.Tensor:  # nearest 2x upsample, minus 128
+            c = part[:, a:a + c_n].reshape(n, h // 2, 1, w // 2, 1).to(torch.int32) - 128
+            return c.expand(n, h // 2, 2, w // 2, 2).reshape(n, h, w)
+
+        c = part[:, :y_n].reshape(n, h, w).to(torch.int32).sub_(16).mul_(298).add_(128)
+        d, e = chroma(y_n), chroma(y_n + c_n)
+        dst = out[lo:lo + n]
+        dst[..., 0] = (c + 409 * e).bitwise_right_shift_(8).clamp_(0, 255)
+        dst[..., 1] = (c - 100 * d - 208 * e).bitwise_right_shift_(8).clamp_(0, 255)
+        dst[..., 2] = (c + 516 * d).bitwise_right_shift_(8).clamp_(0, 255)
+    return out
 
 
 MEDIAN_SLAB_BYTES = 1 << 28  # frame bytes on the device at once in median_of_host_frames

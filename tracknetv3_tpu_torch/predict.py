@@ -10,14 +10,20 @@ run ends with ``Predicted n/N``; ``--fail_fast`` raises at the first),
 ``--eval_mode``, ``--max_sample_num``, ``--video_range start,end``
 (seconds of the streaming path's median), ``--save_dir``,
 ``--large_video`` (streaming), ``--output_video`` with ``--traj_len``,
-``--device_resize`` (PIL-bicubic resize on the card); plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain versions of the kernels) and
-``--conv_backend`` (``cudnn`` or the hand-written 3x3 conv kernels
-``hand_k3c`` / ``hand_9tap``; unset, the bfloat16 default of
-``models.fused_forward.DEFAULT_CONV_BACKEND``). TrackNet runs in bfloat16,
-as the JAX CLI does. Reading video needs cv2. The JAX CLI's
-``--num_devices``, ``--stage_format``, ``--bucket_quantum`` and
-``--profile`` raise ``NotImplementedError``.
+``--device_resize`` (PIL-bicubic resize on the card), ``--cv2_decode``
+(cv2 instead of the default native libav reader), ``--stage_format
+{auto,yuv420,bgr}`` (the staged path's pixel format: ``auto``, the
+default, stages planar YUV420 wherever the native reader serves the video,
+half the bytes of packed BGR; a forced ``yuv420`` that cannot be honoured
+raises), ``--profile DIR`` (a ``torch.profiler`` chrome trace of the run,
+``DIR/trace.json``); plus ``--device`` (default ``cuda``; ``cpu`` runs the
+plain versions of the kernels) and ``--conv_backend`` (``cudnn`` or the
+hand-written 3x3 conv kernels ``hand_k3c`` / ``hand_9tap``; unset, the
+bfloat16 default of ``models.fused_forward.DEFAULT_CONV_BACKEND``).
+TrackNet runs in bfloat16, as the JAX CLI does. Opening a video needs cv2
+(its frame count and size; the native reader needs g++ and libav, else cv2
+decodes too). The JAX CLI's ``--num_devices`` and ``--bucket_quantum``
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import glob
 import os
 from typing import Optional, Sequence
 
-_UNPORTED = ("bucket_quantum", "stage_format", "profile", "num_devices")
+_UNPORTED = ("bucket_quantum", "num_devices")
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv")
 
 
@@ -60,6 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_resize", action="store_true",
                    help="ship raw frames and resize on the card with PIL's bicubic instead "
                    "of the host INTER_LINEAR resize")
+    p.add_argument("--cv2_decode", action="store_true",
+                   help="decode with cv2 instead of the native libav reader (which scales "
+                   "during decode and uses DCT-domain lowres on large sources)")
+    p.add_argument("--stage_format", type=str, default="auto", choices=("auto", "yuv420", "bgr"),
+                   help="staging pixel format: yuv420 uploads planar YUV420 (half the bytes; "
+                   "converted to RGB on the card), bgr packed BGR; auto picks yuv420 wherever "
+                   "the native reader serves the video")
+    p.add_argument("--profile", type=str, default="",
+                   help="write a torch.profiler chrome trace of the run to DIR/trace.json")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--conv_backend", type=str, default=None,
                    choices=["cudnn", "hand_k3c", "hand_9tap"],
@@ -86,15 +101,28 @@ def main(argv: Optional[Sequence[str]] = None):
 
     import torch
 
-    from . import inference
-
     if torch.device(args.device).type == "cuda":
         torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
     common = dict(tracknet_file=args.tracknet_file, inpaintnet_file=args.inpaintnet_file,
                   eval_mode=args.eval_mode, batch_size=args.batch_size,
                   max_sample_num=args.max_sample_num, save_dir=args.save_dir,
                   output_video=args.output_video, traj_len=args.traj_len,
-                  device=args.device, conv_backend=args.conv_backend)
+                  device=args.device, conv_backend=args.conv_backend,
+                  native_decode=not args.cv2_decode, stage_format=args.stage_format)
+    if not args.profile:
+        out = _run(args, common)
+    else:
+        with torch.profiler.profile() as prof:
+            out = _run(args, common)
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    print("Done.")
+    return out
+
+
+def _run(args, common: dict):
+    from . import inference
+
     if args.video_dir:
         files = sorted(f for f in glob.glob(os.path.join(args.video_dir, "*"))
                        if f.lower().endswith(VIDEO_EXTS))
@@ -108,17 +136,14 @@ def main(argv: Optional[Sequence[str]] = None):
               + (f" ({skipped} skipped - see warnings above)" if skipped else ""))
         if not results:
             raise SystemExit(f"all {len(files)} videos failed; nothing was predicted")
-        print("Done.")
         return results
-    pred = inference.predict_video(
+    return inference.predict_video(
         video_file=args.video_file,
         video_range=tuple(args.video_range) if args.video_range else None,
         large_video=args.large_video,
         device_resize=args.device_resize,
         **common,
     )
-    print("Done.")
-    return pred
 
 
 if __name__ == "__main__":

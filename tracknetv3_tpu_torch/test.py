@@ -7,8 +7,12 @@ The flags of the JAX package's ``test.py`` plus ``--device`` (default
 the JAX CLI does. Writes ``{split}_eval_res_{mode}.json`` (the metrics and
 ``eval_speed``), with ``--output_pred`` ``{split}_eval_analysis_{mode}.json``
 (the prediction dicts), with ``--output_bbox`` ``{split}_coco_res_{mode}.json``
-(COCO mAP at IoU 0.25 and 0.5) into ``--save_dir``. ``--video_file`` and
-``--num_devices`` above 1 raise ``NotImplementedError``.
+(COCO mAP at IoU 0.25 and 0.5) into ``--save_dir``. ``--video_file
+{...}/match{N}/video/{rally}.mp4`` evaluates that one labelled rally (its
+frames under ``match{N}/frame/{rally}``) and writes ``{rally}_ball.csv``
+(``Frame, Visibility, X, Y``) and ``{rally}.mp4``, the video with the
+predicted and the labelled trajectories drawn (cv2). ``--num_devices``
+above 1 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_mode", type=str, default="weight",
                    choices=["nonoverlap", "average", "weight"])
     p.add_argument("--video_file", type=str, default="",
-                   help="labelled rally video to evaluate (not ported yet: raises)")
+                   help="evaluate one labelled rally, {...}/video/{rally}.mp4, and write its "
+                   "CSV and overlay video")
     p.add_argument("--output_pred", action="store_true", default=False)
     p.add_argument("--output_bbox", action="store_true", default=False)
     p.add_argument("--save_dir", type=str, default="output")
@@ -85,9 +90,6 @@ def _load_models(tracknet_file: str, inpaintnet_file: str, input_hw_flag: str = 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
-    if args.video_file:
-        raise NotImplementedError("not ported to PyTorch yet: --video_file (needs cv2 and "
-                                  "write_pred_video)")
     if (args.num_devices or 1) > 1:
         raise NotImplementedError("not ported to PyTorch yet: --num_devices > 1")
 
@@ -110,6 +112,9 @@ def main(argv: Optional[Sequence[str]] = None):
                              batch_size=args.batch_size, tolerance=args.tolerance,
                              exact_decode=args.exact_decode, device=args.device,
                              conv_backend=args.conv_backend, **kw)
+
+    if args.video_file:
+        return _test_video(args, engine, kw)
 
     eval_analysis_file = os.path.join(args.save_dir,
                                       f"{args.split}_eval_analysis_{args.eval_mode}.json")
@@ -157,6 +162,32 @@ def main(argv: Optional[Sequence[str]] = None):
 
     print(f"Elapsed {time.time() - start:.1f}s")
     return dict(pred_dict=pred_dict, res=res_dict, mAP=mAP)
+
+
+def _test_video(args, engine, kw) -> dict:
+    """``--video_file``: one labelled rally through ``engine.test_rally``,
+    then ``{rally}.mp4`` and ``{rally}_ball.csv`` in ``--save_dir``."""
+    from .data.dataset import FrameCache
+    from .utils.io import (
+        label_csv_path,
+        parse_video_file,
+        read_csv_columns,
+        write_pred_csv,
+        write_pred_video,
+    )
+
+    print(f"Test on video {args.video_file} ...")
+    match_dir, rally_id = parse_video_file(args.video_file)
+    rally_dir = os.path.join(match_dir, "frame", rally_id)
+    label = read_csv_columns(label_csv_path(match_dir, rally_id), ("Visibility", "X", "Y"))
+    cache = FrameCache(args.data_dir, kw["bg_mode"], input_hw=kw["input_hw"])
+    pred = engine.test_rally(args.data_dir, rally_dir, cache)
+    out_video = os.path.join(args.save_dir, f"{rally_id}.mp4")
+    out_csv = os.path.join(args.save_dir, f"{rally_id}_ball.csv")
+    write_pred_video(args.video_file, pred, out_video, label=label)
+    write_pred_csv({k: pred[k] for k in ("Frame", "X", "Y", "Visibility")}, out_csv)
+    print(f"Wrote {out_video} and {out_csv}")
+    return dict(pred=pred, video=out_video, csv=out_csv)
 
 
 if __name__ == "__main__":

@@ -58,6 +58,14 @@ def get_rally_dirs(data_dir: str, split: str) -> List[str]:
     return rally_dirs
 
 
+def parse_video_file(video_file: str) -> Tuple[str, str]:
+    """'{...}/video/{rally}.mp4' -> (match_dir, rally_id)."""
+    m = re.match(r"^(.*)[/\\]video[/\\]([^/\\]+)\.mp4$", video_file)
+    if not m:
+        raise ValueError(f"Not a dataset video path: {video_file!r}")
+    return m.group(1), m.group(2)
+
+
 def label_csv_path(match_dir: str, rally_id: str) -> str:
     """Label CSV path; test matches use the corrected labels. The split is
     the parent component of ``.../{split}/match{N}``."""
