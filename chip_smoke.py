@@ -222,11 +222,32 @@ exits nonzero.
    probabilities; YUV420 rows within a model pixel of the BGR rows; a forced
    ``yuv420`` at an odd model width raises, where ``auto`` stages packed BGR.
 
+17. tools (after phase 13): the host tools' device work. Dataset
+   preparation's rally median (``utils.io.get_rally_median``) over 240
+   seeded 1280x720 uint8 frames drawn in memory (a stand-in
+   ``generate_frames``: no decoder on the card's machine), taken on the card
+   in slabs of rows: bit-equal to host ``np.median`` over a float32 band of
+   90 rows, ``median.npz`` holding it; seconds and peak memory of both. Then
+   one ``--debug`` epoch of the train CLI at the README's TrackNet
+   configuration and one of InpaintNet (seq_len 16, StepLR, mask_ratio 0.3,
+   batch 20) on phase 5's dataset: ``logs/scalars.jsonl`` holding the
+   returned history in the JAX loop's tags, the progress sample
+   (``cur_pred.gif``, ``cur_traj.png``) written every 4 steps, each
+   TrackNet sample's eval forward through the BatchNorm kernel (17
+   ``bn_relu_fwd`` launches on top of the train steps' and validation's),
+   no hand kernel on InpaintNet's path; where PIL or matplotlib is not
+   installed, a line naming it and the runs' ``(viz skipped: ...)`` lines
+   instead of the files; each sample's drawing time (on the loop's writer
+   thread) and the same TrackNet epoch without samples. Last, ms a train
+   step over 40 steps queued back to back on a fixed batch, alone and while
+   a GIF is drawn over and over on another thread.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
 and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
-2 and 15, ``--yuv_only`` phases 1, 2 and 16; none prints a kernels line.
+2 and 15, ``--yuv_only`` phases 1, 2 and 16, ``--tools_only`` phases 1, 2
+and 17; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -4022,6 +4043,258 @@ def phase_rally(tmp: str, card: str, tn=None) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- host tools
+
+TOOLS_T, TOOLS_HW, TOOLS_BAND = 240, (720, 1280), 90  # rally frames, source size, host rows
+TOOLS_DISPLAY_STEP = 4  # the train loop's display_step under --debug
+TOOLS_INPAINT_BATCH = 20  # 5 steps an epoch at seq_len 16, so one progress sample
+
+
+def _tools_median(tmp: str) -> dict:
+    """get_rally_median on the card over ``TOOLS_T`` seeded 1280x720 frames
+    drawn in memory (a stand-in ``generate_frames``: no decoder on the card's
+    machine), bit-equal to host ``np.median`` over a float32 band of
+    ``TOOLS_BAND`` rows; seconds and peak memory of both (the card's from
+    ``max_memory_allocated``, the host's from ``tracemalloc``)."""
+    import tracemalloc
+
+    import torch
+
+    from tracknetv3_tpu_torch.utils import io as tio
+
+    frames = np.random.default_rng(23).integers(0, 256, (TOOLS_T, *TOOLS_HW, 3), np.uint8)
+    video = os.path.join(tmp, "tools_data", "train", "match1", "video", "1_01_00.mp4")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(tio, "generate_frames",
+                           lambda path: (frames, 30.0, TOOLS_HW[::-1])):
+        t0 = time.time()
+        med = tio.get_rally_median(video)
+        card_s = time.time() - t0
+    card_peak = torch.cuda.max_memory_allocated() - base
+    saved = np.load(os.path.join(tmp, "tools_data", "train", "match1", "frame", "1_01_00",
+                                 "median.npz"))["median"]
+    r0 = (TOOLS_HW[0] - TOOLS_BAND) // 2
+    tracemalloc.start()
+    t0 = time.time()
+    want = np.median(frames[:, r0:r0 + TOOLS_BAND].astype(np.float32), axis=0)
+    host_s = time.time() - t0
+    host_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    band = med[r0:r0 + TOOLS_BAND]
+    res = {"frames": TOOLS_T, "hw": list(TOOLS_HW), "card_s": card_s,
+           "card_peak_bytes": card_peak, "host_band_rows": TOOLS_BAND, "host_band_s": host_s,
+           "host_band_peak_bytes": host_peak,
+           "host_whole_rally_float32_bytes": frames.size * 4,  # what np.median would stack
+           "unequal_in_band": int(np.count_nonzero(band.view(np.uint32) != want.view(np.uint32)))}
+    if med.dtype != np.float32 or med.shape != (*TOOLS_HW, 3):
+        fail("tools", f"median {med.dtype} {med.shape}, not float32 {(*TOOLS_HW, 3)}")
+    if res["unequal_in_band"] or band.dtype != want.dtype:
+        fail("tools", f"the card's rally median differs from np.median: {res}")
+    if saved.tobytes() != med.tobytes():
+        fail("tools", "median.npz does not hold the returned median")
+    return res
+
+
+def _jsonl_rows(path: str):
+    with open(path) as f:
+        return [(r["tag"], r["value"], r["step"]) for r in map(json.loads, f)]
+
+
+def _logged_rows(model_name: str, history):
+    """The (tag, value, step) rows the JAX loop's write_to_tb logs for
+    ``history``."""
+    rows = []
+    for h in history:
+        rows += [(f"{model_name}/loss/train", h["train_loss"], h["epoch"]),
+                 (f"{model_name}/loss/val", h["val_loss"], h["epoch"])]
+        res = h["val_res"]
+        if model_name == "TrackNet":
+            rows += [(f"{model_name}/val/{k}", float(v), h["epoch"]) for k, v in res.items()]
+        else:
+            rows += [(f"{model_name}/val_{t}/{k}", float(v), h["epoch"])
+                     for t, r in res.items() for k, v in r.items()]
+    return rows
+
+
+def _train_cli_run(argv, save_dir: str):
+    """The train CLI for one epoch: (its result, what it printed, wall s,
+    seconds of each progress sample's drawing)."""
+    import io
+
+    import torch
+
+    from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.utils import visualize as tvis
+
+    draws = []
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            draws.append(time.perf_counter() - t0)
+        return run
+
+    printed = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed), \
+            mock.patch.object(tvis, "plot_heatmap_pred_sample",
+                              timed(tvis.plot_heatmap_pred_sample)), \
+            mock.patch.object(tvis, "plot_traj_pred_sample", timed(tvis.plot_traj_pred_sample)):
+        res = train_cli.main(argv + ["--epochs", "1", "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sys.stderr.write(printed.getvalue())  # the CLI's own lines
+    return res, printed.getvalue(), wall, draws
+
+
+def _tools_train(data_dir: str, tmp: str, missing: list) -> dict:
+    """One --debug epoch of each model through the train CLI: TrackNet at the
+    README configuration (after one epoch without progress samples, the
+    baseline of their cost), then InpaintNet (seq_len 16, StepLR, mask_ratio
+    0.3, batch ``TOOLS_INPAINT_BATCH``). ``logs/scalars.jsonl`` must hold the
+    returned history in the JAX loop's layout; the progress sample must be
+    written every ``TOOLS_DISPLAY_STEP`` steps, TrackNet's through the
+    BatchNorm kernels (17 ``bn_relu_fwd`` launches each), unless the plotting
+    library is ``missing``: then the run must say so."""
+    from tracknetv3_tpu_torch.data.dataset import HeatmapBatchLoader, build_split_index
+
+    tracknet = ["--seq_len", str(L), "--bg_mode", "concat", "--alpha", "0.5",
+                "--batch_size", str(B), "--data_dir", data_dir]
+    runs = {
+        "TrackNet": (tracknet, "cur_pred.gif", "PIL"),
+        "InpaintNet": (["--model_name", "InpaintNet", "--seq_len", str(INPAINT_SEQ),
+                        "--lr_scheduler", "StepLR", "--mask_ratio", "0.3", "--batch_size",
+                        str(TOOLS_INPAINT_BATCH), "--data_dir", data_dir], "cur_traj.png",
+                       "matplotlib"),
+    }
+    # the same epoch without samples (display_step 100 > 13 steps)
+    _, _, no_samples_s, _ = _train_cli_run(tracknet, os.path.join(tmp, "tools_plain"))
+    out = {}
+    for name, (argv, sample, lib) in runs.items():
+        save_dir = os.path.join(tmp, f"tools_{name}")
+        _zero_launches()
+        res, printed, train_s, draws = _train_cli_run(argv + ["--debug"], save_dir)
+        launches = {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES) for m in _kernel_modules()}
+        steps, samples = res["step"], res["step"] // TOOLS_DISPLAY_STEP
+        logged = _jsonl_rows(os.path.join(save_dir, "logs", "scalars.jsonl"))
+        written = os.path.exists(os.path.join(save_dir, sample))
+        skipped = printed.count("(viz skipped:")
+        out[name] = {"train_s": train_s, "sample_draw_s": draws, "steps": steps,
+                     "samples": samples,
+                     "sample_written": written, "viz_skipped_lines": skipped,
+                     "tensorboard_events": any(f.startswith("events.out.tfevents") for f in
+                                               os.listdir(os.path.join(save_dir, "logs"))),
+                     "scalars": len(logged)}
+        if not samples:
+            fail("tools", f"{name}: {steps} steps give no progress sample")
+        if logged != _logged_rows(name, res["history"]):
+            fail("tools", f"{name}: scalars.jsonl {logged} does not hold the history")
+        if lib in missing:
+            if written or skipped != samples:
+                fail("tools", f"{name}: {lib} is missing, yet {skipped} of {samples} samples "
+                     f"said so (sample written: {written})")
+        elif not written or skipped:
+            fail("tools", f"{name}: no {sample} ({skipped} samples skipped)")
+        if name == "TrackNet":
+            val = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L, debug=True),
+                                         "concat", B, data_dir=data_dir))
+            # the serving kernels (convs, pool / upsample) and the copies of
+            # other batch kinds are not on this path
+            want = {k: dict.fromkeys(v, 0) for k, v in launches.items()}
+            want["wbce_disk"] = {"fwd": steps, "bwd": steps}
+            want["batchnorm"] = {k: BN_LAYERS * steps for k in launches["batchnorm"]}
+            # the eval forward of validation and of each progress sample
+            want["batchnorm"]["bn_relu_fwd"] += BN_LAYERS * (val + samples)
+            out[name].update(eval_batches=val, launches=launches,
+                             train_s_without_samples=no_samples_s)
+            if launches != want:
+                fail("tools", f"TrackNet launches {launches} != {want}")
+        elif any(n for counts in launches.values() for n in counts.values()):
+            fail("tools", f"InpaintNet launched a hand kernel: {launches}")
+    return out
+
+
+def _steps_beside_drawing(data_dir: str, tmp: str, n: int = 40) -> dict:
+    """Wall ms a train step over ``n`` steps queued back to back (one
+    synchronize at the end, as in the loop) on a fixed README batch: alone,
+    while a progress sample's GIF is drawn over and over on another thread
+    (the share of the GIL the drawing holds slows the launches), and alone
+    again."""
+    import threading
+
+    import torch
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+    from tracknetv3_tpu_torch.training.steps import make_tracknet_train_step, sample_mixup_params
+    from tracknetv3_tpu_torch.utils.visualize import plot_heatmap_pred_sample
+
+    dev = torch.device(DEVICE)
+    model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(0),
+                      dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
+    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+    step = make_tracknet_train_step(model, opt, "concat", 0.5, sched)
+    batch = _first_batch(data_dir, dev)
+    mix = tuple(torch.from_numpy(a).to(dev)
+                for a in sample_mixup_params(np.random.default_rng(5), B, 0.5))
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(batch, i, *mix)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    rng = np.random.default_rng(29)
+    sample = (rng.random((L, H, W, 3), np.float32), rng.random((L, H, W), np.float32),
+              rng.random((L, H, W), np.float32))
+    stop, draws = threading.Event(), []
+
+    def draw():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            plot_heatmap_pred_sample(*sample, save_dir=os.path.join(tmp, "tools_draw"))
+            draws.append(time.perf_counter() - t0)
+
+    run()  # warm-up
+    alone = run()
+    thread = threading.Thread(target=draw)
+    thread.start()
+    beside = run()
+    stop.set()
+    thread.join()
+    return {"steps": n, "ms_per_step_alone": [alone, run()], "ms_per_step_beside_drawing": beside,
+            "draws_s": draws}
+
+
+def phase_tools(tmp: str, card: str) -> None:
+    """tools: dataset preparation's rally median on the card (``_tools_median``)
+    and training's scalar logs and progress samples (``_tools_train``) on
+    the synthetic dataset of phase 5 (written here if absent), and what a
+    sample drawn beside training costs its steps (``_steps_beside_drawing``)."""
+    import importlib.util
+
+    data_dir = os.path.join(tmp, "data")
+    t_data = time.time()
+    if not os.path.isdir(data_dir):
+        write_synthetic_dataset(data_dir)
+    t0 = time.time()
+    missing = [lib for lib in ("PIL", "matplotlib", "tensorboard")
+               if importlib.util.find_spec(lib) is None]
+    for lib in missing:
+        print(f"chip_smoke: tools: {lib} is not installed here", file=sys.stderr, flush=True)
+    median = _tools_median(tmp)
+    train = _tools_train(data_dir, tmp, missing)
+    beside = _steps_beside_drawing(data_dir, tmp) if "PIL" not in missing else None
+    emit({"phase": "tools", "card": card, "missing_libraries": missing, "median": median,
+          "train": train, "steps_beside_drawing": beside, "dataset_s": t0 - t_data,
+          "phase_s": time.time() - t0})
+
+
 def _baseline_modules(root: str):
     """The copy and loss kernel modules of the port in another checkout,
     imported under another package name so that both trees live in one
@@ -4068,6 +4341,9 @@ def main() -> int:
     ap.add_argument("--rally_only", action="store_true",
                     help="build and rally (generate_mask_data, InpaintNet training, the test "
                          "CLI, rally_vs_cpu) alone, from a seeded TrackNet; no kernels line")
+    ap.add_argument("--tools_only", action="store_true",
+                    help="build and tools (the rally median of dataset preparation, "
+                         "training's scalar logs and progress samples) alone; no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -4096,7 +4372,8 @@ def main() -> int:
             else "loss" if args.loss_only else "inpaint" if args.inpaint_only
             else "rally" if args.rally_only
             else "serve_paths" if args.serve_paths_only
-            else "yuv" if args.yuv_only else None)
+            else "yuv" if args.yuv_only
+            else "tools" if args.tools_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -4117,6 +4394,9 @@ def main() -> int:
         elif only == "yuv":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_yuv_stage(tmp, card)
+        elif only == "tools":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_tools(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -4139,6 +4419,7 @@ def main() -> int:
         del model
         phase_seg_parity(os.path.join(tmp, "data"))
         phase_inpaint(tmp, card)
+        phase_tools(tmp, card)
         rally_launches = phase_rally(tmp, card, os.path.join(tmp, "exp", "TrackNet_best.pt"))
         torch.cuda.empty_cache()
         pool_up = phase_pool_up()

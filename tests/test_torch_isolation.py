@@ -3,8 +3,10 @@
 no source of the port (nor ``chip_smoke.py``) imports them, and its entry
 points (training, the predictor, ``predict_video``, ``predict_videos``, the
 predict CLI with ``--video_file`` and ``--video_dir``, the rally engine and
-the ``test`` and ``generate_mask_data`` CLIs) refuse to run without a card
-unless the CPU is asked for."""
+the ``test``, ``generate_mask_data`` and ``preprocess`` CLIs, the rally
+median) refuse to run without a card unless the CPU is asked for. The host
+tools (dataset preparation, training's logs and samples, the web UIs) are
+among the modules checked."""
 
 import os
 import pkgutil
@@ -65,10 +67,24 @@ INPUT_PATH_MODULES = {  # segmented, frame-mixup and device-resident batches
 }
 
 
+HOST_TOOL_MODULES = {  # dataset preparation, training's logs and samples, the web UIs
+    "tracknetv3_tpu_torch.preprocess",
+    "tracknetv3_tpu_torch.error_analysis",
+    "tracknetv3_tpu_torch.correct_label",
+    "tracknetv3_tpu_torch.tools",
+    "tracknetv3_tpu_torch.tools.webui",
+    "tracknetv3_tpu_torch.utils.visualize",
+    "tracknetv3_tpu_torch.utils.images",
+    "tracknetv3_tpu_torch.utils.profiling",
+    "tracknetv3_tpu_torch.training.loop",
+}
+
+
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) > 20
-    assert SERVING_MODULES | KERNEL_MODULES | INPUT_PATH_MODULES | EVAL_MODULES <= set(mods)
+    assert (SERVING_MODULES | KERNEL_MODULES | INPUT_PATH_MODULES | EVAL_MODULES
+            | HOST_TOOL_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -147,3 +163,19 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
         test.main(["--tracknet_file", ckpt, "--data_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate_mask_data.main(["--tracknet_file", ckpt, "--data_dir", str(tmp_path)])
+
+    from tracknetv3_tpu_torch import preprocess
+    from tracknetv3_tpu_torch.utils.io import get_rally_median
+
+    data = tmp_path / "prep"
+    data.mkdir()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess.main(["--data_dir", str(data)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess.main(["--data_dir", str(data), "--regenerate_medians"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_rally_median(str(data / "train" / "match1" / "video" / "1_01_00.mp4"))
+    assert not os.listdir(data)  # refused before any step
+    preprocess.main(["--data_dir", str(data), "--device", "cpu",  # an empty dataset
+                     "--corrected_label_dir", str(tmp_path / "none")])
+    assert os.listdir(data) == ["median_preview"]

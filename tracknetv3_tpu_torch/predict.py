@@ -101,6 +101,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
     import torch
 
+    from .utils.profiling import trace
+
     if torch.device(args.device).type == "cuda":
         torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
     common = dict(tracknet_file=args.tracknet_file, inpaintnet_file=args.inpaintnet_file,
@@ -109,13 +111,8 @@ def main(argv: Optional[Sequence[str]] = None):
                   output_video=args.output_video, traj_len=args.traj_len,
                   device=args.device, conv_backend=args.conv_backend,
                   native_decode=not args.cv2_decode, stage_format=args.stage_format)
-    if not args.profile:
+    with trace(args.profile):
         out = _run(args, common)
-    else:
-        with torch.profiler.profile() as prof:
-            out = _run(args, common)
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     print("Done.")
     return out
 

@@ -62,6 +62,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
     from .config import TrainConfig
     from .training.loop import train
+    from .utils.profiling import trace
 
     import torch
 
@@ -69,14 +70,7 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = TrainConfig(**{k: v for k, v in vars(args).items() if k not in skip})
     if torch.device(args.device).type == "cuda":
         torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
-    if args.profile:
-        import os
-
-        with torch.profiler.profile() as prof:
-            out = train(cfg, data_dir=args.data_dir, device=args.device)
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-    else:
+    with trace(args.profile):
         out = train(cfg, data_dir=args.data_dir, device=args.device)
     print("Done......")
     return out

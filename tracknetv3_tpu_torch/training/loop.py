@@ -18,6 +18,19 @@ val splits' frames on the device once and ships indices
 (``ResidentHeatmapLoader``; frame mixup, or a split over the loader's
 budget, falls back to the host loader).
 
+Observability is the JAX loop's: ``write_to_tb`` logs the losses and the
+val metrics after each epoch to ``save_dir/logs`` (``scalars.jsonl``,
+appended to on resume, and TensorBoard events where TensorBoard imports),
+and every ``display_step``-th train step (100, 4 with ``debug``)
+``visualize_step`` runs the eval step on that batch and writes
+``cur_pred.gif`` (TrackNet) or ``cur_traj.png`` (InpaintNet) into
+``save_dir``, drawn on a background thread (``SampleWriter``) while
+training goes on; ``train`` returns once the last one is written. Unlike
+the JAX loop, which catches every exception there, an error of the eval
+step (or of the drawing) propagates; only a missing plotting library, or a
+resident batch (frame indices, no frames to draw), skips the sample with a
+``(viz skipped: ...)`` line.
+
 InpaintNet (``model_name="InpaintNet"``) trains on the coordinate-mode index
 of the ``predicted_csv`` files (``CoordinateBatchLoader``) in float32 with
 TF32 off, Adam with its gradients clipped to a global norm of 1.0, and a
@@ -50,6 +63,7 @@ from ..device import resolve_device
 from ..evaluation.loops import eval_inpaintnet, eval_tracknet
 from ..models.factory import get_model
 from ..models.convert import inpaintnet_from_jax, tracknet_from_jax
+from ..utils.visualize import ScalarLogger, write_to_tb
 from .checkpoint import (
     load_checkpoint,
     load_optimizer_jax_leaves,
@@ -58,6 +72,7 @@ from .checkpoint import (
 )
 from .optim import build_optimizer
 from .steps import (
+    assemble_tracknet_labels,
     make_inpaintnet_eval_step,
     make_inpaintnet_train_step,
     make_tracknet_eval_step,
@@ -141,6 +156,91 @@ def prefetch_to_device(loader: Iterable, device: torch.device, depth: int = 2,
         thread.join()
 
 
+def _host(t) -> np.ndarray:
+    return t.float().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+class SampleWriter:
+    """Draws the progress samples on a background thread, one at a time: a
+    288x512 GIF's colour quantisation takes seconds of host time, for which
+    the card would otherwise wait every ``display_step`` steps. ``wait``
+    joins the drawing in flight and re-raises its error."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, draw) -> None:
+        self.wait()
+
+        def run():
+            try:
+                draw()
+            except BaseException as e:  # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name="progress-sample", daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise error
+
+
+def visualize_step(model_name: str, eval_step, batch: Dict, save_dir: str,
+                   verbose_print=print, writer: Optional[SampleWriter] = None) -> None:
+    """Training-progress sample of one train batch (reference:
+    train.py:103-119, 172-175; the JAX loop's ``visualize_step``): the eval
+    step on ``batch`` and, for its first sample, the 4-panel heatmap GIF
+    ``cur_pred.gif`` (TrackNet: the window's frames from ``rgb``,
+    ``seg_rgb``, ``seg_diff`` or ``diff``, the label maps and the
+    probabilities) or the trajectory plot ``cur_traj.png`` (InpaintNet),
+    drawn by ``writer`` if given, else here. An error of the eval step
+    propagates; a missing plotting library or a resident batch skips the
+    sample with a ``(viz skipped: ...)`` line."""
+    import importlib
+
+    from ..utils import visualize
+
+    if model_name == "TrackNet":
+        if "res_idx" in batch:
+            verbose_print("  (viz skipped: a resident batch holds frame indices, not frames)")
+            return
+        _, probs = eval_step(batch)
+        h, w, L = probs.shape[1:]
+        first = {k: batch[k][:1] for k in ("cxcy", "mix_pair", "mix_centers", "mix_hm_w")
+                 if k in batch}
+        probs0 = np.moveaxis(_host(probs[0]), -1, 0)  # (L, H, W)
+        y0 = np.moveaxis(_host(assemble_tracknet_labels(first, h, w)[0]), -1, 0)
+        key = next(k for k in ("rgb", "seg_rgb", "seg_diff", "diff") if k in batch)
+        frames0 = batch[key][0].cpu().numpy()
+        frames0 = frames0[:L] if key.startswith("seg_") else frames0
+        frames0 = frames0.astype(np.float32) / 255.0
+        if key in ("seg_diff", "diff"):
+            frames0 = np.repeat(frames0, 3, -1)
+        plot = lambda: visualize.plot_heatmap_pred_sample(  # noqa: E731
+            frames0, y0, probs0, save_dir=save_dir)
+    else:
+        _, coor = eval_step(batch)
+        coor_gt, coor0, mask = (_host(t[0]) for t in (batch["coor"], coor,
+                                                       batch["inpaint_mask"]))
+        plot = lambda: visualize.plot_traj_pred_sample(  # noqa: E731
+            coor_gt, coor0, mask, save_dir=save_dir)
+    try:  # the library the plot draws with
+        importlib.import_module("PIL" if model_name == "TrackNet" else "matplotlib")
+    except ImportError as e:
+        verbose_print(f"  (viz skipped: {e})")
+        return
+    if writer is None:
+        plot()
+    else:
+        writer.submit(plot)
+
+
 def train(
     config: TrainConfig,
     data_dir: str = "data",
@@ -222,62 +322,74 @@ def train(
         train_step = make_inpaintnet_train_step(model, optimizer, schedule)
         eval_step = make_inpaintnet_eval_step(model)
 
+    display_step = 4 if cfg.debug else 100  # reference: train.py:213
+    samples = SampleWriter()
+
     # ----- epochs -----
-    history = []
-    t_train = time.time()
-    for epoch in range(start_epoch, cfg.epochs):
-        verbose_print(f"Epoch [{epoch + 1} / {cfg.epochs}]")
-        t0 = time.time()
-        losses = []
-        for batch in prefetch_to_device(train_loader, dev, keys=keys):
-            # one host draw per step, seeded by (seed, step): resume replays
-            # the same mixup or mask as an uninterrupted run
-            rng = np.random.default_rng([cfg.seed, step])
-            if not tracknet:
-                mask = sample_inpaint_mask(rng, tuple(batch["vis"].shape), cfg.mask_ratio)
-                losses.append(train_step(batch, step, torch.from_numpy(mask).to(dev)))
+    logger = ScalarLogger(os.path.join(cfg.save_dir, "logs"))
+    try:
+        history = []
+        t_train = time.time()
+        for epoch in range(start_epoch, cfg.epochs):
+            verbose_print(f"Epoch [{epoch + 1} / {cfg.epochs}]")
+            t0 = time.time()
+            losses = []
+            for step_i, batch in enumerate(prefetch_to_device(train_loader, dev, keys=keys)):
+                # one host draw per step, seeded by (seed, step): resume replays
+                # the same mixup or mask as an uninterrupted run
+                rng = np.random.default_rng([cfg.seed, step])
+                if not tracknet:
+                    mask = sample_inpaint_mask(rng, tuple(batch["vis"].shape), cfg.mask_ratio)
+                    losses.append(train_step(batch, step, torch.from_numpy(mask).to(dev)))
+                else:
+                    perm = lam = None
+                    if cfg.alpha > 0:
+                        p, l = sample_mixup_params(rng, batch["cxcy"].shape[0], cfg.alpha)
+                        perm = torch.from_numpy(p).to(dev)
+                        lam = torch.from_numpy(l).to(dev)
+                    losses.append(train_step(batch, step, perm, lam))
+                step += 1
+                if (step_i + 1) % display_step == 0:
+                    visualize_step(cfg.model_name, eval_step, batch, cfg.save_dir, verbose_print,
+                                   samples)
+            train_loss = float(torch.stack(losses).mean()) if losses else 0.0
+
+            val_batches = prefetch_to_device(val_loader, dev, keys=keys)
+            if tracknet:
+                val_loss, val_res = eval_tracknet(eval_step, val_batches, cfg.tolerance,
+                                                  exact_decode=cfg.exact_decode)
+                cur_val_acc = val_res["accuracy"]
             else:
-                perm = lam = None
-                if cfg.alpha > 0:
-                    p, l = sample_mixup_params(rng, batch["cxcy"].shape[0], cfg.alpha)
-                    perm = torch.from_numpy(p).to(dev)
-                    lam = torch.from_numpy(l).to(dev)
-                losses.append(train_step(batch, step, perm, lam))
-            step += 1
-        train_loss = float(torch.stack(losses).mean()) if losses else 0.0
-
-        val_batches = prefetch_to_device(val_loader, dev, keys=keys)
-        if tracknet:
-            val_loss, val_res = eval_tracknet(eval_step, val_batches, cfg.tolerance,
-                                              exact_decode=cfg.exact_decode)
-            cur_val_acc = val_res["accuracy"]
-        else:
-            val_loss, val_res = eval_inpaintnet(eval_step, val_batches, cfg.tolerance,
-                                                input_hw=val_index.input_hw)
-            cur_val_acc = val_res["inpaint"]["accuracy"]
-        common = dict(
-            epoch=epoch,
-            model=model,
-            opt_leaves=optimizer_to_jax_leaves(
-                optimizer, model, cfg.optim, step, scheduled=cfg.lr_scheduler != ""
-            ),
-            scheduler=dict(lr_scheduler=cfg.lr_scheduler, opt_step=step),
-            param_dict=param_dict,
-        )
-        if cur_val_acc >= max_val_acc:
-            max_val_acc = cur_val_acc
-            save_checkpoint(
-                os.path.join(cfg.save_dir, f"{cfg.model_name}_best.pt"),
-                max_val_acc=max_val_acc, **common,
+                val_loss, val_res = eval_inpaintnet(eval_step, val_batches, cfg.tolerance,
+                                                    input_hw=val_index.input_hw)
+                cur_val_acc = val_res["inpaint"]["accuracy"]
+            write_to_tb(cfg.model_name, logger, (train_loss, val_loss), val_res, epoch)
+            common = dict(
+                epoch=epoch,
+                model=model,
+                opt_leaves=optimizer_to_jax_leaves(
+                    optimizer, model, cfg.optim, step, scheduled=cfg.lr_scheduler != ""
+                ),
+                scheduler=dict(lr_scheduler=cfg.lr_scheduler, opt_step=step),
+                param_dict=param_dict,
             )
-        save_checkpoint(cur_path, max_val_acc=max_val_acc, **common)
-        verbose_print(
-            f"  train_loss={train_loss:.6f} val_loss={val_loss:.6f} "
-            f"val_acc={cur_val_acc:.4f} ({time.time() - t0:.1f}s)"
-        )
-        history.append(dict(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
-                            val_res=val_res))
+            if cur_val_acc >= max_val_acc:
+                max_val_acc = cur_val_acc
+                save_checkpoint(
+                    os.path.join(cfg.save_dir, f"{cfg.model_name}_best.pt"),
+                    max_val_acc=max_val_acc, **common,
+                )
+            save_checkpoint(cur_path, max_val_acc=max_val_acc, **common)
+            verbose_print(
+                f"  train_loss={train_loss:.6f} val_loss={val_loss:.6f} "
+                f"val_acc={cur_val_acc:.4f} ({time.time() - t0:.1f}s)"
+            )
+            history.append(dict(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
+                                val_res=val_res))
 
+        samples.wait()
+    finally:
+        logger.close()
     verbose_print(f"Training time: {(time.time() - t_train) / 3600.0:.2f} hrs")
     return dict(history=history, max_val_acc=max_val_acc, model=model, step=step)
 

@@ -1,8 +1,9 @@
 """Dataset layout, label and prediction CSVs, video reading and writing.
 
-Copy of the parts of the JAX package's ``utils/io.py`` that training,
-serving (one video, streaming, batches, the overlay video) and rally
-evaluation use.
+Copy of the JAX package's ``utils/io.py`` (pandas left out): training,
+serving (one video, streaming, batches, the overlay video), rally
+evaluation, dataset preparation (the rally and match medians) and the web
+UIs' label CSVs.
 Dataset layout (the reference's Shuttlecock Trajectory Dataset):
 
     {data_dir}/{split}/match{id}/csv/{rally}_ball.csv          (train/val)
@@ -12,7 +13,9 @@ Dataset layout (the reference's Shuttlecock Trajectory Dataset):
     {data_dir}/{split}/match{id}/frame/{rally}/median.npz
     {data_dir}/{split}/match{id}/median.npz
 
-Label and prediction CSVs are read and written with the ``csv`` module
+The rally median is taken on the card (``ops.preprocess.median_of_host_frames``
+on the uint8 frames, bit-equal to the JAX package's host ``np.median``); the
+match median, over a few rally medians, on the host. Label and prediction CSVs are read and written with the ``csv`` module
 (no pandas), in pandas' ``to_csv(index=False)`` format; a frame's size is
 read from its PNG header (no PIL). ``cv2`` is imported only where a video
 file is opened.
@@ -109,6 +112,54 @@ def load_median_for_rally(match_dir: str, rally_id: str) -> np.ndarray:
     rally_median = os.path.join(match_dir, "frame", rally_id, "median.npz")
     path = match_median if os.path.exists(match_median) else rally_median
     return np.load(path)["median"]
+
+
+def read_label_rows(csv_file: str) -> Dict[str, list]:
+    """Pandas-free label CSV reader: column dict, rows sorted by Frame,
+    blank/NaN cells -> 0 and numeric cells parsed to float (the semantics
+    of the JAX package's pandas ``read_label_csv``: ``fillna(0)``); non-numeric cells are preserved
+    VERBATIM so a write-back never destroys extra annotation columns.
+
+    The web UI serves requests from a secondary HTTP-server thread where
+    pandas' arrow-backed string index construction segfaults on some hosts;
+    every CSV touch on that path must stay off pandas."""
+
+    def val(s):
+        if s is None or s == "":
+            return 0.0  # blank cell: pandas fillna(0) equivalent
+        try:
+            f = float(s)
+            return f if f == f else 0.0  # NaN -> 0
+        except ValueError:
+            return s  # non-numeric cell: keep as-is
+
+    def sort_key(row):
+        v = val(row.get("Frame"))
+        return v if isinstance(v, float) else 0.0
+
+    with open(csv_file, newline="", encoding="utf8") as f:
+        reader = csv.DictReader(f)
+        cols = list(reader.fieldnames or [])
+        rows = sorted(reader, key=sort_key)
+    return {c: [val(row.get(c)) for row in rows] for c in cols}
+
+
+def write_label_rows(rows: Dict[str, list], save_file: str) -> None:
+    """Pandas-free CSV writer for read_label_rows dicts; integral floats are
+    written as ints to match the reference CSV style, strings verbatim."""
+
+    def fmt(v):
+        if isinstance(v, str):
+            return v
+        return int(v) if float(v).is_integer() else v
+
+    cols = list(rows)
+    n = len(rows[cols[0]]) if cols else 0
+    with open(save_file, "w", newline="", encoding="utf8") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        for i in range(n):
+            w.writerow([fmt(rows[c][i]) for c in cols])
 
 
 def write_pred_csv(pred_dict: Dict, save_file: str, save_inpaint_mask: bool = False) -> None:
@@ -232,6 +283,15 @@ class VideoReader:
         self.cap.release()
 
 
+def generate_frames(video_file: str) -> Tuple[np.ndarray, float, Tuple[int, int]]:
+    """Decode a whole video to an RGB uint8 array (T, H, W, 3)."""
+    r = VideoReader(video_file)
+    frames = r.read_all()
+    fps, wh = r.fps, (r.w, r.h)
+    r.release()
+    return frames, fps, wh
+
+
 def draw_traj_comet(
     frame_bgr: np.ndarray, traj: Sequence[Optional[Tuple[int, int]]], color=(0, 255, 255)
 ) -> np.ndarray:
@@ -288,3 +348,50 @@ def write_pred_video(
         i += 1
     out.release()
     cap.release()
+
+
+# ------------------------------- medians ---------------------------------
+
+
+def get_rally_median(video_file: str, device=None) -> np.ndarray:
+    """Compute and save ``frame/{rally}/median.npz``: the median of every
+    frame of the video (reference general.py:497-525), taken on ``device``
+    (``None``: the card) over the uint8 frames: no float32 stack of the
+    rally is made on the host."""
+    from ..device import resolve_device
+    from ..ops.preprocess import median_of_host_frames
+
+    dev = resolve_device(device)
+    match_dir, rally_id = parse_video_file(video_file)
+    save_dir = os.path.join(match_dir, "frame", rally_id)
+    frames, _, _ = generate_frames(video_file)
+    if not len(frames):
+        raise ValueError(f"no frames decodable from {video_file}")
+    median = median_of_host_frames(frames, dev)
+    os.makedirs(save_dir, exist_ok=True)
+    np.savez(os.path.join(save_dir, "median.npz"), median=median)
+    return median
+
+
+def get_match_median(match_dir: str, device=None) -> np.ndarray:
+    """Median of the rally medians, saved as ``{match}/median.npz``
+    (reference general.py:468-495); a rally without its median gets one
+    from its video first (on ``device``). The few rally medians are
+    reduced on the host."""
+    medians = []
+    for rally_dir in list_dirs(os.path.join(match_dir, "frame")):
+        if not os.path.isdir(rally_dir):
+            continue
+        _, rally_id = parse_rally_dir(rally_dir)
+        med_file = os.path.join(rally_dir, "median.npz")
+        if not os.path.exists(med_file):
+            get_rally_median(os.path.join(match_dir, "video", f"{rally_id}.mp4"), device)
+        medians.append(np.load(med_file)["median"])
+    if not medians:
+        raise ValueError(
+            f"{match_dir} has no rally frame dirs - cannot compute a match "
+            "median (was its only rally moved to the val split?)"
+        )
+    median = np.median(np.stack(medians), axis=0)
+    np.savez(os.path.join(match_dir, "median.npz"), median=median)
+    return median
