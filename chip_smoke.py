@@ -242,12 +242,36 @@ exits nonzero.
    step over 40 steps queued back to back on a fixed batch, alone and while
    a GIF is drawn over and over on another thread.
 
+18. mesh (after phase 16): data-parallel serving and rally evaluation
+   (``parallel/mesh.py``) at the same width (seq_len 8, concat, 288x512,
+   batch 16, bf16, ``hand_9tap``) with a TrackNet holding the hand-set path
+   to the disk (``disk_detector_checkpoint``) and InpaintNet (seed 17). On a
+   card alone ``make_mesh(2)`` must refuse ("only 1 available"), so the
+   meshes are ``make_mesh(devices=["cuda:0", "cuda:0"])``, the card stood
+   in twice, and, where there are two cards, ``make_mesh(2)``.
+   mesh_serve: ``run_staged`` of a 240-frame video drawn in memory in
+   ``weight`` and ``nonoverlap`` on each mesh against ``mesh=None``: rows and
+   InpaintNet's rows equal, per chunk and shard 17 ``9tap``, 3 P6 and 3 P7
+   launches, ``run_fps`` (median of 3 after a warm-up) and peak memory per
+   card; ``predict_videos`` of three videos (480, 300, 97 frames) through
+   ``num_devices=2`` with ``inference.make_mesh`` standing the card in twice:
+   CSVs equal to the single device's; unpatched
+   ``predict_video(num_devices=2)`` on a card alone raises ``ValueError``.
+   mesh_rally: ``RallyTestEngine(mesh=)`` over the synthetic test split
+   against ``mesh=None``: X, Y, BBox equal, Confidence within 1e-3, 2
+   ``window_copy`` launches per evaluated chunk against 1, frames/s.
+   mesh_procs: ``engine.test(split, save_inpaint_mask=True)`` in two
+   processes on cuda:0 over a gloo group (127.0.0.1, a free port), each on
+   its own copy of the test split and limited to ``MESH_CHILD_S``: both end
+   with the SHA-256 of one process's dict and write every ``predicted_csv``
+   file; each rank gathers only its rally's windows.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
 and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
 2 and 15, ``--yuv_only`` phases 1, 2 and 16, ``--tools_only`` phases 1, 2
-and 17; none prints a kernels line.
+and 17, ``--mesh_only`` phases 1, 2 and 18; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -4295,6 +4319,308 @@ def phase_tools(tmp: str, card: str) -> None:
           "phase_s": time.time() - t0})
 
 
+# ---------------------------------------------------------------- data parallel
+
+MESH_T = 240  # frames of mesh_serve's video: cut from 480 for the script's time
+MESH_MODES = ("weight", "nonoverlap")
+MESH_VIDEOS = (("m480", 480), ("m300", 300), ("m97", 97))  # mesh_serve's predict_videos
+MESH_CHILD_S = 120  # mesh_procs: each child's time limit
+MESH_CHILD = r"""
+import datetime, glob, hashlib, json, os, sys
+sys.path.insert(0, {root!r})
+import torch.distributed as dist
+import chip_smoke as cs
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}", world_size=2,
+                        rank={rank}, timeout=datetime.timedelta(seconds=60))
+try:
+    engine = cs._rally_engine({tn!r})
+    cs._zero_launches()
+    pred = engine.test({data!r}, "test", save_inpaint_mask=True)
+    csvs = glob.glob(os.path.join({data!r}, "test", "match*", "predicted_csv", "*_ball.csv"))
+    print("MESH_PROC " + json.dumps(dict(
+        rank={rank}, sha256=hashlib.sha256(json.dumps(pred).encode()).hexdigest(),
+        keys=list(pred), frames=engine.last_eval_stats["frames"],
+        eval_s=engine.last_eval_stats["seconds"], merge_s=engine.last_merge_s,
+        predicted_csv=len(csvs), launches=cs._path_launches())), flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _want_mesh_launches(chunks: int, shards: int, copies: bool) -> dict:
+    """The path's kernels, per chunk and shard: 17 conv, 3 pool, 3
+    upsample and, where the rally engine gathers, 1 ``window_copy``."""
+    want = _want_launches(chunks * shards)
+    want["window_copy"] = chunks * shards * copies
+    return want
+
+
+def _mesh_serve(tmp: str, card: str, tn: str, inp: str, meshes: dict) -> dict:
+    """run_staged over each mesh in both modes, then predict_videos through
+    num_devices=2 on the card twice, and predict_video(num_devices=2)
+    unpatched."""
+    import torch
+
+    from tracknetv3_tpu_torch import inference as tinf
+    from tracknetv3_tpu_torch.parallel import mesh as pmesh
+
+    launches_by = {}
+    scene = _Scene(seed=23)
+    frames = np.stack([scene.frame(t, W, H) for t in range(MESH_T)])
+    for mode in MESH_MODES:
+        p = tinf.TrackNetPredictor(tn, inp, eval_mode=mode, batch_size=PATHS_BATCH,
+                                   device=DEVICE, conv_backend="hand_9tap")
+        staged = p.stage_frames(frames, src_wh=PATHS_SRC)
+        chunks = _chunks_of(MESH_T, mode, staged=True)
+        ref = None
+        for name, mesh in meshes.items():
+            cards = sorted({d.index for d in mesh.devices}) if mesh else [0]
+            p.run_staged(staged, mesh=mesh)  # warm-up: the weights' copies, the allocator
+            torch.cuda.synchronize()
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
+            run_s = []
+            for i in range(3):
+                if i == 0:
+                    _zero_launches()
+                t0 = time.perf_counter()
+                pred = p.run_staged(staged, mesh=mesh)  # ends in the one fetch
+                run_s.append(time.perf_counter() - t0)
+                if i == 0:
+                    launches = _path_launches()
+            peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d) for d in cards}
+            rows = p.inpaint_trajectory(pred, PATHS_SRC)
+            visible, far, outside = _track_check(pred, scene, MESH_T)
+            shards = mesh.size if mesh else 1
+            want = _want_mesh_launches(chunks, shards, copies=False)
+            res = {"phase": "mesh_serve", "mode": mode, "mesh": name,
+                   "devices": [str(d) for d in mesh.devices] if mesh else [DEVICE],
+                   "frames": MESH_T, "batch_size": PATHS_BATCH, "chunks": chunks,
+                   "launches": launches, "want_launches": want,
+                   "rows_equal_single": ref is None or pred == ref[0],
+                   "inpaint_rows_equal_single": ref is None or rows == ref[1],
+                   "visible": visible, "far_from_disk": far, "outside": outside,
+                   "run_fps": MESH_T / statistics.median(run_s), "run_s": run_s,
+                   "peak_mem_bytes": peaks, "card": card}
+            emit(res)
+            if ref is None:
+                ref = (pred, rows)
+                if visible < MESH_T // 4 or far or outside:
+                    fail("mesh_serve", f"{mode}: the single-device rows do not track the disk "
+                         f"({visible} visible, {far} far, {outside} outside)")
+            if not (res["rows_equal_single"] and res["inpaint_rows_equal_single"]):
+                fail("mesh_serve", f"{mode} {name}: rows differ from the single-device run")
+            if launches != want:
+                fail("mesh_serve", f"{mode} {name}: launches {launches} != {want}")
+            if name != "single":
+                launches_by[f"mesh_serve {mode} {name}"] = launches
+        del p, staged
+        torch.cuda.empty_cache()
+
+    # predict_videos through num_devices=2, make_mesh standing the one card in twice
+    videos = {f"synthetic://{name}.mp4": (T, _Scene(seed=50 + i), None)
+              for i, (name, T) in enumerate(MESH_VIDEOS)}
+    files = list(videos)
+    chunks = sum(_chunks_of(T, "weight", staged=True) for T, _, _ in videos.values())
+    p = tinf.TrackNetPredictor(tn, inp, batch_size=PATHS_BATCH, device=DEVICE,
+                               conv_backend="hand_9tap", native_decode=False)
+    out = {}
+    with mock.patch.object(tinf, "open_video", synthetic_reader(videos)):
+        tinf.predict_videos(files, tn, predictor=p)  # warm-up
+        # in turns: single, card twice, card twice, single; launches and CSVs of
+        # each's first run
+        for turn, (name, n) in enumerate((("single", None), ("card_twice", 2),
+                                          ("card_twice", 2), ("single", None))):
+            save = os.path.join(tmp, f"mesh_videos_{name}_{turn}")
+            _zero_launches()
+            t0 = time.perf_counter()
+            with mock.patch.object(tinf, "make_mesh", lambda k, device: pmesh.make_mesh(
+                    devices=[f"{device}:0"] * k)):
+                tinf.predict_videos(files, tn, predictor=p, num_devices=n, save_dir=save)
+            s = time.perf_counter() - t0
+            if name in out:
+                out[name]["s"].append(s)
+                continue
+            texts = {}
+            for f in files:
+                with open(os.path.join(save, f"{f.split('/')[-1][:-4]}_ball.csv")) as fh:
+                    texts[f] = fh.read()
+            out[name] = {"s": [s], "launches": _path_launches(), "csv": texts}
+        refused = two_cards = None
+        if torch.cuda.device_count() < 2:
+            try:
+                tinf.predict_video(files[-1], tn, num_devices=2, device=DEVICE)
+            except ValueError as e:
+                refused = str(e)
+        else:  # a true 2-card mesh, unpatched
+            save = os.path.join(tmp, "mesh_video_two_cards")
+            tinf.predict_video(files[-1], tn, inp, num_devices=2, device=DEVICE,
+                               conv_backend="hand_9tap", native_decode=False, save_dir=save)
+            with open(os.path.join(save, "m97_ball.csv")) as fh:
+                two_cards = fh.read() == out["single"]["csv"][files[-1]]
+    frames_n = sum(v[0] for v in videos.values())
+    res = {"phase": "mesh_serve", "case": "predict_videos", "videos": {f: v[0] for f, v in
+                                                                      videos.items()},
+           "csv_equal_single": out["card_twice"]["csv"] == out["single"]["csv"],
+           "frames_per_s": {k: [frames_n / t for t in o["s"]] for k, o in out.items()},
+           "launches": {k: o["launches"] for k, o in out.items()},
+           "predict_video_num_devices_2": refused, "two_cards_csv_equal_single": two_cards,
+           "card": card}
+    emit(res)
+    if not res["csv_equal_single"]:
+        fail("mesh_serve", "predict_videos(num_devices=2) CSVs differ from the single device's")
+    for name, shards in (("single", 1), ("card_twice", 2)):
+        want = _want_mesh_launches(chunks, shards, copies=False)
+        if out[name]["launches"] != want:
+            fail("mesh_serve", f"predict_videos {name}: launches {out[name]['launches']} != "
+                 f"{want}")
+    if torch.cuda.device_count() < 2 and (refused is None or "only 1 available" not in refused):
+        fail("mesh_serve", f"predict_video(num_devices=2) on one card: {refused!r}")
+    if two_cards is False:
+        fail("mesh_serve", "predict_video(num_devices=2) on two cards: CSV differs")
+    launches_by["mesh_serve predict_videos card_twice"] = out["card_twice"]["launches"]
+    return launches_by
+
+
+def _mesh_rally(card: str, tn: str, data_dir: str, meshes: dict) -> dict:
+    """The rally engine over the synthetic test split on each mesh against
+    the single device: X, Y, BBox equal, Confidence within 1e-3."""
+    chunks = sum(_rally_chunks(n, "overlap") for n in _rally_label_counts(data_dir, "test")
+                 .values())
+    launches_by, ref = {}, None
+    for name, mesh in meshes.items():
+        engine = _rally_engine(tn, mesh=mesh)
+        engine.test(data_dir, "test", output_bbox=True)  # warm-up, stages the rallies
+        _zero_launches()
+        pred = engine.test(data_dir, "test", output_bbox=True)
+        launches = _path_launches()
+        shards = mesh.size if mesh else 1
+        want = _want_mesh_launches(chunks, shards, copies=True)
+        if ref is None:
+            ref = pred
+        same = all(pred[k][c] == ref[k][c] for k in ref for c in ("X", "Y", "BBox", "Visibility"))
+        conf = max(abs(a - b) for k in ref for a, b in zip(pred[k]["Confidence"],
+                                                            ref[k]["Confidence"]))
+        res = {"phase": "mesh_rally", "mesh": name, "chunks": chunks, "launches": launches,
+               "want_launches": want, "rows_equal_single": same, "max_conf_diff": conf,
+               "visible": sum(sum(p["Visibility"]) for p in pred.values()),
+               "fps": engine.last_eval_stats["fps"], "card": card}
+        emit(res)
+        if list(pred) != list(ref) or not same or conf > 1e-3:
+            fail("mesh_rally", f"{name}: rows differ from the single device's (conf {conf})")
+        if launches != want:
+            fail("mesh_rally", f"{name}: launches {launches} != {want}")
+        if name != "single":
+            launches_by[f"mesh_rally {name}"] = launches
+        del engine
+    return launches_by
+
+
+def _mesh_procs(tmp: str, card: str, tn: str, data_dir: str) -> None:
+    """engine.test(save_inpaint_mask=True) in two processes on cuda:0 over a
+    gloo group, each on its own copy of the test split, against one process."""
+    import hashlib
+    import socket
+
+    dirs = {}
+    for tag in ("rank0", "rank1", "solo"):
+        dirs[tag] = os.path.join(tmp, "mesh_procs", tag)
+        shutil.copytree(os.path.join(data_dir, "test"), os.path.join(dirs[tag], "test"),
+                        ignore=shutil.ignore_patterns("predicted_csv"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_CHILD.format(root=ROOT, port=port, rank=r, tn=tn,
+                                                 data=dirs[f"rank{r}"])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(MESH_CHILD_S - (time.time() - t0), 1))
+            except subprocess.TimeoutExpired:
+                fail("mesh_procs", f"rank {r} did not end within {MESH_CHILD_S} s")
+            if p.returncode != 0:
+                fail("mesh_procs", f"rank {r} exited {p.returncode}: {err[-2000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith("MESH_PROC ")]
+            if len(lines) != 1:
+                fail("mesh_procs", f"rank {r} printed no result: {out[-1000:]} {err[-1000:]}")
+            outs.append(json.loads(lines[0][len("MESH_PROC "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    procs_s = time.time() - t0
+    engine = _rally_engine(tn)
+    pred = engine.test(dirs["solo"], "test", save_inpaint_mask=True)
+    solo = hashlib.sha256(json.dumps(pred).encode()).hexdigest()
+    chunks = [_rally_chunks(n, "overlap") for n in _rally_label_counts(dirs["solo"], "test")
+              .values()]
+    res = {"phase": "mesh_procs", "processes": 2, "backend": "gloo", "device": DEVICE,
+           "ranks": outs, "solo_sha256": solo, "solo_frames": engine.last_eval_stats["frames"],
+           "rallies": len(chunks), "wall_s": procs_s, "card": card}
+    emit(res)
+    for o, n in zip(outs, chunks):  # rank r evaluated rally r
+        if o["sha256"] != solo or o["keys"] != list(pred):
+            fail("mesh_procs", f"rank {o['rank']}'s merged dict differs from one process's")
+        if o["frames"] != res["solo_frames"] or o["predicted_csv"] != len(chunks):
+            fail("mesh_procs", f"rank {o['rank']}: {o['frames']} frames, "
+                 f"{o['predicted_csv']} predicted_csv files")
+        if o["launches"]["window_copy"] != n:
+            fail("mesh_procs", f"rank {o['rank']}: {o['launches']['window_copy']} window_copy "
+                 f"launches for its rally's {n} chunks")
+
+
+def phase_mesh(tmp: str, card: str) -> dict:
+    """mesh: serving and rally evaluation sharded over a mesh that stands the
+    card in twice (and over two cards where there are two), and rally
+    evaluation in two processes; returns the paths' launches."""
+    import torch
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.parallel import mesh as pmesh
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True  # as the CLIs set it
+    tn = disk_detector_checkpoint(os.path.join(tmp, "TrackNet_mesh.pt"), seed=37)
+    inp = os.path.join(tmp, "InpaintNet_mesh.pt")
+    save_checkpoint(inp, epoch=0, max_val_acc=0.0,
+                    model=get_model("InpaintNet", generator=torch.Generator().manual_seed(17)),
+                    param_dict={"model_name": "InpaintNet", "seq_len": 16})
+    meshes = {"single": None, "card_twice": pmesh.make_mesh(devices=["cuda:0", "cuda:0"])}
+    refusal = None
+    if torch.cuda.device_count() >= 2:
+        meshes["two_cards"] = pmesh.make_mesh(2)
+    else:
+        try:
+            pmesh.make_mesh(2)
+        except ValueError as e:
+            refusal = str(e)
+        if refusal != "Requested 2 devices, only 1 available":
+            fail("mesh", f"make_mesh(2) on one card: {refusal!r}")
+    launches_by = _mesh_serve(tmp, card, tn, inp, meshes)
+    t_serve = time.time() - t_phase
+    data_dir = os.path.join(tmp, "data")
+    if not os.path.isdir(os.path.join(data_dir, "test")):
+        write_synthetic_dataset(data_dir)
+    t0 = time.time()
+    launches_by.update(_mesh_rally(card, tn, data_dir, meshes))
+    t_rally = time.time() - t0
+    t0 = time.time()
+    _mesh_procs(tmp, card, tn, data_dir)
+    emit({"phase": "mesh", "card": card, "cards": torch.cuda.device_count(),
+          "meshes": {k: [str(d) for d in m.devices] if m else [DEVICE]
+                     for k, m in meshes.items()},
+          "make_mesh_2": refusal or "two cards", "serve_s": t_serve, "rally_s": t_rally,
+          "procs_s": time.time() - t0, "phase_s": time.time() - t_phase})
+    return launches_by
+
+
 def _baseline_modules(root: str):
     """The copy and loss kernel modules of the port in another checkout,
     imported under another package name so that both trees live in one
@@ -4344,6 +4670,10 @@ def main() -> int:
     ap.add_argument("--tools_only", action="store_true",
                     help="build and tools (the rally median of dataset preparation, "
                          "training's scalar logs and progress samples) alone; no kernels line")
+    ap.add_argument("--mesh_only", action="store_true",
+                    help="build and mesh (serving and rally evaluation over a mesh that "
+                         "stands the card in twice, rally evaluation in two processes) alone; "
+                         "no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -4373,7 +4703,8 @@ def main() -> int:
             else "rally" if args.rally_only
             else "serve_paths" if args.serve_paths_only
             else "yuv" if args.yuv_only
-            else "tools" if args.tools_only else None)
+            else "tools" if args.tools_only
+            else "mesh" if args.mesh_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -4397,6 +4728,9 @@ def main() -> int:
         elif only == "tools":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_tools(tmp, card)
+        elif only == "mesh":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_mesh(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -4430,6 +4764,7 @@ def main() -> int:
         del frames
         paths_launches = phase_serve_paths(tmp, card)
         paths_launches.update(phase_yuv_stage(tmp, card))
+        mesh_launches = phase_mesh(tmp, card)
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
@@ -4452,7 +4787,8 @@ def main() -> int:
          "replaces": replaces[k], "launches": serve_launches["cudnn", 16][k],
          "launches_by_path": {"serve cudnn batch 16": serve_launches["cudnn", 16][k],
                               "rally": rally_launches[k],
-                              **{_path_name(p): n[k] for p, n in paths_launches.items()}},
+                              **{_path_name(p): n[k] for p, n in paths_launches.items()},
+                              **{p: n[k] for p, n in mesh_launches.items()}},
          "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": "/".join(sorted(set(v["bound_by"]))),
          "library_ms": v["plain_ms"]}
@@ -4488,7 +4824,9 @@ def main() -> int:
                               serve_launches[served[k]][f"conv3x3_{k}"],
                               "rally": rally_launches.get(f"conv3x3_{k}", 0),
                               **{_path_name(p): n.get(f"conv3x3_{k}", 0)
-                                 for p, n in paths_launches.items()}}, **v}
+                                 for p, n in paths_launches.items()},
+                              **{p: n.get(f"conv3x3_{k}", 0)
+                                 for p, n in mesh_launches.items()}}, **v}
         for k, v in conv.items()
     ]
     # P8/P9: each kernel at the train path's shape of copy_vs_plain (the roll,
@@ -4507,7 +4845,9 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/shift_copy.cu",
          "replaces": replaces[k], "also_replaces": also[k],
          "launches": copy_launches[k] + rally_launches.get(k, 0),
-         "launches_by_path": {"seg_train": copy_launches[k], "rally": rally_launches.get(k, 0)},
+         "launches_by_path": {"seg_train": copy_launches[k], "rally": rally_launches.get(k, 0),
+                              **{p: n.get(k, 0) for p, n in mesh_launches.items()
+                                 if p.startswith("mesh_rally")}},
          "on_a_ported_path": k != "roll_cols", **copies[k]}
         for k in COPY_KERNELS
     ]

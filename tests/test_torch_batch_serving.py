@@ -13,8 +13,8 @@ JAX ``predict_videos`` (both at float32, cv2 decode;
 - a first video whose upload fails gives its slots back, and a failure
   while serving stops the producer (under a timeout, so that a deadlock
   fails instead of hanging);
-- the JAX package's TPU options raise; the native decoder and the
-  staging format, which the port took since, run.
+- the JAX package's TPU options raise; the native decoder, the staging
+  format and ``num_devices``, which the port took since, run.
 """
 
 import threading
@@ -171,7 +171,7 @@ def test_a_failure_while_serving_stops_the_producer(data):
     files = [clips[9], clips[10], clips[17], clips[20], clips[30]]
     p = port_predictor(tn)
 
-    def failing_run(staged, img_scaler=None):
+    def failing_run(staged, img_scaler=None, mesh=None):
         raise RuntimeError("injected serving failure")
 
     p.run_staged = failing_run
@@ -186,10 +186,21 @@ def test_a_failure_while_serving_stops_the_producer(data):
     dict(bucket_quantum=256), dict(num_devices=2), dict(native_decode=True),
     dict(stage_format="yuv420"), dict(program_cache_dir="x"), dict(on_error="ignore"),
 ])
-def test_predict_videos_refuses_the_tpu_options(data, option):
+def test_predict_videos_refuses_the_tpu_options(data, option, tmp_path):
     """The TPU options raise; ``native_decode`` and ``stage_format``, ported
-    since, serve the clip (the forced ``yuv420`` staging YUV420 rows)."""
+    since, serve the clip (the forced ``yuv420`` staging YUV420 rows), and
+    ``num_devices=2`` serves it on a 2-entry CPU mesh: the rows and the CSV
+    of the single device."""
     clips, tn, _, _ = data
+    if "num_devices" in option:
+        p = port_predictor(tn)
+        want = tinf.predict_videos([clips[9]], "", predictor=p, save_dir=str(tmp_path / "one"))
+        got = tinf.predict_videos([clips[9]], "", predictor=p, save_dir=str(tmp_path / "two"),
+                                  **option)
+        assert got == want and len(got[clips[9]]["Frame"]) == 9
+        assert (csv_text(tmp_path / "two" / "clip9_ball.csv")
+                == csv_text(tmp_path / "one" / "clip9_ball.csv"))
+        return
     if set(option) <= {"native_decode", "stage_format"}:
         p = tinf.TrackNetPredictor(tn, input_hw=(H, W), device="cpu", batch_size=4, **option)
         got = tinf.predict_videos([clips[9]], tn, predictor=p)

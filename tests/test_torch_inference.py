@@ -19,10 +19,11 @@ sizes of ``tests/test_staged.py`` (32x64, seq_len 3, batch 4):
   for; the JAX package's TPU options and flags raise
   ``NotImplementedError``, and the serving options the port took since
   (streaming, device resize, the overlay video, ``--video_dir``, the native
-  decoder and the staging format, ``--profile``) run on the CPU. Their
-  parity with the JAX package is in ``tests/test_torch_serve_resident.py``,
-  ``test_torch_streaming.py``, ``test_torch_batch_serving.py``,
-  ``test_torch_predict_cli.py`` and ``test_torch_native_*.py``.
+  decoder and the staging format, ``--profile``, ``--num_devices``) run on
+  the CPU. Their parity with the JAX package is in
+  ``tests/test_torch_serve_resident.py``, ``test_torch_streaming.py``,
+  ``test_torch_batch_serving.py``, ``test_torch_predict_cli.py``,
+  ``test_torch_native_*.py`` and ``test_torch_mesh_serving.py``.
 """
 
 import functools
@@ -259,12 +260,13 @@ def test_serving_entry_points_need_a_card_or_an_explicit_cpu(ckpts, clip_and_wan
 
 
 # options and flags of the JAX package that the port serves since streaming,
-# device resize, the overlay video, batch serving, the native decoder and
-# YUV420 staging came in
+# device resize, the overlay video, batch serving, the native decoder,
+# YUV420 staging and data-parallel serving came in
 PORTED_OPTIONS = {"large_video", "device_resize", "output_video", "video_range",
-                  "native_decode", "stage_format"}
+                  "native_decode", "stage_format", "num_devices"}
 PORTED_FLAGS = {"--video_dir", "--large_video", "--output_video", "--device_resize",
-                "--traj_len", "--video_range", "--fail_fast", "--stage_format", "--profile"}
+                "--traj_len", "--video_range", "--fail_fast", "--stage_format", "--profile",
+                "--num_devices"}
 
 
 def _served(save_dir, n_rows=17):
@@ -282,25 +284,33 @@ def test_predict_video_unported_options_raise(ckpts, clip_and_want, option, tmp_
     """The JAX package's TPU options raise ``NotImplementedError``; those the
     port serves (``PORTED_OPTIONS``) run on the CPU and write the CSV (and
     the overlay video); the forced ``yuv420`` stages YUV420 rows through
-    the native reader."""
+    the native reader; ``num_devices=2`` serves on a 2-entry CPU mesh."""
     tn, _ = ckpts
     clip, _ = clip_and_want
     if set(option) <= PORTED_OPTIONS:
-        seen = []
+        seen, meshes = [], []
         real = tinf.TrackNetPredictor.upload_video
+        real_run = tinf.TrackNetPredictor.run_staged
 
         def upload(p, *args, **kwargs):
             up = real(p, *args, **kwargs)
             seen.append((p.decode_backend, up.yuv))
             return up
 
+        def run_staged(p, staged, img_scaler=None, mesh=None):
+            meshes.append(None if mesh is None else [str(d) for d in mesh.devices])
+            return real_run(p, staged, img_scaler, mesh)
+
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(tinf.TrackNetPredictor, "upload_video", upload)
+            mp.setattr(tinf.TrackNetPredictor, "run_staged", run_staged)
             pred = tinf.predict_video(clip, tn, input_hw=(H, W), device="cpu", batch_size=B,
                                       save_dir=str(tmp_path), **option)
         assert pred["Frame"] == list(range(17))
         if option.get("stage_format") == "yuv420":
             assert seen == [("native-lowres1+yuv420", True)]
+        if "num_devices" in option:
+            assert meshes == [["cpu", "cpu"]]
         _served(tmp_path)
         assert os.path.exists(tmp_path / "clip.mp4") == ("output_video" in option)
         return
@@ -317,7 +327,8 @@ def test_predict_cli_unported_flags_raise(ckpts, clip_and_want, flags, tmp_path,
     """The JAX CLI's TPU flags raise ``NotImplementedError``; those the port
     serves (``PORTED_FLAGS``) run on the CPU (``--video_dir`` over the
     clip's directory; ``--profile`` into the test's directory, where the
-    trace must be) and write the CSV."""
+    trace must be; ``--num_devices 2`` on a 2-entry CPU mesh) and write the
+    CSV."""
     tn, _ = ckpts
     clip, _ = clip_and_want
     if flags[0] not in PORTED_FLAGS:

@@ -2,11 +2,12 @@
 tracknetv3_tpu_torch.generate_mask_data --device cpu`` writes the
 ``predicted_csv`` files of the JAX package's engine, byte for byte, on the
 data and checkpoints of ``tests/torch_rally_data.py`` (both engines at
-float32). The flags the port's evaluation CLIs do not take raise
-``NotImplementedError`` (the test CLI's ``--video_file`` runs since it was
-ported); ``--exact_decode`` takes the JAX CLIs' values.
+float32). ``--num_devices 2`` shards both evaluation CLIs over a 2-entry
+CPU mesh, with the files of the single device (the test CLI's ``--video_file``
+runs since it was ported); ``--exact_decode`` takes the JAX CLIs' values.
 """
 
+import json
 import os
 import shutil
 
@@ -70,19 +71,53 @@ def test_generate_mask_data_cli_writes_the_jax_csvs(setup, tmp_path, monkeypatch
     ("test", ["--num_devices", "2"]),
     ("generate_mask_data", ["--num_devices", "2"]),
 ])
-def test_unported_flags_raise(setup, cli, flags):
-    """``--num_devices`` above 1 raises ``NotImplementedError``; the test
-    CLI's ``--video_file``, ported since, takes the path and refuses one
-    outside a dataset's ``video/`` directory (its run on a rally video is
+def test_unported_flags_raise(setup, cli, flags, tmp_path, monkeypatch):
+    """``--num_devices 2 --device cpu`` runs each CLI's engine on a 2-entry
+    CPU mesh and writes the files of the single-device run: the test CLI's
+    prediction dicts, metrics and analysis file, the mask-data CLI's
+    ``predicted_csv`` files byte for byte. The test CLI's ``--video_file``,
+    ported since, takes the path and refuses one outside a dataset's
+    ``video/`` directory (its run on a rally video is
     ``tests/test_torch_native_cli.py``'s)."""
-    _, tn = setup
+    data, tn = setup
     main = test_cli.main if cli == "test" else mask_cli.main
     if flags[0] == "--video_file":
         with pytest.raises(ValueError, match="Not a dataset video path"):
             main(["--tracknet_file", tn, "--device", "cpu"] + flags)
         return
-    with pytest.raises(NotImplementedError):
-        main(["--tracknet_file", tn, "--device", "cpu"] + flags)
+    monkeypatch.setattr(port_te, "HEIGHT", H)
+    monkeypatch.setattr(port_te, "WIDTH", W)
+    meshes = []
+    real_engine = port_te.RallyTestEngine
+
+    def engine_f32(*args, compute_dtype=None, mesh=None, **kwargs):
+        meshes.append(None if mesh is None else [str(d) for d in mesh.devices])
+        return real_engine(*args, compute_dtype=torch.float32, mesh=mesh, **kwargs)
+
+    monkeypatch.setattr(port_te, "RallyTestEngine", engine_f32)
+    files = {}
+    for tag, extra in (("one", []), ("mesh", flags)):
+        d = str(tmp_path / tag)
+        shutil.copytree(data, d, ignore=shutil.ignore_patterns("predicted_csv"))
+        argv = ["--tracknet_file", tn, "--data_dir", d, "--batch_size", str(B), "--device",
+                "cpu"] + extra
+        if cli == "test":
+            out = main(argv + ["--save_dir", os.path.join(d, "out"), "--output_pred"])
+            names = ["test_eval_res_weight.json", "test_eval_analysis_weight.json"]
+            files[tag] = {"pred": out["pred_dict"], "res": {k: v for k, v in out["res"].items()
+                                                            if k != "eval_speed"}}
+            with open(os.path.join(d, "out", names[1])) as f:
+                files[tag]["analysis"] = json.load(f)["pred_dict"]
+            assert os.path.exists(os.path.join(d, "out", names[0]))
+        else:
+            main(argv + ["--split_list", "test"])
+            files[tag] = {}
+            for r, _ in rd.RALLIES["test"]:
+                with open(os.path.join(d, "test", "match1", "predicted_csv", f"{r}_ball.csv"),
+                          "rb") as f:
+                    files[tag][r] = f.read()
+    assert meshes == [None, ["cpu", "cpu"]]
+    assert files["mesh"] == files["one"]
 
 
 def test_exact_decode_flag_values():

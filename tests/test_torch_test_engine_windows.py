@@ -6,7 +6,9 @@ the data and checkpoint of ``tests/torch_rally_data.py`` (as
   clamped on the host) filled with garbage leave the rows unchanged;
 - staging pads with the last frame (uint8 frames, float32 median),
   prestaged equals lazy, and window starts are checked on the host;
-- a mesh and an unknown eval mode are refused.
+- a mesh on a 2-entry CPU mesh gives the rows of one device, each entry
+  holding a copy of the staged rally; what is not a mesh, a mesh that does
+  not divide the batch and an unknown eval mode are refused.
 """
 
 
@@ -19,6 +21,7 @@ torch.set_num_threads(1)  # the suite's workers share a few cores
 import torch_rally_data as rd  # noqa: E402
 from tracknetv3_tpu_torch.data.dataset import FrameCache  # noqa: E402
 from tracknetv3_tpu_torch.evaluation.test_engine import RallyTestEngine  # noqa: E402
+from tracknetv3_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from tracknetv3_tpu_torch.training.checkpoint import load_model_from_checkpoint  # noqa: E402
 
 H, W, L, B = rd.H, rd.W, rd.L, rd.B
@@ -109,7 +112,27 @@ def test_window_starts_are_checked_on_the_host(setup):
 
 def test_engine_refuses_what_is_not_ported(setup):
     _, tn = setup
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         _port(tn, mesh=object())
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        _port(tn, mesh=make_mesh(3, device="cpu"))
     with pytest.raises(ValueError, match="eval_mode"):
         _port(tn, eval_mode="median")
+
+
+@pytest.mark.parametrize("eval_mode", MODES)
+def test_a_mesh_gives_the_rows_of_one_device(setup, eval_mode):
+    """Each chunk's windows split over a 2-entry CPU mesh: the rows of the
+    engine without one, and a copy of the staged rally per entry."""
+    data, tn = setup
+    one, two = _port(tn, eval_mode=eval_mode), _port(tn, eval_mode=eval_mode,
+                                                      mesh=make_mesh(2, device="cpu"))
+    for rally, T in RALLIES:
+        want, got = rd.predict(one, data, rally, T), rd.predict(two, data, rally, T)
+        for k in ("cx", "cy", "bbox", "conf"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{rally} {k}")
+    staged = two._stage_rally(FrameCache(data, "concat", input_hw=(H, W)),
+                              rd.rally_dir(data, RALLIES[1][0]), np.arange(RALLIES[1][1]))
+    assert len(staged.replicas) == 2 and staged.replicas[0].rgb is staged.rgb
+    assert one._stage_rally(FrameCache(data, "concat", input_hw=(H, W)),
+                            rd.rally_dir(data, RALLIES[1][0]), np.arange(3)).replicas == ()

@@ -696,12 +696,18 @@ int launch(const void* x, const void* wp, const void* bias, void* y, const long 
   if (!plan_matches<K3C, BN, MW>(plan)) return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<K3C, BN, MW>();
   auto kernel = conv3x3_kernel<K3C, BN, STAGES, MW>;
-  static bool configured = false;  // one per instantiation
-  if (!configured) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
+  // the attribute is the current device's: one flag per instantiation and
+  // device, so that a second card of a mesh sets it too
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
   }
   CUtensorMap mx, mw, my;
   int e = encode(&mx, x, 4, plan, P_X_DIMS, P_X_STRIDES, P_X_BOX);

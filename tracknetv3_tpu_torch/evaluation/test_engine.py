@@ -23,14 +23,25 @@ The TrackNet path per rally:
    kept on the card;
 3. one fetch of the rally's rows.
 
+With a ``mesh`` (``parallel/mesh.py``) every entry keeps a copy of the
+staged rally on its device, each chunk's window starts are split into the
+mesh's equal shares, each entry gathers (``window_copy``) and forwards its
+share, and the shares come back in window order to the mesh's first device
+(the engine's) for the ensemble and the decode.
+
+Under an initialised ``torch.distributed`` group of more than one process,
+``test`` takes the rallies ``rally_dirs[rank::world_size]``, then merges the
+per-rally prediction dicts of every process (``_merge_pred_dicts``: JSON
+bytes, all-gathered over a gloo group on the host) into the split's order,
+so that every process holds the whole dict, as in the JAX package.
+
 ``exact_decode`` picks the decode: False, the serving decoder
 (``decode_heatmaps``, the peak blob); True (or ``"device"``), the
 largest-bbox-area rule on the card (``decode_heatmaps_exact``) inside the
 chunk loop; ``"host"``, the same rule on the host
 (``decode_heatmaps_host``) over the ensembled heatmaps, fetched once a
 rally. The JAX package's TPU workarounds (length buckets, power-of-two
-padding, compiled-program caches) are not ported, and neither are meshes
-and multi-process evaluation (``NotImplementedError``).
+padding, compiled-program caches) are not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +70,8 @@ from ..ops.ensemble import (
 from ..ops.postprocess import generate_inpaint_mask, linear_interp
 from ..ops.preprocess import window_channels
 from ..ops.shift_copy import check_starts, window_copy
+from ..parallel.mesh import (check_mesh, device_context, gather_batch, replicate_tree,
+                             split_batch)
 from ..utils.io import (
     get_rally_dirs,
     label_csv_path,
@@ -78,6 +91,7 @@ class StagedRally(NamedTuple):
     diff: Optional[torch.Tensor]  # (T + L - 1, h, w, 1) uint8 (the subtract modes)
     median: Optional[torch.Tensor]  # (h, w, 3) float32 (concat)
     T: int
+    replicas: Tuple["StagedRally", ...] = ()  # with a mesh: a copy on each entry's device
 
     @property
     def nbytes(self) -> int:
@@ -107,7 +121,9 @@ class RallyTestEngine:
     the card and raises without one; pass ``"cpu"`` for the plain versions
     of the kernels. ``compute_dtype`` (bfloat16 by default) and
     ``conv_backend`` are ``TrackNetPredictor``'s. ``num_workers`` is
-    accepted for the CLI's sake and unused; a ``mesh`` raises.
+    accepted for the CLI's sake and unused. ``mesh``, a
+    ``parallel.mesh.Mesh`` whose size divides ``batch_size`` and whose first
+    device is ``device``, shards each chunk's windows over its entries.
     """
 
     def __init__(
@@ -131,7 +147,8 @@ class RallyTestEngine:
     ):
         self.device = resolve_device(device)
         if mesh is not None:
-            raise NotImplementedError("not ported to PyTorch yet: mesh")
+            check_mesh(mesh, int(batch_size), self.device, "engine")
+        self.mesh = mesh
         if eval_mode not in ("nonoverlap", "average", "weight"):
             raise ValueError(f"Invalid eval_mode: {eval_mode!r}")
         self.seq_len = int(tracknet_seq_len)
@@ -151,6 +168,9 @@ class RallyTestEngine:
         if tracknet is not None:
             self.params = fused_params(fold_batchnorm(tracknet), self.compute_dtype,
                                        self.device, conv_backend)
+        # the folded weights on each mesh entry's device, copied once
+        self._mesh_params = (replicate_tree(self.params, mesh)
+                             if mesh is not None and self.params is not None else None)
         self._weights = None
         if eval_mode != "nonoverlap":
             self._weights = torch.from_numpy(
@@ -158,18 +178,21 @@ class RallyTestEngine:
         self.inpaintnet = inpaintnet.to(self.device).eval() if inpaintnet is not None else None
         self._staged_rallies: Dict[str, StagedRally] = {}
         self.last_eval_stats: Dict[str, float] = {}
+        self.last_merge_s: Optional[float] = None  # test()'s merge across processes
+        self._gloo = None  # (default process group, its gloo twin): _host_group
 
     # ------------------------------------------------------------ staging
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
+    def _put(self, arr: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
 
     def _stage_rally(self, cache: FrameCache, rally_dir: str, frame_ids) -> StagedRally:
         """Upload one rally's cached frames, padded with L-1 repeats of the
-        last, and its median."""
+        last, and its median; with a mesh, copy them to each entry's device."""
         rgb_all, diff_all, med = cache.load(rally_dir)
         need_rgb = self.bg_mode in ("", "subtract_concat", "concat")
 
@@ -179,7 +202,10 @@ class RallyTestEngine:
         rgb = self._put(pad(rgb_all[frame_ids])) if need_rgb else None
         diff = self._put(pad(diff_all[frame_ids][..., None])) if diff_all is not None else None
         median = self._put(med.astype(np.float32)) if med is not None else None
-        return StagedRally(rgb, diff, median, len(frame_ids))
+        staged = StagedRally(rgb, diff, median, len(frame_ids))
+        if self.mesh is not None:
+            staged = staged._replace(replicas=tuple(replicate_tree(staged, self.mesh)))
+        return staged
 
     def prestage(self, data_dir: str, rally_dirs, cache: FrameCache,
                  budget_bytes: float = 8e9) -> int:
@@ -209,16 +235,30 @@ class RallyTestEngine:
         """Forward the windows starting at the host ``starts``: (B, L, h, w)
         float32 probabilities. The windows are gathered from the uint8
         buffers by ``window_copy`` and cast after (the same bits as casting
-        first)."""
+        first). With a mesh each entry forwards its share of ``starts`` from
+        its copy of the rally, and the shares are gathered in order on the
+        engine's device."""
         L = self.seq_len
         n_rows = (staged.rgb if staged.rgb is not None else staged.diff).shape[0]
         check_starts(starts, L, n_rows)
-        st = self._put(np.asarray(starts, np.int32))
+        if self.mesh is None:
+            return self._forward_share(staged, starts, self.params, self.device)
+        shares = []
+        for dev, rep, params, s in zip(self.mesh.devices, staged.replicas, self._mesh_params,
+                                       split_batch(np.asarray(starts), self.mesh.size)):
+            with device_context(dev):
+                shares.append(self._forward_share(rep, s, params, dev))
+        return gather_batch(shares, self.mesh)
+
+    def _forward_share(self, staged: StagedRally, starts: np.ndarray, params,
+                       device: torch.device) -> torch.Tensor:
+        L = self.seq_len
+        st = self._put(np.asarray(starts, np.int32), device)
         rgb = window_copy(staged.rgb, st, L).to(torch.float32) if staged.rgb is not None else None
         diff = (window_copy(staged.diff, st, L).to(torch.float32)
                 if staged.diff is not None else None)
         x = window_channels(rgb, diff, staged.median, self.bg_mode)
-        return tracknet_fused_forward(self.params, x).permute(0, 3, 1, 2)
+        return tracknet_fused_forward(params, x).permute(0, 3, 1, 2)
 
     def _chunks(self, staged: StagedRally) -> Iterator[Tuple[torch.Tensor, int]]:
         """The rally's per-frame heatmaps as (maps (n, h, w) on the device,
@@ -395,21 +435,28 @@ class RallyTestEngine:
         """Every rally of ``split``: {"{match}_{rally}": prediction dict}.
         With ``save_inpaint_mask`` each rally's ``predicted_csv`` file is
         written. ``last_eval_stats`` holds the frames, seconds and frames/s
-        of the run."""
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("not ported to PyTorch yet: multi-process evaluation")
+        of the run.
+
+        Under an initialised ``torch.distributed`` group of ``pc > 1``
+        processes, rank ``pi`` evaluates the rallies ``rally_dirs[pi::pc]``
+        (round robin, so long and short rallies spread evenly) and the
+        dicts are merged (``_merge_pred_dicts``): every process returns the
+        whole dict in the split's order, writes every ``predicted_csv``
+        file from it, and counts its frames in ``last_eval_stats``;
+        ``last_merge_s`` holds the merge's seconds."""
+        pc, pi = process_count_index()
         rally_dirs = [os.path.join(data_dir, rd) for rd in get_rally_dirs(data_dir, split)]
         if debug:
             rally_dirs = rally_dirs[:1]
+        my_rallies = rally_dirs if pc == 1 else rally_dirs[pi::pc]
         cache = FrameCache(data_dir, self.bg_mode, input_hw=(self.h, self.w))
         t0 = time.time()
         if self.tracknet is not None and not use_linear_interp:
-            n_staged = self.prestage(data_dir, rally_dirs, cache)
+            n_staged = self.prestage(data_dir, my_rallies, cache)
             if verbose:
-                print(f"  prestaged {n_staged}/{len(rally_dirs)} rallies")
+                print(f"  prestaged {n_staged}/{len(my_rallies)} rallies")
         pred_dict = {}
-        for rally_dir in rally_dirs:
+        for rally_dir in my_rallies:
             key = _rally_key(rally_dir)
             if verbose:
                 print(f"  rally {key}")
@@ -419,6 +466,10 @@ class RallyTestEngine:
                 pred_dict[key] = self.test_rally(data_dir, rally_dir, cache,
                                                  save_inpaint_mask=save_inpaint_mask,
                                                  output_bbox=output_bbox, output_gt=output_gt)
+        if pc > 1:
+            t_merge = time.time()
+            pred_dict = self._merge_pred_dicts(pred_dict, rally_dirs, self._host_group())
+            self.last_merge_s = time.time() - t_merge
         if save_inpaint_mask:
             for rally_dir in rally_dirs:
                 match_dir, rally_id = parse_rally_dir(rally_dir)
@@ -432,6 +483,61 @@ class RallyTestEngine:
         self.last_eval_stats = dict(frames=frames, seconds=round(seconds, 3),
                                     fps=round(frames / seconds, 2) if seconds > 0 else 0.0)
         return pred_dict
+
+    def _host_group(self):
+        """The process group ``_merge_pred_dicts`` gathers host tensors over:
+        None (the default group) where the default backend includes gloo,
+        else a gloo group over the same ranks, made once per default group
+        (NCCL gathers no host tensors and runs no two ranks on one card)."""
+        import torch.distributed as dist
+
+        if "gloo" in str(dist.get_backend()):
+            return None
+        world = dist.group.WORLD
+        if self._gloo is None or self._gloo[0] is not world:
+            self._gloo = (world, dist.new_group(backend="gloo"))
+        return self._gloo[1]
+
+    @staticmethod
+    def _merge_pred_dicts(local: Dict[str, Dict], rally_dirs, group=None) -> Dict[str, Dict]:
+        """All-gather each process's per-rally prediction dicts and merge
+        them in the order of ``rally_dirs``: every process gets the same
+        dict, ordered as a single process's run.
+
+        The dicts are ragged, so they travel as JSON bytes (lists of Python
+        ints and floats by construction, so the transport cannot change
+        them) padded to the longest: an int32 all-gather of the sizes, then
+        one uint8 all-gather of the payloads. The tensors stay on the host;
+        ``group`` (``_host_group``) must be able to gather them."""
+        import torch.distributed as dist
+
+        payload = np.frombuffer(json.dumps(local).encode(), np.uint8)
+        if payload.size >= 2**31:
+            raise ValueError(
+                f"per-process pred-dict payload is {payload.size} bytes, over the 2 GiB int32 "
+                "all-gather limit - use more processes or fewer output fields "
+                "(output_bbox/output_gt)")
+        pc = dist.get_world_size(group)
+        sizes = [torch.zeros(1, dtype=torch.int32) for _ in range(pc)]
+        dist.all_gather(sizes, torch.tensor([payload.size], dtype=torch.int32), group=group)
+        sizes = [int(n) for n in sizes]
+        buf = torch.zeros(max(sizes), dtype=torch.uint8)
+        buf[: payload.size] = torch.from_numpy(payload.copy())
+        bufs = [torch.empty_like(buf) for _ in range(pc)]
+        dist.all_gather(bufs, buf, group=group)
+        merged: Dict[str, Dict] = {}
+        for b, n in zip(bufs, sizes):
+            merged.update(json.loads(b[:n].numpy().tobytes().decode()))
+        return {_rally_key(rd): merged[_rally_key(rd)] for rd in rally_dirs}
+
+
+def process_count_index() -> Tuple[int, int]:
+    """(world size, rank) of the initialised default process group, else (1, 0)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
 
 
 def get_test_res(pred_dict: Dict, data_dir: str, drop: bool = False) -> Dict:

@@ -7,8 +7,9 @@ The flags of the JAX package's ``generate_mask_data.py`` plus ``--device``
 ``--conv_backend``. Runs the rally engine with TrackNet alone over each
 split of ``--split_list`` and writes every rally's
 ``predicted_csv/{rally}_ball.csv``: the ground truth and the prediction in
-model pixels and the ``Inpaint_Mask`` column. ``--num_devices`` above 1
-raises ``NotImplementedError``.
+model pixels and the ``Inpaint_Mask`` column. ``--num_devices N`` above 1
+shards each chunk's windows over N devices of ``--device``'s type
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true", default=False)
     p.add_argument("--verbose", action="store_true", default=False)
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data parallel over more than one device is not ported yet (raises)")
+                   help="shard window batches over a data-parallel mesh")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--conv_backend", type=str, default=None,
                    choices=["cudnn", "hand_k3c", "hand_9tap"],
@@ -43,21 +44,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
-    if (args.num_devices or 1) > 1:
-        raise NotImplementedError("not ported to PyTorch yet: --num_devices > 1")
 
     import torch
 
     from .evaluation.test_engine import RallyTestEngine
     from .training.checkpoint import load_model_from_checkpoint
     from .device import resolve_device
+    from .parallel.mesh import make_mesh
 
     resolve_device(args.device)  # no card and no --device cpu: refuse before loading
 
     if torch.device(args.device).type == "cuda":
         torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
+    mesh = None
+    if (args.num_devices or 0) > 1:
+        mesh = make_mesh(args.num_devices, device=torch.device(args.device).type)
     model, pd = load_model_from_checkpoint(args.tracknet_file, dtype=torch.float32)
-    engine = RallyTestEngine(model, None, tracknet_seq_len=pd["seq_len"],
+    engine = RallyTestEngine(model, None, mesh=mesh, tracknet_seq_len=pd["seq_len"],
                              bg_mode=pd.get("bg_mode", ""), eval_mode=args.eval_mode,
                              batch_size=args.batch_size, tolerance=args.tolerance,
                              exact_decode=args.exact_decode, device=args.device,

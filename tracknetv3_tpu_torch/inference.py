@@ -45,9 +45,15 @@ reference's float32 two-multiply), ``write_pred_csv`` and, on request,
 under a staging budget. Every video this module reads is opened through
 ``open_video`` (cv2) or ``open_native_video`` (the native reader).
 
+With ``num_devices`` above 1 (``run_staged(mesh=)``), each chunk's window
+batch is split over a data-parallel mesh (``parallel/mesh.py``): every
+entry forwards its share from its own copy of the staged frames, the
+median and the folded weights, and the shares come back in window order to
+the mesh's first device for the ensemble and the decode.
+
 Serving runs under ``torch.inference_mode()``. The JAX package's TPU
-runtime machinery is not ported: bucket padding of the staged buffer, the
-AOT program cache and meshes raise ``NotImplementedError``.
+runtime machinery is not ported: bucket padding of the staged buffer and
+the AOT program cache raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -87,6 +93,8 @@ from .ops.preprocess import (
     window_channels,
     yuv420_to_rgb,
 )
+from .parallel.mesh import (Mesh, canonical_device, check_mesh, device_context, gather_batch,
+                            make_mesh, replicate_tree, split_batch, to_device)
 from .training.checkpoint import load_model_from_checkpoint
 from .utils.io import VideoReader, _require_cv2, write_pred_csv, write_pred_video
 
@@ -257,6 +265,7 @@ class TrackNetPredictor:
         # staging copies run here, beside the chunks on the default stream
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
+        self._params_by_device: Dict[torch.device, Dict] = {}  # run_staged(mesh=)
         self.inpaintnet = None
         if inpaintnet_file:
             model, in_pd = load_model_from_checkpoint(inpaintnet_file)
@@ -421,17 +430,47 @@ class TrackNetPredictor:
 
     # ------------------------------------------------------------ TrackNet
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, h, w, C_in) model input -> (B, L, h, w) float32 probabilities."""
+    def _forward(self, x: torch.Tensor, params: Optional[Dict] = None) -> torch.Tensor:
+        """(B, h, w, C_in) model input -> (B, L, h, w) float32 probabilities;
+        ``params`` are the folded weights on x's device (the predictor's)."""
         with record_function("serve::forward"):
-            probs = tracknet_fused_forward(self.params, x)  # (B, h, w, L)
+            probs = tracknet_fused_forward(self.params if params is None else params, x)
         return probs.permute(0, 3, 1, 2)
 
-    def _windows(self, pre, buf, med, starts) -> torch.Tensor:
+    def _windows(self, pre, buf, med, starts, params: Optional[Dict] = None) -> torch.Tensor:
         """Forward the windows of staged frames starting at ``starts``."""
         with record_function("serve::preprocess"):
             x = pre(buf, med, starts)
-        return self._forward(x)
+        return self._forward(x, params)
+
+    def _params_on(self, device: torch.device) -> Dict:
+        """The folded weights on ``device``, copied there once per predictor."""
+        key = canonical_device(device)
+        if key == canonical_device(self.device):
+            return self.params
+        if key not in self._params_by_device:
+            self._params_by_device[key] = to_device(self.params, key)
+        return self._params_by_device[key]
+
+    def _sharded_windows(self, pre, buf, med, mesh: Mesh) -> Callable:
+        """``forward(starts)`` -> (B, L, h, w) probabilities of the windows at
+        ``starts``, each of the mesh's equal shares forwarded on its entry's
+        device from that device's copy of the staged frames and the median
+        (made here, once per video) and of the folded weights; the shares
+        are gathered in window order on the mesh's first device."""
+        replicas = replicate_tree((buf, med), mesh)
+        params = [self._params_on(dev) for dev in mesh.devices]
+
+        def forward(starts: torch.Tensor) -> torch.Tensor:
+            shares = []
+            for dev, (b, m), p, s in zip(mesh.devices, replicas, params,
+                                         split_batch(starts, mesh.size)):
+                with device_context(dev):
+                    shares.append(self._windows(pre, b, m, s.to(dev), p))
+            with record_function("serve::gather"):
+                return gather_batch(shares, mesh)
+
+        return forward
 
     def _forward_windows(self, frames_u8, median, starts) -> torch.Tensor:
         """Forward the windows of raw frames (at source resolution)
@@ -520,13 +559,20 @@ class TrackNetPredictor:
         return self._decode_all(self._forward_windows(all_frames[idx], median, starts))
 
     def run_staged(
-        self, staged: StagedVideo, img_scaler: Optional[Tuple[float, float]] = None
+        self, staged: StagedVideo, img_scaler: Optional[Tuple[float, float]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> Dict[str, list]:
         """Predict every frame of a staged video: one forward per real window
         chunk, the decoded rows stay on the card until one fetch at the end.
         ``img_scaler`` maps model pixels to source pixels (default from
-        ``staged.src_wh``)."""
+        ``staged.src_wh``). With ``mesh`` (``parallel.mesh.check_mesh``:
+        its size divides ``batch_size``, its first device is the
+        predictor's) each chunk's windows are forwarded in equal shares over
+        its entries (``_sharded_windows``); the rows are the single-device
+        run's."""
         T, L, B = staged.T, self.seq_len, self.batch_size
+        if mesh is not None:
+            check_mesh(mesh, B, self.device, "predictor")
         if img_scaler is None:
             img_scaler = (staged.src_wh[0] / self.w, staged.src_wh[1] / self.h)
         dev = self.device
@@ -537,10 +583,14 @@ class TrackNetPredictor:
         arange_b = self._arange(B)
         rows: List[torch.Tensor] = []
         with torch.inference_mode():
+            if mesh is None:
+                forward = functools.partial(self._windows, pre, staged.buf, med)
+            else:
+                forward = self._sharded_windows(pre, staged.buf, med, mesh)
             if self.eval_mode == "nonoverlap":
                 n_win = -(-T // L)
                 for w0 in range(0, n_win, B):
-                    wins = self._windows(pre, staged.buf, med, (w0 + arange_b) * L)
+                    wins = forward((w0 + arange_b) * L)
                     rows.append(self._decode_all(wins)[: min(B, n_win - w0) * L])
                 arr = torch.cat(rows).cpu().numpy()[:T]
                 return self._rows_to_pred(arr, img_scaler)
@@ -548,7 +598,7 @@ class TrackNetPredictor:
             S = max(T - L + 1, 1)  # real windows
             state = ensemble_init(L, (self.h, self.w), dev)
             for w0 in range(0, S, B):
-                wins = self._windows(pre, staged.buf, med, w0 + arange_b)
+                wins = forward(w0 + arange_b)
                 with record_function("serve::ensemble"):
                     state, frames = ensemble_update_fn(state, wins, self._weights,
                                                        min(S - w0, B))
@@ -960,11 +1010,20 @@ def predict_video(
     ``max_sample_num`` frames of ``video_range`` (start, end) seconds,
     which only this path reads. A video whose model-resolution frames pass
     ``STAGING_BUDGET_BYTES`` streams too unless ``device_resize`` is set.
-    ``num_devices`` > 1, ``bucket_quantum`` and ``program_cache_dir`` are
-    the JAX package's and raise ``NotImplementedError``.
+    ``num_devices`` > 1 shards the staged path's window batches over a
+    mesh of that many entries of ``device``'s type (``make_mesh``); it
+    refuses ``large_video`` and ``device_resize``, and a video that streams
+    for its size is served on one device with a warning.
+    ``bucket_quantum`` and ``program_cache_dir`` are the JAX package's and
+    raise ``NotImplementedError``.
     """
-    _refuse_unported(num_devices=(num_devices or 1) > 1, bucket_quantum=bucket_quantum,
-                     program_cache_dir=program_cache_dir)
+    _refuse_unported(bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
+    mesh = None
+    if (num_devices or 0) > 1:
+        if large_video or device_resize:
+            raise ValueError("num_devices > 1 is only supported on the default staged path; "
+                             "drop --large_video/--device_resize or num_devices")
+        mesh = make_mesh(num_devices, device=resolve_device(device).type)
     predictor = TrackNetPredictor(
         tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
         compute_dtype=compute_dtype, input_hw=input_hw, device=device, conv_backend=conv_backend,
@@ -981,11 +1040,14 @@ def predict_video(
     if frames is not None:
         pred = predictor.predict_frames(frames, img_scaler=img_scaler)
     elif large_video or oversized:
+        if mesh is not None:
+            print("warning: video exceeds the staging budget; falling back to single-device "
+                  "streaming (num_devices ignored)", file=sys.stderr)
         pred = predictor.predict_video_streaming(video_file, max_sample_num=max_sample_num,
                                                  video_range=video_range)
     else:
         staged = predictor.finalize_staged(predictor.upload_video(video_file))
-        pred = predictor.run_staged(staged, img_scaler=img_scaler)
+        pred = predictor.run_staged(staged, img_scaler=img_scaler, mesh=mesh)
     return _finish(predictor, video_file, pred, (w, h), save_dir, video_name, output_video,
                    traj_len)
 
@@ -1037,14 +1099,19 @@ def predict_videos(
     propagates. ``predictor`` reuses a ``TrackNetPredictor`` (the model and
     eval arguments are then ignored). ``stats``, a dict, receives
     ``"waves"`` (``{"videos", "slots", "buckets"}`` in compute order) and
-    ``"streaming"`` (the files that streamed). ``num_devices`` > 1,
-    ``bucket_quantum`` and ``program_cache_dir`` raise
-    ``NotImplementedError``.
+    ``"streaming"`` (the files that streamed). ``num_devices`` > 1 shards
+    every staged video's window batches over one mesh (``make_mesh``, of
+    the predictor's device type); the videos that stream are served on one
+    device, with a warning. ``bucket_quantum`` and ``program_cache_dir``
+    raise ``NotImplementedError``.
     """
-    _refuse_unported(num_devices=(num_devices or 1) > 1, bucket_quantum=bucket_quantum,
-                     program_cache_dir=program_cache_dir)
+    _refuse_unported(bucket_quantum=bucket_quantum, program_cache_dir=program_cache_dir)
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
+    mesh = None
+    if (num_devices or 0) > 1:
+        kind = (predictor.device if predictor is not None else resolve_device(device)).type
+        mesh = make_mesh(num_devices, device=kind)
     if predictor is None:
         predictor = TrackNetPredictor(
             tracknet_file, inpaintnet_file or None, eval_mode=eval_mode, batch_size=batch_size,
@@ -1149,7 +1216,7 @@ def predict_videos(
                 staged_wave.append((f, staged))
         for f, staged in staged_wave:
             pred, ok = guard(f, lambda f=f, staged=staged: finish(
-                f, predictor.run_staged(staged), staged.src_wh))
+                f, predictor.run_staged(staged, mesh=mesh), staged.src_wh))
             if ok:
                 results[f] = pred
 
@@ -1162,6 +1229,9 @@ def predict_videos(
                 inflight.release(slots)  # the wave's buffers went in serve_wave
 
     stats["streaming"] = list(streaming)
+    if streaming and mesh is not None:
+        print(f"warning: {len(streaming)} video(s) exceed the staging budget and fall back to "
+              "single-device streaming (num_devices ignored for them)", file=sys.stderr)
     for f in streaming:
         def stream(f=f):
             reader = open_video(f)

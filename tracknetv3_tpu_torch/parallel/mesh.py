@@ -1,0 +1,165 @@
+"""A data-parallel device mesh and its batch helpers (the JAX package's
+``parallel/mesh.py``).
+
+A ``Mesh`` is a 1-D tuple of ``torch.device`` entries on one ``data`` axis.
+Serving (``TrackNetPredictor.run_staged(mesh=)``) and rally evaluation
+(``RallyTestEngine(mesh=)``) split each chunk's window batch into
+``mesh.size`` equal shares (``split_batch``), forward each share on its
+entry's device from that device's copy of the staged frames and the folded
+weights (``replicate_tree``), and put the shares back in window order on the
+mesh's first device (``gather_batch``), where the sequential ensemble and
+the decode run. The folded forward has no batch statistics, so nothing is
+reduced across entries. One host thread launches the shares in turn; on
+separate cards they run at once, since a launch returns before its kernel
+ends.
+
+An entry may repeat a device: ``make_mesh(devices=["cuda:0", "cuda:0"])``
+stands one card in twice, and ``make_mesh(n, device="cpu")`` holds n entries
+of the CPU (the counterpart of the JAX tests' virtual CPU devices). A mesh
+that spans processes is not ported; neither are the TPU sandbox's platform
+shims.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Devices on the one ``data`` axis, in shard order."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("data",)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def canonical_device(device: DeviceLike) -> torch.device:
+    """``device`` as meshes compare it: ``"cuda"`` is the current card, and
+    every CPU index is the one CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    return dev
+
+
+def make_mesh(num_devices: Optional[int] = None, devices: Optional[Sequence[DeviceLike]] = None,
+              *, device: DeviceLike = "cuda") -> Mesh:
+    """The first ``num_devices`` of ``devices`` (every entry by default).
+    Without ``devices``: the cards ``cuda:0 .. cuda:n-1`` for ``device``
+    ``"cuda"``, or ``num_devices`` (default 1) entries of the CPU for
+    ``"cpu"``. More devices than there are raise ``ValueError``."""
+    if devices is None:
+        kind = torch.device(device).type
+        if kind == "cuda":
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        elif kind == "cpu":
+            devices = [torch.device("cpu")] * max(num_devices or 1, 1)
+        else:
+            raise ValueError(f"no mesh of {kind} devices: use cuda or cpu")
+    else:
+        devices = [canonical_device(d) for d in devices]
+    if num_devices is not None:
+        if num_devices < 1:
+            raise ValueError(f"num_devices must be at least 1, got {num_devices}")
+        if num_devices > len(devices):
+            raise ValueError(f"Requested {num_devices} devices, only {len(devices)} available")
+        devices = devices[:num_devices]
+    if not devices:
+        raise ValueError("Requested 1 devices, only 0 available")
+    return Mesh(tuple(devices))
+
+
+def check_mesh(mesh: Mesh, batch_size: int, device: DeviceLike, owner: str) -> None:
+    """Raise unless ``mesh`` can shard the window batches of ``owner`` (a
+    predictor or an engine on ``device``): a ``Mesh`` whose size divides
+    ``batch_size`` and whose first device is ``device``, where the shares
+    are gathered."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
+    if mesh.devices[0] != canonical_device(device):
+        raise ValueError(f"the mesh's first device {mesh.devices[0]} is not the {owner}'s "
+                         f"{device}")
+
+
+def device_context(device: torch.device):
+    """Make ``device`` the current card inside the block (nothing on the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every tensor and numpy array of nested dicts, lists and
+    tuples (named ones too); other leaves are kept as they are."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def to_device(tree: Any, device: DeviceLike) -> Any:
+    """Every tensor of ``tree`` on ``device`` (numpy arrays become tensors);
+    a tensor already there is the same tensor, not a copy."""
+    return _tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+
+
+def split_batch(x: Union[torch.Tensor, np.ndarray], n: int) -> List:
+    """``x``'s leading axis in ``n`` equal consecutive shares (views)."""
+    if x.shape[0] % n:
+        raise ValueError(f"batch of {x.shape[0]} not divisible by mesh size {n}")
+    if isinstance(x, np.ndarray):
+        return np.split(x, n)
+    return list(x.split(x.shape[0] // n))
+
+
+def shard_batch(batch: Any, mesh: Mesh) -> List[Any]:
+    """One tree per mesh entry: entry i holds share i of every leaf's
+    leading axis, on its device."""
+    return [_tree_map(lambda x, i=i: torch.as_tensor(split_batch(x, mesh.size)[i]).to(dev),
+                      batch)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def replicate_tree(tree: Any, mesh: Mesh) -> List[Any]:
+    """One copy of ``tree`` per mesh entry, on its device (``to_device``:
+    an entry on the tensors' own device shares them)."""
+    return [to_device(tree, dev) for dev in mesh.devices]
+
+
+def gather_batch(shares: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """The shares back in order along the leading axis, on the mesh's first
+    device."""
+    return torch.cat([s.to(mesh.devices[0]) for s in shares])
+
+
+def pad_batch_to(batch: Any, target: int) -> Any:
+    """Pad every leaf's leading axis to ``target`` by repeating the last
+    element (so batch sizes stay divisible by the mesh width)."""
+
+    def pad(x):
+        n = x.shape[0]
+        if n == target:
+            return x
+        if isinstance(x, np.ndarray):
+            return np.concatenate([x, np.repeat(x[-1:], target - n, axis=0)], axis=0)
+        return torch.cat([x, x[-1:].expand((target - n,) + tuple(x.shape[1:]))])
+
+    return _tree_map(pad, batch)

@@ -16,14 +16,16 @@ run ends with ``Predicted n/N``; ``--fail_fast`` raises at the first),
 default, stages planar YUV420 wherever the native reader serves the video,
 half the bytes of packed BGR; a forced ``yuv420`` that cannot be honoured
 raises), ``--profile DIR`` (a ``torch.profiler`` chrome trace of the run,
-``DIR/trace.json``); plus ``--device`` (default ``cuda``; ``cpu`` runs the
-plain versions of the kernels) and ``--conv_backend`` (``cudnn`` or the
-hand-written 3x3 conv kernels ``hand_k3c`` / ``hand_9tap``; unset, the
-bfloat16 default of ``models.fused_forward.DEFAULT_CONV_BACKEND``).
+``DIR/trace.json``), ``--num_devices N`` (the staged path's window batches
+sharded over N devices of ``--device``'s type, ``parallel/mesh.py``); plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
+kernels) and ``--conv_backend`` (``cudnn`` or the hand-written 3x3 conv
+kernels ``hand_k3c`` / ``hand_9tap``; unset, the bfloat16 default of
+``models.fused_forward.DEFAULT_CONV_BACKEND``).
 TrackNet runs in bfloat16, as the JAX CLI does. Opening a video needs cv2
 (its frame count and size; the native reader needs g++ and libav, else cv2
-decodes too). The JAX CLI's ``--num_devices`` and ``--bucket_quantum``
-raise ``NotImplementedError``.
+decodes too). The JAX CLI's ``--bucket_quantum`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import glob
 import os
 from typing import Optional, Sequence
 
-_UNPORTED = ("bucket_quantum", "num_devices")
+_UNPORTED = ("bucket_quantum",)
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv")
 
 
@@ -73,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="staging pixel format: yuv420 uploads planar YUV420 (half the bytes; "
                    "converted to RGB on the card), bgr packed BGR; auto picks yuv420 wherever "
                    "the native reader serves the video")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="shard the staged path's window batches over a data-parallel mesh of "
+                   "this many devices (default: one device)")
     p.add_argument("--profile", type=str, default="",
                    help="write a torch.profiler chrome trace of the run to DIR/trace.json")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -110,7 +115,8 @@ def main(argv: Optional[Sequence[str]] = None):
                   max_sample_num=args.max_sample_num, save_dir=args.save_dir,
                   output_video=args.output_video, traj_len=args.traj_len,
                   device=args.device, conv_backend=args.conv_backend,
-                  native_decode=not args.cv2_decode, stage_format=args.stage_format)
+                  native_decode=not args.cv2_decode, stage_format=args.stage_format,
+                  num_devices=args.num_devices)
     with trace(args.profile):
         out = _run(args, common)
     print("Done.")

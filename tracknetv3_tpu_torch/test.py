@@ -11,8 +11,13 @@ the JAX CLI does. Writes ``{split}_eval_res_{mode}.json`` (the metrics and
 {...}/match{N}/video/{rally}.mp4`` evaluates that one labelled rally (its
 frames under ``match{N}/frame/{rally}``) and writes ``{rally}_ball.csv``
 (``Frame, Visibility, X, Y``) and ``{rally}.mp4``, the video with the
-predicted and the labelled trajectories drawn (cv2). ``--num_devices``
-above 1 raises ``NotImplementedError``.
+predicted and the labelled trajectories drawn (cv2). ``--num_devices N``
+above 1 shards each chunk's windows over N devices of ``--device``'s type
+(``parallel/mesh.py``). Where the caller runs this under an initialised
+``torch.distributed`` group (for example from a script that ``torchrun``
+starts), each process evaluates its share of the rallies, every process
+ends with the merged prediction dicts, and only rank 0 writes the result
+files, as the JAX CLI does; the CLI initialises no group itself.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "bare flag (= 'device') on the device, 'host' on the host")
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data parallel over more than one device is not ported yet (raises)")
+                   help="shard window batches over a data-parallel mesh (default: single "
+                   "device)")
     p.add_argument("--input_hw", type=str, default="",
                    help="model input resolution 'H,W'; default: the TrackNet checkpoint's "
                    "(else the config's HEIGHT,WIDTH)")
@@ -90,13 +96,12 @@ def _load_models(tracknet_file: str, inpaintnet_file: str, input_hw_flag: str = 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
-    if (args.num_devices or 1) > 1:
-        raise NotImplementedError("not ported to PyTorch yet: --num_devices > 1")
 
     import torch
 
-    from .evaluation.test_engine import RallyTestEngine, get_test_res
+    from .evaluation.test_engine import RallyTestEngine, get_test_res, process_count_index
     from .device import resolve_device
+    from .parallel.mesh import make_mesh
 
     resolve_device(args.device)  # no card and no --device cpu: refuse before loading
 
@@ -108,8 +113,11 @@ def main(argv: Optional[Sequence[str]] = None):
     param_dict.update(recorded)
     if torch.device(args.device).type == "cuda":
         torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
+    mesh = None
+    if (args.num_devices or 0) > 1:
+        mesh = make_mesh(args.num_devices, device=torch.device(args.device).type)
     engine = RallyTestEngine(tracknet, inpaintnet, eval_mode=args.eval_mode,
-                             batch_size=args.batch_size, tolerance=args.tolerance,
+                             batch_size=args.batch_size, tolerance=args.tolerance, mesh=mesh,
                              exact_decode=args.exact_decode, device=args.device,
                              conv_backend=args.conv_backend, **kw)
 
@@ -126,22 +134,26 @@ def main(argv: Optional[Sequence[str]] = None):
                             output_bbox=args.output_bbox, debug=args.debug,
                             verbose=args.verbose)
     res_dict = get_test_res(pred_dict, args.data_dir, drop=args.split == "test")
+    # every process of a torch.distributed group holds the merged pred_dict;
+    # only rank 0 writes the files
+    is_main = process_count_index()[1] == 0
     if engine.last_eval_stats:
         res_dict["eval_speed"] = engine.last_eval_stats
         print(f"Eval wall-clock: {engine.last_eval_stats['frames']} frames in "
               f"{engine.last_eval_stats['seconds']}s = {engine.last_eval_stats['fps']} FPS")
-    with open(eval_res_file, "w") as f:
-        json.dump(res_dict, f, indent=2)
-    print(json.dumps(res_dict, indent=2))
+    if is_main:
+        with open(eval_res_file, "w") as f:
+            json.dump(res_dict, f, indent=2)
+        print(json.dumps(res_dict, indent=2))
 
-    if args.output_pred:
+    if args.output_pred and is_main:
         serializable = {k: v for k, v in param_dict.items()
                         if isinstance(v, (str, int, float, bool))}
         with open(eval_analysis_file, "w") as f:
             json.dump(dict(param_dict=serializable, pred_dict=pred_dict), f, indent=2)
 
     mAP = None
-    if args.output_bbox:
+    if args.output_bbox and is_main:
         from .evaluation.coco import (
             convert_gt_to_coco_json,
             evaluate_ap,
