@@ -264,14 +264,38 @@ exits nonzero.
    processes on cuda:0 over a gloo group (127.0.0.1, a free port), each on
    its own copy of the test split and limited to ``MESH_CHILD_S``: both end
    with the SHA-256 of one process's dict and write every ``predicted_csv``
-   file; each rank gathers only its rally's windows.
+   file; each rank gathers only its rally's windows. mesh_procs_val: in the
+   same two processes, the train loop's validation merged over the group
+   (``evaluation/loops.py``): ``eval_tracknet`` over the val split (3
+   batches of 4, serving and exact decode; the eval step's 17 BatchNorm
+   layers on ``bn_relu_fwd``) and ``eval_inpaintnet`` over its
+   ``predicted_csv`` files, with deterministic cuDNN and no autotuning:
+   each rank's losses and confusions bit-equal to one process's on the
+   card, 17 ``bn_relu_fwd`` launches per batch a rank evaluated; the
+   merge's seconds.
+
+19. convert (after phase 18): a reference TrackNetV3 checkpoint of the
+   README's TrackNet (seq_len 8, concat, 27 input channels; seeded He-scaled
+   weights, BatchNorm statistics, ``num_batches_tracked``) and one of
+   InpaintNet, written in the reference's ``torch.save`` layout, converted by
+   ``python -m tracknetv3_tpu_torch.convert_reference_checkpoint`` (both at
+   once, a process each; seconds), then served by ``predict_video`` (a
+   ``CONVERT_T``-frame video from the stand-in native reader, batch 16,
+   bf16, ``hand_9tap``, InpaintNet): 17 / 3 / 3 launches a chunk, a CSV row
+   a frame; each chunk's window probabilities against the reference
+   architecture in ``torch.nn.functional`` (``reference_tracknet_forward``)
+   in float32 with TF32 off on the same inputs within ``CONVERT_BOUNDS``,
+   which two wrong converters (3x3 kernels spatially transposed, running
+   statistics dropped) must fail; the converted InpaintNet against its
+   reference forward in float32 within ``INPAINT_CONVERT_BOUND``.
 
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
 and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
 2 and 15, ``--yuv_only`` phases 1, 2 and 16, ``--tools_only`` phases 1, 2
-and 17, ``--mesh_only`` phases 1, 2 and 18; none prints a kernels line.
+and 17, ``--mesh_only`` phases 1, 2 and 18, ``--convert_only`` phases 1, 2
+and 19; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -4336,15 +4360,81 @@ try:
     engine = cs._rally_engine({tn!r})
     cs._zero_launches()
     pred = engine.test({data!r}, "test", save_inpaint_mask=True)
+    launches = cs._path_launches()
     csvs = glob.glob(os.path.join({data!r}, "test", "match*", "predicted_csv", "*_ball.csv"))
+    val = cs._merged_val({tn!r}, {inp!r}, {val!r}, {rank}, 2)
     print("MESH_PROC " + json.dumps(dict(
         rank={rank}, sha256=hashlib.sha256(json.dumps(pred).encode()).hexdigest(),
         keys=list(pred), frames=engine.last_eval_stats["frames"],
         eval_s=engine.last_eval_stats["seconds"], merge_s=engine.last_merge_s,
-        predicted_csv=len(csvs), launches=cs._path_launches())), flush=True)
+        predicted_csv=len(csvs), launches=launches, val=val)), flush=True)
 finally:
     dist.destroy_process_group()
 """
+
+
+VAL_BATCH = 4  # the merged validation's TrackNet batch: 3 batches of the val split's 10 windows
+VAL_INPAINT_BATCH = 2  # and InpaintNet's
+VAL_DECODES = (False, "device")
+
+
+def _merged_val(tn: str, inp: str, data_dir: str, process_id: int = 0,
+                process_count: int = 1) -> dict:
+    """The train loop's validation of both models over the val split of
+    ``data_dir`` as process ``process_id`` of ``process_count`` (the merged
+    validation of ``evaluation/loops.py``): ``eval_tracknet`` with the
+    serving decode and the exact one (the eval step's BatchNorm on the
+    ``bn_relu_fwd`` kernel, TrackNet in bf16 as training holds it) and
+    ``eval_inpaintnet`` over the ``predicted_csv`` files, with deterministic
+    cuDNN and no autotuning, so that processes pick the same algorithms.
+    Returns each loss as its float's hex and the metrics, the batches
+    evaluated, the ``bn_relu_fwd`` launches and the seconds in the merge."""
+    import torch
+
+    from tracknetv3_tpu_torch.data.dataset import (CoordinateBatchLoader, HeatmapBatchLoader,
+                                                   build_split_index)
+    from tracknetv3_tpu_torch.evaluation import loops
+    from tracknetv3_tpu_torch.ops import batchnorm
+    from tracknetv3_tpu_torch.training.checkpoint import load_model_from_checkpoint
+    from tracknetv3_tpu_torch.training.loop import _COORDINATE_KEYS, prefetch_to_device
+    from tracknetv3_tpu_torch.training.steps import (make_inpaintnet_eval_step,
+                                                     make_tracknet_eval_step)
+
+    dev = torch.device(DEVICE)
+    kw = dict(process_id=process_id, process_count=process_count)
+    merge_s, real_merge = [], loops._merge_across_processes
+
+    def timed_merge(*args):
+        t0 = time.perf_counter()
+        out = real_merge(*args)
+        merge_s.append(time.perf_counter() - t0)
+        return out
+
+    tracknet = load_model_from_checkpoint(tn)[0].to(dev, memory_format=torch.channels_last)
+    inpaint = load_model_from_checkpoint(inp)[0].to(dev)
+    index = build_split_index(data_dir, "val", L, L)
+    coord = build_split_index(data_dir, "val", INPAINT_SEQ, INPAINT_SEQ, "coordinate")
+    out = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True), \
+            mock.patch.object(loops, "_merge_across_processes", timed_merge):
+        for decode in VAL_DECODES:
+            loader = HeatmapBatchLoader(index, "concat", VAL_BATCH, data_dir=data_dir)
+            loss, res = loops.eval_tracknet(make_tracknet_eval_step(tracknet, "concat"),
+                                            prefetch_to_device(loader, dev), 4.0,
+                                            exact_decode=decode, **kw)
+            out[f"tracknet exact_decode={decode}"] = [loss.hex(), res]
+        loader = CoordinateBatchLoader(coord, VAL_INPAINT_BATCH)
+        loss, res = loops.eval_inpaintnet(make_inpaintnet_eval_step(inpaint),
+                                          prefetch_to_device(loader, dev, keys=_COORDINATE_KEYS),
+                                          4.0, input_hw=coord.input_hw, **kw)
+        out["inpaintnet"] = [loss.hex(), res]
+    n = len(HeatmapBatchLoader(index, "concat", VAL_BATCH, data_dir=data_dir))
+    return {"results": out, "eval_s": time.perf_counter() - t0, "merge_s": merge_s,
+            "tracknet_batches": n, "inpaint_batches": len(loader),
+            "evaluated": [i for i in range(n) if i % process_count == process_id],
+            "bn_relu_fwd": batchnorm.LAUNCHES["bn_relu_fwd"]}
 
 
 def _want_mesh_launches(chunks: int, shards: int, copies: bool) -> dict:
@@ -4516,24 +4606,30 @@ def _mesh_rally(card: str, tn: str, data_dir: str, meshes: dict) -> dict:
     return launches_by
 
 
-def _mesh_procs(tmp: str, card: str, tn: str, data_dir: str) -> None:
+def _mesh_procs(tmp: str, card: str, tn: str, inp: str, data_dir: str) -> None:
     """engine.test(save_inpaint_mask=True) in two processes on cuda:0 over a
-    gloo group, each on its own copy of the test split, against one process."""
+    gloo group, each on its own copy of the test split, against one process;
+    then, in the same processes, the merged validation of both models
+    (``_merged_val``) over the val split of ``data_dir`` against one process."""
     import hashlib
     import socket
+
+    from tracknetv3_tpu_torch.data.dataset import build_split_index
 
     dirs = {}
     for tag in ("rank0", "rank1", "solo"):
         dirs[tag] = os.path.join(tmp, "mesh_procs", tag)
         shutil.copytree(os.path.join(data_dir, "test"), os.path.join(dirs[tag], "test"),
                         ignore=shutil.ignore_patterns("predicted_csv"))
+    for args in ((L, L), (INPAINT_SEQ, INPAINT_SEQ, "coordinate")):  # caches, before the children
+        build_split_index(data_dir, "val", *args)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     t0 = time.time()
     procs = [subprocess.Popen(
-        [sys.executable, "-c", MESH_CHILD.format(root=ROOT, port=port, rank=r, tn=tn,
-                                                 data=dirs[f"rank{r}"])],
+        [sys.executable, "-c", MESH_CHILD.format(root=ROOT, port=port, rank=r, tn=tn, inp=inp,
+                                                 data=dirs[f"rank{r}"], val=data_dir)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
     outs = []
     try:
@@ -4572,6 +4668,28 @@ def _mesh_procs(tmp: str, card: str, tn: str, data_dir: str) -> None:
         if o["launches"]["window_copy"] != n:
             fail("mesh_procs", f"rank {o['rank']}: {o['launches']['window_copy']} window_copy "
                  f"launches for its rally's {n} chunks")
+    val = _merged_val(tn, inp, data_dir)
+    emit({"phase": "mesh_procs_val", "processes": 2, "backend": "gloo", "device": DEVICE,
+          "solo": val["results"], "tracknet_batches": val["tracknet_batches"],
+          "inpaint_batches": val["inpaint_batches"],
+          "ranks": [{k: o["val"][k] for k in ("evaluated", "bn_relu_fwd", "eval_s", "merge_s")}
+                    for o in outs],
+          "solo_bn_relu_fwd": val["bn_relu_fwd"], "solo_eval_s": val["eval_s"], "card": card})
+    if val["tracknet_batches"] < 2 or val["inpaint_batches"] < 2:
+        fail("mesh_procs_val", f"{val['tracknet_batches']} / {val['inpaint_batches']} val "
+             "batches: too few to share between two processes")
+    for o in outs:
+        r = o["val"]
+        if r["results"] != val["results"]:
+            fail("mesh_procs_val", f"rank {o['rank']}'s merged validation differs from one "
+                 f"process's: {r['results']} != {val['results']}")
+        if r["bn_relu_fwd"] != BN_LAYERS * len(VAL_DECODES) * len(r["evaluated"]):
+            fail("mesh_procs_val", f"rank {o['rank']}: {r['bn_relu_fwd']} bn_relu_fwd launches "
+                 f"for {len(r['evaluated'])} batches, {len(VAL_DECODES)} decodes")
+        if len(r["merge_s"]) != len(VAL_DECODES) + 1:
+            fail("mesh_procs_val", f"rank {o['rank']} merged {len(r['merge_s'])} times")
+    if val["bn_relu_fwd"] != BN_LAYERS * len(VAL_DECODES) * val["tracknet_batches"]:
+        fail("mesh_procs_val", f"one process: {val['bn_relu_fwd']} bn_relu_fwd launches")
 
 
 def phase_mesh(tmp: str, card: str) -> dict:
@@ -4612,13 +4730,298 @@ def phase_mesh(tmp: str, card: str) -> dict:
     launches_by.update(_mesh_rally(card, tn, data_dir, meshes))
     t_rally = time.time() - t0
     t0 = time.time()
-    _mesh_procs(tmp, card, tn, data_dir)
+    _mesh_procs(tmp, card, tn, inp, data_dir)
     emit({"phase": "mesh", "card": card, "cards": torch.cuda.device_count(),
           "meshes": {k: [str(d) for d in m.devices] if m else [DEVICE]
                      for k, m in meshes.items()},
           "make_mesh_2": refusal or "two cards", "serve_s": t_serve, "rally_s": t_rally,
           "procs_s": time.time() - t0, "phase_s": time.time() - t_phase})
     return launches_by
+
+
+# ---------------------------------------------------------------- reference checkpoints
+
+CONVERT_T = 96  # frames of convert's video: 6 chunks at batch 16
+CONVERT_SEED = 43
+# the served bf16 probabilities against the reference forward in float32:
+# (max, mean of the worst chunk) |dp|, set between the sound reading (0.0355,
+# 0.00276 on an H100) and those of WRONG_CONVERTERS (0.724, 0.0471 with the
+# kernels transposed; 0.769, 0.316 with the statistics dropped)
+CONVERT_BOUNDS = (7e-2, 7e-3)
+WRONG_CONVERTERS = ("kernels_transposed", "stats_dropped")
+INPAINT_CONVERT_BOUND = 1e-5  # InpaintNet, float32 on both sides, TF32 off
+_REF_TRACKNET = (("down_block_1", 2, 64), ("down_block_2", 2, 128), ("down_block_3", 3, 256),
+                 ("bottleneck", 3, 512), ("up_block_1", 3, 256), ("up_block_2", 2, 128),
+                 ("up_block_3", 2, 64))
+_REF_INPAINT = (("down_1", 3, 32), ("down_2", 32, 64), ("down_3", 64, 128),
+                ("buttleneck.conv_1", 128, 256), ("buttleneck.conv_2", 256, 256),
+                ("up_1", 384, 128), ("up_2", 192, 64), ("up_3", 96, 32))
+
+
+def reference_tracknet_state_dict(seed: int) -> dict:
+    """A reference TrackNetV3 state dict (``nn.BatchNorm2d`` buffers and
+    all) of the README's TrackNet (seq_len 8, concat: 27 input channels),
+    seeded: He-scaled conv weights, so that the activations stay O(1)
+    through the 17 layers, and BatchNorm statistics far enough from (0, 1)
+    that dropping them shows."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    sd, cin = {}, 3 * (L + 1)
+    skips = {"up_block_1": 256, "up_block_2": 128, "up_block_3": 64}
+    for block, n, cout in _REF_TRACKNET:
+        c = cin + skips.get(block, 0) if block.startswith("up") else cin
+        for i in range(1, n + 1):
+            pre = f"{block}.conv_{i}"
+            sd[f"{pre}.conv.weight"] = t(rng.normal(0, math.sqrt(2 / (9 * c)), (cout, c, 3, 3)))
+            sd[f"{pre}.bn.weight"] = t(rng.uniform(0.5, 1.5, cout))
+            sd[f"{pre}.bn.bias"] = t(rng.normal(0, 0.1, cout))
+            sd[f"{pre}.bn.running_mean"] = t(rng.normal(0, 0.2, cout))
+            sd[f"{pre}.bn.running_var"] = t(rng.uniform(0.4, 1.6, cout))
+            sd[f"{pre}.bn.num_batches_tracked"] = torch.tensor(1000, dtype=torch.long)
+            c = cout
+        cin = cout
+    sd["predictor.weight"] = t(rng.normal(0, math.sqrt(2 / 64), (L, 64, 1, 1)))
+    sd["predictor.bias"] = t(rng.normal(0, 0.1, L))
+    return sd
+
+
+def reference_inpaintnet_state_dict(seed: int) -> dict:
+    """A reference InpaintNet state dict (its ``buttleneck`` keys have no
+    ``.conv`` level), seeded."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for ref, cin, cout in _REF_INPAINT:
+        key = ref if ref.startswith("buttleneck") else f"{ref}.conv"
+        sd[f"{key}.weight"] = torch.tensor(rng.normal(0, 0.2, (cout, cin, 3)).astype(np.float32))
+        sd[f"{key}.bias"] = torch.tensor(rng.normal(0, 0.1, cout).astype(np.float32))
+    sd["predictor.weight"] = torch.tensor(rng.normal(0, 0.2, (2, 32, 3)).astype(np.float32))
+    sd["predictor.bias"] = torch.tensor(rng.normal(0, 0.1, 2).astype(np.float32))
+    return sd
+
+
+def reference_tracknet_forward(sd: dict, x):
+    """The reference TrackNet (model.py:44-73) in ``torch.nn.functional``,
+    independent of the port's modules: conv, BatchNorm on the running
+    statistics, ReLU; max pools, nearest upsamples, skip concats; sigmoid.
+    NCHW in, (N, L, H, W) probabilities out."""
+    import torch
+    import torch.nn.functional as F
+
+    def block(x, name, n):
+        for i in range(1, n + 1):
+            pre = f"{name}.conv_{i}"
+            x = F.conv2d(x, sd[f"{pre}.conv.weight"], padding=1)
+            x = F.batch_norm(x, sd[f"{pre}.bn.running_mean"], sd[f"{pre}.bn.running_var"],
+                             sd[f"{pre}.bn.weight"], sd[f"{pre}.bn.bias"], training=False,
+                             eps=1e-5)
+            x = F.relu(x)
+        return x
+
+    x1 = block(x, "down_block_1", 2)
+    x2 = block(F.max_pool2d(x1, 2), "down_block_2", 2)
+    x3 = block(F.max_pool2d(x2, 2), "down_block_3", 3)
+    x = block(F.max_pool2d(x3, 2), "bottleneck", 3)
+    x = block(torch.cat([F.interpolate(x, scale_factor=2), x3], 1), "up_block_1", 3)
+    x = block(torch.cat([F.interpolate(x, scale_factor=2), x2], 1), "up_block_2", 2)
+    x = block(torch.cat([F.interpolate(x, scale_factor=2), x1], 1), "up_block_3", 2)
+    return torch.sigmoid(F.conv2d(x, sd["predictor.weight"], sd["predictor.bias"]))
+
+
+def reference_inpaintnet_forward(sd: dict, coords, mask):
+    """The reference InpaintNet (model.py:76-129) in ``torch.nn.functional``."""
+    import torch
+    import torch.nn.functional as F
+
+    def block(x, ref):
+        key = ref if ref.startswith("buttleneck") else f"{ref}.conv"
+        return F.leaky_relu(F.conv1d(x, sd[f"{key}.weight"], sd[f"{key}.bias"], padding=1), 0.01)
+
+    x = torch.cat([coords, mask], -1).transpose(1, 2)
+    x1 = block(x, "down_1")
+    x2 = block(x1, "down_2")
+    x3 = block(x2, "down_3")
+    x = block(block(x3, "buttleneck.conv_1"), "buttleneck.conv_2")
+    x = block(torch.cat([x, x3], 1), "up_1")
+    x = block(torch.cat([x, x2], 1), "up_2")
+    x = block(torch.cat([x, x1], 1), "up_3")
+    x = F.conv1d(x, sd["predictor.weight"], sd["predictor.bias"], padding=1)
+    return torch.sigmoid(x).transpose(1, 2)
+
+
+def wrong_converter_params(sd: dict, name: str):
+    """The folded bf16 ``hand_9tap`` weights of a deliberately wrong
+    converter of ``sd``: ``kernels_transposed`` leaves every 3x3 kernel
+    spatially transposed (kh and kw swapped), ``stats_dropped`` writes mean 0
+    and variance 1 in place of the running statistics."""
+    import torch
+
+    from tracknetv3_tpu_torch.convert_reference_checkpoint import convert_tracknet
+    from tracknetv3_tpu_torch.models.convert import tracknet_from_jax
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.models.fused_forward import fold_batchnorm, fused_params
+
+    variables = convert_tracknet(sd)
+    for block, n, _ in _REF_TRACKNET:
+        for i in range(1, n + 1):
+            p, st = variables["params"][block][f"conv_{i}"], variables["batch_stats"][block]
+            if name == "kernels_transposed":
+                p["conv"]["kernel"] = p["conv"]["kernel"].transpose(1, 0, 2, 3)
+            else:
+                bn = st[f"conv_{i}"]["bn"]
+                bn["mean"], bn["var"] = np.zeros_like(bn["mean"]), np.ones_like(bn["var"])
+    model = get_model("TrackNet", L, "concat", dtype=torch.float32)
+    model.load_state_dict(tracknet_from_jax(variables))
+    return fused_params(fold_batchnorm(model), torch.bfloat16, DEVICE, "hand_9tap")
+
+
+def _convert_cli(pairs) -> float:
+    """Both conversions through the module's CLI, each in its own process,
+    at once; their wall seconds."""
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "tracknetv3_tpu_torch.convert_reference_checkpoint",
+                               "--in", src, "--out", dst], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for src, dst in pairs]
+    try:
+        for (src, _), p in zip(pairs, procs):
+            try:
+                out, err = p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                fail("convert", f"converting {src} took over 120 s")
+            if p.returncode != 0 or "Converted" not in out:
+                fail("convert", f"converting {src} exited {p.returncode}: {err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.time() - t0
+
+
+def phase_convert(tmp: str, card: str) -> dict:
+    """convert: reference TrackNetV3 checkpoints (seeded, in the reference's
+    ``torch.save`` layout) brought to the card through ``python -m
+    tracknetv3_tpu_torch.convert_reference_checkpoint`` and served by
+    ``predict_video`` (a ``CONVERT_T``-frame video from the stand-in native
+    reader, batch 16, bf16, ``hand_9tap``, InpaintNet), the served window
+    probabilities held to ``reference_tracknet_forward`` in float32 (TF32
+    off) on the same inputs within ``CONVERT_BOUNDS``, which each wrong
+    converter must fail; the converted InpaintNet held to its reference
+    forward in float32. Returns the path's launches."""
+    import torch
+
+    from tracknetv3_tpu_torch import inference as tinf
+    from tracknetv3_tpu_torch.device import tf32_off
+    from tracknetv3_tpu_torch.models.fused_forward import tracknet_fused_forward
+    from tracknetv3_tpu_torch.training.checkpoint import load_checkpoint, load_model_from_checkpoint
+
+    t_phase = time.time()
+    d = os.path.join(tmp, "convert")
+    os.makedirs(d, exist_ok=True)
+    refs = {"TrackNet": (reference_tracknet_state_dict(CONVERT_SEED),
+                         {"model_name": "TrackNet", "seq_len": L, "bg_mode": "concat"}),
+            "InpaintNet": (reference_inpaintnet_state_dict(CONVERT_SEED + 1),
+                           {"model_name": "InpaintNet", "seq_len": INPAINT_SEQ})}
+    pairs, out = [], {}
+    for name, (sd, pd) in refs.items():
+        src, out[name] = os.path.join(d, f"{name}_reference.pt"), os.path.join(d, f"{name}.pt")
+        torch.save({"model": sd, "param_dict": pd, "epoch": 29, "max_val_acc": 0.9}, src)
+        pairs.append((src, out[name]))
+    convert_s = _convert_cli(pairs)
+    for name, (_, pd) in refs.items():
+        got = load_checkpoint(out[name])
+        if got["param_dict"] != pd or (got["epoch"], got["max_val_acc"]) != (29, 0.9):
+            fail("convert", f"{name}: the converted file holds {got['param_dict']}, "
+                 f"epoch {got['epoch']}, max_val_acc {got['max_val_acc']}")
+
+    scene = _Scene(seed=CONVERT_SEED)
+    src = f"synthetic://convert_{CONVERT_T}.mp4"
+    videos = {src: (CONVERT_T, scene, None)}
+    inputs, served = [], []
+    real_windows = tinf.TrackNetPredictor._windows
+
+    def recording(self, pre, buf, med, starts, params=None):
+        probs = real_windows(self, pre, buf, med, starts, params)
+        inputs.append(pre(buf, med, starts))
+        served.append(probs.clone())
+        return probs
+
+    _zero_launches()
+    t0 = time.time()
+    with mock.patch.object(tinf, "open_video", synthetic_reader(videos)), \
+            mock.patch.object(tinf, "open_native_video", synthetic_native_reader(videos, [])), \
+            mock.patch.object(tinf.TrackNetPredictor, "_windows", recording):
+        pred = tinf.predict_video(src, out["TrackNet"], out["InpaintNet"], batch_size=PATHS_BATCH,
+                                  device=DEVICE, conv_backend="hand_9tap", save_dir=d,
+                                  video_name="convert")
+    serve_s = time.time() - t0
+    launches = _path_launches()
+    chunks = _chunks_of(CONVERT_T, "weight", staged=True)
+    with open(os.path.join(d, "convert_ball.csv")) as f:
+        n_rows = sum(1 for _ in f) - 1
+
+    # the readings: the served chunks and the wrong converters' forwards
+    # against the reference forward, in float32 without TF32, on the same inputs
+    sd = {k: v.to(DEVICE) for k, v in refs["TrackNet"][0].items()}
+    wrong = {name: wrong_converter_params(refs["TrackNet"][0], name) for name in WRONG_CONVERTERS}
+    gaps = {name: [] for name in ("served",) + WRONG_CONVERTERS}
+    unsaturated = []
+    with tf32_off(), torch.no_grad():
+        for x, probs in zip(inputs, served):
+            ref = reference_tracknet_forward(sd, x.float().permute(0, 3, 1, 2))
+            unsaturated.append(float(((ref > 0.01) & (ref < 0.99)).float().mean()))
+            outs = {"served": probs}
+            for name, params in wrong.items():
+                outs[name] = tracknet_fused_forward(params, x).permute(0, 3, 1, 2)
+            for name, o in outs.items():
+                diff = (o.float() - ref).abs()
+                gaps[name].append((float(diff.max()), float(diff.mean())))
+        inpaint = load_model_from_checkpoint(out["InpaintNet"])[0].to(DEVICE).eval()
+        rng = np.random.default_rng(CONVERT_SEED)
+        coords = torch.tensor(rng.uniform(0, 1, (16, INPAINT_SEQ, 2)).astype(np.float32),
+                              device=DEVICE)
+        mask = torch.tensor((rng.random((16, INPAINT_SEQ, 1)) < 0.3).astype(np.float32),
+                            device=DEVICE)
+        isd = {k: v.to(DEVICE) for k, v in refs["InpaintNet"][0].items()}
+        inpaint_err = float((inpaint(coords, mask) - reference_inpaintnet_forward(isd, coords, mask))
+                            .abs().max())
+    bound, mean_bound = CONVERT_BOUNDS
+    readings = {name: {"max": max(g[0] for g in v), "mean_worst_chunk": max(g[1] for g in v)}
+                for name, v in gaps.items()}
+    for r in readings.values():
+        r["within_bound"] = r["max"] <= bound and r["mean_worst_chunk"] <= mean_bound
+    res = {"phase": "convert", "reference": "seeded, torch.save layout, README TrackNet "
+           "(seq_len 8, concat) + InpaintNet", "convert_s": convert_s, "frames": CONVERT_T,
+           "batch_size": PATHS_BATCH, "conv_backend": "hand_9tap", "chunks": chunks,
+           "launches": launches,
+           "launches_per_chunk": {k: launches[k] / chunks for k in PATHS_KERNELS},
+           "csv_rows": n_rows, "entry_rows": len(pred["Frame"]), "serve_s": serve_s,
+           "bound": bound, "mean_bound": mean_bound, "readings": readings,
+           "reference_unsaturated_share_min": min(unsaturated),
+           "inpaint_max_abs_err": inpaint_err, "inpaint_bound": INPAINT_CONVERT_BOUND,
+           "phase_s": time.time() - t_phase, "card": card}
+    emit(res)
+    emit({"phase": "convert", "chunk_gaps": gaps}, detail=True)
+    if launches != _want_launches(chunks) or len(inputs) != chunks:
+        fail("convert", f"launches {launches} over {len(inputs)} chunks != "
+             f"{_want_launches(chunks)} ({chunks} chunks)")
+    if n_rows != CONVERT_T:
+        fail("convert", f"{n_rows} CSV rows != {CONVERT_T}")
+    if not readings["served"]["within_bound"]:
+        fail("convert", f"the served probabilities are off the reference forward: "
+             f"{readings['served']} (bounds {bound} / {mean_bound})")
+    for name in WRONG_CONVERTERS:
+        if readings[name]["within_bound"]:
+            fail("convert", f"the wrong converter {name} passes the bound: {readings[name]}")
+    if min(unsaturated) < 0.5:
+        fail("convert", f"the reference probabilities saturate: {min(unsaturated)} unsaturated")
+    if not inpaint_err <= INPAINT_CONVERT_BOUND:
+        fail("convert", f"InpaintNet off its reference forward by {inpaint_err}")
+    return {"convert": launches}
 
 
 def _baseline_modules(root: str):
@@ -4674,6 +5077,9 @@ def main() -> int:
                     help="build and mesh (serving and rally evaluation over a mesh that "
                          "stands the card in twice, rally evaluation in two processes) alone; "
                          "no kernels line")
+    ap.add_argument("--convert_only", action="store_true",
+                    help="build and convert (reference checkpoints converted by the CLI and "
+                         "served, held to the reference forward) alone; no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -4704,7 +5110,8 @@ def main() -> int:
             else "serve_paths" if args.serve_paths_only
             else "yuv" if args.yuv_only
             else "tools" if args.tools_only
-            else "mesh" if args.mesh_only else None)
+            else "mesh" if args.mesh_only
+            else "convert" if args.convert_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -4731,6 +5138,9 @@ def main() -> int:
         elif only == "mesh":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_mesh(tmp, card)
+        elif only == "convert":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_convert(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -4765,6 +5175,7 @@ def main() -> int:
         paths_launches = phase_serve_paths(tmp, card)
         paths_launches.update(phase_yuv_stage(tmp, card))
         mesh_launches = phase_mesh(tmp, card)
+        mesh_launches.update(phase_convert(tmp, card))
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",

@@ -103,16 +103,20 @@ def test_loader_batches_and_inputs_match_jax(data_dirs, bg_mode):
 
 def test_unported_loader_modes_raise(data_dirs):
     idx = ds.build_split_index(data_dirs["port"], "train", SEQ, 1, input_hw=HW)
-    with pytest.raises(NotImplementedError):
-        ds.HeatmapBatchLoader(idx, "concat", 4, process_count=2)
+    # several processes load as the JAX loaders do, with their checks: full
+    # batches (drop_last) that the process count divides
+    for mod in (ds, jax_ds):
+        for B, kw in ((4, dict(process_count=2)), (6, dict(process_count=4, drop_last=True))):
+            with pytest.raises(AssertionError):
+                mod.HeatmapBatchLoader(idx, "concat", B, **kw)
+            with pytest.raises(AssertionError):
+                mod.CoordinateBatchLoader(idx, B, **kw)
     for kw in (dict(process_count=2), dict(mesh=object()), dict(frame_sharding="shard")):
         with pytest.raises(NotImplementedError):
             ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], device="cpu",
                                      **kw)
     with pytest.raises(TypeError):  # the resident loader's device is the caller's to name
         ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"])
-    with pytest.raises(NotImplementedError):  # coordinate mode is ported, its sharding not
-        ds.CoordinateBatchLoader(idx, 4, process_count=2)
     with pytest.raises(ValueError):
         ds.build_split_index(data_dirs["port"], "train", SEQ, 1, data_mode="pixel")
     # as the JAX loader: segments take no frame mixup and must divide the batch

@@ -5,8 +5,9 @@ points (training, the predictor, ``predict_video``, ``predict_videos``, the
 predict CLI with ``--video_file`` and ``--video_dir``, the rally engine and
 the ``test``, ``generate_mask_data`` and ``preprocess`` CLIs, the rally
 median) refuse to run without a card unless the CPU is asked for. The host
-tools (dataset preparation, training's logs and samples, the web UIs) are
-among the modules checked."""
+tools (dataset preparation, training's logs and samples, the web UIs, the
+reference-checkpoint converter, which does no device work and so needs no
+card) are among the modules checked."""
 
 import os
 import pkgutil
@@ -69,6 +70,7 @@ INPUT_PATH_MODULES = {  # segmented, frame-mixup and device-resident batches
 
 HOST_TOOL_MODULES = {  # dataset preparation, training's logs and samples, the web UIs
     "tracknetv3_tpu_torch.preprocess",
+    "tracknetv3_tpu_torch.convert_reference_checkpoint",
     "tracknetv3_tpu_torch.error_analysis",
     "tracknetv3_tpu_torch.correct_label",
     "tracknetv3_tpu_torch.tools",

@@ -206,7 +206,7 @@ def test_a_group_of_one_merges_nothing_and_the_merge_keeps_split_order(setup, tm
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
     try:
-        assert te.process_count_index() == (1, 0) and engine._host_group() is None
+        assert te.process_count_index() == (1, 0) and te.host_group() is None
         assert engine.test(data, "test") == want and engine.last_merge_s is None
         rally_dirs = [rd.rally_dir(data, rally) for rally, _ in rd.RALLIES["test"]]
         shuffled = dict(reversed(list(want.items())))

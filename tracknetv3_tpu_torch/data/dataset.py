@@ -20,9 +20,16 @@ expanded into windows on the device) and frame-mixup ones (``frame_alpha``
 ``ResidentHeatmapLoader`` puts the split's frames on the device once and
 yields flat frame indices. ``CoordinateBatchLoader`` yields InpaintNet's
 normalised trajectories with the JAX loader's shuffle. PIL is imported only
-where a cache is missing; CSVs are read without pandas. Multi-process
-sharding and resident frames on a mesh are not ported yet and raise
-``NotImplementedError``.
+where a cache is missing; CSVs are read without pandas.
+
+Several processes (``process_id`` / ``process_count`` > 1) load as the JAX
+loaders do: every process draws the same global batch order from the same
+seed and assembles only its contiguous 1/``process_count`` slice of each
+batch's rows (of each batch's segments, for segmented batches), which needs
+full batches (``drop_last``) and a batch size the process count divides.
+Frame mixup draws the plans of its own rows only, from its own generator.
+Resident frames over several processes or on a mesh are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -315,6 +322,9 @@ class HeatmapBatchLoader:
     (``mix_pair`` (B, L, 2) int32, ``mix_pix_w`` (B, L) f32, ``mix_centers``
     (B, L, 2, 2) int32, ``mix_hm_w`` (B, L) f32; ``coor`` / ``vis`` follow the
     resampled slots). Segmented batches do not take frame mixup.
+
+    With ``process_count`` > 1 each batch holds this process's contiguous
+    slice of the global batch's rows (module docstring).
     """
 
     def __init__(
@@ -331,8 +341,8 @@ class HeatmapBatchLoader:
         process_id: int = 0,
         process_count: int = 1,
     ):
-        if process_count > 1 or process_id != 0:
-            raise NotImplementedError("multi-process loading is not ported yet")
+        self.process_id, self.process_count = _process_slice(batch_size, drop_last,
+                                                             process_id, process_count)
         self.index = index
         self.bg_mode = bg_mode
         self.batch_size = batch_size
@@ -395,8 +405,13 @@ class HeatmapBatchLoader:
         span = seg + L - 1  # unique frames per segment
         hgt, wdt = self.input_hw
         fid = self.index.data["frame_id"]
+        if self.process_count > 1:
+            assert n_seg_batch % self.process_count == 0, (
+                "segments per batch must divide evenly across processes"
+            )
         for bi in range(start_batch, n_batches):
             seg_starts = starts[bi * n_seg_batch : (bi + 1) * n_seg_batch]
+            seg_starts = _rows_of(seg_starts, n_seg_batch, self.process_id, self.process_count)
             nsb = len(seg_starts)  # < n_seg_batch only for the tail batch
             # window rows of this batch, ordered segment-major
             sel = (seg_starts[:, None] + np.arange(seg)[None, :]).reshape(-1)
@@ -448,7 +463,7 @@ class HeatmapBatchLoader:
         B = self.batch_size
         stop = (n // B) * B if self.drop_last else n
         for s in range(start_batch * B, stop, B):
-            sel = order[s : s + B]
+            sel = _rows_of(order[s : s + B], B, self.process_id, self.process_count)
             ids, coor, vis, scaler, shape, cxcy = _window_labels(self.index, sel)
             # pixels come from the on-disk frame numbers ({n}.png)
             frame_pos = self.index.data["frame_id"][sel]
@@ -461,8 +476,9 @@ class HeatmapBatchLoader:
             if median is not None:
                 batch["median"] = median
             if self.frame_alpha > 0:
-                # one plan per window, drawn from the loader's generator in
-                # batch order; len(sel), not B: the final batch may be short
+                # one plan per window of this process's rows, drawn from the
+                # loader's generator in batch order; len(sel), not B: the
+                # final batch may be short
                 plans = [
                     plan_frame_mixup(coor[b], vis[b], scaler[b, 0], scaler[b, 1],
                                      self.frame_alpha, self.rng)
@@ -478,6 +494,27 @@ class HeatmapBatchLoader:
                 batch["coor"] = np.stack([p.coor for p in plans]) / shape[:, None, :]
                 batch["vis"] = np.stack([p.vis for p in plans])
             yield batch
+
+
+def _process_slice(batch_size: int, drop_last: bool, process_id: int,
+                   process_count: int) -> Tuple[int, int]:
+    """(process_id, process_count) after the JAX loaders' checks: several
+    processes need full batches that they split evenly."""
+    if process_count > 1:
+        assert batch_size % process_count == 0, (
+            f"batch_size {batch_size} not divisible by process_count {process_count}"
+        )
+        assert drop_last, "multi-host loaders require drop_last (full batches)"
+    return int(process_id), int(process_count)
+
+
+def _rows_of(rows: np.ndarray, per_batch: int, process_id: int,
+             process_count: int) -> np.ndarray:
+    """This process's contiguous 1/process_count slice of a batch's rows."""
+    if process_count == 1:
+        return rows
+    loc = per_batch // process_count
+    return rows[process_id * loc : (process_id + 1) * loc]
 
 
 def _window_labels(index: SplitIndex, sel: np.ndarray):
@@ -539,8 +576,9 @@ class ResidentHeatmapLoader:
     (``training/steps.assemble_tracknet_inputs``). Frame mixup needs the host
     blend planner: use ``HeatmapBatchLoader``. The split's frames must fit
     ``budget_bytes``, else ``MemoryError`` (callers fall back). Single device
-    only: a mesh, frame sharding and multi-process staging are not ported.
-    ``device`` has no default: the caller names the card, or asks for the CPU.
+    only: a mesh, frame sharding and multi-process staging are not ported
+    (ROADMAP item 13b-ii). ``device`` has no default: the caller names the
+    card, or asks for the CPU.
     """
 
     def __init__(
@@ -563,9 +601,12 @@ class ResidentHeatmapLoader:
         import torch
 
         if mesh is not None or frame_sharding != "auto":
-            raise NotImplementedError("resident frames on a mesh are not ported yet")
+            raise NotImplementedError("resident frames on a mesh are not ported yet "
+                                      "(ROADMAP item 13b-ii)")
         if process_count > 1 or process_id != 0:
-            raise NotImplementedError("multi-process loading is not ported yet")
+            raise NotImplementedError("resident frames over several processes need the "
+                                      "global mesh, which is not ported yet (ROADMAP item "
+                                      "13b-ii)")
         self.index = index
         self.bg_mode = bg_mode
         self.batch_size = batch_size
@@ -658,9 +699,9 @@ class CoordinateBatchLoader:
       coor_pred    (B, L, 2) f32     TrackNet's prediction, normalised alike
       vis, pred_vis, inpaint_mask  (B, L, 1) f32
 
-    (W, H) is the index's model input size. The shuffle and ``drop_last``
-    are the JAX loader's: the same ``np.random.default_rng(seed)`` stream
-    gives the same batches."""
+    (W, H) is the index's model input size. The shuffle, ``drop_last`` and
+    the rows of each process (``process_count`` > 1) are the JAX loader's:
+    the same ``np.random.default_rng(seed)`` stream gives the same batches."""
 
     def __init__(
         self,
@@ -672,8 +713,8 @@ class CoordinateBatchLoader:
         process_id: int = 0,
         process_count: int = 1,
     ):
-        if process_count > 1 or process_id != 0:
-            raise NotImplementedError("multi-process loading is not ported yet")
+        self.process_id, self.process_count = _process_slice(batch_size, drop_last,
+                                                             process_id, process_count)
         self.index = index
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -685,6 +726,14 @@ class CoordinateBatchLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        yield from self.iter_from(0)
+
+    def iter_from(self, start_batch: int) -> Iterator[Dict[str, np.ndarray]]:
+        """See ``HeatmapBatchLoader.iter_from``."""
+        assert start_batch == 0 or not self.shuffle, (
+            "iter_from(start>0) on a shuffled loader would not match any "
+            "single epoch's order"
+        )
         n = len(self.index)
         order = np.arange(n)
         if self.shuffle:
@@ -693,8 +742,8 @@ class CoordinateBatchLoader:
         stop = (n // B) * B if self.drop_last else n
         norm = np.asarray([self.index.input_hw[1], self.index.input_hw[0]], np.float32)
         d = self.index.data
-        for s in range(0, stop, B):
-            sel = order[s : s + B]
+        for s in range(start_batch * B, stop, B):
+            sel = _rows_of(order[s : s + B], B, self.process_id, self.process_count)
             yield {
                 "id": d["id"][sel],
                 "coor": d["coor"][sel].astype(np.float32) / norm,

@@ -72,6 +72,7 @@ from ..ops.preprocess import window_channels
 from ..ops.shift_copy import check_starts, window_copy
 from ..parallel.mesh import (check_mesh, device_context, gather_batch, replicate_tree,
                              split_batch)
+from ..parallel.processes import host_group, process_count_index
 from ..utils.io import (
     get_rally_dirs,
     label_csv_path,
@@ -179,7 +180,6 @@ class RallyTestEngine:
         self._staged_rallies: Dict[str, StagedRally] = {}
         self.last_eval_stats: Dict[str, float] = {}
         self.last_merge_s: Optional[float] = None  # test()'s merge across processes
-        self._gloo = None  # (default process group, its gloo twin): _host_group
 
     # ------------------------------------------------------------ staging
 
@@ -468,7 +468,7 @@ class RallyTestEngine:
                                                  output_bbox=output_bbox, output_gt=output_gt)
         if pc > 1:
             t_merge = time.time()
-            pred_dict = self._merge_pred_dicts(pred_dict, rally_dirs, self._host_group())
+            pred_dict = self._merge_pred_dicts(pred_dict, rally_dirs, host_group())
             self.last_merge_s = time.time() - t_merge
         if save_inpaint_mask:
             for rally_dir in rally_dirs:
@@ -484,20 +484,6 @@ class RallyTestEngine:
                                     fps=round(frames / seconds, 2) if seconds > 0 else 0.0)
         return pred_dict
 
-    def _host_group(self):
-        """The process group ``_merge_pred_dicts`` gathers host tensors over:
-        None (the default group) where the default backend includes gloo,
-        else a gloo group over the same ranks, made once per default group
-        (NCCL gathers no host tensors and runs no two ranks on one card)."""
-        import torch.distributed as dist
-
-        if "gloo" in str(dist.get_backend()):
-            return None
-        world = dist.group.WORLD
-        if self._gloo is None or self._gloo[0] is not world:
-            self._gloo = (world, dist.new_group(backend="gloo"))
-        return self._gloo[1]
-
     @staticmethod
     def _merge_pred_dicts(local: Dict[str, Dict], rally_dirs, group=None) -> Dict[str, Dict]:
         """All-gather each process's per-rally prediction dicts and merge
@@ -508,7 +494,7 @@ class RallyTestEngine:
         ints and floats by construction, so the transport cannot change
         them) padded to the longest: an int32 all-gather of the sizes, then
         one uint8 all-gather of the payloads. The tensors stay on the host;
-        ``group`` (``_host_group``) must be able to gather them."""
+        ``group`` (``parallel.processes.host_group``) must be able to gather them."""
         import torch.distributed as dist
 
         payload = np.frombuffer(json.dumps(local).encode(), np.uint8)
@@ -529,15 +515,6 @@ class RallyTestEngine:
         for b, n in zip(bufs, sizes):
             merged.update(json.loads(b[:n].numpy().tobytes().decode()))
         return {_rally_key(rd): merged[_rally_key(rd)] for rd in rally_dirs}
-
-
-def process_count_index() -> Tuple[int, int]:
-    """(world size, rank) of the initialised default process group, else (1, 0)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
 
 
 def get_test_res(pred_dict: Dict, data_dir: str, drop: bool = False) -> Dict:

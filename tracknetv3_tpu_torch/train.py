@@ -9,7 +9,8 @@ The flags of the JAX package's ``train.py`` plus ``--device`` (default
 splits' frames on the device (TrackNet); ``--exact_decode [host]``
 validates with the largest-bbox-area decode rule. Flags whose machinery is
 not ported yet (``--num_devices`` > 1, ``--multihost``, ``--fast_bn``)
-raise ``NotImplementedError``.
+raise ``NotImplementedError``, and so does a run under a process group of
+more than one process (``torchrun``).
 """
 
 from __future__ import annotations

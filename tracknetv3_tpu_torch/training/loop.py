@@ -1,7 +1,9 @@
 """Training loop of TrackNet and InpaintNet: epochs, validation, checkpoints,
 resume.
 
-Port of the JAX package's ``training/loop.py::train`` on one device: the
+Port of the JAX package's ``training/loop.py::train`` on one device (it
+refuses a caller's process group of more than one process, as it refuses a
+mesh: data-parallel training is not ported yet): the
 train split at stride 1 (shuffled, full batches), the val
 split at stride ``seq_len``, validation after every epoch,
 ``{model}_best.pt`` (best val accuracy) and ``{model}_cur.pt`` each epoch,
@@ -63,6 +65,7 @@ from ..device import resolve_device
 from ..evaluation.loops import eval_inpaintnet, eval_tracknet
 from ..models.factory import get_model
 from ..models.convert import inpaintnet_from_jax, tracknet_from_jax
+from ..parallel.processes import process_count_index
 from ..utils.visualize import ScalarLogger, write_to_tb
 from .checkpoint import (
     load_checkpoint,
@@ -92,10 +95,16 @@ _COORDINATE_KEYS = ("coor", "coor_pred", "vis", "inpaint_mask")
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for options this slice does not port."""
+    """Raise ``NotImplementedError`` for options the port does not have: a
+    mesh, ``fast_bn``, and a caller's process group of more than one process
+    (data-parallel training with synchronised BatchNorm, ROADMAP item 13b-ii;
+    without it each process would train its own copy of the model)."""
+    processes = process_count_index()[0]
     unsupported = {
         "num_devices > 1": (cfg.num_devices or 1) > 1,
         "fast_bn": bool(cfg.fast_bn),
+        f"a process group of {processes} processes (data-parallel training, "
+        "ROADMAP item 13b-ii)": processes > 1,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
