@@ -86,7 +86,7 @@ exits nonzero.
    ``conv_backend="hand_k3c"`` and ``"hand_9tap"`` at batch 16 and 120 (17
    launches of the conv kernel per chunk forwarded);
    serve_vs_cpu, after each of these: one more served run of the video's
-   first 160 frames (``SERVE_REPLAY_T``, a depth cut for time), with the
+   first 64 frames (``SERVE_REPLAY_T``, a depth cut for time), with the
    trained checkpoint's predictor bias lowered so that its heatmaps hold
    detections (``detecting_checkpoint``), whose chunks' window
    probabilities are copied to the host. Each chunk is held to the
@@ -289,13 +289,51 @@ exits nonzero.
    statistics dropped) must fail; the converted InpaintNet against its
    reference forward in float32 within ``INPAINT_CONVERT_BOUND``.
 
+20. mesh_train (after phase 19): data-parallel training of the README's
+   TrackNet (batch 10 in ``SHARES`` shares of 5, sample mixup whose partner
+   rows lie on the other share). split_vs_plain: the four split BatchNorm
+   entry points (``bn_stats_sums``, ``bn_stats_finalize``,
+   ``bn_relu_bwd_sums``, ``bn_relu_bwd_finalize``) against their plain
+   versions at the step's four shapes at a share of 5, bf16 and float32,
+   within ``SPLIT_BOUNDS``; bf16 times summed over one share's 17 layers
+   beside the bound. mesh_step_parity: one float32 Adam step (TF32 off,
+   deterministic cuDNN) over a mesh that stands the card in twice (and over
+   two cards where there are two) against the single step on the global
+   batch: loss, every gradient (the worst one, and all as one vector), the
+   running statistics and the parameters within ``MESH_STEP_BOUNDS``, which
+   two wrong steps must fail: the unsynchronised step (each share with its
+   own statistics) and the step whose backward alone is unsynchronised
+   (each share's coefficients from its own sums and rows). Two witnesses,
+   held to no bound: the single step on the same batch with its rows
+   reordered (the halves swapped, the mixup carried along), which moves
+   nothing but the order of every sum over the batch; and the 2-share step
+   against the single step with cuDNN off on both sides (PyTorch's own
+   convolutions), which takes cuDNN's choices for a half batch out of the
+   comparison. mesh_train: one epoch of the train
+   CLI with ``--num_devices 2`` (the loop's ``make_mesh`` standing the card
+   in twice where it is alone): per train step and layer 2 launches of each
+   split sums kernel, of ``bn_relu_bwd_finalize``, of the normalise and of
+   the apply, 1 of ``bn_stats_finalize``, none of the unsplit reductions, K1
+   / K2 once a share. mesh_step_time: bf16 ms per step (median of 10 after
+   2) single and over each mesh, peak memory per card, the ms a step spends
+   in the 34 cross-share sums (CUDA events) and in the split kernels.
+   mesh_procs_train: two processes on cuda:0 over a gloo group (one share
+   each, ``DeviceGroup`` on host copies) and, where there are two cards, two
+   over NCCL (rank r on cuda:r), started at the phase's start:
+   ``MESH_TRAIN_STEPS`` float32 steps once the kernel timings are done
+   (beside the untimed parity steps and CLI epoch), the first held to the
+   single step (``MESH_STEP_BOUNDS``), the last to the same steps over the
+   card stood in twice in one process (``MESH_PROCS_BOUND``), the ranks'
+   parameters bit-equal; then, once the step timings are done, each rank's
+   bf16 ms per step and its split kernels' launches.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
 and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
 2 and 15, ``--yuv_only`` phases 1, 2 and 16, ``--tools_only`` phases 1, 2
 and 17, ``--mesh_only`` phases 1, 2 and 18, ``--convert_only`` phases 1, 2
-and 19; none prints a kernels line.
+and 19, ``--mesh_train_only`` phases 1, 2 and 20; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -1193,7 +1231,7 @@ def phase_slice(tmp: str):
     # the normalise once per layer per eval batch (one validation an epoch)
     eval_batches = len(hist) * len(HeatmapBatchLoader(
         build_split_index(data_dir, "val", L, L), "concat", B, data_dir=data_dir))
-    want_bn = {k: BN_LAYERS * steps for k in bn.LAUNCHES}
+    want_bn = {k: BN_LAYERS * steps if k in BN_KERNELS else 0 for k in bn.LAUNCHES}
     want_bn["bn_relu_fwd"] += BN_LAYERS * eval_batches
     emit({"phase": "slice", "train_steps": steps, "eval_batches": eval_batches,
           "launches": launches, "bn_launches": bn_launches,
@@ -1983,7 +2021,9 @@ def phase_seg_parity(data_dir: str):
 SERVE_T = 480  # frames of the synthetic video
 # (conv_backend, batch size, frames served): each route at the predict CLI's
 # default batch and bench.py's, over the whole video
-SERVE_REPLAY_T = 160  # frames of serve_vs_cpu's run and CPU replay: depth cut for time
+# frames of serve_vs_cpu's run and CPU replay (4 chunks at batch 16, 1 at
+# 120): a depth cut for time, from 160 when data-parallel training joined
+SERVE_REPLAY_T = 64
 SERVE_RUNS = (("cudnn", 16, SERVE_T), ("cudnn", 120, SERVE_T), ("hand_k3c", 16, SERVE_T),
               ("hand_k3c", 120, SERVE_T), ("hand_9tap", 16, SERVE_T), ("hand_9tap", 120, SERVE_T))
 # (max, mean) |dp| of the folded forward vs the unfolded TrackNet, on the
@@ -4253,7 +4293,8 @@ def _tools_train(data_dir: str, tmp: str, missing: list) -> dict:
             # other batch kinds are not on this path
             want = {k: dict.fromkeys(v, 0) for k, v in launches.items()}
             want["wbce_disk"] = {"fwd": steps, "bwd": steps}
-            want["batchnorm"] = {k: BN_LAYERS * steps for k in launches["batchnorm"]}
+            want["batchnorm"] = {k: BN_LAYERS * steps if k in BN_KERNELS else 0
+                                 for k in launches["batchnorm"]}
             # the eval forward of validation and of each progress sample
             want["batchnorm"]["bn_relu_fwd"] += BN_LAYERS * (val + samples)
             out[name].update(eval_batches=val, launches=launches,
@@ -5024,6 +5065,671 @@ def phase_convert(tmp: str, card: str) -> dict:
     return {"convert": launches}
 
 
+# ---------------------------------------------------------------- data-parallel training
+
+SHARES = 2  # the data-parallel phase's shares of the README batch: 2 of 5
+SPLIT_KERNELS = ("bn_stats_sums", "bn_stats_finalize", "bn_relu_bwd_sums",
+                 "bn_relu_bwd_finalize")
+SPLIT_REPLACES = {"bn_stats_sums": "tools/probe_bn_pool.py:128",
+                  "bn_stats_finalize": "tools/probe_bn_pool.py:128",
+                  "bn_relu_bwd_sums": "tracknetv3_tpu/models/fused_forward.py:285",
+                  "bn_relu_bwd_finalize": "tracknetv3_tpu/models/fused_forward.py:285"}
+# per layer of one share: activation elements read, float32 C-vectors read or
+# written, float64 (2, C) sums read or written
+SPLIT_TRAFFIC = {"bn_stats_sums": (1, 0, 1), "bn_stats_finalize": (0, 9, 1),
+                 "bn_relu_bwd_sums": (2, 3, 1), "bn_relu_bwd_finalize": (0, 6, 2)}
+# float32 / float64 operations per activation element (the sums) or per
+# channel (the finalizes), counted from csrc/batchnorm.cu
+SPLIT_OPS = {"bn_stats_sums": (3, 0), "bn_stats_finalize": (0, 16),
+             "bn_relu_bwd_sums": (10, 0), "bn_relu_bwd_finalize": (0, 12)}
+# launches of each kernel per layer and train step over SHARES shares: the
+# sums, the backward's finalize and the normalise per share, the forward's
+# finalize once
+SPLIT_PER_LAYER = {"bn_stats_sums": SHARES, "bn_stats_finalize": 1, "bn_relu_bwd_sums": SHARES,
+                   "bn_relu_bwd_finalize": SHARES}
+# a split kernel against its plain version on equal inputs, relative L2: the
+# sums (float64, added in another order), the finalizes (the same float32
+# roundings)
+SPLIT_BOUNDS = {"sums": 1e-12, "finalize": 1e-6}
+# the float32 (TF32 off, deterministic cuDNN) step over SHARES shares against
+# the single step on the global batch: loss relative error, the worst
+# gradient's relative L2, all gradients as one vector (relative L2), the
+# worst running statistic's relative L2, and the parameters after Adam as
+# one vector (relative L2). On an H100 the card stood in twice read 0,
+# 1.1e-2 (a BatchNorm bias; the first conv's weight 9.2e-3), 1.37e-3,
+# 3.3e-7 and 2.2e-3 (Adam's first step moves each weight by about lr *
+# sign(g), so a gradient element near 0 that rounds the other way moves a
+# whole element). Two witnesses place it in cuDNN's convolutions of a half
+# batch: with cuDNN off on both sides the same comparison read 0, 1.6e-7,
+# 6.1e-8, 0 and 2.5e-8, and the single step with its rows reordered 0,
+# 5.3e-5, 5.8e-6, 0 and 1.1e-5. Two wrong steps: the unsynchronised one read
+# 4.8e-5, 1.03, 0.126, 0.90 and 2.9e-2; the one whose backward alone is
+# unsynchronised 0, 0.123, 1.97e-2, 3.3e-7 and 9.9e-3. The bounds sit
+# between the sound reading and the wrong ones: the first fails all five,
+# the second the worst gradient, the one vector and the parameters.
+MESH_STEP_BOUNDS = {"loss": 1e-5, "grad": 4e-2, "grads_as_one_vector": 5e-3, "stats": 1e-4,
+                    "params": 5e-3}
+# mesh_procs_train: the processes' float32 steps, held after the first to
+# the single step (MESH_STEP_BOUNDS) and after the last to the same steps
+# over the card stood in twice in one process (relative error of the losses
+# and of the parameters as one vector), and their timed bf16 steps
+MESH_TRAIN_STEPS = 2
+MESH_PROCS_BOUND = 1e-6
+MESH_PROCS_TIMED = 4
+MESH_TRAIN_CHILD = r"""
+import time
+T0 = time.time()
+import datetime, json, sys
+sys.path.insert(0, {root!r})
+import torch.distributed as dist
+import chip_smoke as cs
+dist.init_process_group({backend!r}, init_method="tcp://127.0.0.1:{port}", world_size=2,
+                        rank={rank}, timeout=datetime.timedelta(seconds=60))
+try:
+    res = cs._group_train({data!r}, {out!r}, {go!r}, {card}, time.time() - T0)
+    res["seconds"]["child"] = time.time() - T0
+    print("MESH_TRAIN " + json.dumps(res), flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _split_vs_plain():
+    """The split BatchNorm entry points against their plain versions at the
+    train step's four shapes at a share of B / SHARES (bf16, as training
+    runs them, and float32); times in bf16, summed over one share's 17
+    layers."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+
+    dev = torch.device(DEVICE)
+    rows, errs = [], {"sums": 0.0, "finalize": 0.0}
+    times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()}
+             for k in SPLIT_KERNELS}
+    for i, (shape, layers) in enumerate(BN_SHAPES.items()):
+        shape = (B // SHARES,) + shape[1:]
+        n = math.prod(shape[:-1])
+        C = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            y, g, gamma, beta, rm, rv = _bn_data(shape, dtype, 50 + i, dev)
+            sums = bn.bn_stats_sums_plain(y)
+            rm2, rv2 = rm.clone(), rv.clone()
+            st = bn.bn_stats_finalize_plain(sums, SHARES * n, gamma, rm2, rv2)
+            gsums = bn.bn_relu_bwd_sums_plain(g, y, st, beta)
+            total = gsums * SHARES  # as if every share had this one's sums
+            got = {
+                "bn_stats_sums": (bn.bn_stats_sums(y), sums),
+                "bn_stats_finalize": (torch.cat([bn.bn_stats_finalize(
+                    sums, SHARES * n, gamma, rm, rv).flatten(), rm, rv]),
+                    torch.cat([st.flatten(), rm2, rv2])),
+                "bn_relu_bwd_sums": (bn.bn_relu_bwd_sums(g, y, st, beta), gsums),
+                "bn_relu_bwd_finalize": tuple(torch.cat([t.flatten() for t in f]) for f in (
+                    bn.bn_relu_bwd_finalize(gsums, total, SHARES * n, st, True),
+                    bn.bn_relu_bwd_finalize_plain(gsums, total, SHARES * n, st, True))),
+            }
+            row = {"shape_NHWC": list(shape), "dtype": str(dtype).split(".")[-1]}
+            for k, (a, b) in got.items():
+                kind = "sums" if k.endswith("sums") else "finalize"
+                # each row of the sums apart: Σy² dwarfs Σy
+                e = (max(_rel_l2(a[j], b[j]) for j in range(2)) if kind == "sums"
+                     else _rel_l2(a, b))
+                row[k] = e
+                row[f"{k}_max_abs_err"] = float((a.double() - b.double()).abs().max())
+                errs[kind] = max(errs[kind], e)
+            if dtype == torch.bfloat16:
+                st_k = bn.bn_stats_finalize(sums, SHARES * n, gamma, rm.clone(), rv.clone())
+                calls = {
+                    "bn_stats_sums": (lambda f: lambda j: f(y), bn.bn_stats_sums,
+                                      bn.bn_stats_sums_plain),
+                    "bn_stats_finalize": (
+                        lambda f: lambda j: f(sums, SHARES * n, gamma, rm, rv),
+                        bn.bn_stats_finalize, bn.bn_stats_finalize_plain),
+                    "bn_relu_bwd_sums": (lambda f: lambda j: f(g, y, st_k, beta),
+                                         bn.bn_relu_bwd_sums, bn.bn_relu_bwd_sums_plain),
+                    "bn_relu_bwd_finalize": (
+                        lambda f: lambda j: f(gsums, total, SHARES * n, st_k, True),
+                        bn.bn_relu_bwd_finalize, bn.bn_relu_bwd_finalize_plain),
+                }
+                for k, (call, kern, plain) in calls.items():
+                    elems, vecs, sums2 = SPLIT_TRAFFIC[k]
+                    per_elem, per_chan = SPLIT_OPS[k]
+                    # three windows each, for the script's time limit
+                    t = time_launches(call(kern), windows=3)
+                    tp = time_launches(call(plain), n=10, windows=3)
+                    bms, by = bound_ms(elems * n * C * y.element_size() + vecs * 4 * C
+                                       + sums2 * 16 * C, per_elem * n * C + per_chan * C)
+                    row[f"{k}_ms"] = t
+                    times[k]["ms"] += layers * t
+                    times[k]["plain_ms"] += layers * tp
+                    times[k]["bound_ms"] += layers * bms
+                    times[k]["bound_by"].add(by)
+            rows.append(row)
+            emit({"phase": "split_vs_plain", **row}, detail=True)
+    for k, v in times.items():
+        v["bound_by"] = "/".join(sorted(v["bound_by"]))
+        v["library_ms"] = None  # no one PyTorch call computes these sums or finalizes
+        v["max_abs_err"] = max(r[f"{k}_max_abs_err"] for r in rows)
+    emit({"phase": "split_vs_plain", "shares": SHARES, "share_batch": B // SHARES,
+          "worst": errs, "bounds": SPLIT_BOUNDS,
+          "ms_per_share_step": {k: v["ms"] for k, v in times.items()},
+          "bound_ms": {k: v["bound_ms"] for k, v in times.items()}})
+    for kind, e in errs.items():
+        if not e <= SPLIT_BOUNDS[kind]:
+            fail("split_vs_plain", f"{kind}: {e} > {SPLIT_BOUNDS[kind]}")
+    return times
+
+
+def _crossing_mixup():
+    """The global batch's (perm, lam) with every partner on the other share."""
+    rng = np.random.default_rng(9)
+    perm = (np.arange(B) + B // SHARES) % B
+    lam = np.maximum(rng.uniform(0, 1, B), 0.5).astype(np.float32)
+    return perm.astype(np.int64), lam
+
+
+def _mesh_step_result(model, loss) -> dict:
+    import torch
+
+    return {"loss": float(loss),
+            "grads": {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()},
+            "stats": {k: v.detach().float().cpu() for k, v in model.named_buffers()},
+            "params": torch.cat([p.detach().float().flatten().cpu()
+                                 for p in model.parameters()])}
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.flatten() for t in tensors])
+
+
+def _mesh_readings(got: dict, want: dict) -> dict:
+    grads = {k: _rel_l2(got["grads"][k], want["grads"][k]) for k in want["grads"]}
+    stats = {k: _rel_l2(got["stats"][k], want["stats"][k]) for k in want["stats"]}
+    every = [_flat(got["grads"].values()), _flat(want["grads"].values())]
+    bn_grads = {k: v for k, v in grads.items() if ".bn." in k}
+    conv_grads = {k: v for k, v in grads.items() if ".bn." not in k}
+    r = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+         "grad": max(grads.values()), "grad_worst": max(grads, key=grads.get),
+         # where the gradient error sits: BatchNorm parameters, convs
+         "grad_bn": max(bn_grads.values()), "grad_conv": max(conv_grads.values()),
+         "grad_conv_worst": max(conv_grads, key=conv_grads.get),
+         "grads_as_one_vector": _rel_l2(*every),
+         "stats": max(stats.values()), "stats_worst": max(stats, key=stats.get),
+         "params": _rel_l2(got["params"], want["params"])}
+    r["within_bounds"] = all(r[k] <= b for k, b in MESH_STEP_BOUNDS.items())
+    return r
+
+
+def _each_share_its_own(ys, weights, biases, running_mean, running_var, reducer, ops=None):
+    """The unsynchronised version: each share with its own statistics."""
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+
+    return [bn.bn_relu_train(y, w, b, running_mean, running_var)
+            for y, w, b in zip(ys, weights, biases)]
+
+
+def _coef_from_own_sums(local, total, n, st, train):
+    """The backward unsynchronised: each share's coefficients from its own
+    sums over its own rows (the forward's statistics stay global)."""
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+
+    return bn.bn_relu_bwd_finalize(local, local, n // SHARES, st, train)
+
+
+def _rows_reordered(batch, perm, lam):
+    """The batch with its halves swapped, and the mixup that pairs the same
+    windows with the same weights: the same step, every sum over the batch
+    in another order."""
+    import torch
+
+    order = np.roll(np.arange(B), B // 2)
+    where = np.argsort(order)  # the new row of each old row
+    moved = {k: (v[torch.from_numpy(order).to(v.device)] if torch.is_tensor(v) else v[order])
+             for k, v in batch.items()}
+    return moved, where[perm[order]], lam[order]
+
+
+def _one_step(base, batch, perm, lam, mesh=None, group=None, steps_n: int = 1):
+    """``steps_n`` float32 Adam steps of a copy of ``base`` on the README batch
+    (sample mixup with ``perm`` / ``lam``), on one device or over ``mesh`` /
+    ``group``; the first step's result (loss, gradients, statistics,
+    parameters), every loss, and the parameters after each step as one
+    float32 vector on the host."""
+    import torch
+
+    from tracknetv3_tpu_torch.parallel.mesh import shard_train_batch
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+    from tracknetv3_tpu_torch.training.steps import (make_tracknet_shares_train_step,
+                                                     make_tracknet_train_step)
+
+    dev = torch.device(DEVICE)
+    model = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)
+    model.dtype = torch.float32
+    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+    if mesh is None and group is None:
+        step = make_tracknet_train_step(model, opt, "concat", 0.5, sched)
+        args = (batch, torch.from_numpy(perm).to(dev), torch.from_numpy(lam).to(dev))
+    else:
+        step = make_tracknet_shares_train_step(model, opt, "concat", 0.5, sched, mesh=mesh,
+                                               group=group)
+        args = (shard_train_batch(batch, mesh) if group is None else [batch], perm, lam)
+    losses, params = [], []
+    for i in range(steps_n):
+        loss = step(args[0], i, *args[1:])
+        if i == 0:
+            first = _mesh_step_result(model, loss)
+        losses.append(float(loss))
+        params.append(_flat(p.detach().float().cpu() for p in model.parameters()))
+    return first, losses, params
+
+
+def _f32_deterministic():
+    """TF32 off and deterministic cuDNN without autotuning (the parity runs')."""
+    import torch
+
+    stack = contextlib.ExitStack()
+    from tracknetv3_tpu_torch.device import tf32_off
+
+    stack.enter_context(tf32_off())
+    stack.enter_context(torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                   deterministic=True, allow_tf32=False))
+    return stack
+
+
+def _mesh_step_parity(data_dir: str, meshes: dict, card: str) -> dict:
+    """The float32 step over each mesh against the single step, and the two
+    wrong steps, which must fail the bounds. Returns what the training
+    processes are held to: the single step's loss and parameters, and
+    MESH_TRAIN_STEPS steps' losses and last parameters over the card stood
+    in twice."""
+    import torch
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+
+    batch = _first_batch(data_dir, torch.device(DEVICE))
+    perm, lam = _crossing_mixup()
+    base = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(41),
+                     dtype=torch.float32)
+    wrong = {"unsynchronised": mock.patch.object(bn, "sync_bn_relu_train",
+                                                 _each_share_its_own),
+             "backward_unsynchronised": mock.patch.object(
+                 bn, "SPLIT_KERNEL_OPS",
+                 bn.SPLIT_KERNEL_OPS._replace(bwd_finalize=_coef_from_own_sums))}
+    res = {}
+    with _f32_deterministic():
+        want, single_losses, single_params = _one_step(base, batch, perm, lam)
+        refs = {"single": (single_losses[0], single_params[0])}
+        for name, mesh in meshes.items():
+            got, losses, params = _one_step(base, batch, perm, lam, mesh,
+                                            steps_n=MESH_TRAIN_STEPS)
+            res[name] = _mesh_readings(got, want)
+            if name == "card_twice":
+                refs["mesh"] = (losses, params[-1])
+        for name, patch in wrong.items():
+            with patch:
+                res[name] = _mesh_readings(
+                    _one_step(base, batch, perm, lam, meshes["card_twice"])[0], want)
+        witness = {"single_rows_reordered": _mesh_readings(
+            _one_step(base, *_rows_reordered(batch, perm, lam))[0], want)}
+        conv = torch.nn.functional.conv2d
+        # PyTorch's own convs, whose NCHW output the BatchNorm kernels get in
+        # channels_last memory, as cuDNN's
+        with torch.backends.cudnn.flags(enabled=False), mock.patch.object(
+                torch.nn.functional, "conv2d", lambda *a, **k: conv(*a, **k).contiguous(
+                    memory_format=torch.channels_last)):
+            witness["cudnn_off_card_twice_vs_single"] = _mesh_readings(
+                _one_step(base, batch, perm, lam, meshes["card_twice"])[0],
+                _one_step(base, batch, perm, lam)[0])
+    emit({"phase": "mesh_step_parity", "dtype": "float32", "tf32": False, "shares": SHARES,
+          "bounds": MESH_STEP_BOUNDS, "loss_single": want["loss"], "vs": res,
+          "witness": witness, "card": card})
+    for name, r in res.items():
+        if r["within_bounds"] == (name in wrong):
+            fail("mesh_step_parity", f"{name}: {r} (bounds {MESH_STEP_BOUNDS}; the wrong "
+                 f"steps {sorted(wrong)} must fail them)")
+    return refs
+
+
+def _timed_reducer(mesh, spent: list):
+    """``mesh_reducer(mesh)`` whose every sum is timed by CUDA events."""
+    import torch
+
+    from tracknetv3_tpu_torch.parallel.mesh import Reducer, mesh_reducer
+
+    inner = mesh_reducer(mesh)
+
+    def total(parts):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner.sum(parts)
+        b.record()
+        spent.append((a, b))
+        return out
+
+    return Reducer(total)
+
+
+def _time_mesh_steps(model, batch, mesh, n: int = 12) -> dict:
+    """ms of each bf16 train step over ``mesh`` after 2 warm-up, peak memory
+    of each card, and the ms a step spends in the cross-share sums (CUDA
+    events around each of the 34 reductions)."""
+    import torch
+
+    from tracknetv3_tpu_torch.parallel.mesh import shard_train_batch
+    from tracknetv3_tpu_torch.training import steps as st
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+
+    perm, lam = _crossing_mixup()
+    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+    spent: list = []
+    with mock.patch.object(st, "mesh_reducer", lambda m: _timed_reducer(m, spent)):
+        step = st.make_tracknet_shares_train_step(model, opt, "concat", 0.5, sched, mesh=mesh)
+    shares = shard_train_batch(batch, mesh)
+    cards = sorted({d.index for d in mesh.devices})
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    times, reduce_ms = [], []
+    for i in range(n):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        spent.clear()
+        t0 = time.perf_counter()
+        step(shares, i, perm, lam)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        times.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms.append(sum(a.elapsed_time(b) for a, b in spent))
+        reductions = len(spent)
+    return {"median_ms_per_step": statistics.median(times[2:]), "ms_per_step": times[2:],
+            "reductions_per_step": reductions,
+            "reduce_ms_per_step": statistics.median(reduce_ms[2:]),
+            "peak_mem_bytes": {f"cuda:{c}": torch.cuda.max_memory_allocated(c) for c in cards}}
+
+
+def _wait_for(path: str) -> None:
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > MESH_CHILD_S:
+            raise TimeoutError(f"no {path} within {MESH_CHILD_S} s")
+        time.sleep(0.02)
+
+
+def _group_train(data_dir: str, out: str, go: str, card: int, started_s: float) -> dict:
+    """One rank of ``mesh_procs_train`` (a group of two: gloo on cuda:0, or
+    NCCL with rank r on ``cuda:r``), on the card ``card``: its share of the
+    README batch, made on the host; once the file ``go.f32`` exists (the
+    parent's kernel timings are done), MESH_TRAIN_STEPS float32 steps (TF32
+    off, deterministic cuDNN) whose parameters go to ``out`` (then
+    ``out.done``); once ``go.bf16`` exists (the parent's step timings are
+    done and the card is free), bf16 steps timed. ``started_s``: the seconds
+    from the process's start to the group."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+    from tracknetv3_tpu_torch.parallel.mesh import Mesh, split_batch
+    from tracknetv3_tpu_torch.parallel.processes import device_group
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+    from tracknetv3_tpu_torch.training.steps import make_tracknet_shares_train_step
+
+    t_setup = time.perf_counter()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    batch = _first_batch(data_dir, torch.device("cpu"))
+    perm, lam = _crossing_mixup()
+    base = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(41),
+                     dtype=torch.float32)
+    t_wait = time.perf_counter()
+    _wait_for(go + ".f32")
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE, card)
+    torch.cuda.set_device(dev)
+    group = device_group(dev)
+    share = {k: split_batch(v, world)[rank].to(dev) for k, v in batch.items()}
+    with _f32_deterministic():
+        _, losses, params = _one_step(base, share, perm, lam, Mesh((dev,)), group,
+                                      steps_n=MESH_TRAIN_STEPS)
+    np.savez(out, first=params[0].numpy(), last=params[-1].numpy())
+    open(out + ".done", "w").close()
+    t_f32 = time.perf_counter()
+    _wait_for(go + ".bf16")
+    t_bf16 = time.perf_counter()
+    # bf16 steps as training runs them
+    model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(41)).to(
+        dev, memory_format=torch.channels_last)
+    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+    step = make_tracknet_shares_train_step(model, opt, "concat", 0.5, sched, mesh=Mesh((dev,)),
+                                           group=group)
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(2 + MESH_PROCS_TIMED):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        step([share], i, perm, lam)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"rank": rank, "losses": losses, "params_sha256": hashlib.sha256(
+        params[-1].numpy().tobytes()).hexdigest(),
+        "median_ms_per_step": statistics.median(times[2:]), "ms_per_step": times[2:],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "split_launches": {k: bn.LAUNCHES[k] for k in SPLIT_KERNELS},
+        "backend": str(dist.get_backend()), "device": str(dev),
+        "seconds": {"start": started_s, "setup": t_wait - t_setup, "waited": t_start - t_wait,
+                    "float32": t_f32 - t_start, "waited_bf16": t_bf16 - t_f32,
+                    "bf16": time.perf_counter() - t_bf16}}
+
+
+def _spawn_train_children(tmp: str, data_dir: str, backend: str):
+    """Start a pair of ``mesh_procs_train``'s processes over ``backend``
+    (gloo: both on cuda:0; nccl: rank r on cuda:r); they set up on the host
+    and wait for their go files. Returns (backend, processes, their output
+    files, the go files' stem, the start time)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(tmp, f"mesh_train_{backend}_rank{r}.npz") for r in (0, 1)]
+    go = os.path.join(tmp, f"mesh_train_{backend}_go")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_TRAIN_CHILD.format(
+            root=ROOT, backend=backend, port=port, rank=r, data=data_dir, out=outs[r], go=go,
+            card=r if backend == "nccl" else 0)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    return backend, procs, outs, go, time.time()
+
+
+def _release(children, stage: str) -> None:
+    """Let a pair of training processes start their ``stage``: "f32" or "bf16"."""
+    open(f"{children[3]}.{stage}", "w").close()
+
+
+def _await_float32(children) -> None:
+    """Wait until both processes of a pair have written their float32
+    parameters (before the parent times anything on the card)."""
+    backend, procs, outs, go, t0 = children
+    while not all(os.path.exists(o + ".done") for o in outs):
+        for r, p in enumerate(procs):
+            if p.poll() is not None:
+                fail("mesh_procs_train", f"{backend} rank {r} exited {p.returncode} before "
+                     f"its float32 steps were written: {p.stderr.read()[-2000:]}")
+        if time.time() - t0 > MESH_CHILD_S:
+            fail("mesh_procs_train", f"{backend}: no float32 steps within {MESH_CHILD_S} s")
+        time.sleep(0.05)
+
+
+def _mesh_procs_train(children, card: str, refs: dict) -> None:
+    """Release a pair of ``_spawn_train_children``'s processes, whose float32
+    steps are written, to their bf16 timings; hold their MESH_TRAIN_STEPS
+    float32 steps to one process's (``refs``: the single step, and the same
+    steps over the card stood in twice)."""
+    import torch
+
+    backend, procs, outs, go, t0 = children
+    t_go = time.time()
+    ranks = []
+    try:
+        _release(children, "bf16")
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(MESH_CHILD_S - (time.time() - t0), 1))
+            except subprocess.TimeoutExpired:
+                fail("mesh_procs_train", f"rank {r} did not end within {MESH_CHILD_S} s")
+            if p.returncode != 0:
+                fail("mesh_procs_train", f"rank {r} exited {p.returncode}: {err[-2000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith("MESH_TRAIN ")]
+            if len(lines) != 1:
+                fail("mesh_procs_train", f"rank {r} printed no result: {out[-1000:]}")
+            ranks.append(json.loads(lines[0][len("MESH_TRAIN "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    (single_loss, single_params), (mesh_losses, mesh_params) = refs["single"], refs["mesh"]
+    readings = []
+    for r, o in zip(ranks, outs):
+        with np.load(o) as z:
+            first, last = torch.from_numpy(z["first"]), torch.from_numpy(z["last"])
+        readings.append({
+            "single_step_loss": abs(r["losses"][0] - single_loss) / abs(single_loss),
+            "single_step_params": _rel_l2(first, single_params),
+            "mesh_losses": max(abs(a - b) / abs(b) for a, b in zip(r["losses"], mesh_losses)),
+            "mesh_params": _rel_l2(last, mesh_params)})
+    emit({"phase": "mesh_procs_train", "processes": 2, "backend": backend,
+          "float32_steps": MESH_TRAIN_STEPS, "single_step_loss": single_loss,
+          "mesh_losses": mesh_losses, "ranks": ranks, "vs_one_process": readings,
+          "bounds": {"single_step": MESH_STEP_BOUNDS, "mesh": MESH_PROCS_BOUND},
+          "wall_s": time.time() - t0, "after_go_s": time.time() - t_go, "card": card})
+    if ranks[0]["params_sha256"] != ranks[1]["params_sha256"]:
+        fail("mesh_procs_train", "the ranks' parameters differ")
+    for r in readings:
+        if (r["single_step_loss"] > MESH_STEP_BOUNDS["loss"]
+                or r["single_step_params"] > MESH_STEP_BOUNDS["params"]
+                or r["mesh_losses"] > MESH_PROCS_BOUND or r["mesh_params"] > MESH_PROCS_BOUND):
+            fail("mesh_procs_train", f"a rank off one process: {r}")
+    want_l = {k: BN_LAYERS * (2 + MESH_PROCS_TIMED) for k in SPLIT_KERNELS}  # a share a rank
+    for r in ranks:
+        if r["split_launches"] != want_l:
+            fail("mesh_procs_train", f"rank {r['rank']}: launches {r['split_launches']} != "
+                 f"{want_l}")
+
+
+def phase_mesh_train(tmp: str, card: str) -> dict:
+    """mesh_train: data-parallel training over SHARES shares of the README
+    batch. Returns the split kernels' times and the main path's launches."""
+    import torch
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    data_dir = os.path.join(tmp, "data")
+    if not os.path.isdir(os.path.join(data_dir, "train")):
+        write_synthetic_dataset(data_dir)
+    _first_batch(data_dir, torch.device("cpu"))  # the frame caches, before the children read them
+    # the training processes set up on the host while this one measures:
+    # gloo on the card, and NCCL on two cards where there are two
+    pairs = [_spawn_train_children(tmp, data_dir, "gloo")]
+    if torch.cuda.device_count() >= 2:
+        pairs.append(_spawn_train_children(tmp, data_dir, "nccl"))
+    try:
+        out = _mesh_train_measured(tmp, card, data_dir, pairs)
+    finally:
+        for p in (p for pair in pairs for p in pair[1]):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit({"phase": "mesh_train_done", "phase_s": time.time() - t_phase, "card": card})
+    return out
+
+
+def _mesh_train_measured(tmp: str, card: str, data_dir: str, pairs):
+    """phase_mesh_train's measurements; the ``pairs`` of training processes
+    wait for the last."""
+    import torch
+
+    from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.data.dataset import HeatmapBatchLoader, build_split_index
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import batchnorm as bn
+    from tracknetv3_tpu_torch.ops import wbce_disk as wd
+    from tracknetv3_tpu_torch.parallel import mesh as pmesh
+    from tracknetv3_tpu_torch.training import loop
+
+    times = _split_vs_plain()
+    # the processes' float32 steps run beside the untimed work that follows
+    for pair in pairs:
+        _release(pair, "f32")
+    meshes = {"card_twice": pmesh.make_mesh(devices=["cuda:0", "cuda:0"])}
+    if torch.cuda.device_count() >= 2:
+        meshes["two_cards"] = pmesh.make_mesh(2)
+    refs = _mesh_step_parity(data_dir, meshes, card)
+
+    # the main path: the train CLI with --num_devices 2 (the card stood in
+    # twice where it is alone), one epoch of the README configuration
+    save_dir = os.path.join(tmp, "exp_mesh")
+    argv = ["--seq_len", str(L), "--bg_mode", "concat", "--alpha", "0.5", "--batch_size",
+            str(B), "--epochs", "1", "--num_devices", str(SHARES), "--data_dir", data_dir,
+            "--save_dir", save_dir]
+    stand_in = (mock.patch.object(loop, "make_mesh", lambda n, device: meshes["card_twice"])
+                if "two_cards" not in meshes else contextlib.nullcontext())
+    torch.backends.cudnn.benchmark = True
+    _zero_launches()
+    t0 = time.time()
+    with stand_in, contextlib.redirect_stdout(sys.stderr):
+        out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = {**dict(bn.LAUNCHES), **{f"wbce_disk_{k}": v for k, v in wd.LAUNCHES.items()}}
+    steps, h = out["step"], out["history"][0]
+    del out  # the CLI's model and optimizer: out of the peaks below
+    val = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L), "concat", B,
+                                 data_dir=data_dir))
+    want = {k: BN_LAYERS * SPLIT_PER_LAYER[k] * steps for k in SPLIT_KERNELS}
+    want.update(bn_stats=0, bn_relu_bwd_reduce=0,
+                bn_relu_fwd=BN_LAYERS * (SHARES * steps + val),
+                bn_relu_bwd_apply=BN_LAYERS * SHARES * steps,
+                wbce_disk_fwd=SHARES * steps, wbce_disk_bwd=SHARES * steps)
+    emit({"phase": "mesh_train", "cli": "--num_devices 2", "mesh": [
+        str(d) for d in (meshes.get("two_cards") or meshes["card_twice"]).devices],
+        "train_steps": steps, "eval_batches": val, "launches": launches,
+        "train_loss": h["train_loss"], "val_loss": h["val_loss"], "val_res": h["val_res"],
+        "train_s": train_s, "checkpoint": os.path.exists(os.path.join(save_dir,
+                                                                      "TrackNet_cur.pt"))})
+    if launches != want:
+        fail("mesh_train", f"launches {launches} != {want} ({steps} steps, {val} eval batches)")
+    if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])):
+        fail("mesh_train", f"non-finite losses {h}")
+
+    # bf16 ms per step of the README configuration: single, over each mesh,
+    # and in two processes; peak memory per card. The card is the parent's
+    # alone from here until each pair is released to its timings.
+    for pair in pairs:
+        _await_float32(pair)
+    batch = _first_batch(data_dir, torch.device(DEVICE))
+    model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(41)).to(
+        DEVICE, memory_format=torch.channels_last)
+    torch.cuda.reset_peak_memory_stats()
+    single = _time_steps(model, batch, 0.5)[0]
+    timing = {"single": {"median_ms_per_step": statistics.median(single),
+                         "ms_per_step": single,
+                         "peak_mem_bytes": {"cuda:0": torch.cuda.max_memory_allocated()}}}
+    for name, mesh in meshes.items():
+        timing[name] = _time_mesh_steps(model, batch, mesh)
+    split_ms = sum(times[k]["ms"] * SPLIT_PER_LAYER[k] for k in SPLIT_KERNELS)
+    emit({"phase": "mesh_step_time", "config": "TrackNet seq_len 8 concat 288x512 batch 10 "
+          "alpha 0.5 Adam bf16", "shares": SHARES, "timing": timing,
+          "split_kernels_ms_per_step": split_ms, "card": card})
+    for pair in pairs:
+        _mesh_procs_train(pair, card, refs)
+    return times, {k: launches[k] for k in SPLIT_KERNELS}
+
+
 def _baseline_modules(root: str):
     """The copy and loss kernel modules of the port in another checkout,
     imported under another package name so that both trees live in one
@@ -5080,6 +5786,10 @@ def main() -> int:
     ap.add_argument("--convert_only", action="store_true",
                     help="build and convert (reference checkpoints converted by the CLI and "
                          "served, held to the reference forward) alone; no kernels line")
+    ap.add_argument("--mesh_train_only", action="store_true",
+                    help="build and mesh_train (data-parallel training: the split BatchNorm "
+                         "kernels, the 2-share step against the single one, the train CLI "
+                         "with --num_devices 2, two processes over gloo) alone; no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -5111,7 +5821,8 @@ def main() -> int:
             else "yuv" if args.yuv_only
             else "tools" if args.tools_only
             else "mesh" if args.mesh_only
-            else "convert" if args.convert_only else None)
+            else "convert" if args.convert_only
+            else "mesh_train" if args.mesh_train_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -5141,6 +5852,9 @@ def main() -> int:
         elif only == "convert":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_convert(tmp, card)
+        elif only == "mesh_train":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_mesh_train(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -5176,6 +5890,7 @@ def main() -> int:
         paths_launches.update(phase_yuv_stage(tmp, card))
         mesh_launches = phase_mesh(tmp, card)
         mesh_launches.update(phase_convert(tmp, card))
+        split_times, split_launches = phase_mesh_train(tmp, card)
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
@@ -5216,6 +5931,14 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/batchnorm.cu",
          "replaces": replaces[k], "launches": bn_launches[k], **v}
         for k, v in bn_times.items()
+    ]
+    # the split BatchNorm entry points of data-parallel training: times and
+    # bounds summed over one share's 17 calls at a share of 5 (bf16);
+    # launches of the train CLI's epoch over 2 shares
+    lines += [
+        {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/batchnorm.cu",
+         "replaces": SPLIT_REPLACES[k], "launches": split_launches[k], **v}
+        for k, v in split_times.items()
     ]
     # P1-P3: times and bounds summed over the 17 convs of one forward at batch
     # 16 (bf16); library: cuDNN's conv alone, and with the torch epilogue

@@ -27,6 +27,7 @@ from tracknetv3_tpu.data import dataset as jax_ds  # noqa: E402
 from tracknetv3_tpu.ops.preprocess import window_channels as jax_window_channels  # noqa: E402
 from tracknetv3_tpu_torch.data import dataset as ds  # noqa: E402
 from tracknetv3_tpu_torch.ops.preprocess import window_channels  # noqa: E402
+from tracknetv3_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = (32, 64)
@@ -111,10 +112,21 @@ def test_unported_loader_modes_raise(data_dirs):
                 mod.HeatmapBatchLoader(idx, "concat", B, **kw)
             with pytest.raises(AssertionError):
                 mod.CoordinateBatchLoader(idx, B, **kw)
-    for kw in (dict(process_count=2), dict(mesh=object()), dict(frame_sharding="shard")):
-        with pytest.raises(NotImplementedError):
+    # resident frames over processes take full batches, as the host loaders;
+    # several processes hold one mesh entry each; frames sharded across the
+    # entries (explicit, or "auto" over the budget on a mesh) are not ported
+    mesh = make_mesh(2, device="cpu")
+    for kw, err in ((dict(process_count=2), AssertionError),
+                    (dict(mesh=mesh, process_count=2, drop_last=True), ValueError),
+                    (dict(frame_sharding="bogus"), ValueError),
+                    (dict(frame_sharding="shard"), NotImplementedError),
+                    (dict(mesh=mesh, budget_bytes=1), NotImplementedError)):
+        with pytest.raises(err, match="13b-iii" if err is NotImplementedError else None):
             ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], device="cpu",
                                      **kw)
+    with pytest.raises(MemoryError):  # one device over the budget: callers fall back
+        ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], device="cpu",
+                                 budget_bytes=1)
     with pytest.raises(TypeError):  # the resident loader's device is the caller's to name
         ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"])
     with pytest.raises(ValueError):

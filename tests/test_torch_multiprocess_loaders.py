@@ -9,7 +9,8 @@ over two shuffled epochs (so the generators move on alike): plain batches,
 segmented ones, frame-mixup ones (each process plans its own rows from its
 own generator), ``CoordinateBatchLoader``'s and ``iter_from``'s. The plain
 slices put together give the one-process batch. Both packages refuse the
-same configurations; resident frames over several processes stay refused.
+same configurations; the resident loader over several processes refuses
+what the host loaders refuse, and frames sharded across mesh entries.
 The data is ``tools/make_synthetic_dataset.py``'s at ``input_hw=(32, 64)``.
 """
 
@@ -196,6 +197,12 @@ def test_both_packages_refuse_the_same_configurations(data_dirs, indexes):
                                         process_count=2, data_dir=data_dirs["port"])
         with pytest.raises(AssertionError, match="segments per batch"):
             next(iter(loader))
-    with pytest.raises(NotImplementedError, match="13b-ii"):
+    # resident frames over processes: full batches; frames sharded across
+    # mesh entries are not ported (13b-iii)
+    with pytest.raises(AssertionError):
+        ds.ResidentHeatmapLoader(pidx, "concat", 4, process_count=2, data_dir=data_dirs["port"],
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="13b-iii"):
         ds.ResidentHeatmapLoader(pidx, "concat", 4, drop_last=True, process_count=2,
-                                 data_dir=data_dirs["port"], device="cpu")
+                                 frame_sharding="shard", data_dir=data_dirs["port"],
+                                 device="cpu")

@@ -9,8 +9,10 @@ eval step (stored probabilities or coordinates and a stored loss):
 ``eval_inpaintnet``. Both ranks end with the same loss and confusions, bit
 for bit those of the port's one-process run, which equal the JAX package's
 one-process ``eval_tracknet`` / ``eval_inpaintnet`` on the same batches (at
-``tests/test_torch_eval.py``'s tolerance). Each child's train loop refuses
-to run under its group of two processes; under a group of one it runs.
+``tests/test_torch_eval.py``'s tolerance). Each child's train loop accepts
+its group of two processes (``test_torch_dp_processes.py`` trains in one),
+refuses ``fast_bn`` and a ``num_devices`` other than the process count;
+under a group of one it accepts the defaults.
 Every child and every rendezvous has a time limit, so that a hang fails one
 test.
 """
@@ -47,7 +49,7 @@ torch.set_num_threads(1)
 import torch.distributed as dist
 from tracknetv3_tpu_torch.config import TrainConfig
 from tracknetv3_tpu_torch.evaluation import loops
-from tracknetv3_tpu_torch.training.loop import train
+from tracknetv3_tpu_torch.training.loop import check_supported
 
 dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}", world_size=2,
                         rank={rank}, timeout=datetime.timedelta(seconds=60))
@@ -72,10 +74,13 @@ loss, res = loops.eval_inpaintnet(lambda b: (torch.tensor(b["loss"]), torch.from
                                   process_count=2)
 out["inpaintnet"] = [loss.hex(), res]
 out["evaluated"] = evaluated
-try:
-    train(TrainConfig(save_dir={save!r}), {save!r}, device="cpu", verbose_print=str)
-except NotImplementedError as e:
-    out["train_refused"] = str(e)
+check_supported(TrainConfig(save_dir={save!r}))
+out["train_accepted"] = True
+for kw, err in ((dict(fast_bn=True), NotImplementedError), (dict(num_devices=4), ValueError)):
+    try:
+        check_supported(TrainConfig(**kw))
+    except err as e:
+        out["refused_" + next(iter(kw))] = str(e)
 print("RESULT " + json.dumps(out), flush=True)
 dist.destroy_process_group()
 """
@@ -215,11 +220,12 @@ def test_each_rank_evaluated_its_round_robin_share(two_ranks):
         assert r["evaluated"] == [i for i in range(N_BATCHES) if i % 2 == rank] * len(DECODES)
 
 
-def test_the_train_loop_refuses_a_group_of_two_and_runs_in_a_group_of_one(two_ranks):
+def test_the_train_loop_accepts_a_group_of_two_and_of_one(two_ranks):
     results, _, _ = two_ranks
     for r in results:
-        assert "a process group of 2 processes" in r["train_refused"]
-        assert "13b-ii" in r["train_refused"]
+        assert r["train_accepted"]
+        assert "fast_bn" in r["refused_fast_bn"]
+        assert "num_devices 4 is not supported" in r["refused_num_devices"]
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
     try:

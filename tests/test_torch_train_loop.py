@@ -1,8 +1,11 @@
 """The port's ``train()`` on the CPU: one epoch at ``input_hw=(32, 64)`` on a
 small synthetic dataset, checkpoints, val metrics with the JAX loop's
-keys, ``resume_training`` to epoch 2, and ``NotImplementedError`` for each
-option not ported (``test_torch_train_options.py`` trains with the ported
-ones; ``test_torch_inpaintnet_train.py`` trains InpaintNet)."""
+keys, ``resume_training`` to epoch 2, ``NotImplementedError`` for the
+option not ported (``fast_bn``), an epoch on a two-entry CPU mesh, and the
+CLI's ``--multihost`` joining the group that ``torchrun`` describes
+(``test_torch_train_options.py`` trains with the other options;
+``test_torch_inpaintnet_train.py`` trains InpaintNet;
+``test_torch_dp_train.py`` holds data-parallel training to one device)."""
 
 import os
 import subprocess
@@ -65,10 +68,22 @@ def test_train_one_epoch_then_resume(data_dir, tmp_path):
     assert ckpt.load_checkpoint(str(tmp_path / "TrackNet_cur.pt"))["epoch"] == 1
 
 
-@pytest.mark.parametrize("field,value", [("num_devices", 2), ("fast_bn", True)])
+@pytest.mark.parametrize("field,value", [("fast_bn", True)])
 def test_unported_options_raise(data_dir, tmp_path, field, value):
     with pytest.raises(NotImplementedError):
         train(_cfg(tmp_path, **{field: value}), data_dir, device="cpu", verbose_print=str)
+
+
+def test_num_devices_2_trains_an_epoch_on_a_cpu_mesh(data_dir, tmp_path):
+    out = train(_cfg(tmp_path, num_devices=2), data_dir, device="cpu", verbose_print=str)
+    (h,) = out["history"]
+    assert np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"])
+    assert out["step"] == (2 * 2 * (12 - 3 + 1)) // 2
+    assert os.path.exists(tmp_path / "TrackNet_cur.pt")
+    for name in ("TrackNet_best.pt", "TrackNet_cur.pt"):  # 130 MB each
+        os.remove(tmp_path / name)
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        train(_cfg(tmp_path, num_devices=3), data_dir, device="cpu", verbose_print=str)
 
 
 @pytest.mark.parametrize("exact_decode", ["device", "host"])
@@ -94,6 +109,30 @@ def test_exact_decode_reaches_eval_tracknet(data_dir, tmp_path, monkeypatch, exa
     assert out["history"][0]["val_res"] == seen[0][1][1]
 
 
-def test_cli_multihost_raises():
-    with pytest.raises(NotImplementedError):
-        train_cli.main(["--multihost"])
+def test_cli_multihost_joins_the_group_torchrun_describes(monkeypatch):
+    """``--multihost`` initialises the default group from torchrun's
+    environment (gloo on the CPU), trains in it on the process's device, and
+    leaves no group behind."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tracknetv3_tpu_torch.parallel.processes import process_count_index
+    from tracknetv3_tpu_torch.training import loop
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    seen = []
+
+    def recording(cfg, data_dir, device):
+        seen.append((process_count_index(), str(dist.get_backend()), str(device), data_dir))
+        return {}
+
+    monkeypatch.setattr(loop, "train", recording)
+    train_cli.main(["--multihost", "--device", "cpu", "--data_dir", "D"])
+    assert seen == [((1, 0), "gloo", "cpu", "D")]
+    assert not dist.is_initialized()

@@ -9,6 +9,14 @@
 //   bn_relu_fwd_{bf16,f32}         <- norm_kernel  (:167, launched by norm_pl, :173)
 //   bn_relu_bwd_reduce_{bf16,f32}  <- the gradient of both (JAX takes it from
 //   bn_relu_bwd_apply_{bf16,f32}      autodiff; there is no Pallas source)
+// and, for data-parallel training, the two reductions split at their sums so
+// that the sums of the shares of a global batch can be added up between the
+// halves (JAX gets this from GSPMD: the batch mean of a sharded array is an
+// all-reduce):
+//   bn_stats_sums_{bf16,f32}       <- stats_kernel's sums (P4)
+//   bn_stats_finalize              <- the rest of P4, from summed sums
+//   bn_relu_bwd_sums_{bf16,f32}    <- the gradient's sums
+//   bn_relu_bwd_finalize           <- dgamma, dbeta and the coefficients
 //
 // Function. y is a conv output (rows, C), rows = N*H*W (an NCHW view with
 // channels_last memory), bfloat16 on the train path, float32 for parity
@@ -26,6 +34,13 @@
 //           again halved at a tie). Eval mode normalises with the running
 //           statistics, which are constants: c1 = c2 = 0.
 //   apply:  dy = cast(inv * ((gz - c1) - yc * c2)).
+// Split: sums (2, C) double = (sum y, sum y^2) forward and (Sg, Sgy)
+// backward over one share's rows, in the fixed order of the unsplit
+// reductions; stats_finalize takes summed sums and the global row count n;
+// bwd_finalize takes dgamma and dbeta from one share's own sums (each
+// share's gradient is summed later with the others') and c1, c2 from the
+// summed ones. With one share the split path computes the unsplit one's
+// every bit.
 // Every rounding is written out (__fsub_rn, __fmul_rn, __fadd_rn): nvcc
 // would contract a*b + c into an FMA, and then the backward's ReLU mask
 // could disagree with the forward's z at the boundary. The plain versions
@@ -49,7 +64,10 @@
 // apply) walk the rows with a grid stride that is a multiple of G, so each
 // thread loads its channels' constants once. This is the simple, right
 // first version: one read of y for the statistics and one for the
-// normalise, one read of g and y for each backward kernel.
+// normalise, one read of g and y for each backward kernel. The split sums
+// reuse the partial passes (bound by bytes as above) and end in a sum
+// kernel instead of the finalize; the split finalizes read a (2, C) double
+// row and a few C-vectors, so they are bound by launch latency, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -330,6 +348,27 @@ __global__ void __launch_bounds__(kThreads)
   block_partials<P>(ds, dq, G, part);
 }
 
+// Channel c's dgamma and dbeta from the sums (s, q), and its apply
+// coefficients (c1, c2) from the sums (S, Q) over n rows.
+__device__ __forceinline__ void bwd_finalize_channel(int c, int C, double s, double q, double S,
+                                                     double Q, double n,
+                                                     const float* __restrict__ st,
+                                                     float* __restrict__ dgamma,
+                                                     float* __restrict__ dbeta,
+                                                     float* __restrict__ coef, int train) {
+  const float diff = st[C + c], r = st[2 * C + c];
+  dbeta[c] = (float)s;
+  dgamma[c] = __fmul_rn((float)q, r);
+  float c1 = 0.f, c2 = 0.f;
+  if (train) {
+    const float k = diff > 0.f ? 1.f : (diff == 0.f ? 0.5f : 0.f);
+    c1 = (float)(S / n);
+    c2 = __fmul_rn(__fmul_rn(k, __fmul_rn(r, r)), (float)(Q / n));
+  }
+  coef[c] = c1;
+  coef[C + c] = c2;
+}
+
 // dgamma, dbeta and the apply coefficients coef (2, C) = (c1, c2).
 __global__ void __launch_bounds__(kThreads)
     bn_relu_bwd_finalize_kernel(const double* __restrict__ part, int nblk, int C, double n,
@@ -339,17 +378,32 @@ __global__ void __launch_bounds__(kThreads)
   sum_partials(part, nblk, C, s, q);
   const int c = blockIdx.x * 32 + (threadIdx.x & 31);
   if (threadIdx.x >= 32 || c >= C) return;
-  const float diff = st[C + c], r = st[2 * C + c];
-  dbeta[c] = (float)s;
-  dgamma[c] = __fmul_rn((float)q, r);
-  float c1 = 0.f, c2 = 0.f;
-  if (train) {
-    const float k = diff > 0.f ? 1.f : (diff == 0.f ? 0.5f : 0.f);
-    c1 = (float)(s / n);
-    c2 = __fmul_rn(__fmul_rn(k, __fmul_rn(r, r)), (float)(q / n));
-  }
-  coef[c] = c1;
-  coef[C + c] = c2;
+  bwd_finalize_channel(c, C, s, q, s, q, n, st, dgamma, dbeta, coef, train);
+}
+
+// The partials' sums (2, C) in the fixed order of the finalize kernels.
+__global__ void __launch_bounds__(kThreads)
+    bn_sums_kernel(const double* __restrict__ part, int nblk, int C, double* __restrict__ sums) {
+  double s, q;
+  sum_partials(part, nblk, C, s, q);
+  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (threadIdx.x >= 32 || c >= C) return;
+  sums[c] = s;
+  sums[C + c] = q;
+}
+
+// The split backward's finalize: dgamma, dbeta from one share's sums
+// ``local``, (c1, c2) from the sums ``total`` of every share, n rows in all.
+__global__ void __launch_bounds__(32)
+    bn_relu_bwd_finalize_split_kernel(const double* __restrict__ local,
+                                      const double* __restrict__ total, int C, double n,
+                                      const float* __restrict__ st, float* __restrict__ dgamma,
+                                      float* __restrict__ dbeta, float* __restrict__ coef,
+                                      int train) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  if (c >= C) return;
+  bwd_finalize_channel(c, C, local[c], local[C + c], total[c], total[C + c], n, st, dgamma, dbeta,
+                       coef, train);
 }
 
 // dy = cast(inv * ((gz - c1) - (y - mean) * c2)).
@@ -451,6 +505,36 @@ int bwd_apply(const void* g, const void* y, void* dy, const float* st, const flo
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int stats_sums(const void* y, double* part, double* sums, int64_t rows, int C, void* stream) {
+  static const int resident = resident_blocks(bn_stats_partial_kernel<T>);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int G = groups_of<T>(C);
+  const int nblk = reduce_blocks(resident, rows, G);
+  const int64_t per_block = (rows + nblk - 1) / nblk;
+  bn_stats_partial_kernel<T><<<nblk, kThreads, 0, s>>>((const uint4*)y, part, rows, G, per_block);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bn_sums_kernel<<<(C + 31) / 32, kThreads, 0, s>>>(part, nblk, C, sums);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_sums(const void* g, const void* y, double* part, const float* st, const float* beta,
+             double* sums, int64_t rows, int C, void* stream) {
+  static const int resident = resident_blocks(bn_relu_bwd_partial_kernel<T>);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int G = groups_of<T>(C);
+  const int nblk = reduce_blocks(resident, rows, G);
+  const int64_t per_block = (rows + nblk - 1) / nblk;
+  bn_relu_bwd_partial_kernel<T><<<nblk, kThreads, 0, s>>>((const uint4*)g, (const uint4*)y, part,
+                                                          rows, G, per_block, st, beta);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bn_sums_kernel<<<(C + 31) / 32, kThreads, 0, s>>>(part, nblk, C, sums);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -506,6 +590,44 @@ int bn_relu_bwd_apply_f32(const void* g, const void* y, void* dy, const float* s
                           const float* beta, const float* coef, long long rows, int C,
                           void* stream) {
   return bwd_apply<float>(g, y, dy, st, beta, coef, rows, C, stream);
+}
+
+// sums (2, C) = (sum y, sum y^2) of y (rows, C) in double.
+int bn_stats_sums_bf16(const void* y, double* part, double* sums, long long rows, int C,
+                       void* stream) {
+  return stats_sums<__nv_bfloat16>(y, part, sums, rows, C, stream);
+}
+int bn_stats_sums_f32(const void* y, double* part, double* sums, long long rows, int C,
+                      void* stream) {
+  return stats_sums<float>(y, part, sums, rows, C, stream);
+}
+
+// st (4, C) and the running update from sums (2, C) over n rows in all.
+int bn_stats_finalize(const double* sums, const float* gamma, float* running_mean,
+                      float* running_var, float* st, double n, int C, float eps, float momentum,
+                      float one_minus_momentum, void* stream) {
+  bn_stats_finalize_kernel<<<(C + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+      sums, 1, C, n, gamma, running_mean, running_var, st, eps, momentum, one_minus_momentum);
+  return (int)cudaGetLastError();
+}
+
+// sums (2, C) = (Sg, Sgy) of g, y (rows, C) in double.
+int bn_relu_bwd_sums_bf16(const void* g, const void* y, double* part, const float* st,
+                          const float* beta, double* sums, long long rows, int C, void* stream) {
+  return bwd_sums<__nv_bfloat16>(g, y, part, st, beta, sums, rows, C, stream);
+}
+int bn_relu_bwd_sums_f32(const void* g, const void* y, double* part, const float* st,
+                         const float* beta, double* sums, long long rows, int C, void* stream) {
+  return bwd_sums<float>(g, y, part, st, beta, sums, rows, C, stream);
+}
+
+// dgamma, dbeta (C) from one share's sums, coef (2, C) from the summed ones.
+int bn_relu_bwd_finalize(const double* local, const double* total, const float* st,
+                         float* dgamma, float* dbeta, float* coef, double n, int C, int train,
+                         void* stream) {
+  bn_relu_bwd_finalize_split_kernel<<<(C + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+      local, total, C, n, st, dgamma, dbeta, coef, train);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -496,6 +496,10 @@ class HeatmapBatchLoader:
             yield batch
 
 
+_SHARD_NOT_PORTED = ("resident frames sharded across mesh entries (frame_sharding='shard') are "
+                     "not ported yet (ROADMAP item 13b-iii)")
+
+
 def _process_slice(batch_size: int, drop_last: bool, process_id: int,
                    process_count: int) -> Tuple[int, int]:
     """(process_id, process_count) after the JAX loaders' checks: several
@@ -575,10 +579,20 @@ class ResidentHeatmapLoader:
     and the train step gathers the windows on the device
     (``training/steps.assemble_tracknet_inputs``). Frame mixup needs the host
     blend planner: use ``HeatmapBatchLoader``. The split's frames must fit
-    ``budget_bytes``, else ``MemoryError`` (callers fall back). Single device
-    only: a mesh, frame sharding and multi-process staging are not ported
-    (ROADMAP item 13b-ii). ``device`` has no default: the caller names the
-    card, or asks for the CPU.
+    ``budget_bytes``, else ``MemoryError`` (callers fall back). ``device``
+    has no default: the caller names the card, or asks for the CPU.
+
+    Data parallel, as the JAX loader's ``frame_sharding="replicate"``: on a
+    one-process ``mesh`` every entry holds the split's buffers (an entry
+    that repeats a device shares them; ``device`` is ignored), so that
+    ``rgb_buf`` / ``diff_buf`` / ``median_buf`` and each batch's
+    ``res_*_buf`` are tuples of the entries' buffers, which
+    ``parallel.mesh.shard_train_batch`` hands out; with ``process_count`` > 1
+    each process holds them whole on its ``device`` and each batch gives
+    this process's contiguous rows. ``"auto"`` resolves as JAX's does:
+    ``"replicate"`` within the budget, else ``"shard"``, which is not ported
+    (frames sharded across entries, ROADMAP item 13b-iii) and raises
+    ``NotImplementedError``, as does an explicit ``"shard"``.
     """
 
     def __init__(
@@ -600,21 +614,24 @@ class ResidentHeatmapLoader:
     ):
         import torch
 
-        if mesh is not None or frame_sharding != "auto":
-            raise NotImplementedError("resident frames on a mesh are not ported yet "
-                                      "(ROADMAP item 13b-ii)")
-        if process_count > 1 or process_id != 0:
-            raise NotImplementedError("resident frames over several processes need the "
-                                      "global mesh, which is not ported yet (ROADMAP item "
-                                      "13b-ii)")
+        if frame_sharding not in ("auto", "replicate", "shard"):
+            raise ValueError(f"frame_sharding must be auto, replicate or shard, got "
+                             f"{frame_sharding!r}")
+        if frame_sharding == "shard":
+            raise NotImplementedError(_SHARD_NOT_PORTED)
+        if mesh is not None and process_count > 1:
+            raise ValueError("several processes hold one mesh entry each: pass no mesh")
+        self.process_id, self.process_count = _process_slice(batch_size, drop_last, process_id,
+                                                             process_count)
         self.index = index
         self.bg_mode = bg_mode
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
-        self.device = torch.device(device)
-        self.frame_sharding = "single"
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.devices[0]
+        self.frame_sharding = "single" if mesh is None else "replicate"
         need_diff = bg_mode in ("subtract", "subtract_concat")
         need_rgb = bg_mode in ("", "subtract_concat", "concat")
 
@@ -635,6 +652,8 @@ class ResidentHeatmapLoader:
                 total += d.nbytes
             medians.append(m)
         if total > budget_bytes:
+            if mesh is not None and frame_sharding == "auto":  # JAX would shard the frames
+                raise NotImplementedError(_SHARD_NOT_PORTED)
             raise MemoryError(
                 f"split frames ({total / 1e9:.1f} GB) exceed the resident "
                 f"budget ({budget_bytes / 1e9:.1f} GB)"
@@ -643,22 +662,27 @@ class ResidentHeatmapLoader:
         self._n_frames = off
         self.rgb_buf = self._put(rgb_parts) if need_rgb else None
         self.diff_buf = self._put(diff_parts) if need_diff else None
-        self.median_buf = (
-            self._put([np.stack(medians).astype(np.float32)]) if bg_mode == "concat" else None
-        )
+        self.median_buf = (self._put([np.stack(medians).astype(np.float32)])
+                           if bg_mode == "concat" else None)
 
     def _put(self, parts: List[np.ndarray]):
-        """The parts, concatenated along axis 0, as one device tensor: they
-        are written into one host buffer (pinned when the device is a card)
-        that is copied to the device once."""
+        """The parts, concatenated along axis 0, as one tensor on ``device``,
+        or on a mesh a tuple of one per entry (one per distinct device):
+        they are written into one host buffer (pinned when a device is a
+        card) that is copied to each device once."""
         import torch
 
+        devices = [self.device] if self.mesh is None else list(self.mesh.devices)
         shape = (sum(p.shape[0] for p in parts),) + parts[0].shape[1:]
-        pin = self.device.type == "cuda"
+        pin = any(d.type == "cuda" for d in devices)
         dtype = {"uint8": torch.uint8, "float32": torch.float32}[parts[0].dtype.name]
         host = torch.empty(shape, dtype=dtype, pin_memory=pin)
         np.concatenate(parts, axis=0, out=host.numpy())
-        return host.to(self.device) if pin else host
+        on: Dict = {}
+        for d in devices:
+            if d not in on:
+                on[d] = host.to(d)
+        return on[self.device] if self.mesh is None else tuple(on[d] for d in devices)
 
     def __len__(self):
         n = len(self.index)
@@ -672,7 +696,7 @@ class ResidentHeatmapLoader:
         B = self.batch_size
         stop = (n // B) * B if self.drop_last else n
         for s in range(0, stop, B):
-            sel = order[s : s + B]
+            sel = _rows_of(order[s : s + B], B, self.process_id, self.process_count)
             ids, coor, vis, _, shape, cxcy = _window_labels(self.index, sel)
             rally_i = ids[:, 0, 0]
             frame_pos = self.index.data["frame_id"][sel]  # (B, L) on-disk ids

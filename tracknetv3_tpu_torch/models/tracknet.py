@@ -30,6 +30,16 @@ The forward returns float32 (float64 for a float64 working dtype) logits
 in contiguous NCHW ``(B, L, H, W)`` whatever the input's memory format,
 so the loss kernel reads them without a copy. On the card the input must
 be channels_last (the BatchNorm kernels take no other layout).
+
+``forward_shares`` is the train forward over a list of shares of one
+global batch (the mesh entries of this process; the train step runs it
+over one share on one device too), layer by layer: each share's conv on
+its entry with that entry's copy of the weights, each BatchNorm
+synchronised over every share (``ops.batchnorm.sync_bn_relu_train``
+through a ``parallel.mesh.Reducer``; the unsplit op where one share of one
+process is the whole batch), pool, upsample and concat per share.
+``forward`` is the same U-Net over one share with the module's own
+parameters, in train or eval mode.
 """
 
 from __future__ import annotations
@@ -65,6 +75,17 @@ class ConvBNRelu(nn.Module):
         op = batchnorm.bn_relu_train if self.training else batchnorm.bn_relu_eval
         return op(y, bn.weight, bn.bias, bn.running_mean, bn.running_var)
 
+    def forward_shares(self, xs, params, prefix: str, dtype: torch.dtype, reducer):
+        """Train mode over shares: share w's conv with ``params[w]`` (names
+        under ``prefix``), then the BatchNorm over all shares; the running
+        statistics are the module's."""
+        ys = [F.conv2d(x.to(dtype), p[prefix + "conv.weight"].to(dtype), padding=1)
+              for x, p in zip(xs, params)]
+        bn = self.bn
+        return batchnorm.sync_bn_relu_train(
+            ys, [p[prefix + "bn.weight"] for p in params], [p[prefix + "bn.bias"] for p in params],
+            bn.running_mean, bn.running_var, reducer)
+
 
 class ConvStack(nn.Module):
     """``num_blocks`` ConvBNRelu layers named ``conv_1`` ... ``conv_n``."""
@@ -78,6 +99,11 @@ class ConvStack(nn.Module):
         for layer in self.children():
             x = layer(x, dtype)
         return x
+
+    def forward_shares(self, xs, params, prefix: str, dtype: torch.dtype, reducer):
+        for name, layer in self.named_children():
+            xs = layer.forward_shares(xs, params, f"{prefix}{name}.", dtype, reducer)
+        return xs
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -107,15 +133,34 @@ class TrackNet(nn.Module):
         self.predictor = nn.Conv2d(64, out_dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        own = {"predictor.weight": self.predictor.weight, "predictor.bias": self.predictor.bias}
+        return self._unet([x], [own], lambda name, xs: [getattr(self, name)(xs[0], self.dtype)])[0]
+
+    def forward_shares(self, xs, params, reducer) -> list:
+        """Train-mode logits of each share ``xs[w]`` with the parameters
+        ``params[w]`` (by name, on the share's device), every BatchNorm
+        synchronised through ``reducer`` and updating this module's running
+        statistics once."""
+        return self._unet(xs, params, lambda name, xs: getattr(self, name).forward_shares(
+            xs, params, name + ".", self.dtype, reducer))
+
+    def _unet(self, xs, params, stack):
+        """The U-Net over the shares ``xs``; ``stack(name, xs)`` applies the
+        conv stack ``name`` to every share."""
         dt = self.dtype
-        x1 = self.down_block_1(x, dt)
-        x2 = self.down_block_2(F.max_pool2d(x1, 2), dt)
-        x3 = self.down_block_3(F.max_pool2d(x2, 2), dt)
-        x = self.bottleneck(F.max_pool2d(x3, 2), dt)
-        x = self.up_block_1(torch.cat([upsample2x_nearest(x), x3], dim=1), dt)
-        x = self.up_block_2(torch.cat([upsample2x_nearest(x), x2], dim=1), dt)
-        x = self.up_block_3(torch.cat([upsample2x_nearest(x), x1], dim=1), dt)
-        logits = F.conv2d(x, self.predictor.weight.to(dt))
-        logits = logits.to(torch.promote_types(dt, torch.float32))
-        logits = logits + self.predictor.bias[:, None, None]
-        return logits.contiguous()
+        pool = lambda ts: [F.max_pool2d(t, 2) for t in ts]  # noqa: E731
+        up_cat = lambda ts, skips: [torch.cat([upsample2x_nearest(t), s], dim=1)  # noqa: E731
+                                    for t, s in zip(ts, skips)]
+        x1 = stack("down_block_1", xs)
+        x2 = stack("down_block_2", pool(x1))
+        x3 = stack("down_block_3", pool(x2))
+        x = stack("bottleneck", pool(x3))
+        x = stack("up_block_1", up_cat(x, x3))
+        x = stack("up_block_2", up_cat(x, x2))
+        x = stack("up_block_3", up_cat(x, x1))
+        out = []
+        for t, p in zip(x, params):
+            logits = F.conv2d(t, p["predictor.weight"].to(dt))
+            logits = logits.to(torch.promote_types(dt, torch.float32))
+            out.append((logits + p["predictor.bias"][:, None, None]).contiguous())
+        return out

@@ -40,13 +40,36 @@ launches of each kernel.
 ``bn_relu_train`` / ``bn_relu_eval`` are the layer's op; ``*_plain`` are
 the same ``Function`` over the plain versions, so a caller can swap one
 for the other with ``unittest.mock.patch.object``.
+
+Data-parallel training normalises every share of a global batch with the
+statistics of the whole batch, as the JAX step does under GSPMD (the batch
+mean of a sharded array is an all-reduce). For it the two reductions are
+split at their float64 sums, four more kernels:
+
+- ``bn_stats_sums``: one share's (2, C) sums (Σy, Σy²);
+- ``bn_stats_finalize``: ``st`` and the running update from sums that a
+  ``Reducer`` has summed over the shares, and the global row count;
+- ``bn_relu_bwd_sums``: one share's (2, C) sums (Σgz, Σgz·(y - mean));
+- ``bn_relu_bwd_finalize``: ``dgamma`` and ``dbeta`` from the share's own
+  sums (the shares' parameter gradients are summed afterwards, by autograd
+  on a mesh or an all-reduce over processes) and ``coef`` from the summed
+  ones.
+
+``split_bn_relu_train`` is the synchronised op over a list of shares: sums
+per share, one reduction by the caller's reducer (``parallel/mesh.py``,
+``parallel/processes.py``), the finalize once (on the first share's device;
+the statistics are copied to the others), ``bn_relu_fwd`` per share; the
+backward alike, ending in ``bn_relu_bwd_apply`` per share. Over one share
+whose reducer returns its sums it computes ``bn_relu_train``'s every bit.
+``sync_bn_relu_train``, the layer's op, runs ``bn_relu_train`` itself where
+one share of one process is the whole batch, and the split op otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -55,12 +78,15 @@ from . import cuda_build
 SOURCE = "batchnorm.cu"
 MOMENTUM = 0.9
 EPS = 1e-5
-LAUNCHES = {"bn_stats": 0, "bn_relu_fwd": 0, "bn_relu_bwd_reduce": 0, "bn_relu_bwd_apply": 0}
+LAUNCHES = {"bn_stats": 0, "bn_relu_fwd": 0, "bn_relu_bwd_reduce": 0, "bn_relu_bwd_apply": 0,
+            "bn_stats_sums": 0, "bn_stats_finalize": 0, "bn_relu_bwd_sums": 0,
+            "bn_relu_bwd_finalize": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 # the kernels' C entry points per dtype: bfloat16 on the train path,
 # float32 for parity runs
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -78,12 +104,18 @@ def _lib() -> ctypes.CDLL:
         "bn_relu_fwd": [_P, _P, _P, _P, _LL, _I, _P],
         "bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
         "bn_relu_bwd_apply": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+        "bn_stats_sums": [_P, _P, _P, _LL, _I, _P],
+        "bn_relu_bwd_sums": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
     }
     for kind, sig in sigs.items():
         for suffix in _SUFFIX.values():
             fn = getattr(lib, f"{kind}_{suffix}")
             fn.argtypes = sig
             fn.restype = _I
+    # the finalizes read float64 sums and per-channel vectors only
+    lib.bn_stats_finalize.argtypes = [_P, _P, _P, _P, _P, _D, _I, _F, _F, _F, _P]
+    lib.bn_relu_bwd_finalize.argtypes = [_P, _P, _P, _P, _P, _P, _D, _I, _I, _P]
+    lib.bn_stats_finalize.restype = lib.bn_relu_bwd_finalize.restype = _I
     return lib
 
 
@@ -104,22 +136,39 @@ def _relu_grad(z: torch.Tensor) -> torch.Tensor:
     return torch.where(z > 0, 1.0, torch.where(z == 0, 0.5, 0.0)).to(z.dtype)
 
 
-@torch.no_grad()
-def bn_stats_plain(y, weight, running_mean, running_var, momentum=MOMENTUM, eps=EPS):
-    """Statistics ``st`` (4, C) of ``y`` over (N, H, W) and the running
-    update in place (the kernel ``bn_stats``'s function); float32
-    statistics, float64 for a float64 ``y``."""
-    sd = torch.promote_types(y.dtype, torch.float32)
+def _stats_dtype(y: torch.Tensor) -> torch.dtype:
+    """float32 statistics, float64 for a float64 ``y``."""
+    return torch.promote_types(y.dtype, torch.float32)
+
+
+def bn_stats_sums_plain(y) -> torch.Tensor:
+    """(2, C) float64 sums (Σy, Σy²) of ``y`` over (N, H, W) (the kernel
+    ``bn_stats_sums``)."""
     yd = y.to(torch.float64)
-    n = _rows(y)
-    mean = yd.sum((0, 2, 3)) / n
-    diff = (yd.square().sum((0, 2, 3)) / n - mean * mean).to(sd)
-    mean = mean.to(sd)
+    return torch.stack([yd.sum((0, 2, 3)), yd.square().sum((0, 2, 3))])
+
+
+@torch.no_grad()
+def bn_stats_finalize_plain(sums, n, weight, running_mean, running_var, dtype=torch.float32,
+                            momentum=MOMENTUM, eps=EPS):
+    """``st`` (4, C) in ``dtype`` from (2, C) sums over ``n`` rows, and the
+    running update in place (the kernel ``bn_stats_finalize``)."""
+    mean = sums[0] / n
+    diff = (sums[1] / n - mean * mean).to(dtype)
+    mean = mean.to(dtype)
     var = diff.clamp_min(0.0)
     r = 1.0 / torch.sqrt(var + eps)
     running_mean.mul_(momentum).add_(mean * (1.0 - momentum))
     running_var.mul_(momentum).add_(var * (1.0 - momentum))
     return torch.stack([mean, diff, r, r * weight])
+
+
+@torch.no_grad()
+def bn_stats_plain(y, weight, running_mean, running_var, momentum=MOMENTUM, eps=EPS):
+    """Statistics ``st`` (4, C) of ``y`` over (N, H, W) and the running
+    update in place (the kernel ``bn_stats``'s function)."""
+    return bn_stats_finalize_plain(bn_stats_sums_plain(y), _rows(y), weight, running_mean,
+                                   running_var, _stats_dtype(y), momentum, eps)
 
 
 def _z(y, st, bias):
@@ -132,22 +181,35 @@ def bn_relu_fwd_plain(y, st, bias):
     return _z(y, st, bias).clamp_min(0.0).to(y.dtype)
 
 
-def bn_relu_bwd_reduce_plain(g, y, st, bias, train: bool):
-    """(dgamma, dbeta, coef (2, C)) from the output gradient ``g`` (the
-    kernel ``bn_relu_bwd_reduce``); ``coef`` = (c1, c2) is 0 in eval mode."""
+def bn_relu_bwd_sums_plain(g, y, st, bias) -> torch.Tensor:
+    """(2, C) float64 sums (Σgz, Σgz·(y - mean)) of the output gradient
+    ``g`` (the kernel ``bn_relu_bwd_sums``)."""
     sd = st.dtype
     gz = g.to(sd) * _relu_grad(_z(y, st, bias))
     yc = y.to(sd) - _c(st[0])
-    s = gz.sum((0, 2, 3), dtype=torch.float64)
-    q = (gz * yc).sum((0, 2, 3), dtype=torch.float64)
+    return torch.stack([gz.sum((0, 2, 3), dtype=torch.float64),
+                        (gz * yc).sum((0, 2, 3), dtype=torch.float64)])
+
+
+def bn_relu_bwd_finalize_plain(local, total, n, st, train: bool):
+    """(dgamma, dbeta) from one share's sums ``local``, ``coef`` (2, C) =
+    (c1, c2) from the sums ``total`` of all shares over ``n`` rows (0 in eval
+    mode) (the kernel ``bn_relu_bwd_finalize``)."""
+    sd = st.dtype
     diff, r = st[1], st[2]
     coef = torch.zeros((2, st.shape[1]), dtype=sd, device=st.device)
     if train:
-        n = _rows(y)
         k = _relu_grad(diff)  # the clamp max(diff, 0), differentiated alike
-        coef[0] = (s / n).to(sd)
-        coef[1] = k * (r * r) * (q / n).to(sd)
-    return q.to(sd) * r, s.to(sd), coef
+        coef[0] = (total[0] / n).to(sd)
+        coef[1] = k * (r * r) * (total[1] / n).to(sd)
+    return local[1].to(sd) * r, local[0].to(sd), coef
+
+
+def bn_relu_bwd_reduce_plain(g, y, st, bias, train: bool):
+    """(dgamma, dbeta, coef (2, C)) from the output gradient ``g`` (the
+    kernel ``bn_relu_bwd_reduce``); ``coef`` = (c1, c2) is 0 in eval mode."""
+    sums = bn_relu_bwd_sums_plain(g, y, st, bias)
+    return bn_relu_bwd_finalize_plain(sums, sums, _rows(y), st, train)
 
 
 def bn_relu_bwd_apply_plain(g, y, st, bias, coef):
@@ -267,6 +329,82 @@ def bn_relu_bwd_apply(g, y, st, bias, coef):
     return dy
 
 
+def _check_sums(sums: torch.Tensor, C: int, device) -> None:
+    if sums.dtype != torch.float64 or sums.shape != (2, C) or not sums.is_contiguous() \
+            or sums.device != device:
+        raise ValueError(f"sums must be contiguous float64 (2, {C}) on {device}, got "
+                         f"{sums.dtype} {tuple(sums.shape)} on {sums.device}")
+
+
+def _launch_finalize(kind: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = getattr(_lib(), kind)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kind} failed to launch: cudaError {err}")
+    LAUNCHES[kind] += 1
+
+
+def bn_stats_sums(y) -> torch.Tensor:
+    """The forward's (2, C) float64 sums of one share (P4's first half)."""
+    if y.device.type == "cpu":
+        return bn_stats_sums_plain(y)
+    check_kernel_input(y)
+    sums = torch.empty((2, y.shape[1]), dtype=torch.float64, device=y.device)
+    _launch("bn_stats_sums", y, y.data_ptr(), _partials(y).data_ptr(), sums.data_ptr(), _rows(y),
+            y.shape[1])
+    return sums
+
+
+@torch.no_grad()
+def bn_stats_finalize(sums, n, weight, running_mean, running_var, dtype=torch.float32,
+                      momentum=MOMENTUM, eps=EPS):
+    """P4's second half: ``st`` (4, C) float32 and the running update from
+    summed sums over ``n`` rows."""
+    if sums.device.type == "cpu":
+        return bn_stats_finalize_plain(sums, n, weight, running_mean, running_var, dtype,
+                                       momentum, eps)
+    C = weight.shape[-1]
+    if dtype != torch.float32:
+        raise ValueError(f"the kernel's statistics are float32, not {dtype}")
+    _check_sums(sums, C, weight.device)
+    _check_vectors(sums, weight, running_mean, running_var)
+    st = torch.empty((4, C), dtype=torch.float32, device=weight.device)
+    _launch_finalize("bn_stats_finalize", weight.device, sums.data_ptr(), weight.data_ptr(),
+                     running_mean.data_ptr(), running_var.data_ptr(), st.data_ptr(), float(n),
+                     C, float(eps), float(momentum), float(1.0 - momentum))
+    return st
+
+
+def bn_relu_bwd_sums(g, y, st, bias) -> torch.Tensor:
+    """The backward's (2, C) float64 sums of one share."""
+    if y.device.type == "cpu":
+        return bn_relu_bwd_sums_plain(g, y, st, bias)
+    check_kernel_input(y)
+    _check_grad(g, y)
+    _check_vectors(y, st, bias)
+    sums = torch.empty((2, y.shape[1]), dtype=torch.float64, device=y.device)
+    _launch("bn_relu_bwd_sums", y, g.data_ptr(), y.data_ptr(), _partials(y).data_ptr(),
+            st.data_ptr(), bias.data_ptr(), sums.data_ptr(), _rows(y), y.shape[1])
+    return sums
+
+
+def bn_relu_bwd_finalize(local, total, n, st, train: bool):
+    """(dgamma, dbeta) float32 from one share's sums, ``coef`` (2, C) from
+    the summed ones over ``n`` rows."""
+    if st.device.type == "cpu":
+        return bn_relu_bwd_finalize_plain(local, total, n, st, train)
+    C = st.shape[1]
+    for sums in (local, total):
+        _check_sums(sums, C, st.device)
+    _check_vectors(local, st)
+    dgamma, dbeta = (torch.empty(C, dtype=torch.float32, device=st.device) for _ in range(2))
+    coef = torch.empty((2, C), dtype=torch.float32, device=st.device)
+    _launch_finalize("bn_relu_bwd_finalize", st.device, local.data_ptr(), total.data_ptr(),
+                     st.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), coef.data_ptr(),
+                     float(n), C, int(bool(train)))
+    return dgamma, dbeta, coef
+
+
 # ---------------------------------------------------------------- the op
 
 
@@ -337,3 +475,91 @@ def bn_relu_train_plain(y, weight, bias, running_mean, running_var) -> torch.Ten
 def bn_relu_eval_plain(y, weight, bias, running_mean, running_var) -> torch.Tensor:
     return bn_relu(y, weight, bias, running_mean, running_var, False, PLAIN_OPS)
 
+
+
+# ---------------------------------------------------------------- over shares
+
+
+class SplitBNOps(NamedTuple):
+    """The functions the synchronised op goes through."""
+
+    sums: Callable
+    finalize: Callable
+    fwd: Callable
+    bwd_sums: Callable
+    bwd_finalize: Callable
+    bwd_apply: Callable
+
+
+SPLIT_KERNEL_OPS = SplitBNOps(bn_stats_sums, bn_stats_finalize, bn_relu_fwd, bn_relu_bwd_sums,
+                              bn_relu_bwd_finalize, bn_relu_bwd_apply)
+SPLIT_PLAIN_OPS = SplitBNOps(bn_stats_sums_plain, bn_stats_finalize_plain, bn_relu_fwd_plain,
+                             bn_relu_bwd_sums_plain, bn_relu_bwd_finalize_plain,
+                             bn_relu_bwd_apply_plain)
+
+
+class SyncBNRelu(torch.autograd.Function):
+    """Train-mode ``max(BatchNorm(y), 0)`` of W shares ``y_w`` with the
+    statistics of all of them (and of other processes' shares, through the
+    reducer: ``reducer.sum(parts)`` gives each share of this process the sum
+    of every share's (2, C) float64 sums on that share's device;
+    ``reducer.processes`` is the number of processes whose shares take
+    part, the shares being equal). Inputs: ``ys``, the shares' weights, the
+    shares' biases (each a copy of the layer's on its share's device), then
+    the running mean and variance, updated once. Saves each ``y_w``, its
+    statistics and bias."""
+
+    @staticmethod
+    def forward(ctx, meta, *tensors):
+        reducer, ops = meta
+        W = (len(tensors) - 2) // 3
+        ys, weights, biases = tensors[:W], tensors[W:2 * W], tensors[2 * W:3 * W]
+        running_mean, running_var = tensors[3 * W:]
+        n = sum(_rows(y) for y in ys) * reducer.processes
+        total = reducer.sum([ops.sums(y) for y in ys])[0]
+        st0 = ops.finalize(total, n, weights[0], running_mean, running_var, _stats_dtype(ys[0]))
+        sts = [st0.to(y.device) for y in ys]
+        ctx.save_for_backward(*ys, *sts, *biases)
+        ctx.meta, ctx.n, ctx.W = meta, n, W
+        return tuple(ops.fwd(y, st, b) for y, st, b in zip(ys, sts, biases))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        (reducer, ops), W = ctx.meta, ctx.W
+        saved = ctx.saved_tensors
+        ys, sts, biases = saved[:W], saved[W:2 * W], saved[2 * W:]
+        # autograd sums the gradients of a skip connection in whatever
+        # layout they come; the kernels read channels_last
+        gs = [g.contiguous(memory_format=torch.channels_last) for g in gs]
+        local = [ops.bwd_sums(g, y, st, b) for g, y, st, b in zip(gs, ys, sts, biases)]
+        totals = reducer.sum(local)
+        dgamma, dbeta, dys = [], [], []
+        for g, y, st, b, own, total in zip(gs, ys, sts, biases, local, totals):
+            dg, db, coef = ops.bwd_finalize(own, total, ctx.n, st, True)
+            dgamma.append(dg)
+            dbeta.append(db)
+            dys.append(ops.bwd_apply(g, y, st, b, coef))
+        return (None, *dys, *dgamma, *dbeta, None, None)
+
+
+def split_bn_relu_train(ys: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
+                        biases: Sequence[torch.Tensor], running_mean, running_var, reducer,
+                        ops: Optional[SplitBNOps] = None) -> List[torch.Tensor]:
+    """Train-mode BatchNorm + ReLU of the shares ``ys`` (one per mesh entry of
+    this process) through the split kernels, synchronised by ``reducer``;
+    one output per share. ``ops`` defaults to ``SPLIT_KERNEL_OPS`` (the
+    kernels, whose wrappers run their plain versions on CPU tensors)."""
+    ops = SPLIT_KERNEL_OPS if ops is None else ops
+    return list(SyncBNRelu.apply((reducer, ops), *ys, *weights, *biases, running_mean,
+                                 running_var))
+
+
+def sync_bn_relu_train(ys: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
+                       biases: Sequence[torch.Tensor], running_mean, running_var,
+                       reducer) -> List[torch.Tensor]:
+    """The layer's train-mode op over shares: ``bn_relu_train`` where one
+    share of one process holds the whole batch, else
+    ``split_bn_relu_train``."""
+    if len(ys) == 1 and reducer.processes == 1:
+        return [bn_relu_train(ys[0], weights[0], biases[0], running_mean, running_var)]
+    return split_bn_relu_train(ys, weights, biases, running_mean, running_var, reducer)

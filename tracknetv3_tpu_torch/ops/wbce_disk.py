@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -260,13 +260,16 @@ def pack_plain_targets(cxcy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([c, c], dim=1), w
 
 
-def pack_mixup_targets(cxcy: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor):
+def pack_mixup_targets(cxcy: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor,
+                       partners: Optional[torch.Tensor] = None):
     """Sample mixup: disk A = own centers, disk B = the permuted sample's
-    centers, weight = the per-sample lambda."""
+    centers (``partners``, (B, L, 2), where they lie outside ``cxcy``),
+    weight = the per-sample lambda."""
     c = cxcy.movedim(-1, 1).to(torch.int32)
     B, L = cxcy.shape[:2]
     w = lam.to(torch.float32)[:, None, None].expand(B, 1, L)
-    return torch.stack([c, c[perm]], dim=1), w
+    b = c[perm] if partners is None else partners.movedim(-1, 1).to(torch.int32)
+    return torch.stack([c, b], dim=1), w
 
 
 def pack_frame_mixup_targets(mix_centers: torch.Tensor, mix_hm_w: torch.Tensor):

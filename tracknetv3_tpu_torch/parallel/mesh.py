@@ -18,13 +18,21 @@ stands one card in twice, and ``make_mesh(n, device="cpu")`` holds n entries
 of the CPU (the counterpart of the JAX tests' virtual CPU devices). A mesh
 that spans processes is not ported; neither are the TPU sandbox's platform
 shims.
+
+Data-parallel training (``training/steps.make_tracknet_shares_train_step``)
+splits each train batch the same way (``shard_train_batch``), runs each
+share on its entry with that entry's copy of the parameters
+(``entry_params``: autograd sums the entries' gradients on the master's),
+and synchronises every BatchNorm across the shares through
+``mesh_reducer``. Several processes (``parallel/processes.py``) each hold a
+mesh of one entry.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -163,3 +171,56 @@ def pad_batch_to(batch: Any, target: int) -> Any:
         return torch.cat([x, x[-1:].expand((target - n,) + tuple(x.shape[1:]))])
 
     return _tree_map(pad, batch)
+
+
+def shard_train_batch(batch: dict, mesh: Mesh) -> List[dict]:
+    """One share of a train batch per mesh entry, on its device (tensors
+    copied ``non_blocking``, numpy leaves as slices): every leaf's leading
+    axis split in ``mesh.size`` consecutive shares (a segmented batch's by
+    segments, which keeps each segment's windows in one share), except a
+    resident loader's split buffers (``res_*_buf``: one tensor, or a tuple
+    with one per entry), which every share takes whole."""
+    shares: List[dict] = [{} for _ in mesh.devices]
+    for k, v in batch.items():
+        for i, dev in enumerate(mesh.devices):
+            if k.startswith("res_") and k.endswith("_buf"):
+                shares[i][k] = (v[i] if isinstance(v, (tuple, list)) else v).to(dev)
+            else:
+                part = split_batch(v, mesh.size)[i]
+                shares[i][k] = (part if isinstance(part, np.ndarray)
+                                else part.to(dev, non_blocking=True))
+    return shares
+
+
+def entry_params(module: torch.nn.Module, mesh: Mesh) -> List[dict]:
+    """Per mesh entry, ``module``'s parameters by name on the entry's device,
+    made inside autograd: a parameter already on that device is itself, any
+    other a copy through which the entry's gradient flows back, so that
+    autograd sums every entry's gradient on the master's."""
+    params = dict(module.named_parameters())
+    return [{k: p.to(dev) for k, p in params.items()} for dev in mesh.devices]
+
+
+class Reducer(NamedTuple):
+    """How the synchronised BatchNorm (``ops/batchnorm.py``) adds up the
+    shares' (2, C) float64 sums: ``sum(parts)`` returns, for each share of
+    this process, the sum over every share of the global batch on that
+    share's device; ``processes`` is the number of processes whose shares
+    take part (the global row count is this process's times it, the shares
+    being equal)."""
+
+    sum: Callable[[List[torch.Tensor]], List[torch.Tensor]]
+    processes: int = 1
+
+
+def mesh_reducer(mesh: Mesh) -> Reducer:
+    """The shares' (2, C) BatchNorm sums added up in share order on the
+    mesh's first entry, the total copied back to each entry's device."""
+
+    def total(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        first = parts[0]
+        for p in parts[1:]:
+            first = first + p.to(first.device)
+        return [first.to(dev) for dev in mesh.devices]
+
+    return Reducer(total)

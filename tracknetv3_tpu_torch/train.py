@@ -7,10 +7,14 @@ The flags of the JAX package's ``train.py`` plus ``--device`` (default
 ``--segment_windows N`` ships each N-window segment's frames once,
 ``--frame_alpha A`` turns frame mixup on, ``--resident_frames`` keeps the
 splits' frames on the device (TrackNet); ``--exact_decode [host]``
-validates with the largest-bbox-area decode rule. Flags whose machinery is
-not ported yet (``--num_devices`` > 1, ``--multihost``, ``--fast_bn``)
-raise ``NotImplementedError``, and so does a run under a process group of
-more than one process (``torchrun``).
+validates with the largest-bbox-area decode rule. ``--num_devices N``
+trains data-parallel on a mesh of N cards (N CPU entries with ``--device
+cpu``); ``--multihost`` joins the process group that ``torchrun``
+describes (``torchrun --nproc_per_node N -m tracknetv3_tpu_torch.train
+--multihost ...``: one process and card a rank, NCCL; gloo with ``--device
+cpu``) and trains one share a process. Either way every BatchNorm takes
+the global batch's statistics. ``--fast_bn`` is not ported and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,10 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported to PyTorch yet")
 
     from .config import TrainConfig
+    from .parallel.processes import init_from_env
     from .training.loop import train
     from .utils.profiling import trace
 
@@ -69,10 +72,15 @@ def main(argv: Optional[Sequence[str]] = None):
 
     skip = ("data_dir", "profile", "multihost", "device")
     cfg = TrainConfig(**{k: v for k, v in vars(args).items() if k not in skip})
-    if torch.device(args.device).type == "cuda":
+    device = init_from_env(args.device) if args.multihost else args.device
+    if torch.device(device).type == "cuda":
         torch.backends.cudnn.benchmark = True  # fixed shapes: pick the fastest convs
-    with trace(args.profile):
-        out = train(cfg, data_dir=args.data_dir, device=args.device)
+    try:
+        with trace(args.profile):
+            out = train(cfg, data_dir=args.data_dir, device=device)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
     print("Done......")
     return out
 

@@ -1,9 +1,7 @@
 """Training loop of TrackNet and InpaintNet: epochs, validation, checkpoints,
 resume.
 
-Port of the JAX package's ``training/loop.py::train`` on one device (it
-refuses a caller's process group of more than one process, as it refuses a
-mesh: data-parallel training is not ported yet): the
+Port of the JAX package's ``training/loop.py::train``: the
 train split at stride 1 (shuffled, full batches), the val
 split at stride ``seq_len``, validation after every epoch,
 ``{model}_best.pt`` (best val accuracy) and ``{model}_cur.pt`` each epoch,
@@ -41,6 +39,23 @@ Bernoulli(``mask_ratio``) mask drawn on the host per step from
 'inpaint' accuracy. The TrackNet input options (segments, frame mixup,
 resident frames, sample mixup) do not apply to it and are ignored, as in
 the JAX loop.
+
+Data parallel, as the JAX loop: ``num_devices`` > 1 trains on a
+one-process ``Mesh`` of that many cards (CPU entries with ``device="cpu"``),
+and under a caller's ``torch.distributed`` group of more than one process
+(``train --multihost``: ``parallel.processes.init_from_env``) each process
+trains one share on its device; ``num_devices`` must then be unset or the
+process count. One device is a mesh of one entry. Every step is the single
+step on the global batch (``training/steps.make_*_shares_train_step``),
+each batch a list of this process's shares: the loaders hand each
+process its rows of the global batch (``process_id`` / ``process_count``),
+the mixup parameters and InpaintNet's mask are drawn for the global batch,
+and the logged ``train_loss`` is the global mean on every rank. On a mesh
+validation runs on the first entry (eval mode takes no batch statistics);
+over processes each rank evaluates its share of the val batches and the
+metrics are merged (``evaluation/loops.py``). Rank 0 alone writes
+checkpoints and progress samples, and logs to ``logs``; rank r > 0 logs to
+``logs_p{r}``. Resume reads the checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -65,7 +80,8 @@ from ..device import resolve_device
 from ..evaluation.loops import eval_inpaintnet, eval_tracknet
 from ..models.factory import get_model
 from ..models.convert import inpaintnet_from_jax, tracknet_from_jax
-from ..parallel.processes import process_count_index
+from ..parallel.mesh import Mesh, canonical_device, make_mesh, shard_train_batch
+from ..parallel.processes import device_group, process_count_index
 from ..utils.visualize import ScalarLogger, write_to_tb
 from .checkpoint import (
     load_checkpoint,
@@ -77,9 +93,9 @@ from .optim import build_optimizer
 from .steps import (
     assemble_tracknet_labels,
     make_inpaintnet_eval_step,
-    make_inpaintnet_train_step,
+    make_inpaintnet_shares_train_step,
     make_tracknet_eval_step,
-    make_tracknet_train_step,
+    make_tracknet_shares_train_step,
     sample_inpaint_mask,
     sample_mixup_params,
 )
@@ -95,20 +111,18 @@ _COORDINATE_KEYS = ("coor", "coor_pred", "vis", "inpaint_mask")
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for options the port does not have: a
-    mesh, ``fast_bn``, and a caller's process group of more than one process
-    (data-parallel training with synchronised BatchNorm, ROADMAP item 13b-ii;
-    without it each process would train its own copy of the model)."""
+    """Raise ``NotImplementedError`` for the option the port does not have,
+    ``fast_bn``, and ``ValueError`` where a process group of more than one
+    process meets a ``num_devices`` other than its process count (the JAX
+    loop's rule: several processes train over every device, one a process)."""
+    if cfg.fast_bn:
+        raise NotImplementedError("not ported to PyTorch yet: fast_bn")
     processes = process_count_index()[0]
-    unsupported = {
-        "num_devices > 1": (cfg.num_devices or 1) > 1,
-        "fast_bn": bool(cfg.fast_bn),
-        f"a process group of {processes} processes (data-parallel training, "
-        "ROADMAP item 13b-ii)": processes > 1,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported to PyTorch yet: {', '.join(bad)}")
+    if processes > 1 and cfg.num_devices not in (None, processes):
+        raise ValueError(
+            f"a process group of {processes} processes trains on {processes} devices, one a "
+            f"process; num_devices {cfg.num_devices} is not supported (drop it or set it "
+            f"to {processes})")
 
 
 def _pinned(batch: Dict[str, np.ndarray], pin: bool, keys) -> Dict[str, Any]:
@@ -121,9 +135,10 @@ def _pinned(batch: Dict[str, np.ndarray], pin: bool, keys) -> Dict[str, Any]:
 
 
 def prefetch_to_device(loader: Iterable, device: torch.device, depth: int = 2,
-                       keys=_DEVICE_KEYS) -> Iterator[Dict]:
+                       keys=_DEVICE_KEYS, mesh: Optional[Mesh] = None) -> Iterator:
     """Yield the loader's batches with the ``keys`` they hold on ``device``
-    (TrackNet's by default).
+    (TrackNet's by default), or, given a ``mesh``, each batch as the list of
+    its shares on the mesh's entries (``shard_train_batch``).
 
     A thread assembles and pins the next ``depth`` batches; the consumer
     issues ``non_blocking`` host-to-device copies on the current stream.
@@ -153,8 +168,11 @@ def prefetch_to_device(loader: Iterable, device: torch.device, depth: int = 2,
                 return
             if isinstance(item, BaseException):
                 raise item
-            yield {k: (v.to(device, non_blocking=True) if k in keys else v)
-                   for k, v in item.items()}
+            if mesh is not None:
+                yield shard_train_batch(item, mesh)
+            else:
+                yield {k: (v.to(device, non_blocking=True) if k in keys else v)
+                       for k, v in item.items()}
     finally:
         stop.set()
         while thread.is_alive():  # unblock a producer waiting on a full queue
@@ -278,6 +296,20 @@ def train(
     verbose_print(f"Parameters: {param_dict}")
     tracknet = cfg.model_name == "TrackNet"
 
+    # ----- data parallel: a one-process mesh, or one share a process -----
+    processes, rank = process_count_index()
+    mesh = group = None  # ``mesh``: one of several entries in this process
+    if processes > 1:
+        group = device_group(dev)
+    elif (cfg.num_devices or 1) > 1:
+        mesh = make_mesh(cfg.num_devices, device=dev.type)
+        dev = mesh.devices[0]
+        if cfg.batch_size % mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by mesh size "
+                             f"{mesh.size}")
+    step_mesh = mesh if mesh is not None else Mesh((canonical_device(dev),))
+    shares = step_mesh.size * processes
+
     # ----- data -----
     data_mode = "heatmap" if tracknet else "coordinate"
     train_index = build_split_index(
@@ -289,11 +321,12 @@ def train(
     )
     if tracknet:
         train_loader, val_loader = _tracknet_loaders(cfg, train_index, val_index, data_dir, dev,
-                                                     verbose_print)
+                                                     verbose_print, mesh, rank, processes)
         keys = _DEVICE_KEYS
     else:
         train_loader = CoordinateBatchLoader(train_index, cfg.batch_size, shuffle=True,
-                                             drop_last=True, seed=cfg.seed)
+                                             drop_last=True, seed=cfg.seed, process_id=rank,
+                                             process_count=processes)
         val_loader = CoordinateBatchLoader(val_index, cfg.batch_size)
         keys = _COORDINATE_KEYS
     steps_per_epoch = max(len(train_loader), 1)
@@ -325,17 +358,21 @@ def train(
         verbose_print(f"Resume training from epoch {start_epoch}...")
 
     if tracknet:
-        train_step = make_tracknet_train_step(model, optimizer, cfg.bg_mode, cfg.alpha, schedule)
+        train_step = make_tracknet_shares_train_step(
+            model, optimizer, cfg.bg_mode, cfg.alpha, schedule, mesh=step_mesh, group=group)
         eval_step = make_tracknet_eval_step(model, cfg.bg_mode)
     else:
-        train_step = make_inpaintnet_train_step(model, optimizer, schedule)
+        train_step = make_inpaintnet_shares_train_step(model, optimizer, schedule,
+                                                       mesh=step_mesh, group=group)
         eval_step = make_inpaintnet_eval_step(model)
+    # the validation loops' share of the val batches under a process group
+    val_kw = dict(process_id=rank, process_count=processes) if group is not None else {}
 
     display_step = 4 if cfg.debug else 100  # reference: train.py:213
     samples = SampleWriter()
 
     # ----- epochs -----
-    logger = ScalarLogger(os.path.join(cfg.save_dir, "logs"))
+    logger = ScalarLogger(os.path.join(cfg.save_dir, "logs" if rank == 0 else f"logs_p{rank}"))
     try:
         history = []
         t_train = time.time()
@@ -343,52 +380,58 @@ def train(
             verbose_print(f"Epoch [{epoch + 1} / {cfg.epochs}]")
             t0 = time.time()
             losses = []
-            for step_i, batch in enumerate(prefetch_to_device(train_loader, dev, keys=keys)):
-                # one host draw per step, seeded by (seed, step): resume replays
-                # the same mixup or mask as an uninterrupted run
+            for step_i, batch in enumerate(prefetch_to_device(train_loader, dev, keys=keys,
+                                                              mesh=step_mesh)):
+                # one host draw per step for the global batch, seeded by (seed,
+                # step): resume replays the same mixup or mask as an
+                # uninterrupted run, and every share takes its rows of it
                 rng = np.random.default_rng([cfg.seed, step])
+                first = batch[0]
+                rows = first["cxcy" if tracknet else "vis"].shape[0] * shares
                 if not tracknet:
-                    mask = sample_inpaint_mask(rng, tuple(batch["vis"].shape), cfg.mask_ratio)
-                    losses.append(train_step(batch, step, torch.from_numpy(mask).to(dev)))
+                    mask = sample_inpaint_mask(rng, (rows,) + tuple(first["vis"].shape[1:]),
+                                               cfg.mask_ratio)
+                    losses.append(train_step(batch, step, mask))
                 else:
                     perm = lam = None
                     if cfg.alpha > 0:
-                        p, l = sample_mixup_params(rng, batch["cxcy"].shape[0], cfg.alpha)
-                        perm = torch.from_numpy(p).to(dev)
-                        lam = torch.from_numpy(l).to(dev)
+                        perm, lam = sample_mixup_params(rng, rows, cfg.alpha)
                     losses.append(train_step(batch, step, perm, lam))
                 step += 1
-                if (step_i + 1) % display_step == 0:
-                    visualize_step(cfg.model_name, eval_step, batch, cfg.save_dir, verbose_print,
+                if (step_i + 1) % display_step == 0 and rank == 0:
+                    visualize_step(cfg.model_name, eval_step, first, cfg.save_dir, verbose_print,
                                    samples)
             train_loss = float(torch.stack(losses).mean()) if losses else 0.0
 
             val_batches = prefetch_to_device(val_loader, dev, keys=keys)
             if tracknet:
                 val_loss, val_res = eval_tracknet(eval_step, val_batches, cfg.tolerance,
-                                                  exact_decode=cfg.exact_decode)
+                                                  exact_decode=cfg.exact_decode, **val_kw)
                 cur_val_acc = val_res["accuracy"]
             else:
                 val_loss, val_res = eval_inpaintnet(eval_step, val_batches, cfg.tolerance,
-                                                    input_hw=val_index.input_hw)
+                                                    input_hw=val_index.input_hw, **val_kw)
                 cur_val_acc = val_res["inpaint"]["accuracy"]
             write_to_tb(cfg.model_name, logger, (train_loss, val_loss), val_res, epoch)
-            common = dict(
-                epoch=epoch,
-                model=model,
-                opt_leaves=optimizer_to_jax_leaves(
-                    optimizer, model, cfg.optim, step, scheduled=cfg.lr_scheduler != ""
-                ),
-                scheduler=dict(lr_scheduler=cfg.lr_scheduler, opt_step=step),
-                param_dict=param_dict,
-            )
-            if cur_val_acc >= max_val_acc:
+            best = cur_val_acc >= max_val_acc
+            if best:
                 max_val_acc = cur_val_acc
-                save_checkpoint(
-                    os.path.join(cfg.save_dir, f"{cfg.model_name}_best.pt"),
-                    max_val_acc=max_val_acc, **common,
+            if rank == 0:  # one writer over processes, as in the JAX loop
+                common = dict(
+                    epoch=epoch,
+                    model=model,
+                    opt_leaves=optimizer_to_jax_leaves(
+                        optimizer, model, cfg.optim, step, scheduled=cfg.lr_scheduler != ""
+                    ),
+                    scheduler=dict(lr_scheduler=cfg.lr_scheduler, opt_step=step),
+                    param_dict=param_dict,
                 )
-            save_checkpoint(cur_path, max_val_acc=max_val_acc, **common)
+                if best:
+                    save_checkpoint(
+                        os.path.join(cfg.save_dir, f"{cfg.model_name}_best.pt"),
+                        max_val_acc=max_val_acc, **common,
+                    )
+                save_checkpoint(cur_path, max_val_acc=max_val_acc, **common)
             verbose_print(
                 f"  train_loss={train_loss:.6f} val_loss={val_loss:.6f} "
                 f"val_acc={cur_val_acc:.4f} ({time.time() - t0:.1f}s)"
@@ -404,15 +447,20 @@ def train(
 
 
 def _tracknet_loaders(cfg: TrainConfig, train_index, val_index, data_dir: str,
-                      dev: torch.device, verbose_print):
+                      dev: torch.device, verbose_print, mesh: Optional[Mesh] = None,
+                      process_id: int = 0, process_count: int = 1):
     """TrackNet's train and val loaders: resident frames where asked and
-    possible, else the host loader (segments, frame mixup)."""
+    possible, else the host loader (segments, frame mixup). The train
+    loader gives this process its rows of each global batch (replicated on a
+    ``mesh``'s entries where resident); the val loader full batches on
+    ``dev``."""
     train_loader = val_loader = None
     if cfg.resident_frames and cfg.frame_alpha <= 0:
         try:
             train_loader = ResidentHeatmapLoader(
                 train_index, cfg.bg_mode, cfg.batch_size, shuffle=True, drop_last=True,
-                seed=cfg.seed, data_dir=data_dir, device=dev,
+                seed=cfg.seed, data_dir=data_dir, mesh=mesh, process_id=process_id,
+                process_count=process_count, device=dev,
             )
             val_loader = ResidentHeatmapLoader(
                 val_index, cfg.bg_mode, cfg.batch_size, data_dir=data_dir, device=dev
@@ -427,7 +475,8 @@ def _tracknet_loaders(cfg: TrainConfig, train_index, val_index, data_dir: str,
         train_loader = HeatmapBatchLoader(
             train_index, cfg.bg_mode, cfg.batch_size, shuffle=True, drop_last=True,
             seed=cfg.seed, data_dir=data_dir, frame_alpha=cfg.frame_alpha,
-            segment_windows=cfg.segment_windows,
+            segment_windows=cfg.segment_windows, process_id=process_id,
+            process_count=process_count,
         )
     if val_loader is None:
         val_loader = HeatmapBatchLoader(val_index, cfg.bg_mode, cfg.batch_size,

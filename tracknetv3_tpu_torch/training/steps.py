@@ -34,11 +34,30 @@ takes the same loss and zeroes the points under ``COOR_TH``. The mask is
 drawn on the host (``sample_inpaint_mask``), as the mixup parameters are:
 ``jax.random.bernoulli``'s stream has no torch counterpart, so the tests
 hand one mask to both packages. Both steps run with TF32 off.
+
+The train steps are data parallel (``make_tracknet_shares_train_step``,
+``make_inpaintnet_shares_train_step``): a step over W shares of a global
+batch, the entries of a one-process ``Mesh`` or one share on each rank of a
+process group, computes the single step on the global batch, as the JAX
+step does under GSPMD: each share assembles its own input with the copy
+kernels on its entry, every BatchNorm takes the global batch's statistics
+(``TrackNet.forward_shares``), the loss is the mean of the shares' means
+(the shares are equal), and the shares' gradients are summed before the
+optimizer step (autograd through ``parallel.mesh.entry_params`` on a mesh;
+one all-reduce of every gradient and the loss over a process group), so
+InpaintNet's global-norm clip sees the global gradient. The step's random
+draws are the global batch's (``perm`` / ``lam``, the mask); sample
+mixup's partner rows may lie on other shares, so each share takes them
+from the global batch's inputs and labels: the shares' concatenated on a
+mesh, all-gathered over a group. ``make_tracknet_train_step`` and
+``make_inpaintnet_train_step`` are the same steps over one share on the
+model's device, where nothing is gathered or reduced and every BatchNorm
+is the unsplit op.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +74,8 @@ from ..ops.wbce_disk import (
     pack_plain_targets,
     wbce_disk_loss,
 )
+from ..parallel.mesh import Mesh, entry_params, mesh_reducer
+from ..parallel.processes import DeviceGroup
 
 Batch = Dict[str, torch.Tensor]
 
@@ -133,15 +154,18 @@ def assemble_tracknet_labels(batch: Batch, h: int, w: int) -> torch.Tensor:
     """Materialised label heatmaps y (B, h, w, L): the eval path, and the
     train step with both mixups."""
     if "mix_pair" in batch:
-        centers = batch["mix_centers"]  # (B, L, 2, 2)
-        hm_w = batch["mix_hm_w"].to(torch.float32)[..., None, None]
-        map_a = make_heatmaps(centers[..., 0, 0], centers[..., 0, 1], h, w)
-        map_b = make_heatmaps(centers[..., 1, 0], centers[..., 1, 1], h, w)
-        maps = map_a * hm_w + map_b * (1.0 - hm_w)
-    else:
-        cxcy = batch["cxcy"]
-        maps = make_heatmaps(cxcy[..., 0], cxcy[..., 1], h, w)  # (B, L, h, w)
-    return maps.movedim(1, -1)
+        return frame_mixup_labels(batch["mix_centers"], batch["mix_hm_w"], h, w)
+    cxcy = batch["cxcy"]
+    return make_heatmaps(cxcy[..., 0], cxcy[..., 1], h, w).movedim(1, -1)  # (B, h, w, L)
+
+
+def frame_mixup_labels(centers: torch.Tensor, hm_w: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A frame-mixup batch's label heatmaps (B, h, w, L) from its blend plan
+    (``mix_centers`` (B, L, 2, 2), ``mix_hm_w`` (B, L))."""
+    hm_w = hm_w.to(torch.float32)[..., None, None]
+    map_a = make_heatmaps(centers[..., 0, 0], centers[..., 0, 1], h, w)
+    map_b = make_heatmaps(centers[..., 1, 0], centers[..., 1, 1], h, w)
+    return (map_a * hm_w + map_b * (1.0 - hm_w)).movedim(1, -1)
 
 
 def sample_mixup_params(
@@ -154,16 +178,23 @@ def sample_mixup_params(
     return rng.permutation(batch_size).astype(np.int64), lam
 
 
-def sample_mixup_inputs(x: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    """``x * lam + x[perm] * (1 - lam)`` per sample."""
+def sample_mixup_inputs(x: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor,
+                        partners: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x * lam + x[perm] * (1 - lam)`` per sample; ``partners`` stands for
+    ``x[perm]`` where the partner rows lie outside ``x`` (a share)."""
     lx = lam.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
-    return x * lx + x[perm] * (1.0 - lx)
+    return x * lx + (x[perm] if partners is None else partners) * (1.0 - lx)
 
 
 def _to_model_input(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, C, H, W); a contiguous x makes this a
     channels_last tensor, the layout cuDNN prefers."""
     return x.permute(0, 3, 1, 2)
+
+
+def _model_mesh(model: torch.nn.Module) -> Mesh:
+    """A mesh of one entry, the device of ``model``'s parameters."""
+    return Mesh((next(model.parameters()).device,))
 
 
 def make_tracknet_train_step(
@@ -173,40 +204,143 @@ def make_tracknet_train_step(
     alpha: float,
     schedule: Optional[Callable[[int], float]] = None,
 ):
-    """Returns ``step(batch, step_idx, perm=None, lam=None) -> loss``.
+    """Returns ``step(batch, step_idx, perm=None, lam=None) -> loss``, the
+    step on the model's device (``make_tracknet_shares_train_step`` over one
+    share).
 
     ``batch`` holds device tensors (the keys ``assemble_tracknet_inputs``
     reads, and ``cxcy``); with ``alpha > 0`` the caller passes the step's
-    ``perm``/``lam`` device tensors from ``sample_mixup_params``.
+    ``perm``/``lam`` from ``sample_mixup_params`` (arrays or tensors).
     ``step_idx`` is the optimizer step (from 0) that ``schedule`` reads.
     """
+    step = make_tracknet_shares_train_step(model, optimizer, bg_mode, alpha, schedule,
+                                           mesh=_model_mesh(model))
+    return lambda batch, step_idx, perm=None, lam=None: step([batch], step_idx, perm, lam)
 
-    def step(batch: Batch, step_idx: int, perm=None, lam=None) -> torch.Tensor:
+
+class _Shares:
+    """What a data-parallel step needs of its topology: this process's
+    mesh entries and, under a process group, the group."""
+
+    def __init__(self, mesh: Mesh, group: Optional[DeviceGroup]):
+        if group is not None and mesh.size != 1:
+            raise ValueError(f"under a process group each process holds one share, not "
+                             f"{mesh.size}")
+        self.mesh, self.group = mesh, group
+        self.size = mesh.size * (group.size if group is not None else 1)
+        self.reducer = group.reducer() if group is not None else mesh_reducer(mesh)
+
+    def rows(self, b: int) -> List[slice]:
+        """Global batch rows of this process's shares of ``b`` rows each."""
+        first = (self.group.rank if self.group is not None else 0) * self.mesh.size * b
+        return [slice(first + i * b, first + (i + 1) * b) for i in range(self.mesh.size)]
+
+    def gather(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The global batch of the shares' ``ts``, on each share's device."""
+        if self.group is not None:
+            return [self.group.all_gather(ts[0])]
+        if len(ts) == 1:
+            return list(ts)
+        first = torch.cat([t.to(self.mesh.devices[0]) for t in ts])
+        return [first.to(dev) for dev in self.mesh.devices]
+
+    def params(self, model: torch.nn.Module) -> List[Dict[str, torch.Tensor]]:
+        return entry_params(model, self.mesh)
+
+    def backward(self, model: torch.nn.Module, losses: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Backward of the global loss, the mean of the shares' ``losses``
+        (on a mesh autograd sums the entries' gradients; over a group one
+        all-reduce sums every gradient and the loss); returns it detached."""
+        first = self.mesh.devices[0]
+        loss = sum(l.to(first) for l in losses) / len(losses)
+        if self.group is None:
+            loss.backward()
+            return loss.detach()
+        (loss / self.group.size).backward()
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [loss.detach().reshape(1).to(params[0].dtype)])
+        self.group.all_reduce_(flat)
+        offset = 0
+        for p in params:
+            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
+        return (flat[-1] / self.group.size).to(loss.dtype)
+
+
+def _host_rows(t, rows: slice, device) -> torch.Tensor:
+    """Rows of a global draw (an array or a tensor) on ``device``."""
+    return torch.as_tensor(t[rows]).to(device)
+
+
+def make_tracknet_shares_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    bg_mode: str,
+    alpha: float,
+    schedule: Optional[Callable[[int], float]] = None,
+    *,
+    mesh: Mesh,
+    group: Optional[DeviceGroup] = None,
+):
+    """The TrackNet train step over shares: returns ``step(shares, step_idx,
+    perm=None, lam=None) -> loss``. ``shares`` holds one batch per
+    entry of ``mesh`` on its device (``parallel.mesh.shard_train_batch``);
+    under a process group (``group``, from ``parallel.processes.device_group``)
+    ``mesh`` is this process's one entry and the other shares are the other
+    ranks'. ``perm`` / ``lam`` are the global batch's
+    (``sample_mixup_params`` at the global batch size; arrays or tensors). The
+    model and its optimizer live on the mesh's first entry. Returns the
+    global batch's loss on that entry, the same on every rank."""
+    sh = _Shares(mesh, group)
+
+    def step(shares: Sequence[Batch], step_idx: int, perm=None, lam=None) -> torch.Tensor:
         model.train()
-        frame_mix = "mix_pair" in batch
-        x = assemble_tracknet_inputs(batch, bg_mode)
+        frame_mix = "mix_pair" in shares[0]
+        xs = [assemble_tracknet_inputs(b, bg_mode) for b in shares]
+        rows = sh.rows(xs[0].shape[0])
+        perms = lams = None
         if alpha > 0:
-            x = sample_mixup_inputs(x, perm, lam)
-        targets = y = None
+            perms = [_host_rows(perm, r, x.device) for r, x in zip(rows, xs)]
+            lams = [_host_rows(lam, r, x.device) for r, x in zip(rows, xs)]
+            xs = [sample_mixup_inputs(x, p, lm, every[p])
+                  for x, every, p, lm in zip(xs, sh.gather(xs), perms, lams)]
+        labels = targets = None
         if frame_mix and alpha > 0:
-            y = assemble_tracknet_labels(batch, x.shape[1], x.shape[2])
-            ly = lam.to(y.dtype).reshape((y.shape[0],) + (1,) * (y.dim() - 1))
-            y = y * ly + y[perm] * (1.0 - ly)
+            h, w = xs[0].shape[1:3]
+            every = {k: sh.gather([b[k] for b in shares]) for k in ("mix_centers", "mix_hm_w")}
+            labels = []
+            for i, (b, p, lm) in enumerate(zip(shares, perms, lams)):
+                own = assemble_tracknet_labels(b, h, w)
+                partner = frame_mixup_labels(every["mix_centers"][i][p],
+                                             every["mix_hm_w"][i][p], h, w)
+                ly = lm.to(own.dtype).reshape((own.shape[0],) + (1,) * (own.dim() - 1))
+                labels.append(own * ly + partner * (1.0 - ly))
         elif frame_mix:
-            targets = pack_frame_mixup_targets(batch["mix_centers"], batch["mix_hm_w"])
+            targets = [pack_frame_mixup_targets(b["mix_centers"], b["mix_hm_w"]) for b in shares]
         elif alpha > 0:
-            targets = pack_mixup_targets(batch["cxcy"], perm, lam)
+            every = sh.gather([b["cxcy"] for b in shares])
+            targets = [pack_mixup_targets(b["cxcy"], p, lm, e[p])
+                       for b, e, p, lm in zip(shares, every, perms, lams)]
         else:
-            targets = pack_plain_targets(batch["cxcy"])
+            targets = [pack_plain_targets(b["cxcy"]) for b in shares]
         if schedule is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = schedule(step_idx)
+            for g in optimizer.param_groups:
+                g["lr"] = schedule(step_idx)
         optimizer.zero_grad(set_to_none=True)
-        logits = model(_to_model_input(x)).movedim(1, -1)  # (B, H, W, L)
-        loss = wbce_from_logits(logits, y) if y is not None else wbce_disk_loss(logits, *targets)
-        loss.backward()
+        logits = model.forward_shares([_to_model_input(x) for x in xs], sh.params(model),
+                                      sh.reducer)
+        logits = [z.movedim(1, -1) for z in logits]  # (b, H, W, L)
+        if labels is not None:
+            losses = [wbce_from_logits(z, y) for z, y in zip(logits, labels)]
+        else:
+            losses = [wbce_disk_loss(z, *t) for z, t in zip(logits, targets)]
+        loss = sh.backward(model, losses)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
@@ -237,29 +371,16 @@ def make_inpaintnet_train_step(
     optimizer: torch.optim.Optimizer,
     schedule: Optional[Callable[[int], float]] = None,
 ):
-    """Returns ``step(batch, step_idx, mask) -> loss``: ``batch`` holds the
-    device tensors ``coor_pred``, ``coor`` and ``vis`` (B, L, 1) of a
-    ``CoordinateBatchLoader`` batch, ``mask`` the step's Bernoulli draws of
-    ``vis``'s shape (``sample_inpaint_mask``); ``step_idx`` is the optimizer
-    step (from 0) that ``schedule`` reads. The optimizer clips (built with
-    ``clip_norm=1.0``)."""
-
-    def step(batch: Batch, step_idx: int, mask: torch.Tensor) -> torch.Tensor:
-        model.train()
-        coor_pred, coor_gt, vis = batch["coor_pred"], batch["coor"], batch["vis"]
-        inpaint_mask = (vis > 0).to(coor_pred.dtype) * mask
-        coor_in = coor_pred * (1.0 - inpaint_mask)
-        if schedule is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = schedule(step_idx)
-        optimizer.zero_grad(set_to_none=True)
-        with tf32_off():
-            loss = masked_mse(model(coor_in, inpaint_mask), coor_gt, inpaint_mask)
-            loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    return step
+    """Returns ``step(batch, step_idx, mask) -> loss``, the step on the
+    model's device (``make_inpaintnet_shares_train_step`` over one share):
+    ``batch`` holds the device tensors ``coor_pred``, ``coor`` and ``vis``
+    (B, L, 1) of a ``CoordinateBatchLoader`` batch, ``mask`` the step's
+    Bernoulli draws of ``vis``'s shape (``sample_inpaint_mask``);
+    ``step_idx`` is the optimizer step (from 0) that ``schedule`` reads.
+    The optimizer clips (built with ``clip_norm=1.0``)."""
+    step = make_inpaintnet_shares_train_step(model, optimizer, schedule,
+                                             mesh=_model_mesh(model))
+    return lambda batch, step_idx, mask: step([batch], step_idx, mask)
 
 
 def make_inpaintnet_eval_step(model: torch.nn.Module):
@@ -279,5 +400,44 @@ def make_inpaintnet_eval_step(model: torch.nn.Module):
         th = (coor_inpaint[..., 0] < COOR_TH) & (coor_inpaint[..., 1] < COOR_TH)
         coor_inpaint = coor_inpaint.masked_fill(th[..., None], 0.0)
         return loss, coor_inpaint
+
+    return step
+
+
+def make_inpaintnet_shares_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    schedule: Optional[Callable[[int], float]] = None,
+    *,
+    mesh: Mesh,
+    group: Optional[DeviceGroup] = None,
+):
+    """The InpaintNet train step over shares: returns ``step(shares,
+    step_idx, mask) -> loss`` with ``shares`` and ``mesh`` / ``group`` as in
+    ``make_tracknet_shares_train_step`` and ``mask`` the global batch's
+    Bernoulli draws (an array or a tensor), of which each share takes its
+    rows: ``inpaint_mask = (vis > 0) * mask``, the prediction with those
+    frames zeroed, ``masked_mse`` on them. The optimizer's clip runs on the
+    summed gradient."""
+    sh = _Shares(mesh, group)
+
+    def step(shares: Sequence[Batch], step_idx: int, mask) -> torch.Tensor:
+        model.train()
+        rows = sh.rows(shares[0]["vis"].shape[0])
+        if schedule is not None:
+            for g in optimizer.param_groups:
+                g["lr"] = schedule(step_idx)
+        optimizer.zero_grad(set_to_none=True)
+        with tf32_off():
+            losses = []
+            for b, r, p in zip(shares, rows, sh.params(model)):
+                coor_pred, coor_gt, vis = b["coor_pred"], b["coor"], b["vis"]
+                inpaint_mask = (vis > 0).to(coor_pred.dtype) * _host_rows(mask, r, vis.device)
+                coor_in = coor_pred * (1.0 - inpaint_mask)
+                out = torch.func.functional_call(model, p, (coor_in, inpaint_mask))
+                losses.append(masked_mse(out, coor_gt, inpaint_mask))
+            loss = sh.backward(model, losses)
+        optimizer.step()
+        return loss
 
     return step
