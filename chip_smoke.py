@@ -327,13 +327,52 @@ exits nonzero.
    parameters bit-equal; then, once the step timings are done, each rank's
    bf16 ms per step and its split kernels' launches.
 
+21. mesh_shard (after phase 20): resident frames sharded over the holders
+   (``frame_sharding="shard"``) on the train cell's synthetic split (160
+   frames, 70.8 MB of RGB; 80 rows, 35.4 MB an entry at N = 2), at the README
+   width. mesh_shard_parity, on the card stood in twice and on two cards
+   where there are two: each entry's rows equal to the same rows of the
+   replicated buffer (the bytes each entry holds); the first README batch's
+   assembled inputs, per share (the train step's exchange) and whole on the
+   first entry (the eval step's), bit-equal to ``"replicate"``'s; the
+   ``window_copy`` launches of that assembly held to the design's count:
+   under ``"shard"`` one a holder and share with rows to send (N x N where
+   every entry holds a row of every share's windows) and one reorder a
+   share, then a median gather a share, and for the whole batch one a holder
+   with rows plus one reorder and one median gather; under ``"replicate"``
+   a frame and a median gather a share and the same on the first entry; one
+   float32 step (TF32 off, deterministic cuDNN, sample mixup with every
+   partner on the other share) under ``"shard"`` bit-equal to the
+   ``"replicate"`` step: loss, gradients, running statistics, parameters
+   (SHA-256); both comparisons must fail on two wrong exchanges: the
+   reorder skipped, and each holder's local rows off by one shard
+   (``_wrong_exchange``). mesh_shard: one epoch of ``train --num_devices 2
+   --resident_frames`` with the loader's budget at 3/4 of the train split
+   (``SHARD_BUDGET_SHARE``, patched in as ``mesh_train`` patches
+   ``make_mesh``): the line ``Resident frames: split staged to device memory
+   (shard over 2 devices)``, finite losses, and ``window_copy`` launches
+   equal to the sum of its batches' exchanges (drawn again on the host), a
+   median gather a share and step, and two gathers an eval batch (the val
+   split, half as large, replicated). mesh_shard_time: bf16 ms a step under
+   ``"replicate"`` and ``"shard"`` in turns (replicate, shard, shard,
+   replicate; median of 10 after 2 each) on each mesh, the exchange's ms alone
+   (CUDA events on every card) and bytes (gathered, copied between two
+   cards, reordered), peak memory per card. mesh_shard_procs: each process
+   of ``mesh_train``'s pairs (gloo on cuda:0; NCCL on two cards where there
+   are two) takes the same float32 step on its resident loaders' first batch
+   (``process_count`` 2) under both placements, among its float32 work:
+   each rank's ``"shard"`` step bit-equal to its ``"replicate"`` step and to
+   the one-process mesh's on the card stood in twice.
+
 ``--conv_only`` runs phases 1, 2 and 8 alone (a first check of a changed
 conv kernel), ``--copy_only`` phases 1, 2 and 11, ``--loss_only`` phases 1,
 2 and 3, ``--inpaint_only`` phases 1 and 13, ``--rally_only`` phases 1, 2
 and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
 2 and 15, ``--yuv_only`` phases 1, 2 and 16, ``--tools_only`` phases 1, 2
 and 17, ``--mesh_only`` phases 1, 2 and 18, ``--convert_only`` phases 1, 2
-and 19, ``--mesh_train_only`` phases 1, 2 and 20; none prints a kernels line.
+and 19, ``--mesh_train_only`` phases 1, 2 and 20, ``--mesh_shard_only``
+phases 1, 2 and 21 (starting its own pairs of training processes, which run
+only their sharded steps); none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -5126,7 +5165,7 @@ import chip_smoke as cs
 dist.init_process_group({backend!r}, init_method="tcp://127.0.0.1:{port}", world_size=2,
                         rank={rank}, timeout=datetime.timedelta(seconds=60))
 try:
-    res = cs._group_train({data!r}, {out!r}, {go!r}, {card}, time.time() - T0)
+    res = cs._group_train({data!r}, {out!r}, {go!r}, {card}, time.time() - T0, {stages!r})
     res["seconds"]["child"] = time.time() - T0
     print("MESH_TRAIN " + json.dumps(res), flush=True)
 finally:
@@ -5457,15 +5496,19 @@ def _wait_for(path: str) -> None:
         time.sleep(0.02)
 
 
-def _group_train(data_dir: str, out: str, go: str, card: int, started_s: float) -> dict:
+def _group_train(data_dir: str, out: str, go: str, card: int, started_s: float,
+                 stages=("f32", "shard", "bf16")) -> dict:
     """One rank of ``mesh_procs_train`` (a group of two: gloo on cuda:0, or
     NCCL with rank r on ``cuda:r``), on the card ``card``: its share of the
     README batch, made on the host; once the file ``go.f32`` exists (the
     parent's kernel timings are done), MESH_TRAIN_STEPS float32 steps (TF32
-    off, deterministic cuDNN) whose parameters go to ``out`` (then
-    ``out.done``); once ``go.bf16`` exists (the parent's step timings are
-    done and the card is free), bf16 steps timed. ``started_s``: the seconds
-    from the process's start to the group."""
+    off, deterministic cuDNN) whose parameters go to ``out`` (stage
+    ``f32``), then the float32 step on its resident loaders' first batch
+    under ``"shard"`` and ``"replicate"`` (stage ``shard``, phase 21:
+    ``_resident_steps``), then ``out.done``; once ``go.bf16`` exists (the
+    parent's step timings are done and the card is free), bf16 steps timed
+    (stage ``bf16``). ``started_s``: the seconds from the process's start to
+    the group."""
     import hashlib
 
     import torch
@@ -5491,12 +5534,23 @@ def _group_train(data_dir: str, out: str, go: str, card: int, started_s: float) 
     torch.cuda.set_device(dev)
     group = device_group(dev)
     share = {k: split_batch(v, world)[rank].to(dev) for k, v in batch.items()}
-    with _f32_deterministic():
-        _, losses, params = _one_step(base, share, perm, lam, Mesh((dev,)), group,
-                                      steps_n=MESH_TRAIN_STEPS)
-    np.savez(out, first=params[0].numpy(), last=params[-1].numpy())
+    res = {"rank": rank, "backend": str(dist.get_backend()), "device": str(dev)}
+    if "f32" in stages:
+        with _f32_deterministic():
+            _, losses, params = _one_step(base, share, perm, lam, Mesh((dev,)), group,
+                                          steps_n=MESH_TRAIN_STEPS)
+        np.savez(out, first=params[0].numpy(), last=params[-1].numpy())
+        res.update(losses=losses, params_sha256=hashlib.sha256(
+            params[-1].numpy().tobytes()).hexdigest())
+    t_shard = time.perf_counter()
+    if "shard" in stages:
+        res["shard_steps"] = _resident_steps(data_dir, base, dev, group)
     open(out + ".done", "w").close()
     t_f32 = time.perf_counter()
+    res["seconds"] = {"start": started_s, "setup": t_wait - t_setup, "waited": t_start - t_wait,
+                      "float32": t_shard - t_start, "shard": t_f32 - t_shard}
+    if "bf16" not in stages:
+        return res
     _wait_for(go + ".bf16")
     t_bf16 = time.perf_counter()
     # bf16 steps as training runs them
@@ -5514,22 +5568,19 @@ def _group_train(data_dir: str, out: str, go: str, card: int, started_s: float) 
         step([share], i, perm, lam)
         torch.cuda.synchronize(dev)
         times.append((time.perf_counter() - t0) * 1e3)
-    return {"rank": rank, "losses": losses, "params_sha256": hashlib.sha256(
-        params[-1].numpy().tobytes()).hexdigest(),
-        "median_ms_per_step": statistics.median(times[2:]), "ms_per_step": times[2:],
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-        "split_launches": {k: bn.LAUNCHES[k] for k in SPLIT_KERNELS},
-        "backend": str(dist.get_backend()), "device": str(dev),
-        "seconds": {"start": started_s, "setup": t_wait - t_setup, "waited": t_start - t_wait,
-                    "float32": t_f32 - t_start, "waited_bf16": t_bf16 - t_f32,
-                    "bf16": time.perf_counter() - t_bf16}}
+    res["seconds"].update(waited_bf16=t_bf16 - t_f32, bf16=time.perf_counter() - t_bf16)
+    return {**res, "median_ms_per_step": statistics.median(times[2:]),
+            "ms_per_step": times[2:], "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "split_launches": {k: bn.LAUNCHES[k] for k in SPLIT_KERNELS}}
 
 
-def _spawn_train_children(tmp: str, data_dir: str, backend: str):
+def _spawn_train_children(tmp: str, data_dir: str, backend: str,
+                          stages=("f32", "shard", "bf16")):
     """Start a pair of ``mesh_procs_train``'s processes over ``backend``
-    (gloo: both on cuda:0; nccl: rank r on cuda:r); they set up on the host
-    and wait for their go files. Returns (backend, processes, their output
-    files, the go files' stem, the start time)."""
+    (gloo: both on cuda:0; nccl: rank r on cuda:r) that run ``stages`` of
+    ``_group_train``; they set up on the host and wait for their go files.
+    Returns (backend, processes, their output files, the go files' stem, the
+    start time)."""
     import socket
 
     with socket.socket() as s:
@@ -5540,7 +5591,7 @@ def _spawn_train_children(tmp: str, data_dir: str, backend: str):
     procs = [subprocess.Popen(
         [sys.executable, "-c", MESH_TRAIN_CHILD.format(
             root=ROOT, backend=backend, port=port, rank=r, data=data_dir, out=outs[r], go=go,
-            card=r if backend == "nccl" else 0)],
+            card=r if backend == "nccl" else 0, stages=tuple(stages))],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
     return backend, procs, outs, go, time.time()
 
@@ -5564,34 +5615,42 @@ def _await_float32(children) -> None:
         time.sleep(0.05)
 
 
-def _mesh_procs_train(children, card: str, refs: dict) -> None:
-    """Release a pair of ``_spawn_train_children``'s processes, whose float32
-    steps are written, to their bf16 timings; hold their MESH_TRAIN_STEPS
-    float32 steps to one process's (``refs``: the single step, and the same
-    steps over the card stood in twice)."""
-    import torch
-
+def _child_results(children, phase: str) -> list:
+    """Each rank's result line of a pair of training processes, once they
+    end (within MESH_CHILD_S of their start)."""
     backend, procs, outs, go, t0 = children
-    t_go = time.time()
     ranks = []
     try:
-        _release(children, "bf16")
         for r, p in enumerate(procs):
             try:
                 out, err = p.communicate(timeout=max(MESH_CHILD_S - (time.time() - t0), 1))
             except subprocess.TimeoutExpired:
-                fail("mesh_procs_train", f"rank {r} did not end within {MESH_CHILD_S} s")
+                fail(phase, f"{backend} rank {r} did not end within {MESH_CHILD_S} s")
             if p.returncode != 0:
-                fail("mesh_procs_train", f"rank {r} exited {p.returncode}: {err[-2000:]}")
+                fail(phase, f"{backend} rank {r} exited {p.returncode}: {err[-2000:]}")
             lines = [ln for ln in out.splitlines() if ln.startswith("MESH_TRAIN ")]
             if len(lines) != 1:
-                fail("mesh_procs_train", f"rank {r} printed no result: {out[-1000:]}")
+                fail(phase, f"{backend} rank {r} printed no result: {out[-1000:]}")
             ranks.append(json.loads(lines[0][len("MESH_TRAIN "):]))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return ranks
+
+
+def _mesh_procs_train(children, card: str, refs: dict) -> list:
+    """Release a pair of ``_spawn_train_children``'s processes, whose float32
+    steps are written, to their bf16 timings; hold their MESH_TRAIN_STEPS
+    float32 steps to one process's (``refs``: the single step, and the same
+    steps over the card stood in twice). Returns the ranks' results."""
+    import torch
+
+    backend, procs, outs, go, t0 = children
+    t_go = time.time()
+    _release(children, "bf16")
+    ranks = _child_results(children, "mesh_procs_train")
     (single_loss, single_params), (mesh_losses, mesh_params) = refs["single"], refs["mesh"]
     readings = []
     for r, o in zip(ranks, outs):
@@ -5619,11 +5678,14 @@ def _mesh_procs_train(children, card: str, refs: dict) -> None:
         if r["split_launches"] != want_l:
             fail("mesh_procs_train", f"rank {r['rank']}: launches {r['split_launches']} != "
                  f"{want_l}")
+    return ranks
 
 
 def phase_mesh_train(tmp: str, card: str) -> dict:
     """mesh_train: data-parallel training over SHARES shares of the README
-    batch. Returns the split kernels' times and the main path's launches."""
+    batch. Returns the split kernels' times, the main path's launches and
+    each training process's float32 steps on its resident loaders (phase
+    21's, by backend)."""
     import torch
 
     t_phase = time.time()
@@ -5725,9 +5787,410 @@ def _mesh_train_measured(tmp: str, card: str, data_dir: str, pairs):
     emit({"phase": "mesh_step_time", "config": "TrackNet seq_len 8 concat 288x512 batch 10 "
           "alpha 0.5 Adam bf16", "shares": SHARES, "timing": timing,
           "split_kernels_ms_per_step": split_ms, "card": card})
-    for pair in pairs:
-        _mesh_procs_train(pair, card, refs)
-    return times, {k: launches[k] for k in SPLIT_KERNELS}
+    shard_ranks = {pair[0]: [r["shard_steps"] for r in _mesh_procs_train(pair, card, refs)]
+                   for pair in pairs}
+    return times, {k: launches[k] for k in SPLIT_KERNELS}, shard_ranks
+
+
+# ---------------------------------------------------------------- sharded resident frames
+
+SHARD_MODES = ("shard", "replicate")
+# the CLI epoch's resident budget, as a share of the train split's bytes:
+# above 1/2 (each of 2 entries holds half) and below 1, so that "auto" shards
+# the train split (and, as the val split holds half as many frames,
+# replicates the val split)
+SHARD_BUDGET_SHARE = 0.75
+WRONG_EXCHANGES = ("reorder_skipped", "local_index_off_by_one_shard")
+
+
+def _resident_loaders(data_dir: str, dev, mesh=None, group=None) -> dict:
+    """The README configuration's resident loaders (shuffled, seed 3, full
+    batches) under ``"shard"`` and ``"replicate"``, on ``mesh`` or as this
+    rank of ``group``."""
+    from tracknetv3_tpu_torch.data.dataset import ResidentHeatmapLoader, build_split_index
+
+    index = build_split_index(data_dir, "train", L, 1)
+    kw = dict(shuffle=True, seed=3, drop_last=True, data_dir=data_dir, device=dev, mesh=mesh)
+    if group is not None:
+        kw.update(process_id=group.rank, process_count=group.size)
+    return {m: ResidentHeatmapLoader(index, "concat", B, frame_sharding=m, **kw)
+            for m in SHARD_MODES}
+
+
+def _first_resident(loaders: dict, dev) -> dict:
+    """Each loader's first batch, its numpy leaves as tensors on ``dev``."""
+    return {m: _device_batch(next(iter(ld)), dev) for m, ld in loaders.items()}
+
+
+def _step_digest(first: dict) -> dict:
+    """A step result's loss and the SHA-256 of its gradients, running
+    statistics and parameters (``_mesh_step_result``)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in (first["grads"], first["stats"]):
+        for k in sorted(part):
+            h.update(part[k].numpy().tobytes())
+    h.update(first["params"].numpy().tobytes())
+    return {"loss": first["loss"], "sha256": h.hexdigest()}
+
+
+def _resident_steps(data_dir: str, base, dev, group) -> dict:
+    """This rank's float32 step (TF32 off, deterministic cuDNN; sample mixup
+    with every partner on the other share) over ``group`` on its first
+    resident batch under each of SHARD_MODES: digests."""
+    import torch
+
+    from tracknetv3_tpu_torch.parallel.mesh import Mesh
+
+    batches = _first_resident(_resident_loaders(data_dir, dev, group=group), dev)
+    perm, lam = _crossing_mixup()
+    with _f32_deterministic():
+        out = {m: _step_digest(_one_step(base, b, perm, lam, Mesh((dev,)), group)[0])
+               for m, b in batches.items()}
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def _wrong_exchange(name: str):
+    """``parallel.mesh.plan_exchange`` made wrong: the receiver's reorder
+    skipped (its rows taken in the order received), or each holder's local
+    rows off by one shard (holder j gathers, at the local rows meant for
+    holder j + 1, its own: frame g - R for frame g)."""
+    from tracknetv3_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.plan_exchange
+
+    def plan(idx, rows, holders, receivers):
+        ex = real(idx, rows, holders, receivers)
+        if name == "reorder_skipped":
+            return ex._replace(order=tuple(
+                np.minimum(np.arange(len(o)), sum(ex.received(i)) - 1).astype(np.int32)
+                for i, o in enumerate(ex.order)))
+        return ex._replace(send=tuple(ex.send[(j + 1) % holders] for j in range(holders)))
+
+    return mock.patch.object(pmesh, "plan_exchange", plan)
+
+
+def _want_exchange_copies(fs, receivers: int) -> int:
+    """``window_copy`` launches of one train step's frame exchange over
+    ``receivers`` shares of a one-process mesh: one a holder and receiver
+    that has rows to send (N x N where every entry holds a row of every
+    share's windows), and one reorder a receiver."""
+    ex = fs.exchange(receivers)
+    return sum(1 for j in range(fs.holders) for i in range(receivers)
+               if len(ex.send[j][i])) + receivers
+
+
+def _exchange_bytes(fs, mesh) -> dict:
+    """The bytes one train step's exchange moves over ``mesh``: gathered by
+    the holders, copied between two devices, written by the reorders."""
+    ex = fs.exchange(mesh.size)
+    row = H * W * 3
+    devs = mesh.devices
+    pairs = [(j, i, len(ex.send[j][i])) for j in range(fs.holders) for i in range(mesh.size)]
+    return {"gathered": row * sum(n for _, _, n in pairs),
+            "between_devices": row * sum(n for j, i, n in pairs if devs[j] != devs[i]),
+            "reordered": row * sum(len(o) for o in ex.order)}
+
+
+def _shard_placement(loaders: dict, mesh) -> dict:
+    """Each entry's rows against the same rows of the replicated buffer, and
+    the bytes each entry holds."""
+    import torch
+
+    shards, whole = loaders["shard"].rgb_buf, loaders["replicate"].rgb_buf
+    n, R = loaders["shard"]._n_frames, loaders["shard"]._shard_rows
+    ok = True
+    for j, (sh, full) in enumerate(zip(shards, whole)):
+        want = full[j * R:(j + 1) * R]
+        pad = (j + 1) * R - n  # the last entry's padding: the last row repeated
+        if pad > 0:
+            want = torch.cat([want, full[-1:].expand((pad,) + tuple(full.shape[1:]))])
+        ok &= sh.shape == want.shape and torch.equal(sh, want)
+    return {"rows_equal": bool(ok), "rows_per_entry": R, "frames": n,
+            "bytes_per_entry": [t.numel() for t in shards],
+            "replicated_bytes_per_entry": [t.numel() for t in whole]}
+
+
+def _shard_inputs(batches: dict, mesh) -> dict:
+    """The assembled inputs of each mode's batch: per share (the train
+    step's exchange) and whole on the first entry (the eval step's)."""
+    from tracknetv3_tpu_torch.parallel.mesh import shard_train_batch
+    from tracknetv3_tpu_torch.training import steps as st
+
+    sh = st._Shares(mesh, None)
+    return {m: {"shares": [st.assemble_tracknet_inputs(b, "concat")
+                           for b in sh.frames(shard_train_batch(batch, mesh))],
+                "eval": st.assemble_tracknet_inputs(batch, "concat")}
+            for m, batch in batches.items()}
+
+
+def _inputs_equal(got: dict, want: dict) -> bool:
+    import torch
+
+    return (all(torch.equal(a, b) for a, b in zip(got["shares"], want["shares"]))
+            and torch.equal(got["eval"], want["eval"]))
+
+
+def _time_resident_steps(model, batch, mesh, n: int = 12) -> dict:
+    """bf16 ms of each train step over ``mesh`` on one resident batch after 2
+    warm-up, peak memory per card, and (a sharded batch) the ms of its
+    exchange alone by CUDA events on every card."""
+    import torch
+
+    from tracknetv3_tpu_torch.parallel.mesh import shard_train_batch
+    from tracknetv3_tpu_torch.training import steps as st
+    from tracknetv3_tpu_torch.training.optim import build_optimizer
+
+    perm, lam = _crossing_mixup()
+    opt, sched = build_optimizer("Adam", model.parameters(), 1e-3)
+    step = st.make_tracknet_shares_train_step(model, opt, "concat", 0.5, sched, mesh=mesh)
+    shares = shard_train_batch(batch, mesh)
+    cards = sorted({d.index for d in mesh.devices})
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    times = []
+    for i in range(n):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t0 = time.perf_counter()
+        step(shares, i, perm, lam)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"median_ms_per_step": statistics.median(times[2:]), "ms_per_step": times[2:],
+           "peak_mem_bytes": {f"cuda:{c}": torch.cuda.max_memory_allocated(c) for c in cards}}
+    if "res_shards" in batch:
+        sh, spent = st._Shares(mesh, None), []
+        for i in range(n):
+            ev = {c: [torch.cuda.Event(enable_timing=True) for _ in range(2)] for c in cards}
+            for c in cards:
+                torch.cuda.synchronize(c)
+                ev[c][0].record(torch.cuda.current_stream(c))
+            sh.frames(shares)
+            for c in cards:
+                ev[c][1].record(torch.cuda.current_stream(c))
+            for c in cards:
+                torch.cuda.synchronize(c)
+            spent.append(max(a.elapsed_time(b) for a, b in ev.values()))
+        out["exchange_ms"] = statistics.median(spent[2:])
+        out["exchange_bytes"] = _exchange_bytes(batch["res_shards"], mesh)
+    return out
+
+
+class _Tee:
+    """A text stream that writes to two."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def _shard_cli_epoch(tmp: str, data_dir: str, meshes: dict) -> dict:
+    """One epoch of ``train --num_devices 2 --resident_frames`` with the
+    loader's budget at SHARD_BUDGET_SHARE of the train split (the card
+    stood in twice where it is alone): its placement line, losses and
+    ``window_copy`` launches against the exchange plans of its batches."""
+    import functools
+    import io
+
+    import torch
+
+    from tracknetv3_tpu_torch import train as train_cli
+    from tracknetv3_tpu_torch.config import TrainConfig
+    from tracknetv3_tpu_torch.data import dataset as ds
+    from tracknetv3_tpu_torch.ops import shift_copy
+    from tracknetv3_tpu_torch.parallel.mesh import make_mesh
+    from tracknetv3_tpu_torch.training import loop
+
+    mesh = meshes.get("two_cards") or meshes["card_twice"]
+    index = ds.build_split_index(data_dir, "train", L, 1)
+    train_bytes = ds.ResidentHeatmapLoader(index, "concat", B, data_dir=data_dir,
+                                           device="cpu").rgb_buf.numel()
+    budget = SHARD_BUDGET_SHARE * train_bytes
+    seed = TrainConfig().seed
+    # the CLI's train batches, drawn again on the host: their exchanges' launches
+    plans = [b["res_shards"] for b in ds.ResidentHeatmapLoader(
+        index, "concat", B, shuffle=True, drop_last=True, seed=seed, data_dir=data_dir,
+        budget_bytes=budget, mesh=make_mesh(SHARES, device="cpu"), device="cpu")]
+    val = len(ds.ResidentHeatmapLoader(ds.build_split_index(data_dir, "val", L, L), "concat", B,
+                                       data_dir=data_dir, device="cpu"))
+    # per train step the exchange and a median gather a share; per eval batch
+    # the frames' and the median's gathers on the first entry (val replicated)
+    want = sum(_want_exchange_copies(fs, SHARES) + SHARES for fs in plans) + 2 * val
+    save_dir = os.path.join(tmp, "exp_shard")
+    argv = ["--seq_len", str(L), "--bg_mode", "concat", "--alpha", "0.5", "--batch_size",
+            str(B), "--epochs", "1", "--num_devices", str(SHARES), "--resident_frames",
+            "--data_dir", data_dir, "--save_dir", save_dir]
+    stand_in = (mock.patch.object(loop, "make_mesh", lambda n, device: meshes["card_twice"])
+                if "two_cards" not in meshes else contextlib.nullcontext())
+    placed = functools.partial(ds.ResidentHeatmapLoader, budget_bytes=budget)
+    printed = io.StringIO()
+    torch.backends.cudnn.benchmark = True
+    _zero_launches()
+    t0 = time.time()
+    with stand_in, mock.patch.object(loop, "ResidentHeatmapLoader", placed), \
+            contextlib.redirect_stdout(_Tee(sys.stderr, printed)):
+        out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = shift_copy.LAUNCHES["window_copy"]
+    h = out["history"][0]
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("Resident frames")]
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return {"cli": "--num_devices 2 --resident_frames", "mesh": [str(d) for d in mesh.devices],
+            "budget_bytes": budget, "train_bytes": train_bytes, "placement_line": lines,
+            "train_steps": out["step"], "eval_batches": val, "window_copy": launches,
+            "want_window_copy": want, "train_loss": h["train_loss"], "val_loss": h["val_loss"],
+            "train_s": train_s}
+
+
+def phase_mesh_shard(tmp: str, card: str, ranks=None) -> dict:
+    """mesh_shard: resident frames sharded over the entries of a mesh (the
+    card stood in twice, and two cards where there are two) and over the
+    training processes (``ranks``: their float32 steps by backend, from
+    ``mesh_train``'s pairs; started here where that phase did not run).
+    Returns the ``window_copy`` launches of the CLI epoch."""
+    import torch
+
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.ops import shift_copy
+    from tracknetv3_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    data_dir = os.path.join(tmp, "data")
+    if not os.path.isdir(os.path.join(data_dir, "train")):
+        write_synthetic_dataset(data_dir)
+    pairs = []
+    if ranks is None:  # the processes' shard steps beside this phase's work
+        _first_batch(data_dir, torch.device("cpu"))
+        pairs = [_spawn_train_children(tmp, data_dir, "gloo", ("shard",))]
+        if torch.cuda.device_count() >= 2:
+            pairs.append(_spawn_train_children(tmp, data_dir, "nccl", ("shard",)))
+        for pair in pairs:
+            _release(pair, "f32")
+    try:
+        meshes = {"card_twice": pmesh.make_mesh(devices=["cuda:0", "cuda:0"])}
+        if torch.cuda.device_count() >= 2:
+            meshes["two_cards"] = pmesh.make_mesh(2)
+        base = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(41),
+                         dtype=torch.float32)
+        dev = torch.device(DEVICE, 0)
+        res, failures, all_loaders = {}, [], {}
+        for name, mesh in meshes.items():
+            loaders = all_loaders[name] = _resident_loaders(data_dir, dev, mesh)
+            r = {"placement": _shard_placement(loaders, mesh)}
+            batches = _first_resident(loaders, dev)
+            fs = batches["shard"]["res_shards"]
+            # launches of the train step's assembly over the shares and of the
+            # eval step's of the whole batch: under "shard" the exchange and a
+            # median gather a share, then the whole batch's exchange to one
+            # receiver and its median; under "replicate" a frame and a median
+            # gather a share, then the same on the first entry
+            want_copies = {"shard": _want_exchange_copies(fs, mesh.size) + mesh.size
+                           + _want_exchange_copies(fs, 1) + 1,
+                           "replicate": 2 * mesh.size + 2}
+            inputs, r["window_copy_per_step"] = {}, {}
+            for m in SHARD_MODES:
+                _zero_launches()
+                inputs[m] = _shard_inputs({m: batches[m]}, mesh)[m]
+                r["window_copy_per_step"][m] = shift_copy.LAUNCHES["window_copy"]
+            r["want_window_copy_per_step"] = want_copies
+            r["inputs_equal"] = _inputs_equal(inputs["shard"], inputs["replicate"])
+            wrong_inputs = {}
+            for w in WRONG_EXCHANGES:
+                with _wrong_exchange(w):
+                    wrong_inputs[w] = _inputs_equal(
+                        _shard_inputs({"shard": batches["shard"]}, mesh)["shard"],
+                        inputs["replicate"])
+            del inputs
+            perm, lam = _crossing_mixup()
+            with _f32_deterministic():
+                steps = {m: _step_digest(_one_step(base, b, perm, lam, mesh)[0])
+                         for m, b in batches.items()}
+                for w in WRONG_EXCHANGES:
+                    with _wrong_exchange(w):
+                        steps[w] = _step_digest(_one_step(base, batches["shard"], perm, lam,
+                                                          mesh)[0])
+            r["steps"] = steps
+            r["step_equal"] = steps["shard"] == steps["replicate"]
+            r["wrong"] = {w: {"inputs_equal": wrong_inputs[w],
+                              "step_equal": steps[w] == steps["replicate"]}
+                          for w in WRONG_EXCHANGES}
+            res[name] = r
+            if not r["placement"]["rows_equal"]:
+                failures.append(f"{name}: an entry's rows differ from the replicated buffer's")
+            if not (r["inputs_equal"] and r["step_equal"]):
+                failures.append(f"{name}: shard and replicate differ: inputs "
+                                f"{r['inputs_equal']}, step {steps}")
+            for w, v in r["wrong"].items():
+                if v["inputs_equal"] or v["step_equal"]:
+                    failures.append(f"{name}: the wrong exchange {w} passes: {v}")
+            if r["window_copy_per_step"] != want_copies:
+                failures.append(f"{name}: window_copy {r['window_copy_per_step']} != "
+                                f"{want_copies}")
+            del loaders, batches
+        emit({"phase": "mesh_shard_parity", "dtype": "float32", "tf32": False,
+              "config": "TrackNet seq_len 8 concat 288x512 batch 10 alpha 0.5", "vs": res,
+              "card": card})
+        if failures:
+            fail("mesh_shard_parity", "; ".join(failures))
+
+        cli = _shard_cli_epoch(tmp, data_dir, meshes)
+        emit({"phase": "mesh_shard", **cli})
+        want_line = [f"Resident frames: split staged to device memory (shard over {SHARES} "
+                     "devices)"]
+        if cli["placement_line"] != want_line:
+            fail("mesh_shard", f"placement {cli['placement_line']} != {want_line}")
+        if cli["window_copy"] != cli["want_window_copy"]:
+            fail("mesh_shard", f"window_copy {cli['window_copy']} != {cli['want_window_copy']}")
+        if not (math.isfinite(cli["train_loss"]) and math.isfinite(cli["val_loss"])):
+            fail("mesh_shard", f"non-finite losses {cli}")
+
+        # bf16 ms a step, the exchange's ms and bytes, peak memory per card
+        for pair in pairs:
+            _await_float32(pair)
+        model = get_model("TrackNet", L, "concat", generator=torch.Generator().manual_seed(41)
+                          ).to(DEVICE, memory_format=torch.channels_last)
+        timing = {}
+        for name, mesh in meshes.items():  # in turns: replicate, shard, shard, replicate
+            batches = _first_resident(all_loaders.pop(name), dev)
+            turns = [(m, _time_resident_steps(model, batches[m], mesh))
+                     for m in ("replicate", "shard", "shard", "replicate")]
+            timing[name] = {m: [t for k, t in turns if k == m] for m in SHARD_MODES}
+            del batches
+        emit({"phase": "mesh_shard_time", "config": "TrackNet seq_len 8 concat 288x512 batch "
+              "10 alpha 0.5 Adam bf16", "shares": SHARES, "timing": timing, "card": card})
+
+        if ranks is None:
+            ranks = {pair[0]: [r["shard_steps"] for r in _child_results(pair, "mesh_shard_procs")]
+                     for pair in pairs}
+    finally:
+        for p in (p for pair in pairs for p in pair[1]):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    mesh_step = res["card_twice"]["steps"]["shard"]
+    emit({"phase": "mesh_shard_procs", "processes": 2, "ranks": ranks,
+          "one_process_mesh": mesh_step, "card": card})
+    for backend, rs in ranks.items():
+        for rank, r in enumerate(rs):
+            if not r["shard"] == r["replicate"] == mesh_step:
+                fail("mesh_shard_procs", f"{backend} rank {rank}: {r} against the one-process "
+                     f"mesh's {mesh_step}")
+    emit({"phase": "mesh_shard_done", "phase_s": time.time() - t_phase, "card": card})
+    return cli["window_copy"]
 
 
 def _baseline_modules(root: str):
@@ -5790,6 +6253,9 @@ def main() -> int:
                     help="build and mesh_train (data-parallel training: the split BatchNorm "
                          "kernels, the 2-share step against the single one, the train CLI "
                          "with --num_devices 2, two processes over gloo) alone; no kernels line")
+    ap.add_argument("--mesh_shard_only", action="store_true",
+                    help="build and mesh_shard (resident frames sharded over a mesh's entries "
+                         "and over two training processes) alone; no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only or --loss_only: a checkout of another commit "
                          "(e.g. the parent's, unpacked with git archive); its copy and loss "
@@ -5822,7 +6288,8 @@ def main() -> int:
             else "tools" if args.tools_only
             else "mesh" if args.mesh_only
             else "convert" if args.convert_only
-            else "mesh_train" if args.mesh_train_only else None)
+            else "mesh_train" if args.mesh_train_only
+            else "mesh_shard" if args.mesh_shard_only else None)
     if args.baseline and only not in ("copy", "loss"):
         print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
         return 2
@@ -5855,6 +6322,9 @@ def main() -> int:
         elif only == "mesh_train":
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_mesh_train(tmp, card)
+        elif only == "mesh_shard":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_mesh_shard(tmp, card)
         elif only == "conv":
             phase_conv()
             phase_conv_ablate()
@@ -5890,7 +6360,8 @@ def main() -> int:
         paths_launches.update(phase_yuv_stage(tmp, card))
         mesh_launches = phase_mesh(tmp, card)
         mesh_launches.update(phase_convert(tmp, card))
-        split_times, split_launches = phase_mesh_train(tmp, card)
+        split_times, split_launches, shard_ranks = phase_mesh_train(tmp, card)
+        shard_launches = phase_mesh_shard(tmp, card, shard_ranks)
 
     src = "tracknetv3_tpu_torch/csrc/wbce_disk.cu"
     replaces = {"fwd": "tracknetv3_tpu/ops/pallas_wbce.py:73",
@@ -5966,7 +6437,8 @@ def main() -> int:
     # P8/P9: each kernel at the train path's shape of copy_vs_plain (the roll,
     # which no path of the system runs, at its probe's); launches summed over
     # seg_train's four runs of the train CLI and, for window_copy, the rally
-    # phase's runs of the two evaluation CLIs
+    # phase's runs of the two evaluation CLIs; by path also the sharded
+    # rally evaluation's and the sharded resident frames' CLI epoch
     replaces = {"window_copy": "tools/probe_mosaic_caps.py:88",
                 "repeat_rows": "tools/probe_mosaic_caps.py:164",
                 "roll_cols": "tools/probe_mosaic_caps.py:201"}
@@ -5981,7 +6453,8 @@ def main() -> int:
          "launches": copy_launches[k] + rally_launches.get(k, 0),
          "launches_by_path": {"seg_train": copy_launches[k], "rally": rally_launches.get(k, 0),
                               **{p: n.get(k, 0) for p, n in mesh_launches.items()
-                                 if p.startswith("mesh_rally")}},
+                                 if p.startswith("mesh_rally")},
+                              "mesh_shard": shard_launches if k == "window_copy" else 0},
          "on_a_ported_path": k != "roll_cols", **copies[k]}
         for k in COPY_KERNELS
     ]

@@ -113,17 +113,31 @@ def test_unported_loader_modes_raise(data_dirs):
             with pytest.raises(AssertionError):
                 mod.CoordinateBatchLoader(idx, B, **kw)
     # resident frames over processes take full batches, as the host loaders;
-    # several processes hold one mesh entry each; frames sharded across the
-    # entries (explicit, or "auto" over the budget on a mesh) are not ported
+    # several processes hold one mesh entry each
     mesh = make_mesh(2, device="cpu")
     for kw, err in ((dict(process_count=2), AssertionError),
                     (dict(mesh=mesh, process_count=2, drop_last=True), ValueError),
-                    (dict(frame_sharding="bogus"), ValueError),
-                    (dict(frame_sharding="shard"), NotImplementedError),
-                    (dict(mesh=mesh, budget_bytes=1), NotImplementedError)):
-        with pytest.raises(err, match="13b-iii" if err is NotImplementedError else None):
+                    (dict(frame_sharding="bogus"), ValueError)):
+        with pytest.raises(err):
             ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], device="cpu",
                                      **kw)
+    # frames sharded across the entries, as the JAX loader: one device of one
+    # process ignores frame_sharding; on a mesh "auto" over the budget
+    # shards, and a split whose shards too exceed it raises MemoryError
+    kw = dict(data_dir=data_dirs["port"], device="cpu")
+    whole = ds.ResidentHeatmapLoader(idx, "concat", 4, frame_sharding="shard", **kw)
+    assert whole.frame_sharding == "single"
+    total = whole.rgb_buf.numel()
+    sharded = ds.ResidentHeatmapLoader(idx, "concat", 4, mesh=mesh, budget_bytes=0.75 * total,
+                                       **kw)
+    assert sharded.frame_sharding == "shard"
+    padded = torch.cat(sharded.rgb_buf)
+    assert len(padded) % 2 == 0 and torch.equal(padded[:len(whole.rgb_buf)], whole.rgb_buf)
+    assert (padded[len(whole.rgb_buf):] == whole.rgb_buf[-1]).all()  # the last row repeated
+    for b in sharded:
+        assert b["res_shards"].rows * 2 == len(padded)
+    with pytest.raises(MemoryError, match="even sharded over 2 devices"):
+        ds.ResidentHeatmapLoader(idx, "concat", 4, mesh=mesh, budget_bytes=0.25 * total, **kw)
     with pytest.raises(MemoryError):  # one device over the budget: callers fall back
         ds.ResidentHeatmapLoader(idx, "concat", 4, data_dir=data_dirs["port"], device="cpu",
                                  budget_bytes=1)

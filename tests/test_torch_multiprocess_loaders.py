@@ -197,12 +197,24 @@ def test_both_packages_refuse_the_same_configurations(data_dirs, indexes):
                                         process_count=2, data_dir=data_dirs["port"])
         with pytest.raises(AssertionError, match="segments per batch"):
             next(iter(loader))
-    # resident frames over processes: full batches; frames sharded across
-    # mesh entries are not ported (13b-iii)
+    # resident frames over processes: full batches; sharded across the
+    # processes, each holds its rows of the padded buffer (as the JAX
+    # loader's process-local upload) and every batch the global windows' rows
     with pytest.raises(AssertionError):
         ds.ResidentHeatmapLoader(pidx, "concat", 4, process_count=2, data_dir=data_dirs["port"],
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="13b-iii"):
-        ds.ResidentHeatmapLoader(pidx, "concat", 4, drop_last=True, process_count=2,
-                                 frame_sharding="shard", data_dir=data_dirs["port"],
-                                 device="cpu")
+    kw = dict(drop_last=True, shuffle=True, seed=5, data_dir=data_dirs["port"], device="cpu")
+    whole = ds.ResidentHeatmapLoader(pidx, "concat", 4, **kw)
+    ranks = [ds.ResidentHeatmapLoader(pidx, "concat", 4, process_count=2, process_id=p,
+                                      frame_sharding="shard", **kw) for p in (0, 1)]
+    assert [r.frame_sharding for r in ranks] == ["shard", "shard"]
+    padded = torch.cat([r.rgb_buf for r in ranks])
+    n = len(whole.rgb_buf)
+    assert len(padded) - n in (0, 1) and torch.equal(padded[:n], whole.rgb_buf)
+    assert (padded[n:] == whole.rgb_buf[-1]).all()
+    for b, b0, b1 in zip(whole, *ranks, strict=True):
+        np.testing.assert_array_equal(np.concatenate([b0["res_idx"], b1["res_idx"]]),
+                                      b["res_idx"])
+        for r in (b0, b1):
+            np.testing.assert_array_equal(r["res_shards"].idx, b["res_idx"])
+            assert r["res_shards"].holders == 2 and r["res_shards"].rows * 2 == len(padded)

@@ -5,7 +5,10 @@ otherwise, on CPU meshes of W entries (``make_mesh(W, device="cpu")``).
 
 ``tracknet_batch(kind, B, seed)`` makes a numpy batch of each kind the train
 step takes: ``plain``, ``segmented`` (segments of ``SEG`` windows),
-``resident`` (frame indices into one buffer) and ``frame_mixup``.
+``resident`` (frame indices into one buffer), ``resident_shard`` (the same
+batch, whose buffer ``run_tracknet`` shards over the mesh's entries as the
+resident loader's ``frame_sharding="shard"`` does: ``shard_resident``) and
+``frame_mixup``.
 ``run_tracknet`` / ``run_inpaintnet`` take one Adam step of the port from
 given weights, on one device (``shares=None``) or over a W-entry mesh, and
 return the loss, every gradient, the running statistics and the updated
@@ -20,8 +23,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from tracknetv3_tpu_torch.data.dataset import _rows_into
 from tracknetv3_tpu_torch.models.factory import get_model
-from tracknetv3_tpu_torch.parallel.mesh import make_mesh, shard_train_batch
+from tracknetv3_tpu_torch.parallel.mesh import FrameShards, make_mesh, shard_train_batch
 from tracknetv3_tpu_torch.training import optim, steps
 
 SEQ, BG, HGT, WDT = 3, "concat", 32, 64
@@ -56,7 +60,7 @@ def tracknet_batch(kind: str, B: int = 4, seed: int = 0,
         n_seg = B // SEG
         b["seg_rgb"] = rng.integers(0, 256, (n_seg, SEG + SEQ - 1, HGT, WDT, 3), dtype=np.uint8)
         b["median"] = rng.integers(0, 256, (n_seg, HGT, WDT, 3), dtype=np.uint8)
-    elif kind == "resident":
+    elif kind in ("resident", "resident_shard"):
         b["res_idx"] = rng.integers(0, T_RES, (B, SEQ)).astype(np.int32)
         b["res_rgb_buf"] = rng.integers(0, 256, (T_RES, HGT, WDT, 3), dtype=np.uint8)
         b["res_median_buf"] = rng.integers(0, 256, (R_RES, HGT, WDT, 3)).astype(np.float32)
@@ -109,13 +113,31 @@ def _result(model, loss) -> Dict:
             **{f"stat:{k}": v.detach().numpy().copy() for k, v in model.named_buffers()}}
 
 
+def shard_resident(batch: Dict, holders: int) -> Dict:
+    """A resident batch's frame buffer as the resident loader shards it over
+    ``holders`` mesh entries: padded to a multiple of them by repeating its
+    last row, a tuple of the entries' R rows each, and ``res_shards`` with the
+    global batch's rows (the tensors on the CPU)."""
+    buf = batch["res_rgb_buf"]
+    R = -(-len(buf) // holders)
+    shards = []
+    for j in range(holders):
+        out = np.empty((R,) + buf.shape[1:], buf.dtype)
+        _rows_into([buf], j * R, (j + 1) * R, out)
+        shards.append(torch.from_numpy(out))
+    return {**tensors({k: v for k, v in batch.items() if k != "res_rgb_buf"}),
+            "res_rgb_buf": tuple(shards),
+            "res_shards": FrameShards(np.asarray(batch["res_idx"]), R, holders)}
+
+
 def run_tracknet(model, batch, shares: Optional[int] = None, alpha: float = 0.0, perm=None,
-                 lam=None) -> Dict:
+                 lam=None, shard: bool = False) -> Dict:
     """One Adam step (lr 1e-3) of ``model`` on ``batch`` (numpy), on one
-    device or over a ``shares``-entry CPU mesh; ``perm`` / ``lam`` (numpy)
-    are the global batch's."""
+    device or over a ``shares``-entry CPU mesh (``shard``: a resident
+    batch's buffer sharded over the entries, ``shard_resident``); ``perm`` /
+    ``lam`` (numpy) are the global batch's."""
     opt, schedule = optim.build_optimizer("Adam", model.parameters(), 1e-3)
-    tb = tensors(batch)
+    tb = shard_resident(batch, shares) if shard else tensors(batch)
     if shares is None:
         step = steps.make_tracknet_train_step(model, opt, BG, alpha, schedule)
         mix = () if alpha <= 0 else (torch.from_numpy(perm), torch.from_numpy(lam))

@@ -2,7 +2,9 @@
 (``tests/test_torch_dp_jax_*.py``), run as its own tests run them: on the
 conftest's virtual CPU devices, ``make_mesh(W)``, the state replicated
 (``replicate_tree``) and the batch sharded (``shard_batch``; a resident
-batch's split buffers placed replicated, as its loader places them), in
+batch's split buffers placed as its loader places them: replicated, or
+under ``frame_sharding="shard"`` the frame buffer padded to a multiple of W
+by repeating its last row and split over the mesh, ``P("data")``), in
 float64, the loss on materialised labels (``pallas_loss=False``).
 
 The step's gradient is read from the Adam state it returns: after one step
@@ -96,18 +98,32 @@ def _f64(tree):
     return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
 
 
+def place_buffer(buf: np.ndarray, mesh, shard: bool):
+    """A resident split buffer on ``mesh`` as the JAX loader places it:
+    replicated, or (``shard``) padded as its ``cat_pad`` pads it and split
+    along axis 0."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    if not shard:
+        return jax.device_put(buf, replicated(mesh))
+    extra = -len(buf) % mesh.size
+    buf = np.concatenate([buf, np.repeat(buf[-1:], extra, 0)]) if extra else buf
+    return jax.device_put(buf, NamedSharding(mesh, PartitionSpec("data")))
+
+
 def tracknet_sharded_step(variables, batch: Dict[str, np.ndarray], W: int, alpha: float,
-                          key_seed: int = 0):
+                          key_seed: int = 0, frame_sharding: str = "replicate"):
     """One Adam step (lr 1e-3) of the JAX step over ``make_mesh(W)``; returns
-    (result, perm, lam), perm / lam the global ones it drew (or None)."""
+    (result, perm, lam), perm / lam the global ones it drew (or None).
+    ``frame_sharding``: the placement of a resident batch's frame buffer."""
     key = jax.random.PRNGKey(key_seed)
     with jax.enable_x64(True):
         mesh = make_mesh(W)
         tx = jax_optim.build_optimizer("Adam", 1e-3)
         state = jax_steps.create_train_state(_f64(variables), tx)
         state = jax_steps.TrainState(*replicate_tree(tuple(state), mesh))
-        jb = {k: (jax.device_put(v, replicated(mesh)) if k.endswith("_buf") else v)
-              for k, v in batch.items()}
+        jb = {k: (place_buffer(v, mesh, frame_sharding == "shard" and k != "res_median_buf")
+                  if k.endswith("_buf") else v) for k, v in batch.items()}
         perm = lam = None
         if alpha > 0:
             x = jax_steps.assemble_tracknet_inputs({k: jnp.asarray(v) for k, v in batch.items()},

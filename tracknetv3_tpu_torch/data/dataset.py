@@ -28,8 +28,9 @@ seed and assembles only its contiguous 1/``process_count`` slice of each
 batch's rows (of each batch's segments, for segmented batches), which needs
 full batches (``drop_last``) and a batch size the process count divides.
 Frame mixup draws the plans of its own rows only, from its own generator.
-Resident frames over several processes or on a mesh are not ported yet and
-raise ``NotImplementedError``.
+Resident frames over several processes or on a mesh are placed as the JAX
+loader places them (``ResidentHeatmapLoader``: replicated, or sharded over
+the holders).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import numpy as np
 
 from ..config import HEIGHT, IMG_FORMAT, WIDTH
 from ..ops.shift_copy import check_starts
+from ..parallel.mesh import FrameShards
 from ..utils.io import (
     get_rally_dirs,
     label_csv_path,
@@ -496,8 +498,37 @@ class HeatmapBatchLoader:
             yield batch
 
 
-_SHARD_NOT_PORTED = ("resident frames sharded across mesh entries (frame_sharding='shard') are "
-                     "not ported yet (ROADMAP item 13b-iii)")
+def resolve_frame_sharding(frame_sharding: str, total: float, budget_bytes: float,
+                           holders: Optional[int]) -> str:
+    """The JAX loader's placement of a split of ``total`` frame bytes:
+    ``"single"`` on one device of one process (``holders`` None, whatever
+    was asked); over ``holders`` (a mesh's entries, or the processes of a
+    group) ``"auto"`` is ``"replicate"`` within ``budget_bytes`` and
+    ``"shard"`` above it. Raises ``MemoryError`` where a holder's part
+    exceeds the budget: a whole split unsharded, or 1/``holders`` of it."""
+    mode = "single" if holders is None else frame_sharding
+    if mode == "auto":
+        mode = "replicate" if total <= budget_bytes else "shard"
+    if mode == "shard" and total / holders > budget_bytes:
+        raise MemoryError(f"split frames ({total / 1e9:.1f} GB) exceed the resident budget even "
+                          f"sharded over {holders} devices")
+    if mode != "shard" and total > budget_bytes:
+        raise MemoryError(f"split frames ({total / 1e9:.1f} GB) exceed the resident "
+                          f"budget ({budget_bytes / 1e9:.1f} GB)")
+    return mode
+
+
+def _rows_into(parts: List[np.ndarray], lo: int, hi: int, out: np.ndarray) -> None:
+    """Rows ``[lo, hi)`` of the parts' concatenation into ``out``, the last
+    row repeated past its end (the padding of a sharded buffer)."""
+    at = 0
+    for p in parts:
+        a, b = max(lo, at), min(hi, at + len(p))
+        if a < b:
+            out[a - lo : b - lo] = p[a - at : b - at]
+        at += len(p)
+    if hi > at:
+        out[max(at, lo) - lo :] = parts[-1][-1]
 
 
 def _process_slice(batch_size: int, drop_last: bool, process_id: int,
@@ -578,21 +609,34 @@ class ResidentHeatmapLoader:
 
     and the train step gathers the windows on the device
     (``training/steps.assemble_tracknet_inputs``). Frame mixup needs the host
-    blend planner: use ``HeatmapBatchLoader``. The split's frames must fit
-    ``budget_bytes``, else ``MemoryError`` (callers fall back). ``device``
-    has no default: the caller names the card, or asks for the CPU.
+    blend planner: use ``HeatmapBatchLoader``. ``device`` has no default: the
+    caller names the card, or asks for the CPU.
 
-    Data parallel, as the JAX loader's ``frame_sharding="replicate"``: on a
-    one-process ``mesh`` every entry holds the split's buffers (an entry
-    that repeats a device shares them; ``device`` is ignored), so that
-    ``rgb_buf`` / ``diff_buf`` / ``median_buf`` and each batch's
-    ``res_*_buf`` are tuples of the entries' buffers, which
-    ``parallel.mesh.shard_train_batch`` hands out; with ``process_count`` > 1
-    each process holds them whole on its ``device`` and each batch gives
-    this process's contiguous rows. ``"auto"`` resolves as JAX's does:
-    ``"replicate"`` within the budget, else ``"shard"``, which is not ported
-    (frames sharded across entries, ROADMAP item 13b-iii) and raises
-    ``NotImplementedError``, as does an explicit ``"shard"``.
+    Data parallel, as the JAX loader: the holders are the entries of a
+    one-process ``mesh`` (``device`` is ignored) or the ``process_count`` > 1
+    processes (each on its ``device``), and ``frame_sharding`` places the
+    frames over them (``resolve_frame_sharding``; one device of one process
+    is ``"single"``, and the split must fit ``budget_bytes``, else
+    ``MemoryError``: callers fall back):
+
+    - ``"replicate"``: every holder holds the split's buffers. On a mesh
+      ``rgb_buf`` / ``diff_buf`` / ``median_buf`` and each batch's
+      ``res_*_buf`` are tuples of the entries' buffers (an entry that repeats
+      a device shares them), which ``parallel.mesh.shard_train_batch`` hands
+      out; a process holds them whole on its ``device``.
+    - ``"shard"``: the frame buffers, padded to a multiple of the N holders by
+      repeating their last row, in N parts of R rows: holder j holds rows
+      ``[j R, (j + 1) R)`` (a mesh's tuple of N shards; a process only its
+      own). ``median_buf`` stays whole on every holder. Each batch also
+      carries ``res_shards`` (``parallel.mesh.FrameShards``): the flat rows of
+      the whole global batch's windows (every process reads the whole split
+      and draws the same order), from which the step plans the exchange.
+      The padding rows are never indexed.
+    - ``"auto"``: ``"replicate"`` within the budget, else ``"shard"``.
+
+    Under several processes each batch gives this process's contiguous rows.
+    Each holder's rows go to its device through one pinned host buffer,
+    copied once.
     """
 
     def __init__(
@@ -617,8 +661,6 @@ class ResidentHeatmapLoader:
         if frame_sharding not in ("auto", "replicate", "shard"):
             raise ValueError(f"frame_sharding must be auto, replicate or shard, got "
                              f"{frame_sharding!r}")
-        if frame_sharding == "shard":
-            raise NotImplementedError(_SHARD_NOT_PORTED)
         if mesh is not None and process_count > 1:
             raise ValueError("several processes hold one mesh entry each: pass no mesh")
         self.process_id, self.process_count = _process_slice(batch_size, drop_last, process_id,
@@ -631,7 +673,8 @@ class ResidentHeatmapLoader:
         self.rng = np.random.default_rng(seed)
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.devices[0]
-        self.frame_sharding = "single" if mesh is None else "replicate"
+        holders = mesh.size if mesh is not None else (
+            self.process_count if self.process_count > 1 else None)
         need_diff = bg_mode in ("subtract", "subtract_concat")
         need_rgb = bg_mode in ("", "subtract_concat", "concat")
 
@@ -651,38 +694,57 @@ class ResidentHeatmapLoader:
                 diff_parts.append(d[..., None])
                 total += d.nbytes
             medians.append(m)
-        if total > budget_bytes:
-            if mesh is not None and frame_sharding == "auto":  # JAX would shard the frames
-                raise NotImplementedError(_SHARD_NOT_PORTED)
-            raise MemoryError(
-                f"split frames ({total / 1e9:.1f} GB) exceed the resident "
-                f"budget ({budget_bytes / 1e9:.1f} GB)"
-            )
+        self.frame_sharding = resolve_frame_sharding(frame_sharding, total, budget_bytes,
+                                                     holders)
         self._offsets = np.asarray(offsets, np.int64)
         self._n_frames = off
-        self.rgb_buf = self._put(rgb_parts) if need_rgb else None
-        self.diff_buf = self._put(diff_parts) if need_diff else None
-        self.median_buf = (self._put([np.stack(medians).astype(np.float32)])
+        self._holders = holders
+        # rows of the padded buffer each holder holds under "shard"
+        self._shard_rows = -(-off // holders) if self.frame_sharding == "shard" else off
+        shard = self.frame_sharding == "shard"
+        self.rgb_buf = self._put(rgb_parts, shard) if need_rgb else None
+        self.diff_buf = self._put(diff_parts, shard) if need_diff else None
+        self.median_buf = (self._put([np.stack(medians).astype(np.float32)], False)
                            if bg_mode == "concat" else None)
 
-    def _put(self, parts: List[np.ndarray]):
-        """The parts, concatenated along axis 0, as one tensor on ``device``,
-        or on a mesh a tuple of one per entry (one per distinct device):
-        they are written into one host buffer (pinned when a device is a
-        card) that is copied to each device once."""
+    def _put(self, parts: List[np.ndarray], shard: bool):
+        """The parts, concatenated along axis 0, on the holders: one tensor on
+        ``device``, or on a mesh a tuple with one per entry. Whole (one per
+        distinct device on a mesh), or under ``shard`` each holder's rows of
+        the padded buffer (a mesh's N shards; a process its own). Each host
+        buffer (pinned where a device is a card) is copied once."""
         import torch
 
         devices = [self.device] if self.mesh is None else list(self.mesh.devices)
-        shape = (sum(p.shape[0] for p in parts),) + parts[0].shape[1:]
         pin = any(d.type == "cuda" for d in devices)
         dtype = {"uint8": torch.uint8, "float32": torch.float32}[parts[0].dtype.name]
-        host = torch.empty(shape, dtype=dtype, pin_memory=pin)
-        np.concatenate(parts, axis=0, out=host.numpy())
+        n = sum(p.shape[0] for p in parts)
+
+        def rows(lo: int, hi: int):
+            host = torch.empty((hi - lo,) + parts[0].shape[1:], dtype=dtype, pin_memory=pin)
+            _rows_into(parts, lo, hi, host.numpy())
+            return host
+
+        R = self._shard_rows
+        if shard and self.mesh is not None:
+            return tuple(rows(j * R, (j + 1) * R).to(d) for j, d in enumerate(devices))
+        if shard:
+            return rows(self.process_id * R, (self.process_id + 1) * R).to(self.device)
+        host = rows(0, n)
         on: Dict = {}
         for d in devices:
             if d not in on:
                 on[d] = host.to(d)
         return on[self.device] if self.mesh is None else tuple(on[d] for d in devices)
+
+    def _flat_rows(self, sel: np.ndarray) -> np.ndarray:
+        """(len(sel), L) int32 flat frame rows of the index rows ``sel``; the
+        device gather does not clip, so a bad row is refused here."""
+        rally_i = self.index.data["id"][sel][:, 0, 0]
+        frame_pos = self.index.data["frame_id"][sel]  # (B, L) on-disk ids
+        flat_idx = (self._offsets[rally_i][:, None] + frame_pos).astype(np.int32)
+        check_starts(flat_idx, 1, self._n_frames)
+        return flat_idx
 
     def __len__(self):
         n = len(self.index)
@@ -699,12 +761,12 @@ class ResidentHeatmapLoader:
             sel = _rows_of(order[s : s + B], B, self.process_id, self.process_count)
             ids, coor, vis, _, shape, cxcy = _window_labels(self.index, sel)
             rally_i = ids[:, 0, 0]
-            frame_pos = self.index.data["frame_id"][sel]  # (B, L) on-disk ids
-            flat_idx = (self._offsets[rally_i][:, None] + frame_pos).astype(np.int32)
-            # the device gather does not clip: refuse a bad index here
-            check_starts(flat_idx, 1, self._n_frames)
+            flat_idx = self._flat_rows(sel)
             batch = {"id": ids, "res_idx": flat_idx, "cxcy": cxcy,
                      "coor": coor / shape[:, None, :], "vis": vis}
+            if self.frame_sharding == "shard":
+                every = self._flat_rows(order[s : s + B]) if self.process_count > 1 else flat_idx
+                batch["res_shards"] = FrameShards(every, self._shard_rows, self._holders)
             if self.rgb_buf is not None:
                 batch["res_rgb_buf"] = self.rgb_buf
             if self.diff_buf is not None:

@@ -393,6 +393,14 @@ def _check_starts_tensor(x: torch.Tensor, starts: torch.Tensor) -> None:
         raise ValueError("starts must be contiguous and on the source's device")
 
 
+def _check_out(out: torch.Tensor, shape, x: torch.Tensor) -> torch.Tensor:
+    if (tuple(out.shape) != tuple(shape) or out.dtype != x.dtype or out.device != x.device
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {x.dtype} tensor of shape {tuple(shape)} "
+                         f"on {x.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    return out
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -407,22 +415,28 @@ def _raise_on(err: int, what: str) -> None:
 
 def window_copy(x: torch.Tensor, starts: torch.Tensor, rows: int, col0: int = 0,
                 cols: Optional[int] = None, ch0: int = 0, chs: Optional[int] = None,
-                staged: bool = False) -> torch.Tensor:
+                staged: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel ``window_copy``: ``x`` (R, ..., W, C), ``starts`` (n,) int32 or
     int64 on ``x``'s device -> (n, rows, ..., cols, chs) with
     ``out[i, t] = x[starts[i] + t, ..., col0:col0 + cols, ch0:ch0 + chs]``.
     ``staged`` slices a shared-memory copy of each row instead of the global
-    load (a pixel must fit the 32 KB tile). On the card the starts are not
-    read back: the caller has checked them (``check_starts``)."""
+    load (a pixel must fit the 32 KB tile). ``out``, where given, is written
+    and returned: a contiguous tensor of that shape and ``x``'s dtype on its
+    device (a slice of a larger buffer). On the card the starts are not read
+    back: the caller has checked them (``check_starts``)."""
     _check_starts_tensor(x, starts)
     if x.device.type == "cpu":
         check_starts(starts, rows, x.shape[0])
-        return window_copy_plain(x, starts, rows, col0, cols, ch0, chs)
+        got = window_copy_plain(x, starts, rows, col0, cols, ch0, chs)
+        return got if out is None else _check_out(out, got.shape, x).copy_(got)
     global LAST_PLAN
     check_kernel_input(x)
     n = starts.shape[0]
     g = window_geometry(tuple(x.shape), x.element_size(), n, rows, col0, cols, ch0, chs)
-    out = torch.empty(g.out_shape, dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty(g.out_shape, dtype=x.dtype, device=x.device)
+    else:
+        _check_out(out, g.out_shape, x)
     if out.numel() == 0:
         return out
     plan, arr = _plan_array(g, n, rows, staged, x.data_ptr() % 128, out.data_ptr() % 128,

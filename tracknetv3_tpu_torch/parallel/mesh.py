@@ -26,6 +26,21 @@ share on its entry with that entry's copy of the parameters
 and synchronises every BatchNorm across the shares through
 ``mesh_reducer``. Several processes (``parallel/processes.py``) each hold a
 mesh of one entry.
+
+Resident frames sharded over N holders (the JAX loader's
+``frame_sharding="shard"``: the mesh's entries, or the processes of a group)
+hold rows ``[j R, (j + 1) R)`` of the split's buffer each, so that a share's
+windows need rows that other holders hold. A batch then carries the flat
+frame indices of the whole global batch (``FrameShards``), and the exchange
+is planned on the host (``FrameShards.exchange``): for each holder j and
+receiver i the unique local rows of j's shard that i's windows need, and
+for each receiver the order that puts the rows it receives back in window
+order. Both gathers run on the ``window_copy`` kernel (P8): the holder's,
+from its shard, and the receiver's reorder. The transport between them is,
+on a one-process mesh, the copy between the two entries' devices
+(``mesh_exchange``: the holder gathers straight into the receiver's buffer
+where they share a device, so nothing is copied there), and over a group
+one all-to-all (``processes.DeviceGroup.exchange``).
 """
 
 from __future__ import annotations
@@ -36,6 +51,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, U
 
 import numpy as np
 import torch
+
+from ..ops.shift_copy import window_copy
 
 DeviceLike = Union[str, torch.device]
 
@@ -179,17 +196,127 @@ def shard_train_batch(batch: dict, mesh: Mesh) -> List[dict]:
     axis split in ``mesh.size`` consecutive shares (a segmented batch's by
     segments, which keeps each segment's windows in one share), except a
     resident loader's split buffers (``res_*_buf``: one tensor, or a tuple
-    with one per entry), which every share takes whole."""
+    with one per entry, whose i-th entry share i takes: the whole split, or
+    under ``"shard"`` its entry's shard) and the exchange plan of sharded
+    frames (``res_shards``), which every share takes whole."""
     shares: List[dict] = [{} for _ in mesh.devices]
     for k, v in batch.items():
         for i, dev in enumerate(mesh.devices):
-            if k.startswith("res_") and k.endswith("_buf"):
+            if k == "res_shards":
+                shares[i][k] = v
+            elif k.startswith("res_") and k.endswith("_buf"):
                 shares[i][k] = (v[i] if isinstance(v, (tuple, list)) else v).to(dev)
             else:
                 part = split_batch(v, mesh.size)[i]
                 shares[i][k] = (part if isinstance(part, np.ndarray)
                                 else part.to(dev, non_blocking=True))
     return shares
+
+
+class Exchange(NamedTuple):
+    """The host plan of one exchange of sharded rows: ``send[j][i]``, the
+    rows of holder j's shard (local indices, ascending, each once) that
+    receiver i takes, in that order; ``order[i]``, for each frame of
+    receiver i's windows in window order, its row among the rows i receives
+    (holder 0's first, then holder 1's, ...). int32 arrays."""
+
+    send: Tuple[Tuple[np.ndarray, ...], ...]
+    order: Tuple[np.ndarray, ...]
+
+    def counts(self, holder: int) -> List[int]:
+        """The rows ``holder`` sends to each receiver."""
+        return [len(r) for r in self.send[holder]]
+
+    def received(self, receiver: int) -> List[int]:
+        """The rows ``receiver`` gets from each holder."""
+        return [len(s[receiver]) for s in self.send]
+
+
+def plan_exchange(idx: np.ndarray, rows: int, holders: int, receivers: int) -> Exchange:
+    """The exchange that gives each of ``receivers`` equal consecutive
+    shares of the windows ``idx`` (B, L) (flat rows of a buffer of which
+    holder j holds rows ``[j * rows, (j + 1) * rows)``) its frames."""
+    B = idx.shape[0]
+    if B % receivers:
+        raise ValueError(f"batch of {B} not divisible by {receivers} receivers")
+    send: List[List[np.ndarray]] = [[] for _ in range(holders)]
+    order = []
+    for part in np.split(np.asarray(idx, np.int64).reshape(B, -1), receivers):
+        need, where = np.unique(part.reshape(-1), return_inverse=True)
+        if len(need) and (need[0] < 0 or need[-1] >= holders * rows):
+            raise IndexError(f"frame rows in [{need[0]}, {need[-1]}] leave the {holders} x "
+                             f"{rows} rows of the shards")
+        cuts = np.searchsorted(need, np.arange(holders + 1) * rows)
+        for j in range(holders):
+            send[j].append((need[cuts[j]:cuts[j + 1]] - j * rows).astype(np.int32))
+        order.append(where.reshape(-1).astype(np.int32))
+    return Exchange(tuple(tuple(s) for s in send), tuple(order))
+
+
+class FrameShards(NamedTuple):
+    """What a batch of resident frames sharded over ``holders`` carries
+    (``res_shards``): ``idx`` (B, L), the flat frame rows of the whole
+    global batch's windows, and ``rows``, the rows of the (padded) buffer
+    that each holder holds."""
+
+    idx: np.ndarray
+    rows: int
+    holders: int
+
+    def exchange(self, receivers: int) -> Exchange:
+        """The plan that gives each of ``receivers`` equal shares of the
+        global batch its windows' frames (``plan_exchange``)."""
+        return plan_exchange(self.idx, self.rows, self.holders, receivers)
+
+
+def upload_indices(arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
+    """The int32 ``arrays`` as contiguous tensors on ``device``, through one
+    host-to-device copy (from pinned memory to a card, ``non_blocking``)."""
+    if not arrays:
+        return []
+    flat = torch.from_numpy(np.concatenate([np.asarray(a, np.int32) for a in arrays]))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    out, at = [], 0
+    for a in arrays:
+        out.append(flat[at:at + len(a)])
+        at += len(a)
+    return out
+
+
+def mesh_exchange(shards: Sequence[torch.Tensor], ex: Exchange,
+                  devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """Each receiver's frames in window order on ``devices[i]`` (its
+    ``len(ex.order[i])`` rows of a shard's row shape), from the ``shards``
+    of a one-process mesh: holder j gathers the rows receiver i takes with
+    ``window_copy`` on its shard's device, straight into i's buffer where
+    the two share a device, else into its own, which is then copied to i's
+    device (between two cards a peer copy, ordered after the gather and
+    before the reorder on both cards' current streams); receiver i then puts
+    its rows in window order with one more ``window_copy``."""
+    frame = tuple(shards[0].shape[1:])
+    index: dict = {}
+    for dev in dict.fromkeys([s.device for s in shards] + list(devices)):
+        want = [(("send", j, i), ex.send[j][i]) for j, s in enumerate(shards) if s.device == dev
+                for i in range(len(devices))]
+        want += [(("order", i), ex.order[i]) for i, d in enumerate(devices) if d == dev]
+        index.update(zip([k for k, _ in want], upload_indices([a for _, a in want], dev)))
+    out = []
+    for i, dev in enumerate(devices):
+        got = torch.empty((sum(ex.received(i)),) + frame, dtype=shards[0].dtype, device=dev)
+        at = 0
+        for j, shard in enumerate(shards):
+            rows = index["send", j, i]
+            n = len(rows)
+            if n == 0:
+                continue
+            if shard.device == dev:
+                window_copy(shard, rows, 1, out=got[at:at + n].unsqueeze(1))
+            else:
+                got[at:at + n].copy_(window_copy(shard, rows, 1)[:, 0])
+            at += n
+        out.append(window_copy(got, index["order", i], 1)[:, 0])
+    return out
 
 
 def entry_params(module: torch.nn.Module, mesh: Mesh) -> List[dict]:

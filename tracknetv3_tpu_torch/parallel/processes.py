@@ -2,7 +2,8 @@
 paths of the port read it: rally evaluation (``RallyTestEngine.test``) and
 the validation loops (``evaluation/loops.py``) merge their results on the
 host over ``host_group()``; data-parallel training reduces its BatchNorm
-sums and gradients and gathers its mixup partners over ``device_group()``:
+sums and gradients, gathers its mixup partners and exchanges the rows of
+sharded resident frames over ``device_group()``:
 NCCL where the default group is NCCL and each rank has its own card, else
 gloo on host copies (ranks that share a card or run on the CPU: NCCL runs
 no two ranks on one card). ``init_from_env`` joins the group that
@@ -14,7 +15,9 @@ from __future__ import annotations
 import os
 from typing import Any, List, NamedTuple, Tuple
 
-from .mesh import Reducer
+import numpy as np
+
+from .mesh import Exchange, Reducer, upload_indices
 
 _GLOO = None  # (default process group, its gloo twin): host_group
 
@@ -98,6 +101,33 @@ class DeviceGroup(NamedTuple):
         parts: List = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts).to(t.device)
+
+    def all_to_all(self, t, send_counts, recv_counts):
+        """``t``'s rows (axis 0) sent in rank order, ``send_counts[r]`` to rank
+        r; returns the rows every rank sent this one, in rank order
+        (``recv_counts[r]`` from rank r), on ``t``'s device."""
+        import torch
+        import torch.distributed as dist
+
+        src = (t.cpu() if self.host else t).contiguous()
+        out = torch.empty((sum(recv_counts),) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.all_to_all_single(out, src, list(recv_counts), list(send_counts), group=self.group)
+        return out.to(t.device)
+
+    def exchange(self, shard, ex: Exchange):
+        """This rank's frames in window order on ``shard``'s device, from the
+        rank's ``shard`` of sharded resident frames (``mesh.Exchange``, one
+        receiver and one holder a rank): one ``window_copy`` gathers the rows
+        every rank takes from this one, one all-to-all moves them, and one
+        more ``window_copy`` puts the rows received in window order."""
+        from ..ops.shift_copy import window_copy
+
+        mine = ex.send[self.rank]
+        rows, order = upload_indices([np.concatenate(mine), ex.order[self.rank]], shard.device)
+        sent = window_copy(shard, rows, 1)[:, 0]
+        got = self.all_to_all(sent, ex.counts(self.rank), ex.received(self.rank))
+        return window_copy(got, order, 1)[:, 0]
 
     def reducer(self) -> Reducer:
         """The BatchNorm sums of this process's one share summed over the ranks."""

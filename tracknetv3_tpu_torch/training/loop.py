@@ -15,8 +15,15 @@ of the next batch overlaps the current step. ``segment_windows`` > 1 ships
 each segment's unique frames once and ``frame_alpha`` > 0 the frame-mixup
 blend plan (``HeatmapBatchLoader``); ``resident_frames`` puts the train and
 val splits' frames on the device once and ships indices
-(``ResidentHeatmapLoader``; frame mixup, or a split over the loader's
-budget, falls back to the host loader).
+(``ResidentHeatmapLoader``; frame mixup, or a train split over the loader's
+budget on one device, falls back to the host loader). On a mesh or over
+processes the train split is placed as the JAX loop places it,
+``frame_sharding="auto"``: replicated on every card within the budget, else
+sharded over them (each card 1/N of the frames, the windows' rows exchanged
+in the step); on a mesh the val split too, whose batches the eval step
+gathers on the first entry. Over processes each rank validates on its own
+device, so there the val split stays whole and goes to the host loader
+above the budget.
 
 Observability is the JAX loop's: ``write_to_tb`` logs the losses and the
 val metrics after each epoch to ``save_dir/logs`` (``scalars.jsonl``,
@@ -451,9 +458,10 @@ def _tracknet_loaders(cfg: TrainConfig, train_index, val_index, data_dir: str,
                       process_id: int = 0, process_count: int = 1):
     """TrackNet's train and val loaders: resident frames where asked and
     possible, else the host loader (segments, frame mixup). The train
-    loader gives this process its rows of each global batch (replicated on a
-    ``mesh``'s entries where resident); the val loader full batches on
-    ``dev``."""
+    loader gives this process its rows of each global batch (on a ``mesh``
+    or over processes replicated or sharded, as ``frame_sharding="auto"``
+    resolves); the val loader full batches, on ``dev`` or placed on the
+    ``mesh`` alike."""
     train_loader = val_loader = None
     if cfg.resident_frames and cfg.frame_alpha <= 0:
         try:
@@ -462,13 +470,24 @@ def _tracknet_loaders(cfg: TrainConfig, train_index, val_index, data_dir: str,
                 seed=cfg.seed, data_dir=data_dir, mesh=mesh, process_id=process_id,
                 process_count=process_count, device=dev,
             )
-            val_loader = ResidentHeatmapLoader(
-                val_index, cfg.bg_mode, cfg.batch_size, data_dir=data_dir, device=dev
-            )
-            verbose_print("Resident frames: split staged to device memory")
         except MemoryError as e:
             verbose_print(f"resident_frames fallback: {e}")
-            train_loader = val_loader = None
+        if train_loader is not None:
+            try:
+                val_loader = ResidentHeatmapLoader(
+                    val_index, cfg.bg_mode, cfg.batch_size, data_dir=data_dir, mesh=mesh,
+                    device=dev)
+            except MemoryError as e:
+                if process_count == 1:  # on one device or a mesh both go to the host
+                    verbose_print(f"resident_frames fallback: {e}")
+                    train_loader = None
+                else:
+                    verbose_print(f"resident_frames: the val split stays on the host: {e}")
+        if train_loader is not None:
+            holders = mesh.size if mesh is not None else process_count
+            verbose_print("Resident frames: split staged to device memory" + (
+                f" ({train_loader.frame_sharding} over {holders} devices)"
+                if holders > 1 else ""))
     if cfg.resident_frames and cfg.frame_alpha > 0:
         verbose_print("resident_frames fallback: frame mixup plans its blends on the host loader")
     if train_loader is None:

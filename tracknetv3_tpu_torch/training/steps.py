@@ -49,7 +49,14 @@ InpaintNet's global-norm clip sees the global gradient. The step's random
 draws are the global batch's (``perm`` / ``lam``, the mask); sample
 mixup's partner rows may lie on other shares, so each share takes them
 from the global batch's inputs and labels: the shares' concatenated on a
-mesh, all-gathered over a group. ``make_tracknet_train_step`` and
+mesh, all-gathered over a group. Resident frames sharded over the
+holders (``frame_sharding="shard"``: a batch with ``res_shards``) reach each
+share through the exchange of ``parallel/mesh.py`` before the assembly: the
+holders' ``window_copy`` gathers, the copy between entries on a mesh or one
+all-to-all over a group, the receiver's reorder; the uint8 frames a share
+assembles are those of the replicated buffers, bit for bit. The eval step
+takes a sharded batch's frames to its one device the same way.
+``make_tracknet_train_step`` and
 ``make_inpaintnet_train_step`` are the same steps over one share on the
 model's device, where nothing is gathered or reduced and every BatchNorm
 is the unsplit op.
@@ -74,7 +81,7 @@ from ..ops.wbce_disk import (
     pack_plain_targets,
     wbce_disk_loss,
 )
-from ..parallel.mesh import Mesh, entry_params, mesh_reducer
+from ..parallel.mesh import Mesh, entry_params, mesh_exchange, mesh_reducer
 from ..parallel.processes import DeviceGroup
 
 Batch = Dict[str, torch.Tensor]
@@ -111,22 +118,42 @@ def _blend_slots(frames: torch.Tensor, pair: torch.Tensor, pix_w: torch.Tensor) 
     return fa * w + fb * (1.0 - w)
 
 
+_FRAME_BUFFERS = (("res_rgb_buf", "rgb"), ("res_diff_buf", "diff"))
+
+
+def _on(buf, device: torch.device) -> torch.Tensor:
+    """A resident buffer on ``device``: the tensor, or of a mesh's tuple of
+    replicated buffers the one there."""
+    if isinstance(buf, (tuple, list)):
+        return next(b for b in buf if b.device == device)
+    return buf
+
+
 def assemble_tracknet_inputs(batch: Batch, bg_mode: str) -> torch.Tensor:
     """Model input x (B, H, W, C) float32 in [0, 1] from a device batch:
     a plain one (``rgb`` / ``diff`` / ``median``), a segmented one
-    (``seg_rgb`` / ``seg_diff``), one of device-resident frames (``res_idx``)
-    or a frame-mixup one (``mix_pair``)."""
+    (``seg_rgb`` / ``seg_diff``), one of device-resident frames (``res_idx``;
+    replicated buffers, or frames sharded over a mesh's entries, which
+    ``res_shards`` brings to ``res_idx``'s device) or a frame-mixup one
+    (``mix_pair``)."""
     rgb, diff, median = (batch.get(k) for k in ("rgb", "diff", "median"))
 
     if "res_idx" in batch:
         # the batch carries (B, L) flat frame indices into the split's buffers
         idx = batch["res_idx"]
-        if "res_rgb_buf" in batch:
-            rgb = _take_rows(batch["res_rgb_buf"], idx)
-        if "res_diff_buf" in batch:
-            diff = _take_rows(batch["res_diff_buf"], idx)
+        frames = {}
+        for key, name in _FRAME_BUFFERS:
+            if key not in batch:
+                continue
+            if "res_shards" in batch:
+                (got,) = mesh_exchange(batch[key], batch["res_shards"].exchange(1), [idx.device])
+                frames[name] = got.reshape(tuple(idx.shape) + tuple(got.shape[1:]))
+            else:
+                frames[name] = _take_rows(_on(batch[key], idx.device), idx)
+        rgb, diff = frames.get("rgb", rgb), frames.get("diff", diff)
         if "res_median_buf" in batch:
-            median = _take_rows(batch["res_median_buf"], batch["res_median_idx"])
+            median = _take_rows(_on(batch["res_median_buf"], idx.device),
+                                batch["res_median_idx"])
 
     if "seg_rgb" in batch or "seg_diff" in batch:
         L = batch["cxcy"].shape[1]
@@ -244,6 +271,30 @@ class _Shares:
         first = torch.cat([t.to(self.mesh.devices[0]) for t in ts])
         return [first.to(dev) for dev in self.mesh.devices]
 
+    def frames(self, shares: Sequence[Batch]) -> Sequence[Batch]:
+        """The shares of a batch of sharded resident frames (``res_shards``)
+        with each share's windows' frames exchanged into ``rgb`` / ``diff``
+        (B_i, L, H, W, C) on its device, in place of the shards; any other
+        batch's shares as they are."""
+        if "res_shards" not in shares[0]:
+            return shares
+        fs = shares[0]["res_shards"]
+        if fs.holders != self.size:
+            raise ValueError(f"frames sharded over {fs.holders} holders reach {self.size} shares")
+        ex = fs.exchange(self.size)
+        out = [{k: v for k, v in b.items() if k != "res_shards"} for b in shares]
+        for key, name in _FRAME_BUFFERS:
+            if key not in shares[0]:
+                continue
+            if self.group is not None:
+                got = [self.group.exchange(shares[0][key], ex)]
+            else:
+                got = mesh_exchange([b[key] for b in shares], ex, self.mesh.devices)
+            for b, g in zip(out, got):
+                del b[key]
+                b[name] = g.reshape(tuple(b["res_idx"].shape) + tuple(g.shape[1:]))
+        return out
+
     def params(self, model: torch.nn.Module) -> List[Dict[str, torch.Tensor]]:
         return entry_params(model, self.mesh)
 
@@ -300,7 +351,7 @@ def make_tracknet_shares_train_step(
     def step(shares: Sequence[Batch], step_idx: int, perm=None, lam=None) -> torch.Tensor:
         model.train()
         frame_mix = "mix_pair" in shares[0]
-        xs = [assemble_tracknet_inputs(b, bg_mode) for b in shares]
+        xs = [assemble_tracknet_inputs(b, bg_mode) for b in sh.frames(shares)]
         rows = sh.rows(xs[0].shape[0])
         perms = lams = None
         if alpha > 0:
