@@ -293,11 +293,16 @@ exits nonzero.
    TrackNet (batch 10 in ``SHARES`` shares of 5, sample mixup whose partner
    rows lie on the other share). split_vs_plain: the four split BatchNorm
    entry points (``bn_stats_sums``, ``bn_stats_finalize``,
-   ``bn_relu_bwd_sums``, ``bn_relu_bwd_finalize``) against their plain
+   ``bn_relu_bwd_sums``, ``bn_relu_bwd_apply_split``) against their plain
    versions at the step's four shapes at a share of 5, bf16 and float32,
-   within ``SPLIT_BOUNDS``; bf16 times summed over one share's 17 layers
-   beside the bound. mesh_step_parity: one float32 Adam step (TF32 off,
-   deterministic cuDNN) over a mesh that stands the card in twice (and over
+   within ``SPLIT_BOUNDS``; the forward's sums bit-equal over
+   ``SPLIT_REPEATS`` launches and to the numpy model of the kernel's order
+   (``bn_stats_sums_in_order``), the split apply's dy, dgamma and dbeta
+   bit-equal to the unsplit apply kernel on the plain finalize's
+   coefficients; the device launches a call (torch.profiler); bf16 times
+   summed over one share's 17 layers beside the bound. mesh_step_parity:
+   one float32 Adam step (TF32 off, deterministic cuDNN) over a mesh that
+   stands the card in twice (and over
    two cards where there are two) against the single step on the global
    batch: loss, every gradient (the worst one, and all as one vector), the
    running statistics and the parameters within ``MESH_STEP_BOUNDS``, which
@@ -311,11 +316,11 @@ exits nonzero.
    convolutions), which takes cuDNN's choices for a half batch out of the
    comparison. mesh_train: one epoch of the train
    CLI with ``--num_devices 2`` (the loop's ``make_mesh`` standing the card
-   in twice where it is alone): per train step and layer 2 launches of each
-   split sums kernel, of ``bn_relu_bwd_finalize``, of the normalise and of
-   the apply, 1 of ``bn_stats_finalize``, none of the unsplit reductions, K1
-   / K2 once a share. mesh_step_time: bf16 ms per step (median of 10 after
-   2) single and over each mesh, peak memory per card, the ms a step spends
+   in twice where it is alone): per train step and layer 2 launches of the
+   forward's sums, of the backward's sums, of the split apply and of the
+   normalise, 1 of ``bn_stats_finalize``, none of the unsplit reductions or
+   apply, K1 / K2 once a share. mesh_step_time: bf16 ms per step (median of
+   10 after 2) single and over each mesh, peak memory per card, the ms a step spends
    in the 34 cross-share sums (CUDA events) and in the split kernels.
    mesh_procs_train: two processes on cuda:0 over a gloo group (one share
    each, ``DeviceGroup`` on host copies) and, where there are two cards, two
@@ -372,12 +377,17 @@ and 14 (from a TrackNet made from a seed), ``--serve_paths_only`` phases 1,
 and 17, ``--mesh_only`` phases 1, 2 and 18, ``--convert_only`` phases 1, 2
 and 19, ``--mesh_train_only`` phases 1, 2 and 20, ``--mesh_shard_only``
 phases 1, 2 and 21 (starting its own pairs of training processes, which run
-only their sharded steps); none prints a kernels line.
+only their sharded steps), ``--split_bn_only`` phases 1, 2 and phase 20's
+split_vs_plain; none prints a kernels line.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
 tree's and times the two in turns (old, new, new, old), with the host time
-of a call of each forward or copy wrapper beside.
+of a call of each forward or copy wrapper beside. With ``--split_bn_only``
+it builds that tree's BatchNorm kernels, holds the split apply bit for bit
+against its finalize + apply, times its forward sums and that pair in turns
+with this tree's sums and split apply, and traces its sums' two launches
+apart at each shape.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -545,9 +555,9 @@ def phase_build(baseline=None):
     counts = sass["shift_copy"]
     if isinstance(counts, dict) and not all(counts[op] > 0 for op in BULK_OPCODES):
         fail("build", f"shift_copy: no bulk-copy or mbarrier instruction in its SASS: {counts}")
-    if baseline is not None:  # the parent tree's copy and loss kernels, built before timing
-        for mod in baseline:
-            mod._lib()
+    if baseline is not None:  # the other tree's kernels, built before timing, all at once
+        with ThreadPoolExecutor(len(baseline)) as pool:
+            list(pool.map(lambda m: m._lib(), baseline))
 
 
 # SASS of the 1-D bulk copies (UBLKCP: cp.async.bulk, both directions) and of
@@ -796,7 +806,7 @@ def phase_kernels(baseline=None):
     bwd = lambda i: wd.wbce_disk_backward(zs[i % 3], centers, wf, g)  # noqa: E731
     earlier = {}
     if baseline is not None:  # the parent's kernels, in turns: old, new, new, old
-        _, old_wd = baseline
+        old_wd = baseline[1]
         old = {"fwd": lambda i: old_wd.wbce_disk_forward(zs[i % 3], centers, wf),
                "bwd": lambda i: old_wd.wbce_disk_backward(zs[i % 3], centers, wf, g)}
         new = {"fwd": fwd, "bwd": bwd}
@@ -5108,28 +5118,30 @@ def phase_convert(tmp: str, card: str) -> dict:
 
 SHARES = 2  # the data-parallel phase's shares of the README batch: 2 of 5
 SPLIT_KERNELS = ("bn_stats_sums", "bn_stats_finalize", "bn_relu_bwd_sums",
-                 "bn_relu_bwd_finalize")
+                 "bn_relu_bwd_apply_split")
 SPLIT_REPLACES = {"bn_stats_sums": "tools/probe_bn_pool.py:128",
                   "bn_stats_finalize": "tools/probe_bn_pool.py:128",
                   "bn_relu_bwd_sums": "tracknetv3_tpu/models/fused_forward.py:285",
-                  "bn_relu_bwd_finalize": "tracknetv3_tpu/models/fused_forward.py:285"}
-# per layer of one share: activation elements read, float32 C-vectors read or
-# written, float64 (2, C) sums read or written
+                  "bn_relu_bwd_apply_split": "tracknetv3_tpu/models/fused_forward.py:285"}
+# per layer of one share: activation elements read or written, float32
+# C-vectors read or written, float64 (2, C) sums read or written
 SPLIT_TRAFFIC = {"bn_stats_sums": (1, 0, 1), "bn_stats_finalize": (0, 9, 1),
-                 "bn_relu_bwd_sums": (2, 3, 1), "bn_relu_bwd_finalize": (0, 6, 2)}
-# float32 / float64 operations per activation element (the sums) or per
-# channel (the finalizes), counted from csrc/batchnorm.cu
+                 "bn_relu_bwd_sums": (2, 3, 1), "bn_relu_bwd_apply_split": (3, 7, 2)}
+# float32 / float64 operations per activation element and per channel,
+# counted from csrc/batchnorm.cu (the split apply: the apply's per element,
+# the old finalize's per channel)
 SPLIT_OPS = {"bn_stats_sums": (3, 0), "bn_stats_finalize": (0, 16),
-             "bn_relu_bwd_sums": (10, 0), "bn_relu_bwd_finalize": (0, 12)}
+             "bn_relu_bwd_sums": (10, 0), "bn_relu_bwd_apply_split": (11, 12)}
 # launches of each kernel per layer and train step over SHARES shares: the
-# sums, the backward's finalize and the normalise per share, the forward's
-# finalize once
+# sums and the split apply per share, the forward's finalize once
 SPLIT_PER_LAYER = {"bn_stats_sums": SHARES, "bn_stats_finalize": 1, "bn_relu_bwd_sums": SHARES,
-                   "bn_relu_bwd_finalize": SHARES}
+                   "bn_relu_bwd_apply_split": SHARES}
 # a split kernel against its plain version on equal inputs, relative L2: the
-# sums (float64, added in another order), the finalizes (the same float32
-# roundings)
+# sums (float64, added in another order), the finalize and the split apply
+# (the same float32 roundings)
 SPLIT_BOUNDS = {"sums": 1e-12, "finalize": 1e-6}
+# launches of bn_stats_sums on one input whose bits must all be equal
+SPLIT_REPEATS = 20
 # the float32 (TF32 off, deterministic cuDNN) step over SHARES shares against
 # the single step on the global batch: loss relative error, the worst
 # gradient's relative L2, all gradients as one vector (relative L2), the
@@ -5173,19 +5185,53 @@ finally:
 """
 
 
-def _split_vs_plain():
+def _device_kernels(fn, n: int = 10) -> dict:
+    """{kernel name: [launches a call, device us a launch]} of ``n`` calls of
+    ``fn`` under torch.profiler (CUPTI), after a warm-up call."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.count:
+            out[evt.key[:80]] = [evt.count / n, evt.self_device_time_total / evt.count]
+    return out
+
+
+def _rows_of(y):
+    """The (rows, C) float32 numpy rows of an NCHW view of channels_last memory."""
+    return y.permute(0, 2, 3, 1).reshape(-1, y.shape[1]).float().cpu().numpy()
+
+
+def _split_vs_plain(old_bn=None):
     """The split BatchNorm entry points against their plain versions at the
     train step's four shapes at a share of B / SHARES (bf16, as training
-    runs them, and float32); times in bf16, summed over one share's 17
-    layers."""
+    runs them, and float32) within ``SPLIT_BOUNDS``. The forward's sums also
+    equal bit for bit over SPLIT_REPEATS launches and to the numpy model of
+    the kernel's order; the split apply's dy, dgamma and dbeta bit-equal to
+    the unsplit apply kernel on the plain finalize's coefficients and, with
+    ``old_bn`` (another tree's batchnorm module), to its finalize + apply
+    kernels. Times in bf16, summed over one share's 17 layers; with
+    ``old_bn`` the sums and the split apply timed in turns with the old
+    sums and the old pair (old, new, new, old), and the old sums' two
+    launches apart (torch.profiler)."""
     import torch
 
     from tracknetv3_tpu_torch.ops import batchnorm as bn
 
     dev = torch.device(DEVICE)
     rows, errs = [], {"sums": 0.0, "finalize": 0.0}
+    unequal = dict.fromkeys(("sums_repeats", "sums_vs_model", "apply_split_vs_unsplit_apply")
+                            + (("apply_split_vs_old_pair",) if old_bn else ()), 0)
     times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()}
              for k in SPLIT_KERNELS}
+    turns = {k: [0.0] * 4 for k in ("bn_stats_sums", "bn_relu_bwd_apply_split")}
+    old_split = {}
     for i, (shape, layers) in enumerate(BN_SHAPES.items()):
         shape = (B // SHARES,) + shape[1:]
         n = math.prod(shape[:-1])
@@ -5197,17 +5243,41 @@ def _split_vs_plain():
             st = bn.bn_stats_finalize_plain(sums, SHARES * n, gamma, rm2, rv2)
             gsums = bn.bn_relu_bwd_sums_plain(g, y, st, beta)
             total = gsums * SHARES  # as if every share had this one's sums
+            ksums = [bn.bn_stats_sums(y) for _ in range(SPLIT_REPEATS)]
+            plan = bn.sums_plan(n, C, y.element_size(), bn._max_clusters(y.device.index, dtype))
+            model = torch.from_numpy(bn.bn_stats_sums_in_order(_rows_of(y), plan))
+            fused = bn.bn_relu_bwd_apply_split(g, y, st, beta, gsums, total, SHARES * n)
+            dg_p, db_p, coef_p = bn.bn_relu_bwd_finalize_plain(gsums, total, SHARES * n, st,
+                                                                True)
+            pairs = {"apply_split_vs_unsplit_apply": (
+                bn.bn_relu_bwd_apply(g, y, st, beta, coef_p), dg_p, db_p)}
+            if old_bn is not None:
+                dg_o, db_o, coef_o = old_bn.bn_relu_bwd_finalize(gsums, total, SHARES * n, st,
+                                                                 True)
+                pairs["apply_split_vs_old_pair"] = (
+                    old_bn.bn_relu_bwd_apply(g, y, st, beta, coef_o), dg_o, db_o)
+            row = {"shape_NHWC": list(shape), "dtype": str(dtype).split(".")[-1],
+                   "clusters": plan.clusters, "rows_per_block": plan.rows_per_block}
+            row["sums_repeats_unequal"] = sum(int(not torch.equal(t, ksums[0]))
+                                              for t in ksums[1:])
+            row["sums_vs_model_unequal"] = int(not torch.equal(ksums[0].cpu(), model))
+            for name, want in pairs.items():
+                row[f"{name}_unequal"] = sum(int((a != b).sum()) for a, b in zip(fused, want))
+            for name in unequal:
+                unequal[name] += row[f"{name}_unequal"]
+            if old_bn is not None:
+                row["old_sums_rel_l2"] = max(_rel_l2(ksums[0][j], old_bn.bn_stats_sums(y)[j])
+                                             for j in range(2))
+            flat = lambda ts: torch.cat([t.double().flatten() for t in ts])  # noqa: E731
             got = {
-                "bn_stats_sums": (bn.bn_stats_sums(y), sums),
+                "bn_stats_sums": (ksums[0], sums),
                 "bn_stats_finalize": (torch.cat([bn.bn_stats_finalize(
                     sums, SHARES * n, gamma, rm, rv).flatten(), rm, rv]),
                     torch.cat([st.flatten(), rm2, rv2])),
                 "bn_relu_bwd_sums": (bn.bn_relu_bwd_sums(g, y, st, beta), gsums),
-                "bn_relu_bwd_finalize": tuple(torch.cat([t.flatten() for t in f]) for f in (
-                    bn.bn_relu_bwd_finalize(gsums, total, SHARES * n, st, True),
-                    bn.bn_relu_bwd_finalize_plain(gsums, total, SHARES * n, st, True))),
+                "bn_relu_bwd_apply_split": (flat(fused), flat(bn.bn_relu_bwd_apply_split_plain(
+                    g, y, st, beta, gsums, total, SHARES * n))),
             }
-            row = {"shape_NHWC": list(shape), "dtype": str(dtype).split(".")[-1]}
             for k, (a, b) in got.items():
                 kind = "sums" if k.endswith("sums") else "finalize"
                 # each row of the sums apart: Σy² dwarfs Σy
@@ -5226,9 +5296,9 @@ def _split_vs_plain():
                         bn.bn_stats_finalize, bn.bn_stats_finalize_plain),
                     "bn_relu_bwd_sums": (lambda f: lambda j: f(g, y, st_k, beta),
                                          bn.bn_relu_bwd_sums, bn.bn_relu_bwd_sums_plain),
-                    "bn_relu_bwd_finalize": (
-                        lambda f: lambda j: f(gsums, total, SHARES * n, st_k, True),
-                        bn.bn_relu_bwd_finalize, bn.bn_relu_bwd_finalize_plain),
+                    "bn_relu_bwd_apply_split": (
+                        lambda f: lambda j: f(g, y, st_k, beta, gsums, total, SHARES * n),
+                        bn.bn_relu_bwd_apply_split, bn.bn_relu_bwd_apply_split_plain),
                 }
                 for k, (call, kern, plain) in calls.items():
                     elems, vecs, sums2 = SPLIT_TRAFFIC[k]
@@ -5243,19 +5313,45 @@ def _split_vs_plain():
                     times[k]["plain_ms"] += layers * tp
                     times[k]["bound_ms"] += layers * bms
                     times[k]["bound_by"].add(by)
+                new = {k: calls[k][0](calls[k][1]) for k in turns}
+                if i == 0 or old_bn is not None:  # device launches a call, traced
+                    row["device_launches_a_call"] = {k: _device_kernels(f)
+                                                     for k, f in new.items()}
+                if old_bn is not None:
+                    def old_pair(j):
+                        coef = old_bn.bn_relu_bwd_finalize(gsums, total, SHARES * n, st_k,
+                                                           True)[2]
+                        return old_bn.bn_relu_bwd_apply(g, y, st_k, beta, coef)
+
+                    old = {"bn_stats_sums": lambda j: old_bn.bn_stats_sums(y),
+                           "bn_relu_bwd_apply_split": old_pair}
+                    for k in turns:
+                        four = [time_launches(f, windows=3)
+                                for f in (old[k], new[k], new[k], old[k])]
+                        row[f"{k}_turns_ms"] = four
+                        turns[k] = [a + layers * b for a, b in zip(turns[k], four)]
+                    old_split[str(list(shape))] = row["old_device_launches_a_call"] = {
+                        k: _device_kernels(f) for k, f in old.items()}
             rows.append(row)
             emit({"phase": "split_vs_plain", **row}, detail=True)
     for k, v in times.items():
         v["bound_by"] = "/".join(sorted(v["bound_by"]))
-        v["library_ms"] = None  # no one PyTorch call computes these sums or finalizes
+        v["library_ms"] = None  # no one PyTorch call computes these sums or the split apply
         v["max_abs_err"] = max(r[f"{k}_max_abs_err"] for r in rows)
     emit({"phase": "split_vs_plain", "shares": SHARES, "share_batch": B // SHARES,
-          "worst": errs, "bounds": SPLIT_BOUNDS,
+          "worst": errs, "bounds": SPLIT_BOUNDS, "unequal": unequal,
+          "sums_repeats": SPLIT_REPEATS,
+          "device_launches_a_call": {k: sum(c[0] for c in rows[0]["device_launches_a_call"][k]
+                                            .values()) for k in turns},
           "ms_per_share_step": {k: v["ms"] for k, v in times.items()},
-          "bound_ms": {k: v["bound_ms"] for k, v in times.items()}})
+          "bound_ms": {k: v["bound_ms"] for k, v in times.items()},
+          **({"turns_old_new_new_old_ms_per_share_step": turns,
+              "old_device_kernels_by_shape": old_split} if old_bn is not None else {})})
     for kind, e in errs.items():
         if not e <= SPLIT_BOUNDS[kind]:
             fail("split_vs_plain", f"{kind}: {e} > {SPLIT_BOUNDS[kind]}")
+    if any(unequal.values()):
+        fail("split_vs_plain", f"unequal bits where none may differ: {unequal}")
     return times
 
 
@@ -5309,12 +5405,12 @@ def _each_share_its_own(ys, weights, biases, running_mean, running_var, reducer,
             for y, w, b in zip(ys, weights, biases)]
 
 
-def _coef_from_own_sums(local, total, n, st, train):
+def _apply_from_own_sums(g, y, st, bias, local, total, n):
     """The backward unsynchronised: each share's coefficients from its own
     sums over its own rows (the forward's statistics stay global)."""
     from tracknetv3_tpu_torch.ops import batchnorm as bn
 
-    return bn.bn_relu_bwd_finalize(local, local, n // SHARES, st, train)
+    return bn.bn_relu_bwd_apply_split(g, y, st, bias, local, local, n // SHARES)
 
 
 def _rows_reordered(batch, perm, lam):
@@ -5396,7 +5492,7 @@ def _mesh_step_parity(data_dir: str, meshes: dict, card: str) -> dict:
                                                  _each_share_its_own),
              "backward_unsynchronised": mock.patch.object(
                  bn, "SPLIT_KERNEL_OPS",
-                 bn.SPLIT_KERNEL_OPS._replace(bwd_finalize=_coef_from_own_sums))}
+                 bn.SPLIT_KERNEL_OPS._replace(bwd_apply=_apply_from_own_sums))}
     res = {}
     with _f32_deterministic():
         want, single_losses, single_params = _one_step(base, batch, perm, lam)
@@ -5753,9 +5849,8 @@ def _mesh_train_measured(tmp: str, card: str, data_dir: str, pairs):
     val = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L), "concat", B,
                                  data_dir=data_dir))
     want = {k: BN_LAYERS * SPLIT_PER_LAYER[k] * steps for k in SPLIT_KERNELS}
-    want.update(bn_stats=0, bn_relu_bwd_reduce=0,
+    want.update(bn_stats=0, bn_relu_bwd_reduce=0, bn_relu_bwd_apply=0,
                 bn_relu_fwd=BN_LAYERS * (SHARES * steps + val),
-                bn_relu_bwd_apply=BN_LAYERS * SHARES * steps,
                 wbce_disk_fwd=SHARES * steps, wbce_disk_bwd=SHARES * steps)
     emit({"phase": "mesh_train", "cli": "--num_devices 2", "mesh": [
         str(d) for d in (meshes.get("two_cards") or meshes["card_twice"]).devices],
@@ -6194,7 +6289,7 @@ def phase_mesh_shard(tmp: str, card: str, ranks=None) -> dict:
 
 
 def _baseline_modules(root: str):
-    """The copy and loss kernel modules of the port in another checkout,
+    """The copy, loss and BatchNorm kernel modules of the port in another checkout,
     imported under another package name so that both trees live in one
     process; each builds its kernels from its own sources into its own
     ``build/``."""
@@ -6209,7 +6304,8 @@ def _baseline_modules(root: str):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return (importlib.import_module(f"{name}.ops.shift_copy"),
-            importlib.import_module(f"{name}.ops.wbce_disk"))
+            importlib.import_module(f"{name}.ops.wbce_disk"),
+            importlib.import_module(f"{name}.ops.batchnorm"))
 
 
 def _path_name(path: str) -> str:
@@ -6256,11 +6352,16 @@ def main() -> int:
     ap.add_argument("--mesh_shard_only", action="store_true",
                     help="build and mesh_shard (resident frames sharded over a mesh's entries "
                          "and over two training processes) alone; no kernels line")
+    ap.add_argument("--split_bn_only", action="store_true",
+                    help="build and split_vs_plain (the split BatchNorm kernels of "
+                         "data-parallel training against their plain versions, timed) alone; "
+                         "no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
-                    help="with --copy_only or --loss_only: a checkout of another commit "
-                         "(e.g. the parent's, unpacked with git archive); its copy and loss "
-                         "kernels are built from its sources, checked bit for bit against "
-                         "this tree's and timed in turns with them (old, new, new, old)")
+                    help="with --copy_only, --loss_only or --split_bn_only: a checkout of "
+                         "another commit (e.g. the parent's, unpacked with git archive); its "
+                         "copy, loss or split BatchNorm kernels are built from its sources, "
+                         "checked against this tree's and timed in turns with them (old, new, "
+                         "new, old)")
     ap.add_argument("--verbose", action="store_true",
                     help="print the per-shape detail lines too")
     args = ap.parse_args()
@@ -6289,9 +6390,11 @@ def main() -> int:
             else "mesh" if args.mesh_only
             else "convert" if args.convert_only
             else "mesh_train" if args.mesh_train_only
-            else "mesh_shard" if args.mesh_shard_only else None)
-    if args.baseline and only not in ("copy", "loss"):
-        print("chip_smoke: --baseline goes with --copy_only or --loss_only", file=sys.stderr)
+            else "mesh_shard" if args.mesh_shard_only
+            else "split_bn" if args.split_bn_only else None)
+    if args.baseline and only not in ("copy", "loss", "split_bn"):
+        print("chip_smoke: --baseline goes with --copy_only, --loss_only or --split_bn_only",
+              file=sys.stderr)
         return 2
     baseline = _baseline_modules(args.baseline) if args.baseline else None
     card = phase_env()
@@ -6330,6 +6433,8 @@ def main() -> int:
             phase_conv_ablate()
         elif only == "copy":
             phase_copy(baseline)
+        elif only == "split_bn":
+            _split_vs_plain(baseline[2] if baseline is not None else None)
         else:
             phase_kernels(baseline)
         print(card, flush=True)

@@ -17,6 +17,7 @@ JAX ``predict_videos`` (both at float32, cv2 decode;
   format and ``num_devices``, which the port took since, run.
 """
 
+import shutil
 import threading
 
 import pytest
@@ -42,7 +43,8 @@ def data(tmp_path_factory):
     bad = str(d / "bad.mp4")
     with open(bad, "wb") as f:
         f.write(b"not a video at all")
-    return clips, tn, inpaint_checkpoint(str(d / "inp.pt")), bad
+    yield clips, tn, inpaint_checkpoint(str(d / "inp.pt")), bad
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _single(clips, tn, inp=""):

@@ -12,6 +12,7 @@
 
 import numpy as np
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -68,6 +69,14 @@ def _save(path, model, opt, optim_name, step, lr_scheduler=""):
                                                 scheduled=lr_scheduler != ""),
         scheduler=dict(lr_scheduler=lr_scheduler, opt_step=step), param_dict=pd,
     )
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_port_checkpoint_loads_in_jax_and_forward_matches(tmp_path):

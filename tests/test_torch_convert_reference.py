@@ -23,6 +23,7 @@ reference saves them. Both tools convert each file:
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -151,12 +152,21 @@ def refs(tmp_path_factory):
         jax_tool.convert_checkpoint(src, jax_out)
         port_tool.convert_checkpoint(src, port_out)
         out[name] = dict(sd=sd, src=src, jax=jax_out, port=port_out)
-    return out
+    yield out
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _npz(path):
     with np.load(path, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("name", ["TrackNet", "InpaintNet"])

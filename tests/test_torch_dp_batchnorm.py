@@ -121,8 +121,8 @@ def _each_share_its_own(ys, weights, biases, running_mean, running_var, reducer,
             for y, w, b in zip(ys, weights, biases)]
 
 
-def _dgamma_from_the_total(local, total, n, st, train):
-    return bnm.bn_relu_bwd_finalize_plain(total, total, n, st, train)
+def _dgamma_from_the_total(g, y, st, bias, local, total, n):
+    return bnm.bn_relu_bwd_apply_split_plain(g, y, st, bias, total, total, n)
 
 
 def test_wrong_sync_ops_fail_the_bound():
@@ -133,7 +133,7 @@ def test_wrong_sync_ops_fail_the_bound():
     assert _rel(own["out"], want["out"]) > 1e-3
     assert _rel(own["rm"], want["rm"]) > 1e-3  # moved twice, from each share's mean
     total = _over_shares(y, g, gamma, beta, 2, reducer,
-                         ops=bnm.SPLIT_PLAIN_OPS._replace(bwd_finalize=_dgamma_from_the_total))
+                         ops=bnm.SPLIT_PLAIN_OPS._replace(bwd_apply=_dgamma_from_the_total))
     assert torch.equal(total["out"], want["out"]) or _rel(total["out"], want["out"]) <= 1e-12
     assert _rel(total["dgamma"], 2 * want["dgamma"]) <= 1e-12  # counted twice
     assert _rel(total["dbeta"], 2 * want["dbeta"]) <= 1e-12
@@ -174,7 +174,8 @@ def test_split_kernel_wrappers_check_their_sums():
             bnm._check_sums(bad, C, torch.device("cpu"))
     bnm._check_sums(torch.zeros(2, C, dtype=torch.float64), C, torch.device("cpu"))
     assert {"bn_stats_sums", "bn_stats_finalize", "bn_relu_bwd_sums",
-            "bn_relu_bwd_finalize"} <= set(bnm.LAUNCHES)
+            "bn_relu_bwd_apply_split"} <= set(bnm.LAUNCHES)
+    assert "bn_relu_bwd_finalize" not in bnm.LAUNCHES  # folded into the split apply
 
 
 def _partner_inside_the_share(shares, ts):
@@ -188,7 +189,7 @@ WRONG_STEPS = {
                                                       _each_share_its_own),
     "dgamma_from_the_summed_sums": lambda: mock.patch.object(
         bnm, "SPLIT_KERNEL_OPS",
-        bnm.SPLIT_KERNEL_OPS._replace(bwd_finalize=_dgamma_from_the_total)),
+        bnm.SPLIT_KERNEL_OPS._replace(bwd_apply=_dgamma_from_the_total)),
     "partner_inside_the_share": lambda: mock.patch.object(steps._Shares, "gather",
                                                           _partner_inside_the_share),
 }

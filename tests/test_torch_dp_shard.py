@@ -24,6 +24,7 @@ the port's own replicated frames, on the synthetic dataset of
 """
 
 import functools
+import shutil
 from unittest import mock
 
 import numpy as np
@@ -61,6 +62,14 @@ def _jax_shards(arr):
     """A JAX array's addressable shards as numpy, in device order."""
     shards = sorted(arr.addressable_shards, key=lambda s: s.device.id)
     return [np.asarray(s.data) for s in shards]
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("bg_mode,N", [("concat", 2), ("concat", 8), ("subtract", 8)])

@@ -28,6 +28,7 @@ sizes of ``tests/test_staged.py`` (32x64, seq_len 3, batch 4):
 
 import functools
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -69,7 +70,8 @@ def ckpts(tmp_path_factory):
     inp = str(d / "InpaintNet_best.pt")
     save_checkpoint(inp, epoch=0, max_val_acc=0.0, model=iv,
                     param_dict=dict(model_name="InpaintNet", seq_len=16))
-    return tn, inp
+    yield tn, inp
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _predictors(ckpts, eval_mode, inpaint=False):

@@ -119,6 +119,14 @@ def _assert_batches_equal(got, want):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.mark.parametrize("split,stride", [("train", 1), ("val", SEQ)])
 def test_coordinate_index_and_loader_match_jax(data_dir, tmp_path, split, stride):
     want = jax_ds.build_split_index(data_dir, split, SEQ, stride, "coordinate", use_cache=False)

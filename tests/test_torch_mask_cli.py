@@ -33,6 +33,7 @@ def setup(tmp_path_factory):
     tn, _ = rd.write_checkpoints(str(d))
     mp = rd.jax_f32()
     yield data, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
     mp.undo()
 
 

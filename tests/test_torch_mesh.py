@@ -16,6 +16,7 @@ whose tests run on the 8 virtual CPU devices of ``tests/conftest.py``):
 
 import numpy as np
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -122,6 +123,7 @@ def rally(tmp_path_factory):
     tn, _ = rd.write_checkpoints(str(d))
     mp = rd.jax_f32()
     yield data, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
     mp.undo()
 
 

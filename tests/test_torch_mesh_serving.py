@@ -16,6 +16,7 @@
 """
 
 import os
+import shutil
 
 import cv2
 import numpy as np
@@ -44,7 +45,8 @@ def data(tmp_path_factory):
     clips = {T: write_clip(str(d / f"clip{T}.mp4"), T, seed=60 + T) for T in (13, 29)}
     tns = {bg: detecting_checkpoint(str(d / f"tn_{bg}.pt"), bg, clips[29])
            for bg in ("concat", "subtract")}
-    return clips, tns, inpaint_checkpoint(str(d / "inp.pt"))
+    yield clips, tns, inpaint_checkpoint(str(d / "inp.pt"))
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _frames(clip: str) -> np.ndarray:

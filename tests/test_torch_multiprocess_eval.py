@@ -131,7 +131,8 @@ def setup(tmp_path_factory):
                     model=load_model_from_checkpoint(jax_tn, dtype=torch.float32)[0],
                     param_dict=dict(model_name="TrackNet", seq_len=rd.L, bg_mode="concat",
                                     input_hw=[rd.H, rd.W]))
-    return data, tn
+    yield data, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _copies(data: str, root, tags):

@@ -20,6 +20,7 @@ test.
 import datetime
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -177,7 +178,8 @@ def two_ranks(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return results, tn, ip
+    yield results, tn, ip
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 @pytest.mark.parametrize("decode", DECODES)

@@ -15,6 +15,7 @@ to 32x64; ``tests/torch_serving_data.py``, ``tests/torch_rally_data.py``):
 import json
 import os
 import runpy
+import shutil
 import sys
 
 import cv2
@@ -48,7 +49,8 @@ def run_jax_cli(script: str, argv, monkeypatch) -> None:
 def clip_and_ckpt(tmp_path_factory):
     d = tmp_path_factory.mktemp("native_cli")
     clip = write_clip(str(d / "rally.mp4"), 15, seed=19)
-    return clip, detecting_checkpoint(str(d / "tn.pt"), "concat", clip)
+    yield clip, detecting_checkpoint(str(d / "tn.pt"), "concat", clip)
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 @pytest.fixture
@@ -125,7 +127,8 @@ def rally(tmp_path_factory):
     for t in range(T):
         vw.write(cv2.imread(os.path.join(frames, f"{t}.png")))
     vw.release()
-    return data, tn, video, rally_id, T
+    yield data, tn, video, rally_id, T
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def test_test_cli_video_file_writes_the_jax_cli_files(rally, tmp_path, monkeypatch):

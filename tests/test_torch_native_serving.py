@@ -13,6 +13,7 @@ their default ``native_decode=True``, ``stage_format="auto"``:
 """
 
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -34,7 +35,8 @@ def data(tmp_path_factory):
     tns = {bg: detecting_checkpoint(str(d / f"tn_{bg or 'rgb'}.pt"), bg, clip)
            for bg in ("", "concat", "subtract")}
     clips = [write_clip(str(d / f"b{n}.mp4"), n, seed=n) for n in (10, 13, 8)]
-    return clip, tns, clips
+    yield clip, tns, clips
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _predictors(tn, eval_mode="weight"):

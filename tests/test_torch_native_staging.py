@@ -19,6 +19,7 @@ batch 4; clips and checkpoints from ``tests/torch_serving_data.py``):
 
 import numpy as np
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -42,7 +43,8 @@ def data(tmp_path_factory):
     assert native_video.write_test_clip(h264, "libx264", n=T, w=2 * W, h=2 * H)
     clips["h264"] = h264
     tn = detecting_checkpoint(str(d / "tn.pt"), "concat", clips["mpeg4"])
-    return clips, tn, inpaint_checkpoint(str(d / "inp.pt"))
+    yield clips, tn, inpaint_checkpoint(str(d / "inp.pt"))
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _recording(make, made):

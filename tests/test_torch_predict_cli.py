@@ -15,6 +15,7 @@ and its predictor made at float32, as the JAX side's):
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -42,7 +43,8 @@ def data(tmp_path_factory):
     clips = [write_clip(str(vids / f"rally{i}.mp4"), T, seed=30 + i)
              for i, T in enumerate((11, 14))]
     tn = detecting_checkpoint(str(d / "tn.pt"), "concat", clips[0])
-    return str(vids), clips, tn
+    yield str(vids), clips, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 @pytest.fixture

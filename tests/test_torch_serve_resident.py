@@ -15,6 +15,7 @@ CPU, both at float32 (``tests/torch_serving_data.py``):
 
 import numpy as np
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -35,7 +36,8 @@ def data(tmp_path_factory):
     clip = write_clip(str(d / "clip.mp4"), T, seed=5)
     tns = {bg: detecting_checkpoint(str(d / f"tn_{bg}.pt"), bg, clip)
            for bg in ("concat", "subtract")}
-    return clip, tns, inpaint_checkpoint(str(d / "inp.pt"))
+    yield clip, tns, inpaint_checkpoint(str(d / "inp.pt"))
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 @pytest.mark.parametrize("bg_mode", ["concat", "subtract"])

@@ -20,6 +20,7 @@ on the CPU, both at float32 with cv2 decode (``tests/torch_serving_data.py``):
 
 import itertools
 import os
+import shutil
 import threading
 import time
 
@@ -49,7 +50,8 @@ def data(tmp_path_factory):
     clip = write_clip(str(d / "clip.mp4"), T, seed=6, fps=FPS)
     tns = {bg: detecting_checkpoint(str(d / f"tn_{bg}.pt"), bg, clip)
            for bg in ("concat", "subtract")}
-    return clip, tns
+    yield clip, tns
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 @pytest.mark.parametrize("bg_mode,eval_mode,host_resize", [

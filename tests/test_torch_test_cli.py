@@ -12,6 +12,7 @@ engine's default, bfloat16, which the test records and replaces).
 
 import json
 import os
+import shutil
 
 import pytest
 
@@ -37,6 +38,7 @@ def setup(tmp_path_factory):
     mp = rd.jax_f32()
     rd.engines(tn)[0].test(data, "test", save_inpaint_mask=True)
     yield data, tn, inp
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
     mp.undo()
 
 

@@ -12,6 +12,7 @@ multi-blob frames on which the exact rule and the peak blob disagree.
 """
 
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -26,6 +27,7 @@ def setup(tmp_path_factory):
     tn, _ = rd.write_checkpoints(str(d))
     mp = rd.jax_f32()
     yield data, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
     mp.undo()
 
 

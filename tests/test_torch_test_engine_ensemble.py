@@ -8,6 +8,7 @@ bit-equal, ``conf`` within 1e-5.
 """
 
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -22,6 +23,7 @@ def setup(tmp_path_factory):
     tn, _ = rd.write_checkpoints(str(d))
     mp = rd.jax_f32()
     yield data, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
     mp.undo()
 
 

@@ -36,6 +36,7 @@ def setup(tmp_path_factory):
     tn, inp = rd.write_checkpoints(str(d))
     mp = rd.jax_f32()
     yield str(d / "jax"), str(d / "port"), tn, inp
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
     mp.undo()
 
 

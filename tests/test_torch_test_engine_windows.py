@@ -14,6 +14,7 @@ the data and checkpoint of ``tests/torch_rally_data.py`` (as
 
 import numpy as np
 import pytest
+import shutil
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share a few cores
@@ -34,7 +35,8 @@ def setup(tmp_path_factory):
     d = tmp_path_factory.mktemp("rally")
     data = rd.write_dataset(str(d / "data"))
     tn, _ = rd.write_checkpoints(str(d))
-    return data, tn
+    yield data, tn
+    shutil.rmtree(d, ignore_errors=True)  # its TrackNet checkpoints, 45 MB or more each
 
 
 def _port(tn, **kw):

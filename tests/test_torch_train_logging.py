@@ -118,6 +118,14 @@ def _port_jsonl(save_dir):
         return f.read()
 
 
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def test_tracknet_debug_epoch_logs(data_dir, tmp_path):
     save = tmp_path / "exp"
     cfg = TrainConfig(seq_len=SEQ, bg_mode="concat", batch_size=8, alpha=0.5, input_hw=HW,

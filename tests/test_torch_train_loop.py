@@ -8,6 +8,7 @@ CLI's ``--multihost`` joining the group that ``torchrun`` describes
 ``test_torch_dp_train.py`` holds data-parallel training to one device)."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -42,6 +43,14 @@ def _cfg(save_dir, **kw):
                 input_hw=(32, 64), compute_dtype="float32", save_dir=str(save_dir))
     base.update(kw)
     return TrainConfig(**base)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_train_one_epoch_then_resume(data_dir, tmp_path):

@@ -6,6 +6,7 @@ option in its ``param_dict``; a split over the resident budget falls back to
 the host loader."""
 
 import os
+import shutil
 import subprocess
 import sys
 from unittest import mock
@@ -45,6 +46,14 @@ def _cfg(save_dir, **kw):
 
 # windows of the train split: 2 matches x 2 rallies x (8 - 3 + 1)
 N_TRAIN = 24
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints and save_dir (a full-width TrackNet checkpoint
+    is 130 MB whatever input_hw) go once the test has read them."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("options,steps,resident", [

@@ -13,10 +13,11 @@
 // that the sums of the shares of a global batch can be added up between the
 // halves (JAX gets this from GSPMD: the batch mean of a sharded array is an
 // all-reduce):
-//   bn_stats_sums_{bf16,f32}       <- stats_kernel's sums (P4)
+//   bn_stats_sums_{bf16,f32}       <- stats_kernel's sums (P4), one launch
 //   bn_stats_finalize              <- the rest of P4, from summed sums
 //   bn_relu_bwd_sums_{bf16,f32}    <- the gradient's sums
-//   bn_relu_bwd_finalize           <- dgamma, dbeta and the coefficients
+//   bn_relu_bwd_apply_split_{bf16,f32}
+//                                  <- dgamma, dbeta, the coefficients and dy
 //
 // Function. y is a conv output (rows, C), rows = N*H*W (an NCHW view with
 // channels_last memory), bfloat16 on the train path, float32 for parity
@@ -35,12 +36,17 @@
 //           statistics, which are constants: c1 = c2 = 0.
 //   apply:  dy = cast(inv * ((gz - c1) - yc * c2)).
 // Split: sums (2, C) double = (sum y, sum y^2) forward and (Sg, Sgy)
-// backward over one share's rows, in the fixed order of the unsplit
-// reductions; stats_finalize takes summed sums and the global row count n;
-// bwd_finalize takes dgamma and dbeta from one share's own sums (each
-// share's gradient is summed later with the others') and c1, c2 from the
-// summed ones. With one share the split path computes the unsplit one's
-// every bit.
+// backward over one share's rows; stats_finalize takes summed sums and the
+// global row count n; apply_split takes dgamma and dbeta from one share's own
+// sums (each share's gradient is summed later with the others') and c1, c2
+// from the summed ones, then applies them as apply does. The backward's sums
+// keep the unsplit reduction's fixed order. The forward's sums add every
+// element as the unsplit partial pass does (cvt, add, fma in double) but
+// combine the blocks in an order of their own (below), so they may differ
+// from the unsplit statistics' sums in the last bits of the float64 sums:
+// repeated launches on equal inputs give equal bits, and the sums stay
+// within 1e-12 of the plain version. The rest of the split path, given equal
+// sums, computes the unsplit one's every bit.
 // Every rounding is written out (__fsub_rn, __fmul_rn, __fadd_rn): nvcc
 // would contract a*b + c into an FMA, and then the backward's ReLU mask
 // could disagree with the forward's z at the boundary. The plain versions
@@ -64,14 +70,32 @@
 // apply) walk the rows with a grid stride that is a multiple of G, so each
 // thread loads its channels' constants once. This is the simple, right
 // first version: one read of y for the statistics and one for the
-// normalise, one read of g and y for each backward kernel. The split sums
-// reuse the partial passes (bound by bytes as above) and end in a sum
-// kernel instead of the finalize; the split finalizes read a (2, C) double
-// row and a few C-vectors, so they are bound by launch latency, not bytes.
+// normalise, one read of g and y for each backward kernel. The backward's
+// split sums reuse its partial pass and end in a sum kernel instead of the
+// finalize.
+//
+// The forward's split sums are one launch (bn_stats_sums_kernel). Two
+// launches (the partial pass, then a sum kernel of (C + 31) / 32 blocks whose
+// warps walked up to 132 partials in a dependent chain) left a fixed tail
+// per layer that half a batch could not hide. Here a grid of thread block
+// clusters, about two blocks an SM (one wave: the wrapper sizes it from the
+// card's resident clusters), walks the rows, kBatch 16-byte loads in flight
+// per thread. A block combines its rows by a shuffle-xor tree in each warp
+// and its warps in shared memory, in place; a cluster adds its blocks'
+// partials through distributed shared memory, each block a slice of the 2C
+// sums, so only one partial per cluster reaches device memory; per slice
+// the last block to arrive adds the clusters' partials, every thread taking
+// a share. The split backward's apply computes the coefficients itself, in
+// every block, from the (2, C) sums: the finalize launch and its (2, C)
+// coefficients in device memory are gone; the two double divisions a channel
+// and block are what that costs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -79,6 +103,8 @@ constexpr int kThreads = 256;
 constexpr int kMinRows = 16;      // rows a thread of a reduction walks at least
 constexpr int kMaxBlocks = 1056;  // 8 blocks of 256 threads fill each of an H100's 132 SMs
 constexpr int kFinalizeWarps = kThreads / 32;
+constexpr int kCluster = 8;  // blocks of a cluster of the split forward's sums
+constexpr int kBatch = 8;    // rows a thread of the split forward's sums loads at once
 
 // values of T in one 16-byte group
 template <typename T>
@@ -93,12 +119,10 @@ struct Pack<float> {
 };
 
 template <typename T>
-__device__ __forceinline__ void load_pack(const uint4* __restrict__ p, int64_t i, float* f);
+__device__ __forceinline__ void unpack(const uint4& v, float* f);
 
 template <>
-__device__ __forceinline__ void load_pack<__nv_bfloat16>(const uint4* __restrict__ p, int64_t i,
-                                                         float* f) {
-  const uint4 v = p[i];
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& v, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -109,12 +133,16 @@ __device__ __forceinline__ void load_pack<__nv_bfloat16>(const uint4* __restrict
 }
 
 template <>
-__device__ __forceinline__ void load_pack<float>(const uint4* __restrict__ p, int64_t i, float* f) {
-  const uint4 v = p[i];
+__device__ __forceinline__ void unpack<float>(const uint4& v, float* f) {
   f[0] = __uint_as_float(v.x);
   f[1] = __uint_as_float(v.y);
   f[2] = __uint_as_float(v.z);
   f[3] = __uint_as_float(v.w);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_pack(const uint4* __restrict__ p, int64_t i, float* f) {
+  unpack<T>(p[i], f);
 }
 
 template <typename T>
@@ -348,17 +376,20 @@ __global__ void __launch_bounds__(kThreads)
   block_partials<P>(ds, dq, G, part);
 }
 
-// Channel c's dgamma and dbeta from the sums (s, q), and its apply
-// coefficients (c1, c2) from the sums (S, Q) over n rows.
-__device__ __forceinline__ void bwd_finalize_channel(int c, int C, double s, double q, double S,
-                                                     double Q, double n,
-                                                     const float* __restrict__ st,
-                                                     float* __restrict__ dgamma,
-                                                     float* __restrict__ dbeta,
-                                                     float* __restrict__ coef, int train) {
-  const float diff = st[C + c], r = st[2 * C + c];
+// Channel c's dgamma and dbeta from the sums (s, q).
+__device__ __forceinline__ void bwd_param_grads(int c, int C, double s, double q,
+                                                const float* __restrict__ st,
+                                                float* __restrict__ dgamma,
+                                                float* __restrict__ dbeta) {
   dbeta[c] = (float)s;
-  dgamma[c] = __fmul_rn((float)q, r);
+  dgamma[c] = __fmul_rn((float)q, st[2 * C + c]);
+}
+
+// Channel c's apply coefficients (c1, c2) from the sums (S, Q) over n rows
+// into coef (2, C); 0 in eval mode.
+__device__ __forceinline__ void bwd_coef(int c, int C, double S, double Q, double n,
+                                         const float* __restrict__ st, float* coef, int train) {
+  const float diff = st[C + c], r = st[2 * C + c];
   float c1 = 0.f, c2 = 0.f;
   if (train) {
     const float k = diff > 0.f ? 1.f : (diff == 0.f ? 0.5f : 0.f);
@@ -367,6 +398,18 @@ __device__ __forceinline__ void bwd_finalize_channel(int c, int C, double s, dou
   }
   coef[c] = c1;
   coef[C + c] = c2;
+}
+
+// Channel c's dgamma and dbeta from the sums (s, q), and its apply
+// coefficients (c1, c2) from the sums (S, Q) over n rows.
+__device__ __forceinline__ void bwd_finalize_channel(int c, int C, double s, double q, double S,
+                                                     double Q, double n,
+                                                     const float* __restrict__ st,
+                                                     float* __restrict__ dgamma,
+                                                     float* __restrict__ dbeta,
+                                                     float* __restrict__ coef, int train) {
+  bwd_param_grads(c, C, s, q, st, dgamma, dbeta);
+  bwd_coef(c, C, S, Q, n, st, coef, train);
 }
 
 // dgamma, dbeta and the apply coefficients coef (2, C) = (c1, c2).
@@ -392,18 +435,184 @@ __global__ void __launch_bounds__(kThreads)
   sums[C + c] = q;
 }
 
-// The split backward's finalize: dgamma, dbeta from one share's sums
-// ``local``, (c1, c2) from the sums ``total`` of every share, n rows in all.
-__global__ void __launch_bounds__(32)
-    bn_relu_bwd_finalize_split_kernel(const double* __restrict__ local,
-                                      const double* __restrict__ total, int C, double n,
-                                      const float* __restrict__ st, float* __restrict__ dgamma,
-                                      float* __restrict__ dbeta, float* __restrict__ coef,
-                                      int train) {
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  if (c >= C) return;
-  bwd_finalize_channel(c, C, local[c], local[C + c], total[c], total[C + c], n, st, dgamma, dbeta,
-                       coef, train);
+// The split forward's sums (2, C) = (sum y, sum y^2) of one share in one
+// launch. Clusters of kCluster blocks; block b of the grid takes rows
+// [b * rows_per_block, (b + 1) * rows_per_block), each thread every R-th of
+// them (R = rows a block covers at a time) in order, loading kBatch rows
+// before it adds them, in double as the partial pass does. In the block:
+// the rows of a warp by a shuffle-xor tree (G < 32), then the warps (or,
+// for G >= 32, the rows) in order, in place in shared memory. In the
+// cluster: block rank k adds slice k of the 2C sums over the kCluster
+// blocks' shared memory in rank order and writes it to cpart[cluster]. Across
+// clusters: per slice, the last block to take its ticket (after
+// __threadfence; an int atomic, no float atomics) adds the slice over the
+// clusters in a fixed order (S threads an output, each every S-th cluster in
+// order, then the S in order), writes it to sums and resets the ticket. The
+// order depends on the block index and the grid alone, never on arrival.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_stats_sums_kernel(const uint4* __restrict__ y, double* __restrict__ cpart,
+                         int* __restrict__ tickets, double* __restrict__ sums, int64_t rows,
+                         int G, int64_t rows_per_block) {
+  constexpr int P = Pack<T>::n;
+  __shared__ double sh[2 * kThreads * P];
+  __shared__ int last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = G * P, R = kThreads / G;
+  const int g = threadIdx.x % G, lr = threadIdx.x / G;
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t r1 = r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  double ds[P], dq[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) ds[j] = dq[j] = 0.0;
+  for (int64_t r = r0 + lr; r < r1; r += (int64_t)kBatch * R) {
+    uint4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (r + (int64_t)u * R < r1) v[u] = y[(r + (int64_t)u * R) * G + g];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (r + (int64_t)u * R < r1) {
+        float f[P];
+        unpack<T>(v[u], f);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const double d = (double)f[j];
+          ds[j] += d;
+          dq[j] = fma(d, d, dq[j]);  // d * d is exact in double
+        }
+      }
+    }
+  }
+  // the block: K slots of C channels (the warps, or the rows when a warp
+  // holds less than a row), summed in slot order into slot 0
+  const int lane = threadIdx.x & 31;
+  int K, k;
+  bool writes;
+  if (G < 32) {
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        ds[j] += __shfl_xor_sync(0xffffffffu, ds[j], off);
+        dq[j] += __shfl_xor_sync(0xffffffffu, dq[j], off);
+      }
+    }
+    K = kThreads / 32;
+    k = threadIdx.x >> 5;
+    writes = lane < G;
+  } else {
+    K = R;
+    k = lr;
+    writes = true;
+  }
+  if (writes) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      sh[k * C + g * P + j] = ds[j];
+      sh[K * C + k * C + g * P + j] = dq[j];
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < 2 * C; o += kThreads) {
+    double* col = sh + (o / C) * K * C + o % C;
+    double acc = col[0];
+    for (int kk = 1; kk < K; ++kk) acc += col[kk * C];
+    col[0] = acc;
+  }
+  // the cluster: this block's slice of the 2C sums over its blocks
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  const int O = 2 * C / kCluster;  // outputs of a slice
+  const int64_t cl = blockIdx.x / kCluster;
+  for (int i = threadIdx.x; i < O; i += kThreads) {
+    const int o = rank * O + i;
+    const int at = (o / C) * K * C + o % C;
+    double v[kCluster];
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) v[q] = cluster.map_shared_rank(sh, q)[at];
+    double acc = v[0];
+#pragma unroll
+    for (int q = 1; q < kCluster; ++q) acc += v[q];
+    cpart[cl * 2 * C + o] = acc;
+  }
+  __threadfence();
+  cluster.sync();  // the cluster's reads of this block's shared memory are done
+  const int clusters = gridDim.x / kCluster;
+  if (threadIdx.x == 0) last = atomicAdd(tickets + rank, 1) == clusters - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block of this slice: the slice over the clusters
+  __threadfence();
+  const int Oc = O < kThreads ? O : kThreads;  // outputs a round
+  const int S = kThreads / Oc;                 // threads an output
+  const int io = threadIdx.x % Oc, t = threadIdx.x / Oc;
+  for (int base = 0; base < O; base += Oc) {
+    const int o = rank * O + base + io;
+    double acc = 0.0;
+    for (int c0 = t; c0 < clusters; c0 += kBatch * S) {
+      double v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        v[u] = c0 + u * S < clusters ? __ldcg(cpart + (int64_t)(c0 + u * S) * 2 * C + o) : 0.0;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) acc += v[u];
+    }
+    sh[t * Oc + io] = acc;
+    __syncthreads();
+    if (t == 0) {
+      double tot = sh[io];
+      for (int tt = 1; tt < S; ++tt) tot += sh[tt * Oc + io];
+      sums[o] = tot;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) tickets[rank] = 0;
+}
+
+// The split backward's apply: the coefficients (c1, c2) of every channel
+// from the summed sums ``total`` over n rows into shared memory, rounded as
+// bwd_finalize_channel rounds them, then dy as bn_relu_bwd_apply_kernel;
+// block 0 also writes dgamma and dbeta from the share's own sums ``local``.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bn_relu_bwd_apply_split_kernel(const uint4* __restrict__ gr, const uint4* __restrict__ y,
+                                   uint4* __restrict__ dy, int64_t total, int G,
+                                   const float* __restrict__ st, const float* __restrict__ beta,
+                                   const double* __restrict__ local,
+                                   const double* __restrict__ summed, double n,
+                                   float* __restrict__ dgamma, float* __restrict__ dbeta) {
+  constexpr int P = Pack<T>::n;
+  __shared__ float coef[2 * kThreads * P];
+  const int C = G * P;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    bwd_coef(c, C, summed[c], summed[C + c], n, st, coef, 1);
+    if (blockIdx.x == 0) bwd_param_grads(c, C, local[c], local[C + c], st, dgamma, dbeta);
+  }
+  __syncthreads();
+  const int g = threadIdx.x % G;  // the grid stride is a multiple of G
+  float m[P], a[P], b[P], c1[P], c2[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int c = g * P + j;
+    m[j] = st[c];
+    a[j] = st[3 * C + c];
+    b[j] = beta[c];
+    c1[j] = coef[c];
+    c2[j] = coef[C + c];
+  }
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < total; i += stride) {
+    float fg[P], fy[P];
+    load_pack<T>(gr, i, fg);
+    load_pack<T>(y, i, fy);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float gz = __fmul_rn(fg[j], relu_grad(bn_z(fy[j], m[j], a[j], b[j])));
+      const float yc = __fsub_rn(fy[j], m[j]);
+      fg[j] = __fmul_rn(a[j], __fsub_rn(__fsub_rn(gz, c1[j]), __fmul_rn(yc, c2[j])));
+    }
+    store_pack<T>(dy, i, fg);
+  }
 }
 
 // dy = cast(inv * ((gz - c1) - (y - mean) * c2)).
@@ -505,17 +714,51 @@ int bwd_apply(const void* g, const void* y, void* dy, const float* st, const flo
   return (int)cudaGetLastError();
 }
 
+// The launch of bn_stats_sums_kernel over ``clusters`` clusters.
+cudaLaunchConfig_t sums_config(int clusters, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * clusters);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <typename T>
-int stats_sums(const void* y, double* part, double* sums, int64_t rows, int C, void* stream) {
-  static const int resident = resident_blocks(bn_stats_partial_kernel<T>);
-  const cudaStream_t s = (cudaStream_t)stream;
+int sums_clusters(int* out) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sums_config(1, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, bn_stats_sums_kernel<T>, &cfg);
+}
+
+template <typename T>
+int stats_sums(const void* y, double* cpart, int* tickets, double* sums, int64_t rows, int C,
+               int clusters, int64_t rows_per_block, void* stream) {
+  if (clusters < 1 || rows_per_block < 1 || rows_per_block * kCluster * clusters < rows)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sums_config(clusters, (cudaStream_t)stream, &attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, bn_stats_sums_kernel<T>, (const uint4*)y, cpart, tickets, sums,
+                         rows, groups_of<T>(C), rows_per_block);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int bwd_apply_split(const void* g, const void* y, void* dy, const float* st, const float* beta,
+                    const double* local, const double* total, double n, float* dgamma,
+                    float* dbeta, int64_t rows, int C, void* stream) {
   const int G = groups_of<T>(C);
-  const int nblk = reduce_blocks(resident, rows, G);
-  const int64_t per_block = (rows + nblk - 1) / nblk;
-  bn_stats_partial_kernel<T><<<nblk, kThreads, 0, s>>>((const uint4*)y, part, rows, G, per_block);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bn_sums_kernel<<<(C + 31) / 32, kThreads, 0, s>>>(part, nblk, C, sums);
+  const int64_t elems = rows * G;
+  bn_relu_bwd_apply_split_kernel<T><<<apply_blocks(elems), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)g, (const uint4*)y, (uint4*)dy, elems, G, st, beta, local, total, n, dgamma,
+      dbeta);
   return (int)cudaGetLastError();
 }
 
@@ -592,16 +835,23 @@ int bn_relu_bwd_apply_f32(const void* g, const void* y, void* dy, const float* s
   return bwd_apply<float>(g, y, dy, st, beta, coef, rows, C, stream);
 }
 
-// sums (2, C) = (sum y, sum y^2) of y (rows, C) in double.
-int bn_stats_sums_bf16(const void* y, double* part, double* sums, long long rows, int C,
-                       void* stream) {
-  return stats_sums<__nv_bfloat16>(y, part, sums, rows, C, stream);
+// sums (2, C) = (sum y, sum y^2) of y (rows, C) in double, one launch of
+// ``clusters`` clusters of kCluster blocks, each block over rows_per_block
+// rows; cpart: clusters * 2 * C doubles of scratch; tickets: kCluster ints,
+// 0 before the launch and again after it.
+int bn_stats_sums_bf16(const void* y, double* cpart, int* tickets, double* sums, long long rows,
+                       int C, int clusters, long long rows_per_block, void* stream) {
+  return stats_sums<__nv_bfloat16>(y, cpart, tickets, sums, rows, C, clusters, rows_per_block,
+                                   stream);
 }
-int bn_stats_sums_f32(const void* y, double* part, double* sums, long long rows, int C,
-                      void* stream) {
-  return stats_sums<float>(y, part, sums, rows, C, stream);
+int bn_stats_sums_f32(const void* y, double* cpart, int* tickets, double* sums, long long rows,
+                      int C, int clusters, long long rows_per_block, void* stream) {
+  return stats_sums<float>(y, cpart, tickets, sums, rows, C, clusters, rows_per_block, stream);
 }
 
+// Clusters of bn_stats_sums_* the current card keeps resident at once.
+int bn_stats_sums_clusters_bf16(int* out) { return sums_clusters<__nv_bfloat16>(out); }
+int bn_stats_sums_clusters_f32(int* out) { return sums_clusters<float>(out); }
 // st (4, C) and the running update from sums (2, C) over n rows in all.
 int bn_stats_finalize(const double* sums, const float* gamma, float* running_mean,
                       float* running_var, float* st, double n, int C, float eps, float momentum,
@@ -621,13 +871,21 @@ int bn_relu_bwd_sums_f32(const void* g, const void* y, double* part, const float
   return bwd_sums<float>(g, y, part, st, beta, sums, rows, C, stream);
 }
 
-// dgamma, dbeta (C) from one share's sums, coef (2, C) from the summed ones.
-int bn_relu_bwd_finalize(const double* local, const double* total, const float* st,
-                         float* dgamma, float* dbeta, float* coef, double n, int C, int train,
-                         void* stream) {
-  bn_relu_bwd_finalize_split_kernel<<<(C + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
-      local, total, C, n, st, dgamma, dbeta, coef, train);
-  return (int)cudaGetLastError();
+// dy (rows, C) from g, y and the sums ``total`` of every share over n rows;
+// dgamma, dbeta (C) from one share's sums ``local``.
+int bn_relu_bwd_apply_split_bf16(const void* g, const void* y, void* dy, const float* st,
+                                 const float* beta, const double* local, const double* total,
+                                 double n, float* dgamma, float* dbeta, long long rows, int C,
+                                 void* stream) {
+  return bwd_apply_split<__nv_bfloat16>(g, y, dy, st, beta, local, total, n, dgamma, dbeta, rows,
+                                        C, stream);
+}
+int bn_relu_bwd_apply_split_f32(const void* g, const void* y, void* dy, const float* st,
+                                const float* beta, const double* local, const double* total,
+                                double n, float* dgamma, float* dbeta, long long rows, int C,
+                                void* stream) {
+  return bwd_apply_split<float>(g, y, dy, st, beta, local, total, n, dgamma, dbeta, rows, C,
+                                stream);
 }
 
 }  // extern "C"

@@ -46,31 +46,39 @@ statistics of the whole batch, as the JAX step does under GSPMD (the batch
 mean of a sharded array is an all-reduce). For it the two reductions are
 split at their float64 sums, four more kernels:
 
-- ``bn_stats_sums``: one share's (2, C) sums (Σy, Σy²);
+- ``bn_stats_sums``: one share's (2, C) sums (Σy, Σy²), one launch of a grid
+  of thread block clusters (``sums_plan``) that adds the blocks' partials
+  in the same launch, in a fixed order of its own
+  (``bn_stats_sums_in_order`` models it in numpy);
 - ``bn_stats_finalize``: ``st`` and the running update from sums that a
   ``Reducer`` has summed over the shares, and the global row count;
 - ``bn_relu_bwd_sums``: one share's (2, C) sums (Σgz, Σgz·(y - mean));
-- ``bn_relu_bwd_finalize``: ``dgamma`` and ``dbeta`` from the share's own
+- ``bn_relu_bwd_apply_split``: ``dgamma`` and ``dbeta`` from the share's own
   sums (the shares' parameter gradients are summed afterwards, by autograd
-  on a mesh or an all-reduce over processes) and ``coef`` from the summed
-  ones.
+  on a mesh or an all-reduce over processes), the coefficients from the
+  summed ones, computed in every block, and ``dy``, in one launch; its plain
+  version is ``bn_relu_bwd_finalize_plain`` then ``bn_relu_bwd_apply_plain``.
 
 ``split_bn_relu_train`` is the synchronised op over a list of shares: sums
 per share, one reduction by the caller's reducer (``parallel/mesh.py``,
 ``parallel/processes.py``), the finalize once (on the first share's device;
 the statistics are copied to the others), ``bn_relu_fwd`` per share; the
-backward alike, ending in ``bn_relu_bwd_apply`` per share. Over one share
-whose reducer returns its sums it computes ``bn_relu_train``'s every bit.
-``sync_bn_relu_train``, the layer's op, runs ``bn_relu_train`` itself where
-one share of one process is the whole batch, and the split op otherwise.
+backward alike, ending in ``bn_relu_bwd_apply_split`` per share. Over one
+share whose reducer returns its sums it computes ``bn_relu_train``'s every
+bit given equal forward sums (the kernels' forward sums may differ from the
+unsplit statistics' in the last bits of float64; the plain versions' are
+equal). ``sync_bn_relu_train``, the layer's op, runs ``bn_relu_train`` itself
+where one share of one process is the whole batch, and the split op
+otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -80,7 +88,7 @@ MOMENTUM = 0.9
 EPS = 1e-5
 LAUNCHES = {"bn_stats": 0, "bn_relu_fwd": 0, "bn_relu_bwd_reduce": 0, "bn_relu_bwd_apply": 0,
             "bn_stats_sums": 0, "bn_stats_finalize": 0, "bn_relu_bwd_sums": 0,
-            "bn_relu_bwd_finalize": 0}
+            "bn_relu_bwd_apply_split": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +99,8 @@ _D = ctypes.c_double
 # float32 for parity runs
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _THREADS = 256  # a block of csrc/batchnorm.cu; the 16-byte groups of a row must divide it
+SUMS_CLUSTER = 8  # blocks of a cluster of bn_stats_sums (kCluster)
+_MIN_ROWS = 16  # rows a thread of a reduction walks at least (kMinRows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,18 +114,19 @@ def _lib() -> ctypes.CDLL:
         "bn_relu_fwd": [_P, _P, _P, _P, _LL, _I, _P],
         "bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
         "bn_relu_bwd_apply": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
-        "bn_stats_sums": [_P, _P, _P, _LL, _I, _P],
+        "bn_stats_sums": [_P, _P, _P, _P, _LL, _I, _I, _LL, _P],
         "bn_relu_bwd_sums": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+        "bn_relu_bwd_apply_split": [_P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _LL, _I, _P],
+        "bn_stats_sums_clusters": [_P],
     }
     for kind, sig in sigs.items():
         for suffix in _SUFFIX.values():
             fn = getattr(lib, f"{kind}_{suffix}")
             fn.argtypes = sig
             fn.restype = _I
-    # the finalizes read float64 sums and per-channel vectors only
+    # the finalize reads float64 sums and per-channel vectors only
     lib.bn_stats_finalize.argtypes = [_P, _P, _P, _P, _P, _D, _I, _F, _F, _F, _P]
-    lib.bn_relu_bwd_finalize.argtypes = [_P, _P, _P, _P, _P, _P, _D, _I, _I, _P]
-    lib.bn_stats_finalize.restype = lib.bn_relu_bwd_finalize.restype = _I
+    lib.bn_stats_finalize.restype = _I
     return lib
 
 
@@ -194,7 +205,8 @@ def bn_relu_bwd_sums_plain(g, y, st, bias) -> torch.Tensor:
 def bn_relu_bwd_finalize_plain(local, total, n, st, train: bool):
     """(dgamma, dbeta) from one share's sums ``local``, ``coef`` (2, C) =
     (c1, c2) from the sums ``total`` of all shares over ``n`` rows (0 in eval
-    mode) (the kernel ``bn_relu_bwd_finalize``)."""
+    mode): the second half of ``bn_relu_bwd_reduce_plain``, the first of
+    ``bn_relu_bwd_apply_split_plain``."""
     sd = st.dtype
     diff, r = st[1], st[2]
     coef = torch.zeros((2, st.shape[1]), dtype=sd, device=st.device)
@@ -219,6 +231,88 @@ def bn_relu_bwd_apply_plain(g, y, st, bias, coef):
     gz = g.to(sd) * _relu_grad(_z(y, st, bias))
     yc = y.to(sd) - _c(st[0])
     return (_c(st[3]) * ((gz - _c(coef[0])) - yc * _c(coef[1]))).to(y.dtype)
+
+
+def bn_relu_bwd_apply_split_plain(g, y, st, bias, local, total, n):
+    """(dy, dgamma, dbeta) of one share: ``bn_relu_bwd_finalize_plain`` in
+    train mode on its own sums ``local`` and the summed sums ``total`` over
+    ``n`` rows, then ``bn_relu_bwd_apply_plain`` (the kernel
+    ``bn_relu_bwd_apply_split``)."""
+    dgamma, dbeta, coef = bn_relu_bwd_finalize_plain(local, total, n, st, True)
+    return bn_relu_bwd_apply_plain(g, y, st, bias, coef), dgamma, dbeta
+
+
+# ---------------------------------------------------------------- the sums' launch plan
+
+
+class SumsPlan(NamedTuple):
+    """One launch of ``bn_stats_sums``: ``clusters`` clusters of SUMS_CLUSTER
+    blocks, block b over rows [b * rows_per_block, (b + 1) * rows_per_block),
+    ``groups`` 16-byte groups a row."""
+
+    clusters: int
+    rows_per_block: int
+    groups: int
+
+
+def sums_plan(rows: int, C: int, element_size: int, max_clusters: int) -> SumsPlan:
+    """The grid of ``bn_stats_sums`` over ``rows`` rows of C channels: one
+    wave of at most ``max_clusters`` clusters (the card's resident ones),
+    fewer where a thread would walk less than _MIN_ROWS rows; the rows split
+    evenly over the blocks."""
+    if rows < 1 or max_clusters < 1:
+        raise ValueError(f"need rows and clusters, got {rows} rows, {max_clusters} clusters")
+    G = C * element_size // 16
+    want = -(-rows // (_THREADS // G * _MIN_ROWS))  # blocks
+    clusters = min(max_clusters, -(-want // SUMS_CLUSTER))
+    return SumsPlan(clusters, -(-rows // (clusters * SUMS_CLUSTER)), G)
+
+
+def bn_stats_sums_in_order(y: np.ndarray, plan: SumsPlan) -> np.ndarray:
+    """(2, C) float64 sums (Σy, Σy²) of ``y`` (rows, C; float32 values) added
+    in the order of the kernel ``bn_stats_sums`` under ``plan``: each thread's
+    rows in order, the rows of a warp by a pairwise (shuffle-xor) tree, the
+    warps (or, where a row spans warps, the rows) of a block in order, the
+    blocks of a cluster in order, then for each output S threads over every
+    S-th cluster in order and the S in order. Bit for bit what the kernel
+    computes; a model for the CPU tests and the card's check."""
+    y = np.asarray(y, dtype=np.float64)
+    rows, C = y.shape
+    G = plan.groups
+    R = _THREADS // G
+    nblk, per = plan.clusters * SUMS_CLUSTER, plan.rows_per_block
+    m = -(-per // R)  # rows a thread walks at most; zero rows add nothing
+    v = np.zeros((nblk, m * R, C))
+    for b in range(nblk):
+        got = y[b * per:min((b + 1) * per, rows)]
+        v[b, :len(got)] = got
+    v = v.reshape(nblk, m, R, C)
+    s, q = np.zeros((nblk, R, C)), np.zeros((nblk, R, C))
+    for i in range(m):
+        s = s + v[:, i]
+        q = q + v[:, i] * v[:, i]  # exact products: fma(d, d, q)
+    t = np.concatenate([s, q], axis=2)  # (nblk, R, 2C)
+    if G < 32:  # each warp's 32 / G rows by the shuffle-xor tree
+        t = t.reshape(nblk, _THREADS // 32, 32 // G, 2 * C)
+        while t.shape[2] > 1:
+            t = t[:, :, 0::2] + t[:, :, 1::2]
+        t = t[:, :, 0]
+    block = t[:, 0]
+    for k in range(1, t.shape[1]):
+        block = block + t[:, k]
+    block = block.reshape(plan.clusters, SUMS_CLUSTER, 2 * C)
+    cpart = block[:, 0]
+    for r in range(1, SUMS_CLUSTER):
+        cpart = cpart + block[:, r]
+    S = _THREADS // min(2 * C // SUMS_CLUSTER, _THREADS)  # threads an output
+    share = [np.zeros(2 * C) for _ in range(S)]
+    for t_ in range(S):
+        for cl in range(t_, plan.clusters, S):
+            share[t_] = share[t_] + cpart[cl]
+    total = share[0]
+    for t_ in range(1, S):
+        total = total + share[t_]
+    return total.reshape(2, C)
 
 
 # ---------------------------------------------------------------- kernel wrappers
@@ -344,14 +438,48 @@ def _launch_finalize(kind: str, device, *args) -> None:
     LAUNCHES[kind] += 1
 
 
+# (device index, stream) -> the kCluster slice tickets of bn_stats_sums: 0
+# between launches (each slice's last block resets its own); launches on one
+# stream run in order, so they may share them, and two streams never do.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(SUMS_CLUSTER, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, dtype: torch.dtype) -> int:
+    """Clusters of ``bn_stats_sums`` the card ``index`` keeps resident."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = getattr(_lib(), f"bn_stats_sums_clusters_{_SUFFIX[dtype]}")(ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"bn_stats_sums: no resident cluster (cudaError {err}, {out.value})")
+    return out.value
+
+
 def bn_stats_sums(y) -> torch.Tensor:
-    """The forward's (2, C) float64 sums of one share (P4's first half)."""
+    """The forward's (2, C) float64 sums of one share (P4's first half), in
+    one launch."""
     if y.device.type == "cpu":
         return bn_stats_sums_plain(y)
     check_kernel_input(y)
-    sums = torch.empty((2, y.shape[1]), dtype=torch.float64, device=y.device)
-    _launch("bn_stats_sums", y, y.data_ptr(), _partials(y).data_ptr(), sums.data_ptr(), _rows(y),
-            y.shape[1])
+    C = y.shape[1]
+    plan = sums_plan(_rows(y), C, y.element_size(), _max_clusters(y.device.index, y.dtype))
+    sums = torch.empty((2, C), dtype=torch.float64, device=y.device)
+    cpart = torch.empty((plan.clusters, 2, C), dtype=torch.float64, device=y.device)
+    fn = getattr(_lib(), f"bn_stats_sums_{_SUFFIX[y.dtype]}")
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = fn(y.data_ptr(), cpart.data_ptr(), _tickets(y.device, stream).data_ptr(),
+                 sums.data_ptr(), _rows(y), C, plan.clusters, plan.rows_per_block, stream)
+    if err != 0:
+        raise RuntimeError(f"bn_stats_sums failed to launch: cudaError {err}")
+    LAUNCHES["bn_stats_sums"] += 1
     return sums
 
 
@@ -388,21 +516,30 @@ def bn_relu_bwd_sums(g, y, st, bias) -> torch.Tensor:
     return sums
 
 
-def bn_relu_bwd_finalize(local, total, n, st, train: bool):
-    """(dgamma, dbeta) float32 from one share's sums, ``coef`` (2, C) from
-    the summed ones over ``n`` rows."""
-    if st.device.type == "cpu":
-        return bn_relu_bwd_finalize_plain(local, total, n, st, train)
-    C = st.shape[1]
+def _check_apply_split(g, y, st, bias, local, total) -> None:
+    """Raise unless the split apply's kernel takes these tensors."""
+    check_kernel_input(y)
+    _check_grad(g, y)
+    _check_vectors(y, st, bias)
     for sums in (local, total):
-        _check_sums(sums, C, st.device)
-    _check_vectors(local, st)
-    dgamma, dbeta = (torch.empty(C, dtype=torch.float32, device=st.device) for _ in range(2))
-    coef = torch.empty((2, C), dtype=torch.float32, device=st.device)
-    _launch_finalize("bn_relu_bwd_finalize", st.device, local.data_ptr(), total.data_ptr(),
-                     st.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), coef.data_ptr(),
-                     float(n), C, int(bool(train)))
-    return dgamma, dbeta, coef
+        _check_sums(sums, y.shape[1], y.device)
+
+
+def bn_relu_bwd_apply_split(g, y, st, bias, local, total, n):
+    """(dy, dgamma, dbeta) of one share in one launch: dgamma and dbeta
+    float32 from its own sums ``local``, the coefficients from the sums
+    ``total`` of all shares over ``n`` rows, ``dy`` channels_last in ``y``'s
+    dtype."""
+    if y.device.type == "cpu":
+        return bn_relu_bwd_apply_split_plain(g, y, st, bias, local, total, n)
+    _check_apply_split(g, y, st, bias, local, total)
+    C = y.shape[1]
+    dy = torch.empty_like(y, memory_format=torch.channels_last)
+    dgamma, dbeta = (torch.empty(C, dtype=torch.float32, device=y.device) for _ in range(2))
+    _launch("bn_relu_bwd_apply_split", y, g.data_ptr(), y.data_ptr(), dy.data_ptr(),
+            st.data_ptr(), bias.data_ptr(), local.data_ptr(), total.data_ptr(), float(n),
+            dgamma.data_ptr(), dbeta.data_ptr(), _rows(y), C)
+    return dy, dgamma, dbeta
 
 
 # ---------------------------------------------------------------- the op
@@ -487,15 +624,13 @@ class SplitBNOps(NamedTuple):
     finalize: Callable
     fwd: Callable
     bwd_sums: Callable
-    bwd_finalize: Callable
-    bwd_apply: Callable
+    bwd_apply: Callable  # (g, y, st, bias, local, total, n) -> (dy, dgamma, dbeta)
 
 
 SPLIT_KERNEL_OPS = SplitBNOps(bn_stats_sums, bn_stats_finalize, bn_relu_fwd, bn_relu_bwd_sums,
-                              bn_relu_bwd_finalize, bn_relu_bwd_apply)
+                              bn_relu_bwd_apply_split)
 SPLIT_PLAIN_OPS = SplitBNOps(bn_stats_sums_plain, bn_stats_finalize_plain, bn_relu_fwd_plain,
-                             bn_relu_bwd_sums_plain, bn_relu_bwd_finalize_plain,
-                             bn_relu_bwd_apply_plain)
+                             bn_relu_bwd_sums_plain, bn_relu_bwd_apply_split_plain)
 
 
 class SyncBNRelu(torch.autograd.Function):
@@ -535,10 +670,10 @@ class SyncBNRelu(torch.autograd.Function):
         totals = reducer.sum(local)
         dgamma, dbeta, dys = [], [], []
         for g, y, st, b, own, total in zip(gs, ys, sts, biases, local, totals):
-            dg, db, coef = ops.bwd_finalize(own, total, ctx.n, st, True)
+            dy, dg, db = ops.bwd_apply(g, y, st, b, own, total, ctx.n)
+            dys.append(dy)
             dgamma.append(dg)
             dbeta.append(db)
-            dys.append(ops.bwd_apply(g, y, st, b, coef))
         return (None, *dys, *dgamma, *dbeta, None, None)
 
 
