@@ -292,15 +292,21 @@ exits nonzero.
 20. mesh_train (after phase 19): data-parallel training of the README's
    TrackNet (batch 10 in ``SHARES`` shares of 5, sample mixup whose partner
    rows lie on the other share). split_vs_plain: the four split BatchNorm
-   entry points (``bn_stats_sums``, ``bn_stats_finalize``,
+   entry points (``bn_stats_sums``, ``bn_relu_fwd_split``,
    ``bn_relu_bwd_sums``, ``bn_relu_bwd_apply_split``) against their plain
    versions at the step's four shapes at a share of 5, bf16 and float32,
    within ``SPLIT_BOUNDS``; the forward's sums bit-equal over
    ``SPLIT_REPEATS`` launches and to the numpy model of the kernel's order
-   (``bn_stats_sums_in_order``), the split apply's dy, dgamma and dbeta
-   bit-equal to the unsplit apply kernel on the plain finalize's
-   coefficients; the device launches a call (torch.profiler); bf16 times
-   summed over one share's 17 layers beside the bound. mesh_step_parity:
+   (``bn_stats_sums_in_order``); the split normalise's out, st and running
+   statistics bit-equal to its plain pair (finalize, then normalise) and to
+   the unsplit normalise kernel on the plain st, a launch without running
+   statistics to one with them, the synchronised op over two shares on the
+   card to one split normalise a share (the running statistics updated
+   once), and a wrong split normalise on the share's own sums unequal; the
+   split apply's dy, dgamma and dbeta bit-equal to the unsplit apply kernel
+   on the plain finalize's coefficients; 1 device launch a call of each
+   fused kernel (torch.profiler); bf16 times summed over one share's 17
+   layers beside the bound. mesh_step_parity:
    one float32 Adam step (TF32 off, deterministic cuDNN) over a mesh that
    stands the card in twice (and over
    two cards where there are two) against the single step on the global
@@ -317,9 +323,9 @@ exits nonzero.
    comparison. mesh_train: one epoch of the train
    CLI with ``--num_devices 2`` (the loop's ``make_mesh`` standing the card
    in twice where it is alone): per train step and layer 2 launches of the
-   forward's sums, of the backward's sums, of the split apply and of the
-   normalise, 1 of ``bn_stats_finalize``, none of the unsplit reductions or
-   apply, K1 / K2 once a share. mesh_step_time: bf16 ms per step (median of
+   forward's sums, of the split normalise, of the backward's sums and of the
+   split apply, none of the unsplit reductions or apply, the unsplit
+   normalise on the eval batches alone, K1 / K2 once a share. mesh_step_time: bf16 ms per step (median of
    10 after 2) single and over each mesh, peak memory per card, the ms a step spends
    in the 34 cross-share sums (CUDA events) and in the split kernels.
    mesh_procs_train: two processes on cuda:0 over a gloo group (one share
@@ -384,10 +390,10 @@ parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
 tree's and times the two in turns (old, new, new, old), with the host time
 of a call of each forward or copy wrapper beside. With ``--split_bn_only``
-it builds that tree's BatchNorm kernels, holds the split apply bit for bit
-against its finalize + apply, times its forward sums and that pair in turns
-with this tree's sums and split apply, and traces its sums' two launches
-apart at each shape.
+it builds that tree's BatchNorm kernels, holds the split normalise bit for
+bit against its ``bn_stats_finalize`` + ``bn_relu_fwd``, times that pair (a
+finalize and ``SHARES`` normalises a layer) in turns with ``SHARES`` split
+normalises, and traces the pair's launches apart at each shape.
 
 Then the ``{"kernels": [...]}`` line, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``. Exits with 2,
@@ -5117,29 +5123,33 @@ def phase_convert(tmp: str, card: str) -> dict:
 # ---------------------------------------------------------------- data-parallel training
 
 SHARES = 2  # the data-parallel phase's shares of the README batch: 2 of 5
-SPLIT_KERNELS = ("bn_stats_sums", "bn_stats_finalize", "bn_relu_bwd_sums",
+SPLIT_KERNELS = ("bn_stats_sums", "bn_relu_fwd_split", "bn_relu_bwd_sums",
                  "bn_relu_bwd_apply_split")
 SPLIT_REPLACES = {"bn_stats_sums": "tools/probe_bn_pool.py:128",
-                  "bn_stats_finalize": "tools/probe_bn_pool.py:128",
+                  "bn_relu_fwd_split": "tools/probe_bn_pool.py:167",
                   "bn_relu_bwd_sums": "tracknetv3_tpu/models/fused_forward.py:285",
                   "bn_relu_bwd_apply_split": "tracknetv3_tpu/models/fused_forward.py:285"}
+# the split normalise also takes the rest of stats_kernel (its finalize)
+SPLIT_ALSO_REPLACES = {"bn_relu_fwd_split": ["tools/probe_bn_pool.py:128 (the statistics "
+                                             "from summed sums)"]}
 # per layer of one share: activation elements read or written, float32
-# C-vectors read or written, float64 (2, C) sums read or written
-SPLIT_TRAFFIC = {"bn_stats_sums": (1, 0, 1), "bn_stats_finalize": (0, 9, 1),
+# C-vectors read or written, float64 (2, C) sums read or written (the split
+# normalise with the running statistics, as the first share runs it)
+SPLIT_TRAFFIC = {"bn_stats_sums": (1, 0, 1), "bn_relu_fwd_split": (2, 10, 1),
                  "bn_relu_bwd_sums": (2, 3, 1), "bn_relu_bwd_apply_split": (3, 7, 2)}
 # float32 / float64 operations per activation element and per channel,
-# counted from csrc/batchnorm.cu (the split apply: the apply's per element,
-# the old finalize's per channel)
-SPLIT_OPS = {"bn_stats_sums": (3, 0), "bn_stats_finalize": (0, 16),
+# counted from csrc/batchnorm.cu (the split normalise: the normalise's per
+# element, the old forward finalize's per channel; the split apply: the
+# apply's per element, the old backward finalize's per channel)
+SPLIT_OPS = {"bn_stats_sums": (3, 0), "bn_relu_fwd_split": (4, 16),
              "bn_relu_bwd_sums": (10, 0), "bn_relu_bwd_apply_split": (11, 12)}
-# launches of each kernel per layer and train step over SHARES shares: the
-# sums and the split apply per share, the forward's finalize once
-SPLIT_PER_LAYER = {"bn_stats_sums": SHARES, "bn_stats_finalize": 1, "bn_relu_bwd_sums": SHARES,
-                   "bn_relu_bwd_apply_split": SHARES}
+# launches of each kernel per layer and train step over SHARES shares: one
+# of each a share
+SPLIT_PER_LAYER = {k: SHARES for k in SPLIT_KERNELS}
 # a split kernel against its plain version on equal inputs, relative L2: the
-# sums (float64, added in another order), the finalize and the split apply
-# (the same float32 roundings)
-SPLIT_BOUNDS = {"sums": 1e-12, "finalize": 1e-6}
+# sums (float64, added in another order), the fused normalise and apply (the
+# same float32 roundings)
+SPLIT_BOUNDS = {"sums": 1e-12, "fused": 1e-6}
 # launches of bn_stats_sums on one input whose bits must all be equal
 SPLIT_REPEATS = 20
 # the float32 (TF32 off, deterministic cuDNN) step over SHARES shares against
@@ -5208,78 +5218,118 @@ def _rows_of(y):
     return y.permute(0, 2, 3, 1).reshape(-1, y.shape[1]).float().cpu().numpy()
 
 
+def _unequal(got, want) -> int:
+    """Words of the tensors ``got`` that differ from those of ``want``."""
+    return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
+# the split kernels that fold a finalize into one launch
+SPLIT_FUSED = ("bn_stats_sums", "bn_relu_fwd_split", "bn_relu_bwd_apply_split")
+
+
 def _split_vs_plain(old_bn=None):
     """The split BatchNorm entry points against their plain versions at the
     train step's four shapes at a share of B / SHARES (bf16, as training
-    runs them, and float32) within ``SPLIT_BOUNDS``. The forward's sums also
-    equal bit for bit over SPLIT_REPEATS launches and to the numpy model of
-    the kernel's order; the split apply's dy, dgamma and dbeta bit-equal to
-    the unsplit apply kernel on the plain finalize's coefficients and, with
-    ``old_bn`` (another tree's batchnorm module), to its finalize + apply
-    kernels. Times in bf16, summed over one share's 17 layers; with
-    ``old_bn`` the sums and the split apply timed in turns with the old
-    sums and the old pair (old, new, new, old), and the old sums' two
-    launches apart (torch.profiler)."""
+    runs them, and float32) within ``SPLIT_BOUNDS``; the forward's summed
+    sums are the share's and another share's (``_bn_data`` of another seed).
+    Bit for bit: the forward's sums over SPLIT_REPEATS launches and against
+    the numpy model of the kernel's order; the split normalise's out, st and
+    running statistics against its plain pair (the finalize, then the
+    normalise), against the unsplit normalise kernel on the plain st and,
+    with ``old_bn`` (another tree's batchnorm module), against its finalize
+    + normalise kernels; a launch without running statistics against one
+    with them; the synchronised op over the two shares on the card stood in
+    twice against one split normalise a share, the running statistics
+    updated once; the split apply's dy, dgamma and dbeta against the unsplit
+    apply kernel on the plain finalize's coefficients. A wrong split
+    normalise that takes the share's own sums over its own rows must read
+    unequal. Device launches a call of SPLIT_FUSED (torch.profiler): 1 each.
+    Times in bf16, summed over one share's 17 layers; with ``old_bn`` the
+    old pair (a finalize and SHARES normalises a layer) and SHARES split
+    normalises timed in turns (old, new, new, old), the old pair's launches
+    traced apart."""
     import torch
 
     from tracknetv3_tpu_torch.ops import batchnorm as bn
+    from tracknetv3_tpu_torch.parallel import mesh as pmesh
 
     dev = torch.device(DEVICE)
-    rows, errs = [], {"sums": 0.0, "finalize": 0.0}
-    unequal = dict.fromkeys(("sums_repeats", "sums_vs_model", "apply_split_vs_unsplit_apply")
-                            + (("apply_split_vs_old_pair",) if old_bn else ()), 0)
+    twice = pmesh.mesh_reducer(pmesh.make_mesh(devices=[DEVICE] * SHARES))
+    rows, errs = [], dict.fromkeys(SPLIT_BOUNDS, 0.0)
+    unequal = dict.fromkeys(
+        ("sums_repeats", "sums_vs_model", "fwd_split_vs_plain_pair", "fwd_split_vs_unsplit_fwd",
+         "fwd_split_without_running_stats", "fwd_split_over_shares",
+         "apply_split_vs_unsplit_apply") + (("fwd_split_vs_old_pair",) if old_bn else ()), 0)
     times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()}
              for k in SPLIT_KERNELS}
-    turns = {k: [0.0] * 4 for k in ("bn_stats_sums", "bn_relu_bwd_apply_split")}
-    old_split = {}
+    turns, old_traced, wrong = [0.0] * 4, {}, []
+    flat = lambda ts: torch.cat([t.double().flatten() for t in ts])  # noqa: E731
     for i, (shape, layers) in enumerate(BN_SHAPES.items()):
         shape = (B // SHARES,) + shape[1:]
         n = math.prod(shape[:-1])
+        n_all = SHARES * n
         C = shape[-1]
         for dtype in (torch.bfloat16, torch.float32):
             y, g, gamma, beta, rm, rv = _bn_data(shape, dtype, 50 + i, dev)
+            y2 = _bn_data(shape, dtype, 150 + i, dev)[0]  # the other share's rows
             sums = bn.bn_stats_sums_plain(y)
-            rm2, rv2 = rm.clone(), rv.clone()
-            st = bn.bn_stats_finalize_plain(sums, SHARES * n, gamma, rm2, rv2)
+            total = sums + bn.bn_stats_sums_plain(y2)
+            rm_p, rv_p = rm.clone(), rv.clone()
+            st = bn.bn_stats_finalize_plain(total, n_all, gamma, rm_p, rv_p)
+            plain_pair = (bn.bn_relu_fwd_plain(y, st, beta), st, rm_p, rv_p)
+            rm_k, rv_k = rm.clone(), rv.clone()
+            fwd = (*bn.bn_relu_fwd_split(y, gamma, beta, total, n_all, rm_k, rv_k), rm_k, rv_k)
+            rm_w, rv_w = rm.clone(), rv.clone()
+            own = (*bn.bn_relu_fwd_split(y, gamma, beta, bn.bn_stats_sums(y), n, rm_w, rv_w),
+                   rm_w, rv_w)
+            # the synchronised op over both shares: the running update once
+            rm_s, rv_s = rm.clone(), rv.clone()
+            with torch.no_grad():
+                over = bn.split_bn_relu_train([y, y2], [gamma] * SHARES, [beta] * SHARES, rm_s,
+                                              rv_s, twice)
+            ktotal = bn.bn_stats_sums(y) + bn.bn_stats_sums(y2)
+            rm_1, rv_1 = rm.clone(), rv.clone()
+            once = [bn.bn_relu_fwd_split(y, gamma, beta, ktotal, n_all, rm_1, rv_1)[0],
+                    bn.bn_relu_fwd_split(y2, gamma, beta, ktotal, n_all)[0]]
             gsums = bn.bn_relu_bwd_sums_plain(g, y, st, beta)
-            total = gsums * SHARES  # as if every share had this one's sums
+            btotal = gsums * SHARES  # as if every share had this one's sums
             ksums = [bn.bn_stats_sums(y) for _ in range(SPLIT_REPEATS)]
             plan = bn.sums_plan(n, C, y.element_size(), bn._max_clusters(y.device.index, dtype))
             model = torch.from_numpy(bn.bn_stats_sums_in_order(_rows_of(y), plan))
-            fused = bn.bn_relu_bwd_apply_split(g, y, st, beta, gsums, total, SHARES * n)
-            dg_p, db_p, coef_p = bn.bn_relu_bwd_finalize_plain(gsums, total, SHARES * n, st,
-                                                                True)
-            pairs = {"apply_split_vs_unsplit_apply": (
-                bn.bn_relu_bwd_apply(g, y, st, beta, coef_p), dg_p, db_p)}
-            if old_bn is not None:
-                dg_o, db_o, coef_o = old_bn.bn_relu_bwd_finalize(gsums, total, SHARES * n, st,
-                                                                 True)
-                pairs["apply_split_vs_old_pair"] = (
-                    old_bn.bn_relu_bwd_apply(g, y, st, beta, coef_o), dg_o, db_o)
+            fused = bn.bn_relu_bwd_apply_split(g, y, st, beta, gsums, btotal, n_all)
+            dg_p, db_p, coef_p = bn.bn_relu_bwd_finalize_plain(gsums, btotal, n_all, st, True)
             row = {"shape_NHWC": list(shape), "dtype": str(dtype).split(".")[-1],
                    "clusters": plan.clusters, "rows_per_block": plan.rows_per_block}
             row["sums_repeats_unequal"] = sum(int(not torch.equal(t, ksums[0]))
                                               for t in ksums[1:])
             row["sums_vs_model_unequal"] = int(not torch.equal(ksums[0].cpu(), model))
-            for name, want in pairs.items():
-                row[f"{name}_unequal"] = sum(int((a != b).sum()) for a, b in zip(fused, want))
+            row["fwd_split_vs_plain_pair_unequal"] = _unequal(fwd, plain_pair)
+            row["fwd_split_vs_unsplit_fwd_unequal"] = _unequal(
+                fwd[:1], [bn.bn_relu_fwd(y, st, beta)])
+            row["fwd_split_without_running_stats_unequal"] = _unequal(
+                bn.bn_relu_fwd_split(y, gamma, beta, total, n_all), fwd[:2])
+            row["fwd_split_over_shares_unequal"] = _unequal([*over, rm_s, rv_s],
+                                                            [*once, rm_1, rv_1])
+            row["apply_split_vs_unsplit_apply_unequal"] = _unequal(
+                fused, (bn.bn_relu_bwd_apply(g, y, st, beta, coef_p), dg_p, db_p))
+            if old_bn is not None:
+                rm_o, rv_o = rm.clone(), rv.clone()
+                st_o = old_bn.bn_stats_finalize(total, n_all, gamma, rm_o, rv_o)
+                row["fwd_split_vs_old_pair_unequal"] = _unequal(
+                    fwd, (old_bn.bn_relu_fwd(y, st_o, beta), st_o, rm_o, rv_o))
             for name in unequal:
                 unequal[name] += row[f"{name}_unequal"]
-            if old_bn is not None:
-                row["old_sums_rel_l2"] = max(_rel_l2(ksums[0][j], old_bn.bn_stats_sums(y)[j])
-                                             for j in range(2))
-            flat = lambda ts: torch.cat([t.double().flatten() for t in ts])  # noqa: E731
+            row["wrong_own_sums_unequal"] = _unequal(own, plain_pair)
+            wrong.append(row["wrong_own_sums_unequal"])
             got = {
                 "bn_stats_sums": (ksums[0], sums),
-                "bn_stats_finalize": (torch.cat([bn.bn_stats_finalize(
-                    sums, SHARES * n, gamma, rm, rv).flatten(), rm, rv]),
-                    torch.cat([st.flatten(), rm2, rv2])),
+                "bn_relu_fwd_split": (flat(fwd), flat(plain_pair)),
                 "bn_relu_bwd_sums": (bn.bn_relu_bwd_sums(g, y, st, beta), gsums),
                 "bn_relu_bwd_apply_split": (flat(fused), flat(bn.bn_relu_bwd_apply_split_plain(
-                    g, y, st, beta, gsums, total, SHARES * n))),
+                    g, y, st, beta, gsums, btotal, n_all))),
             }
             for k, (a, b) in got.items():
-                kind = "sums" if k.endswith("sums") else "finalize"
+                kind = "sums" if k.endswith("sums") else "fused"
                 # each row of the sums apart: Σy² dwarfs Σy
                 e = (max(_rel_l2(a[j], b[j]) for j in range(2)) if kind == "sums"
                      else _rel_l2(a, b))
@@ -5287,17 +5337,18 @@ def _split_vs_plain(old_bn=None):
                 row[f"{k}_max_abs_err"] = float((a.double() - b.double()).abs().max())
                 errs[kind] = max(errs[kind], e)
             if dtype == torch.bfloat16:
-                st_k = bn.bn_stats_finalize(sums, SHARES * n, gamma, rm.clone(), rv.clone())
+                st_k = fwd[1]
+                rm_t, rv_t = rm.clone(), rv.clone()
                 calls = {
                     "bn_stats_sums": (lambda f: lambda j: f(y), bn.bn_stats_sums,
                                       bn.bn_stats_sums_plain),
-                    "bn_stats_finalize": (
-                        lambda f: lambda j: f(sums, SHARES * n, gamma, rm, rv),
-                        bn.bn_stats_finalize, bn.bn_stats_finalize_plain),
+                    "bn_relu_fwd_split": (
+                        lambda f: lambda j: f(y, gamma, beta, total, n_all, rm_t, rv_t),
+                        bn.bn_relu_fwd_split, bn.bn_relu_fwd_split_plain),
                     "bn_relu_bwd_sums": (lambda f: lambda j: f(g, y, st_k, beta),
                                          bn.bn_relu_bwd_sums, bn.bn_relu_bwd_sums_plain),
                     "bn_relu_bwd_apply_split": (
-                        lambda f: lambda j: f(g, y, st_k, beta, gsums, total, SHARES * n),
+                        lambda f: lambda j: f(g, y, st_k, beta, gsums, btotal, n_all),
                         bn.bn_relu_bwd_apply_split, bn.bn_relu_bwd_apply_split_plain),
                 }
                 for k, (call, kern, plain) in calls.items():
@@ -5313,45 +5364,52 @@ def _split_vs_plain(old_bn=None):
                     times[k]["plain_ms"] += layers * tp
                     times[k]["bound_ms"] += layers * bms
                     times[k]["bound_by"].add(by)
-                new = {k: calls[k][0](calls[k][1]) for k in turns}
                 if i == 0 or old_bn is not None:  # device launches a call, traced
-                    row["device_launches_a_call"] = {k: _device_kernels(f)
-                                                     for k, f in new.items()}
+                    row["device_launches_a_call"] = {k: _device_kernels(calls[k][0](calls[k][1]))
+                                                     for k in SPLIT_FUSED}
                 if old_bn is not None:
-                    def old_pair(j):
-                        coef = old_bn.bn_relu_bwd_finalize(gsums, total, SHARES * n, st_k,
-                                                           True)[2]
-                        return old_bn.bn_relu_bwd_apply(g, y, st_k, beta, coef)
+                    def old_layer(j):  # a finalize and SHARES normalises
+                        st_o = old_bn.bn_stats_finalize(total, n_all, gamma, rm_t, rv_t)
+                        for _ in range(SHARES):
+                            old_bn.bn_relu_fwd(y, st_o, beta)
 
-                    old = {"bn_stats_sums": lambda j: old_bn.bn_stats_sums(y),
-                           "bn_relu_bwd_apply_split": old_pair}
-                    for k in turns:
-                        four = [time_launches(f, windows=3)
-                                for f in (old[k], new[k], new[k], old[k])]
-                        row[f"{k}_turns_ms"] = four
-                        turns[k] = [a + layers * b for a, b in zip(turns[k], four)]
-                    old_split[str(list(shape))] = row["old_device_launches_a_call"] = {
-                        k: _device_kernels(f) for k, f in old.items()}
+                    def new_layer(j):  # SHARES split normalises, the first with the update
+                        bn.bn_relu_fwd_split(y, gamma, beta, total, n_all, rm_t, rv_t)
+                        for _ in range(SHARES - 1):
+                            bn.bn_relu_fwd_split(y, gamma, beta, total, n_all)
+
+                    four = [time_launches(f, windows=3)
+                            for f in (old_layer, new_layer, new_layer, old_layer)]
+                    row["fwd_split_turns_ms"] = four
+                    turns = [a + layers * b for a, b in zip(turns, four)]
+                    old_traced[str(list(shape))] = row["old_device_launches_a_call"] = \
+                        _device_kernels(old_layer)
             rows.append(row)
             emit({"phase": "split_vs_plain", **row}, detail=True)
     for k, v in times.items():
         v["bound_by"] = "/".join(sorted(v["bound_by"]))
-        v["library_ms"] = None  # no one PyTorch call computes these sums or the split apply
+        v["library_ms"] = None  # no one PyTorch call computes these sums or fused ops
         v["max_abs_err"] = max(r[f"{k}_max_abs_err"] for r in rows)
+    a_call = {k: sum(c[0] for c in rows[0]["device_launches_a_call"][k].values())
+              for k in SPLIT_FUSED}
     emit({"phase": "split_vs_plain", "shares": SHARES, "share_batch": B // SHARES,
           "worst": errs, "bounds": SPLIT_BOUNDS, "unequal": unequal,
-          "sums_repeats": SPLIT_REPEATS,
-          "device_launches_a_call": {k: sum(c[0] for c in rows[0]["device_launches_a_call"][k]
-                                            .values()) for k in turns},
+          "wrong_own_sums_unequal": wrong, "sums_repeats": SPLIT_REPEATS,
+          "device_launches_a_call": a_call,
           "ms_per_share_step": {k: v["ms"] for k, v in times.items()},
           "bound_ms": {k: v["bound_ms"] for k, v in times.items()},
-          **({"turns_old_new_new_old_ms_per_share_step": turns,
-              "old_device_kernels_by_shape": old_split} if old_bn is not None else {})})
+          **({"fwd_turns_old_new_new_old_ms_per_step": turns,
+              "old_device_kernels_by_shape": old_traced} if old_bn is not None else {})})
     for kind, e in errs.items():
         if not e <= SPLIT_BOUNDS[kind]:
             fail("split_vs_plain", f"{kind}: {e} > {SPLIT_BOUNDS[kind]}")
     if any(unequal.values()):
         fail("split_vs_plain", f"unequal bits where none may differ: {unequal}")
+    if not all(wrong):
+        fail("split_vs_plain", f"the split normalise on the share's own sums reads equal: {wrong}")
+    # one launch a call (a trace may lose an event: 0.9 reads as 1)
+    if any(round(v) != 1 for v in a_call.values()):
+        fail("split_vs_plain", f"device launches a call {a_call}, not 1 each")
     return times
 
 
@@ -5849,8 +5907,9 @@ def _mesh_train_measured(tmp: str, card: str, data_dir: str, pairs):
     val = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L), "concat", B,
                                  data_dir=data_dir))
     want = {k: BN_LAYERS * SPLIT_PER_LAYER[k] * steps for k in SPLIT_KERNELS}
+    # the unsplit normalise on the eval batches alone
     want.update(bn_stats=0, bn_relu_bwd_reduce=0, bn_relu_bwd_apply=0,
-                bn_relu_fwd=BN_LAYERS * (SHARES * steps + val),
+                bn_relu_fwd=BN_LAYERS * val,
                 wbce_disk_fwd=SHARES * steps, wbce_disk_bwd=SHARES * steps)
     emit({"phase": "mesh_train", "cli": "--num_devices 2", "mesh": [
         str(d) for d in (meshes.get("two_cards") or meshes["card_twice"]).devices],
@@ -6513,7 +6572,8 @@ def main() -> int:
     # launches of the train CLI's epoch over 2 shares
     lines += [
         {"name": k, "route": "cuda", "source": "tracknetv3_tpu_torch/csrc/batchnorm.cu",
-         "replaces": SPLIT_REPLACES[k], "launches": split_launches[k], **v}
+         "replaces": SPLIT_REPLACES[k], "also_replaces": SPLIT_ALSO_REPLACES.get(k, []),
+         "launches": split_launches[k], **v}
         for k, v in split_times.items()
     ]
     # P1-P3: times and bounds summed over the 17 convs of one forward at batch

@@ -13,7 +13,8 @@ do that the card alone can run, rehearsed on the CPU.
   ``bn_stats_sums_plain`` at a C of 64 and 512 in bfloat16 and float32.
 - The split backward's fused apply: its plain version is the old finalize
   then the old apply, bit for bit; the synchronised op through
-  ``SPLIT_PLAIN_OPS`` still equals the unsplit op and calls it once a share;
+  ``SPLIT_PLAIN_OPS`` still equals the unsplit op and calls it, and the
+  split normalise, once a share;
   its wrapper refuses wrong dtypes, shapes and devices.
 - The kernel's constants agree with the wrapper's.
 
@@ -248,15 +249,19 @@ def test_split_plain_ops_match_the_unsplit_op_and_apply_once_a_share(shares):
     rm, rv = torch.zeros_like(w), torch.ones_like(w)
     out = bnm.bn_relu_train(yy, w, b, rm, rv)
     want = [out.detach(), *torch.autograd.grad(out, (yy, w, b), g), rm, rv]
-    calls = []
+    calls, fwd_calls = [], []
 
     def counted(*args):
         calls.append(args[0].shape)
         return bnm.bn_relu_bwd_apply_split_plain(*args)
 
+    def fwd_counted(*args):
+        fwd_calls.append(args[0].shape)
+        return bnm.bn_relu_fwd_split_plain(*args)
+
     got = _split_op(y, g, gamma, beta, shares,
-                    bnm.SPLIT_PLAIN_OPS._replace(bwd_apply=counted))
-    assert len(calls) == shares
+                    bnm.SPLIT_PLAIN_OPS._replace(fwd=fwd_counted, bwd_apply=counted))
+    assert len(calls) == shares and len(fwd_calls) == shares
     for a, b_ in zip(got, want):
         assert float((a - b_).abs().max() / b_.abs().max()) <= 1e-12
 

@@ -4,7 +4,9 @@ their plain versions (``chip_smoke.py`` holds the split kernels to the same
 plain versions on the card), and the traps of data-parallel BatchNorm.
 
 - The split plain versions (sums, then a finalize) compose to the unsplit
-  ones bit for bit, in bfloat16, float32 and float64.
+  ones bit for bit, in bfloat16, float32 and float64; the split normalise
+  (``bn_relu_fwd_split``) is the forward's finalize and normalise in one
+  op.
 - The op over 1, 2 and 4 shares of one batch against ``bn_relu_train`` on
   the whole batch, in float64, with a constant channel (variance 0, so
   ``z == 0``: the ReLU's tie passes half the gradient): at one share of a
@@ -15,8 +17,9 @@ plain versions on the card), and the traps of data-parallel BatchNorm.
 - The layer's op, ``sync_bn_relu_train``, runs the unsplit op where one
   share of one process is the whole batch (the one-device train step), and
   the split op over several shares or processes.
-- Wrong versions fail those bounds: each share with its own statistics (the
-  running statistics then move twice), ``dgamma`` / ``dbeta`` from the
+- Wrong versions fail those bounds: a split normalise with each share's own
+  statistics (its own sums over its own rows; the running statistics then
+  move with the first share's moments), ``dgamma`` / ``dbeta`` from the
   summed sums (counted W times once autograd sums the shares), and, in the
   whole float64 train step of ``test_torch_dp_steps.py``, those two and a
   mixup partner drawn inside the share.
@@ -116,9 +119,10 @@ def test_sync_op_over_shares_matches_the_unsplit_op(shares):
             assert _rel(got[k], want[k]) <= 1e-12, (k, _rel(got[k], want[k]))
 
 
-def _each_share_its_own(ys, weights, biases, running_mean, running_var, reducer, ops=None):
-    return [bnm.bn_relu_train(y, w, b, running_mean, running_var)
-            for y, w, b in zip(ys, weights, biases)]
+def _each_share_its_own(y, weight, bias, total, n, running_mean=None, running_var=None):
+    """The wrong split normalise: the share's own sums over its own rows."""
+    return bnm.bn_relu_fwd_split(y, weight, bias, bnm.bn_stats_sums(y), bnm._rows(y),
+                                 running_mean, running_var)
 
 
 def _dgamma_from_the_total(g, y, st, bias, local, total, n):
@@ -129,9 +133,10 @@ def test_wrong_sync_ops_fail_the_bound():
     y, g, gamma, beta = _data()
     want = _unsplit(y, g, gamma, beta)
     reducer = mesh_reducer(make_mesh(2, device="cpu"))
-    own = _over_shares(y, g, gamma, beta, 2, reducer, op=_each_share_its_own)
+    own = _over_shares(y, g, gamma, beta, 2, reducer,
+                       ops=bnm.SPLIT_PLAIN_OPS._replace(fwd=_each_share_its_own))
     assert _rel(own["out"], want["out"]) > 1e-3
-    assert _rel(own["rm"], want["rm"]) > 1e-3  # moved twice, from each share's mean
+    assert _rel(own["rm"], want["rm"]) > 1e-3  # moved from the first share's mean
     total = _over_shares(y, g, gamma, beta, 2, reducer,
                          ops=bnm.SPLIT_PLAIN_OPS._replace(bwd_apply=_dgamma_from_the_total))
     assert torch.equal(total["out"], want["out"]) or _rel(total["out"], want["out"]) <= 1e-12
@@ -173,9 +178,11 @@ def test_split_kernel_wrappers_check_their_sums():
         with pytest.raises(ValueError, match="sums must be"):
             bnm._check_sums(bad, C, torch.device("cpu"))
     bnm._check_sums(torch.zeros(2, C, dtype=torch.float64), C, torch.device("cpu"))
-    assert {"bn_stats_sums", "bn_stats_finalize", "bn_relu_bwd_sums",
+    assert {"bn_stats_sums", "bn_relu_fwd_split", "bn_relu_bwd_sums",
             "bn_relu_bwd_apply_split"} <= set(bnm.LAUNCHES)
     assert "bn_relu_bwd_finalize" not in bnm.LAUNCHES  # folded into the split apply
+    assert "bn_stats_finalize" not in bnm.LAUNCHES  # folded into the split normalise
+    assert not hasattr(bnm, "bn_stats_finalize")
 
 
 def _partner_inside_the_share(shares, ts):
@@ -185,8 +192,8 @@ def _partner_inside_the_share(shares, ts):
 
 
 WRONG_STEPS = {
-    "per_share_statistics": lambda: mock.patch.object(bnm, "sync_bn_relu_train",
-                                                      _each_share_its_own),
+    "per_share_statistics": lambda: mock.patch.object(
+        bnm, "SPLIT_KERNEL_OPS", bnm.SPLIT_KERNEL_OPS._replace(fwd=_each_share_its_own)),
     "dgamma_from_the_summed_sums": lambda: mock.patch.object(
         bnm, "SPLIT_KERNEL_OPS",
         bnm.SPLIT_KERNEL_OPS._replace(bwd_apply=_dgamma_from_the_total)),

@@ -14,7 +14,8 @@
 // halves (JAX gets this from GSPMD: the batch mean of a sharded array is an
 // all-reduce):
 //   bn_stats_sums_{bf16,f32}       <- stats_kernel's sums (P4), one launch
-//   bn_stats_finalize              <- the rest of P4, from summed sums
+//   bn_relu_fwd_split_{bf16,f32}   <- the rest of P4 from summed sums, and
+//                                     norm_kernel (P5), one launch
 //   bn_relu_bwd_sums_{bf16,f32}    <- the gradient's sums
 //   bn_relu_bwd_apply_split_{bf16,f32}
 //                                  <- dgamma, dbeta, the coefficients and dy
@@ -36,10 +37,11 @@
 //           statistics, which are constants: c1 = c2 = 0.
 //   apply:  dy = cast(inv * ((gz - c1) - yc * c2)).
 // Split: sums (2, C) double = (sum y, sum y^2) forward and (Sg, Sgy)
-// backward over one share's rows; stats_finalize takes summed sums and the
-// global row count n; apply_split takes dgamma and dbeta from one share's own
-// sums (each share's gradient is summed later with the others') and c1, c2
-// from the summed ones, then applies them as apply does. The backward's sums
+// backward over one share's rows; fwd_split takes summed sums and the global
+// row count n, computes the statistics as stats does and normalises as fwd
+// does; apply_split takes dgamma and dbeta from one share's own sums (each
+// share's gradient is summed later with the others') and c1, c2 from the
+// summed ones, then applies them as apply does. The backward's sums
 // keep the unsplit reduction's fixed order. The forward's sums add every
 // element as the unsplit partial pass does (cvt, add, fma in double) but
 // combine the blocks in an order of their own (below), so they may differ
@@ -88,7 +90,12 @@
 // a share. The split backward's apply computes the coefficients itself, in
 // every block, from the (2, C) sums: the finalize launch and its (2, C)
 // coefficients in device memory are gone; the two double divisions a channel
-// and block are what that costs.
+// and block are what that costs. The split forward's normalise does the same
+// with the statistics: every block computes mean and inv of all channels from
+// the summed sums (fwd_finalize_channel, the unsplit finalize's own body), and
+// block 0 writes st (4, C) for the backward and the running update, so each
+// share computes its own st in its own normalise: no finalize launch (a
+// latency-bound 3 us a layer) and no copy of st to the other shares.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -286,6 +293,34 @@ __global__ void __launch_bounds__(kThreads)
   block_partials<P>(ds, dq, G, part);
 }
 
+// Channel c's statistics from its sums (s, q) over n rows: mean and inv;
+// where st is not null also its column of st (4, C) = mean, diff, r, inv and,
+// where running_mean is not null too, the running update in place.
+__device__ __forceinline__ void fwd_finalize_channel(int c, int C, double s, double q, double n,
+                                                     const float* __restrict__ gamma, float eps,
+                                                     float* __restrict__ st,
+                                                     float* __restrict__ running_mean,
+                                                     float* __restrict__ running_var,
+                                                     float momentum, float one_minus_momentum,
+                                                     float& mean, float& inv) {
+  const double md = s / n;
+  mean = (float)md;
+  const float diff = (float)(q / n - md * md);
+  const float var = relu(diff);
+  const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+  inv = __fmul_rn(r, gamma[c]);
+  if (st == nullptr) return;
+  st[c] = mean;
+  st[C + c] = diff;
+  st[2 * C + c] = r;
+  st[3 * C + c] = inv;
+  if (running_mean == nullptr) return;
+  running_mean[c] =
+      __fadd_rn(__fmul_rn(running_mean[c], momentum), __fmul_rn(mean, one_minus_momentum));
+  running_var[c] =
+      __fadd_rn(__fmul_rn(running_var[c], momentum), __fmul_rn(var, one_minus_momentum));
+}
+
 // mean, diff, r, inv into st (4, C); the running update in place.
 __global__ void __launch_bounds__(kThreads)
     bn_stats_finalize_kernel(const double* __restrict__ part, int nblk, int C, double n,
@@ -296,19 +331,9 @@ __global__ void __launch_bounds__(kThreads)
   sum_partials(part, nblk, C, s, q);
   const int c = blockIdx.x * 32 + (threadIdx.x & 31);
   if (threadIdx.x >= 32 || c >= C) return;
-  const double md = s / n;
-  const float mean = (float)md;
-  const float diff = (float)(q / n - md * md);
-  const float var = relu(diff);
-  const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
-  st[c] = mean;
-  st[C + c] = diff;
-  st[2 * C + c] = r;
-  st[3 * C + c] = __fmul_rn(r, gamma[c]);
-  running_mean[c] =
-      __fadd_rn(__fmul_rn(running_mean[c], momentum), __fmul_rn(mean, one_minus_momentum));
-  running_var[c] =
-      __fadd_rn(__fmul_rn(running_var[c], momentum), __fmul_rn(var, one_minus_momentum));
+  float mean, inv;
+  fwd_finalize_channel(c, C, s, q, n, gamma, eps, st, running_mean, running_var, momentum,
+                       one_minus_momentum, mean, inv);
 }
 
 // out = cast(max((y - mean) * inv + beta, 0)); st rows 0 and 3 are mean, inv.
@@ -325,6 +350,46 @@ __global__ void __launch_bounds__(kThreads)
     const int c = g * P + j;
     m[j] = st[c];
     a[j] = st[3 * C + c];
+    b[j] = beta[c];
+  }
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < total; i += stride) {
+    float f[P];
+    load_pack<T>(y, i, f);
+#pragma unroll
+    for (int j = 0; j < P; ++j) f[j] = relu(bn_z(f[j], m[j], a[j], b[j]));
+    store_pack<T>(out, i, f);
+  }
+}
+
+// The split forward's normalise: mean and inv of every channel from the
+// summed sums ``sums`` over n rows into shared memory, rounded as
+// bn_stats_finalize_kernel rounds them, then out as bn_relu_fwd_kernel; block
+// 0 also writes st and, where running_mean is not null, the running update.
+// No block reads what block 0 writes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bn_relu_fwd_split_kernel(const uint4* __restrict__ y, uint4* __restrict__ out, int64_t total,
+                             int G, const double* __restrict__ sums, double n,
+                             const float* __restrict__ gamma, const float* __restrict__ beta,
+                             float* __restrict__ running_mean, float* __restrict__ running_var,
+                             float* __restrict__ st, float eps, float momentum,
+                             float one_minus_momentum) {
+  constexpr int P = Pack<T>::n;
+  __shared__ float mi[2 * kThreads * P];  // mean (C), then inv (C)
+  const int C = G * P;
+  float* const st0 = blockIdx.x == 0 ? st : nullptr;
+  for (int c = threadIdx.x; c < C; c += kThreads)
+    fwd_finalize_channel(c, C, sums[c], sums[C + c], n, gamma, eps, st0, running_mean,
+                         running_var, momentum, one_minus_momentum, mi[c], mi[C + c]);
+  __syncthreads();
+  const int g = threadIdx.x % G;  // the grid stride is a multiple of G
+  float m[P], a[P], b[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int c = g * P + j;
+    m[j] = mi[c];
+    a[j] = mi[C + c];
     b[j] = beta[c];
   }
   const int64_t stride = (int64_t)gridDim.x * kThreads;
@@ -687,6 +752,19 @@ int relu_fwd(const void* y, void* out, const float* st, const float* beta, int64
 }
 
 template <typename T>
+int relu_fwd_split(const void* y, void* out, const double* sums, double n, const float* gamma,
+                   const float* beta, float* running_mean, float* running_var, float* st,
+                   int64_t rows, int C, float eps, float momentum, float one_minus_momentum,
+                   void* stream) {
+  const int G = groups_of<T>(C);
+  const int64_t total = rows * G;
+  bn_relu_fwd_split_kernel<T><<<apply_blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)y, (uint4*)out, total, G, sums, n, gamma, beta, running_mean, running_var,
+      st, eps, momentum, one_minus_momentum);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int bwd_reduce(const void* g, const void* y, double* part, const float* st, const float* beta,
                float* dgamma, float* dbeta, float* coef, int64_t rows, int C, int train,
                void* stream) {
@@ -852,13 +930,23 @@ int bn_stats_sums_f32(const void* y, double* cpart, int* tickets, double* sums, 
 // Clusters of bn_stats_sums_* the current card keeps resident at once.
 int bn_stats_sums_clusters_bf16(int* out) { return sums_clusters<__nv_bfloat16>(out); }
 int bn_stats_sums_clusters_f32(int* out) { return sums_clusters<float>(out); }
-// st (4, C) and the running update from sums (2, C) over n rows in all.
-int bn_stats_finalize(const double* sums, const float* gamma, float* running_mean,
-                      float* running_var, float* st, double n, int C, float eps, float momentum,
-                      float one_minus_momentum, void* stream) {
-  bn_stats_finalize_kernel<<<(C + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
-      sums, 1, C, n, gamma, running_mean, running_var, st, eps, momentum, one_minus_momentum);
-  return (int)cudaGetLastError();
+
+// out (rows, C) = cast(max((y - mean) * inv + beta, 0)) with the statistics
+// of the sums (2, C) of every share over n rows; st (4, C) and, where
+// running_mean and running_var are not null, the running update.
+int bn_relu_fwd_split_bf16(const void* y, void* out, const double* sums, double n,
+                           const float* gamma, const float* beta, float* running_mean,
+                           float* running_var, float* st, long long rows, int C, float eps,
+                           float momentum, float one_minus_momentum, void* stream) {
+  return relu_fwd_split<__nv_bfloat16>(y, out, sums, n, gamma, beta, running_mean, running_var,
+                                       st, rows, C, eps, momentum, one_minus_momentum, stream);
+}
+int bn_relu_fwd_split_f32(const void* y, void* out, const double* sums, double n,
+                          const float* gamma, const float* beta, float* running_mean,
+                          float* running_var, float* st, long long rows, int C, float eps,
+                          float momentum, float one_minus_momentum, void* stream) {
+  return relu_fwd_split<float>(y, out, sums, n, gamma, beta, running_mean, running_var, st, rows,
+                               C, eps, momentum, one_minus_momentum, stream);
 }
 
 // sums (2, C) = (Sg, Sgy) of g, y (rows, C) in double.

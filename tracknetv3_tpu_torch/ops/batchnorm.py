@@ -50,8 +50,11 @@ split at their float64 sums, four more kernels:
   of thread block clusters (``sums_plan``) that adds the blocks' partials
   in the same launch, in a fixed order of its own
   (``bn_stats_sums_in_order`` models it in numpy);
-- ``bn_stats_finalize``: ``st`` and the running update from sums that a
-  ``Reducer`` has summed over the shares, and the global row count;
+- ``bn_relu_fwd_split``: ``st`` from sums that a ``Reducer`` has summed
+  over the shares and the global row count, computed in every block with the
+  unsplit finalize's roundings, and the normalise, in one launch; block 0
+  writes ``st`` and, where it is given running statistics, their update. Its
+  plain version is ``bn_stats_finalize_plain`` then ``bn_relu_fwd_plain``;
 - ``bn_relu_bwd_sums``: one share's (2, C) sums (Σgz, Σgz·(y - mean));
 - ``bn_relu_bwd_apply_split``: ``dgamma`` and ``dbeta`` from the share's own
   sums (the shares' parameter gradients are summed afterwards, by autograd
@@ -61,15 +64,15 @@ split at their float64 sums, four more kernels:
 
 ``split_bn_relu_train`` is the synchronised op over a list of shares: sums
 per share, one reduction by the caller's reducer (``parallel/mesh.py``,
-``parallel/processes.py``), the finalize once (on the first share's device;
-the statistics are copied to the others), ``bn_relu_fwd`` per share; the
-backward alike, ending in ``bn_relu_bwd_apply_split`` per share. Over one
-share whose reducer returns its sums it computes ``bn_relu_train``'s every
-bit given equal forward sums (the kernels' forward sums may differ from the
-unsplit statistics' in the last bits of float64; the plain versions' are
-equal). ``sync_bn_relu_train``, the layer's op, runs ``bn_relu_train`` itself
-where one share of one process is the whole batch, and the split op
-otherwise.
+``parallel/processes.py``), ``bn_relu_fwd_split`` per share on its own copy
+of the summed sums (the first share of a process also updates the running
+statistics); the backward alike, ending in ``bn_relu_bwd_apply_split`` per
+share. Over one share whose reducer returns its sums it computes
+``bn_relu_train``'s every bit given equal forward sums (the kernels' forward
+sums may differ from the unsplit statistics' in the last bits of float64;
+the plain versions' are equal). ``sync_bn_relu_train``, the layer's op,
+runs ``bn_relu_train`` itself where one share of one process is the whole
+batch, and the split op otherwise.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ SOURCE = "batchnorm.cu"
 MOMENTUM = 0.9
 EPS = 1e-5
 LAUNCHES = {"bn_stats": 0, "bn_relu_fwd": 0, "bn_relu_bwd_reduce": 0, "bn_relu_bwd_apply": 0,
-            "bn_stats_sums": 0, "bn_stats_finalize": 0, "bn_relu_bwd_sums": 0,
+            "bn_stats_sums": 0, "bn_relu_fwd_split": 0, "bn_relu_bwd_sums": 0,
             "bn_relu_bwd_apply_split": 0}
 
 _P = ctypes.c_void_p
@@ -115,6 +118,7 @@ def _lib() -> ctypes.CDLL:
         "bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
         "bn_relu_bwd_apply": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
         "bn_stats_sums": [_P, _P, _P, _P, _LL, _I, _I, _LL, _P],
+        "bn_relu_fwd_split": [_P, _P, _P, _D, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _F, _P],
         "bn_relu_bwd_sums": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
         "bn_relu_bwd_apply_split": [_P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _LL, _I, _P],
         "bn_stats_sums_clusters": [_P],
@@ -124,9 +128,6 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, f"{kind}_{suffix}")
             fn.argtypes = sig
             fn.restype = _I
-    # the finalize reads float64 sums and per-channel vectors only
-    lib.bn_stats_finalize.argtypes = [_P, _P, _P, _P, _P, _D, _I, _F, _F, _F, _P]
-    lib.bn_stats_finalize.restype = _I
     return lib
 
 
@@ -163,14 +164,17 @@ def bn_stats_sums_plain(y) -> torch.Tensor:
 def bn_stats_finalize_plain(sums, n, weight, running_mean, running_var, dtype=torch.float32,
                             momentum=MOMENTUM, eps=EPS):
     """``st`` (4, C) in ``dtype`` from (2, C) sums over ``n`` rows, and the
-    running update in place (the kernel ``bn_stats_finalize``)."""
+    running update in place where ``running_mean`` is not None (the second
+    launch of the kernel ``bn_stats``; the first half of
+    ``bn_relu_fwd_split``)."""
     mean = sums[0] / n
     diff = (sums[1] / n - mean * mean).to(dtype)
     mean = mean.to(dtype)
     var = diff.clamp_min(0.0)
     r = 1.0 / torch.sqrt(var + eps)
-    running_mean.mul_(momentum).add_(mean * (1.0 - momentum))
-    running_var.mul_(momentum).add_(var * (1.0 - momentum))
+    if running_mean is not None:
+        running_mean.mul_(momentum).add_(mean * (1.0 - momentum))
+        running_var.mul_(momentum).add_(var * (1.0 - momentum))
     return torch.stack([mean, diff, r, r * weight])
 
 
@@ -190,6 +194,15 @@ def _z(y, st, bias):
 def bn_relu_fwd_plain(y, st, bias):
     """``cast(max((y - mean) * inv + bias, 0))`` (the kernel ``bn_relu_fwd``)."""
     return _z(y, st, bias).clamp_min(0.0).to(y.dtype)
+
+
+def bn_relu_fwd_split_plain(y, weight, bias, total, n, running_mean=None, running_var=None):
+    """(out, st) of one share: ``bn_stats_finalize_plain`` on the sums
+    ``total`` of all shares over ``n`` rows (the running update only where
+    running statistics are given), then ``bn_relu_fwd_plain`` (the kernel
+    ``bn_relu_fwd_split``)."""
+    st = bn_stats_finalize_plain(total, n, weight, running_mean, running_var, _stats_dtype(y))
+    return bn_relu_fwd_plain(y, st, bias), st
 
 
 def bn_relu_bwd_sums_plain(g, y, st, bias) -> torch.Tensor:
@@ -430,14 +443,6 @@ def _check_sums(sums: torch.Tensor, C: int, device) -> None:
                          f"{sums.dtype} {tuple(sums.shape)} on {sums.device}")
 
 
-def _launch_finalize(kind: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = getattr(_lib(), kind)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kind} failed to launch: cudaError {err}")
-    LAUNCHES[kind] += 1
-
-
 # (device index, stream) -> the kCluster slice tickets of bn_stats_sums: 0
 # between launches (each slice's last block resets its own); launches on one
 # stream run in order, so they may share them, and two streams never do.
@@ -483,24 +488,32 @@ def bn_stats_sums(y) -> torch.Tensor:
     return sums
 
 
+def _check_fwd_split(y, weight, bias, total, running_mean, running_var) -> None:
+    """Raise unless the split normalise's kernel takes these tensors."""
+    check_kernel_input(y)
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("give both running statistics or neither")
+    _check_vectors(y, weight, bias, *(v for v in (running_mean, running_var) if v is not None))
+    _check_sums(total, y.shape[1], y.device)
+
+
 @torch.no_grad()
-def bn_stats_finalize(sums, n, weight, running_mean, running_var, dtype=torch.float32,
-                      momentum=MOMENTUM, eps=EPS):
-    """P4's second half: ``st`` (4, C) float32 and the running update from
-    summed sums over ``n`` rows."""
-    if sums.device.type == "cpu":
-        return bn_stats_finalize_plain(sums, n, weight, running_mean, running_var, dtype,
-                                       momentum, eps)
-    C = weight.shape[-1]
-    if dtype != torch.float32:
-        raise ValueError(f"the kernel's statistics are float32, not {dtype}")
-    _check_sums(sums, C, weight.device)
-    _check_vectors(sums, weight, running_mean, running_var)
-    st = torch.empty((4, C), dtype=torch.float32, device=weight.device)
-    _launch_finalize("bn_stats_finalize", weight.device, sums.data_ptr(), weight.data_ptr(),
-                     running_mean.data_ptr(), running_var.data_ptr(), st.data_ptr(), float(n),
-                     C, float(eps), float(momentum), float(1.0 - momentum))
-    return st
+def bn_relu_fwd_split(y, weight, bias, total, n, running_mean=None, running_var=None):
+    """(out, st) of one share in one launch: P4's finalize on the sums
+    ``total`` of all shares over ``n`` rows (``st`` (4, C) float32, and the
+    running update where running statistics are given), then P5's normalise
+    (``out`` channels_last in ``y``'s dtype)."""
+    if y.device.type == "cpu":
+        return bn_relu_fwd_split_plain(y, weight, bias, total, n, running_mean, running_var)
+    _check_fwd_split(y, weight, bias, total, running_mean, running_var)
+    C = y.shape[1]
+    out = torch.empty_like(y, memory_format=torch.channels_last)
+    st = torch.empty((4, C), dtype=torch.float32, device=y.device)
+    running = [None if v is None else v.data_ptr() for v in (running_mean, running_var)]
+    _launch("bn_relu_fwd_split", y, y.data_ptr(), out.data_ptr(), total.data_ptr(), float(n),
+            weight.data_ptr(), bias.data_ptr(), *running, st.data_ptr(), _rows(y), C, float(EPS),
+            float(MOMENTUM), float(1.0 - MOMENTUM))
+    return out, st
 
 
 def bn_relu_bwd_sums(g, y, st, bias) -> torch.Tensor:
@@ -621,16 +634,15 @@ class SplitBNOps(NamedTuple):
     """The functions the synchronised op goes through."""
 
     sums: Callable
-    finalize: Callable
-    fwd: Callable
+    fwd: Callable  # (y, weight, bias, total, n, running_mean, running_var) -> (out, st)
     bwd_sums: Callable
     bwd_apply: Callable  # (g, y, st, bias, local, total, n) -> (dy, dgamma, dbeta)
 
 
-SPLIT_KERNEL_OPS = SplitBNOps(bn_stats_sums, bn_stats_finalize, bn_relu_fwd, bn_relu_bwd_sums,
+SPLIT_KERNEL_OPS = SplitBNOps(bn_stats_sums, bn_relu_fwd_split, bn_relu_bwd_sums,
                               bn_relu_bwd_apply_split)
-SPLIT_PLAIN_OPS = SplitBNOps(bn_stats_sums_plain, bn_stats_finalize_plain, bn_relu_fwd_plain,
-                             bn_relu_bwd_sums_plain, bn_relu_bwd_apply_split_plain)
+SPLIT_PLAIN_OPS = SplitBNOps(bn_stats_sums_plain, bn_relu_fwd_split_plain, bn_relu_bwd_sums_plain,
+                             bn_relu_bwd_apply_split_plain)
 
 
 class SyncBNRelu(torch.autograd.Function):
@@ -641,8 +653,8 @@ class SyncBNRelu(torch.autograd.Function):
     ``reducer.processes`` is the number of processes whose shares take
     part, the shares being equal). Inputs: ``ys``, the shares' weights, the
     shares' biases (each a copy of the layer's on its share's device), then
-    the running mean and variance, updated once. Saves each ``y_w``, its
-    statistics and bias."""
+    the running mean and variance, updated once, by the first share. Saves
+    each ``y_w``, the statistics its own normalise wrote, and its bias."""
 
     @staticmethod
     def forward(ctx, meta, *tensors):
@@ -651,12 +663,16 @@ class SyncBNRelu(torch.autograd.Function):
         ys, weights, biases = tensors[:W], tensors[W:2 * W], tensors[2 * W:3 * W]
         running_mean, running_var = tensors[3 * W:]
         n = sum(_rows(y) for y in ys) * reducer.processes
-        total = reducer.sum([ops.sums(y) for y in ys])[0]
-        st0 = ops.finalize(total, n, weights[0], running_mean, running_var, _stats_dtype(ys[0]))
-        sts = [st0.to(y.device) for y in ys]
+        totals = reducer.sum([ops.sums(y) for y in ys])
+        outs, sts = [], []
+        for i, (y, w, b, total) in enumerate(zip(ys, weights, biases, totals)):
+            running = (running_mean, running_var) if i == 0 else (None, None)
+            out, st = ops.fwd(y, w, b, total, n, *running)
+            outs.append(out)
+            sts.append(st)
         ctx.save_for_backward(*ys, *sts, *biases)
         ctx.meta, ctx.n, ctx.W = meta, n, W
-        return tuple(ops.fwd(y, st, b) for y, st, b in zip(ys, sts, biases))
+        return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
