@@ -1265,15 +1265,14 @@ def phase_slice(tmp: str):
               "--batch_size", str(B), "--data_dir", data_dir, "--save_dir", save_dir]
 
     torch.cuda.reset_peak_memory_stats()
-    wd.LAUNCHES.update(fwd=0, bwd=0)  # counts of the main path only
-    bn.LAUNCHES.update(dict.fromkeys(bn.LAUNCHES, 0))
+    _zero_launches()  # counts of the main path only
     t0 = time.time()
     with contextlib.redirect_stdout(sys.stderr):  # the CLI's own lines
         out1 = train_cli.main(common + ["--epochs", "1"])
         out2 = train_cli.main(common + ["--epochs", "2", "--resume_training"])
     torch.cuda.synchronize()
-    launches = dict(wd.LAUNCHES)
-    bn_launches = dict(bn.LAUNCHES)
+    launches = _launches(wd)
+    bn_launches = _launches(bn)
     train_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
 
@@ -1286,14 +1285,14 @@ def phase_slice(tmp: str):
     # the normalise once per layer per eval batch (one validation an epoch)
     eval_batches = len(hist) * len(HeatmapBatchLoader(
         build_split_index(data_dir, "val", L, L), "concat", B, data_dir=data_dir))
-    want_bn = {k: BN_LAYERS * steps if k in BN_KERNELS else 0 for k in bn.LAUNCHES}
+    want_bn = {k: BN_LAYERS * steps if k in BN_KERNELS else 0 for k in bn.KERNELS}
     want_bn["bn_relu_fwd"] += BN_LAYERS * eval_batches
     emit({"phase": "slice", "train_steps": steps, "eval_batches": eval_batches,
           "launches": launches, "bn_launches": bn_launches,
           "epochs": [h["epoch"] for h in hist], "losses": losses,
           "val_res": hist[-1]["val_res"], "dataset_s": data_s, "train_s": train_s,
           "peak_mem_bytes": peak})
-    if not steps or launches != {"fwd": steps, "bwd": steps}:
+    if not steps or launches != {"wbce_disk_fwd": steps, "wbce_disk_bwd": steps}:
         fail("slice", f"launches {launches} != {steps} train steps")
     if bn_launches != want_bn:
         fail("slice", f"BatchNorm launches {bn_launches} != {want_bn} ({steps} train steps, "
@@ -1445,7 +1444,7 @@ INPAINT_SEQ, INPAINT_BATCH = 16, 32  # the README's InpaintNet configuration
 
 
 def _kernel_modules():
-    """The modules of the hand kernels, each with its ``LAUNCHES`` counts."""
+    """The modules of the hand kernels, each with its ``KERNELS`` (launch counters)."""
     from tracknetv3_tpu_torch.ops import batchnorm, conv3x3, pool_up2x, shift_copy, wbce_disk
 
     return batchnorm, conv3x3, pool_up2x, shift_copy, wbce_disk
@@ -1485,7 +1484,7 @@ def phase_inpaint(tmp: str, card: str):
         out2 = train_cli.main(common + ["--epochs", "3", "--resume_training"])
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    launches = {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES) for m in _kernel_modules()}
+    launches = {m.__name__.rsplit(".", 1)[-1]: _launches(m) for m in _kernel_modules()}
     hist = out1["history"] + out2["history"]
     losses = [v for h in hist for v in (h["train_loss"], h["val_loss"])]
     reloaded = [load_model_from_checkpoint(os.path.join(save_dir, f"InpaintNet_{k}.pt"))[1]
@@ -1901,11 +1900,10 @@ def phase_seg_train(tmp: str, model):
     data_dir = os.path.join(tmp, "data")
     eval_batches = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L), "concat", B,
                                           data_dir=data_dir))
-    total = dict.fromkeys(sc.LAUNCHES, 0)
+    total = dict.fromkeys(sc.KERNELS, 0)
     runs = {}
     for name, flags, per_step, per_eval, loss_kernels in SEG_RUNS:
-        sc.LAUNCHES.update(dict.fromkeys(sc.LAUNCHES, 0))  # counts of this run only
-        wd.LAUNCHES.update(fwd=0, bwd=0)
+        _zero_launches()  # counts of this run only
         t0 = time.time()
         with contextlib.redirect_stdout(sys.stderr):  # the CLI's own lines
             out = train_cli.main(["--seq_len", str(L), "--bg_mode", "concat",
@@ -1913,7 +1911,7 @@ def phase_seg_train(tmp: str, model):
                                   "--epochs", "1",
                                   "--save_dir", os.path.join(tmp, f"exp_{name}")] + flags)
         torch.cuda.synchronize()
-        launches, k_launches = dict(sc.LAUNCHES), dict(wd.LAUNCHES)
+        launches, k_launches = _launches(sc), _launches(wd)
         steps, (h,) = out["step"], out["history"]
         want = {"window_copy": per_step[0] * steps + per_eval[0] * eval_batches,
                 "repeat_rows": per_step[1] * steps + per_eval[1] * eval_batches, "roll_cols": 0}
@@ -1923,7 +1921,8 @@ def phase_seg_train(tmp: str, model):
         if not steps or launches != want:
             fail("seg_train", f"{name}: copy launches {launches} != {want} ({steps} train steps, "
                  f"{eval_batches} eval batches)")
-        if k_launches != {"fwd": loss_kernels * steps, "bwd": loss_kernels * steps}:
+        if k_launches != {"wbce_disk_fwd": loss_kernels * steps,
+                          "wbce_disk_bwd": loss_kernels * steps}:
             fail("seg_train", f"{name}: loss kernel launches {k_launches} in {steps} steps")
         if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])
                 and "accuracy" in h["val_res"]):
@@ -2537,11 +2536,10 @@ def phase_serve(tmp: str):
         run_s, e2e_s = [], []
         for i in range(3):
             if i == 0:  # counts of this run only
-                pu.LAUNCHES.update(dict.fromkeys(pu.LAUNCHES, 0))
-                c3.LAUNCHES.update(dict.fromkeys(c3.LAUNCHES, 0))
+                _zero_launches()
             pred, r, e = once()
             if i == 0:
-                launches = {**pu.LAUNCHES, **c3.LAUNCHES}
+                launches = _launches(pu, c3)
             run_s.append(r)
             e2e_s.append(e)
         peak = torch.cuda.max_memory_allocated()
@@ -3790,13 +3788,23 @@ def _path_launches():
     """The launch counts of the kernels on the rally path."""
     from tracknetv3_tpu_torch.ops import conv3x3, pool_up2x, shift_copy
 
-    counts = {**conv3x3.LAUNCHES, **pool_up2x.LAUNCHES, **shift_copy.LAUNCHES}
+    counts = _launches(conv3x3, pool_up2x, shift_copy)
     return {k: counts[k] for k in RALLY_KERNELS}
 
 
+def _launches(*modules) -> dict:
+    """The launch counts of the hand kernels of ``modules`` by kernel (the
+    ``launch.<kernel>`` counters of ``utils/profiling``)."""
+    from tracknetv3_tpu_torch.utils import profiling
+
+    counts = profiling.counters()
+    return {k: counts[f"launch.{k}"] for m in modules for k in m.KERNELS}
+
+
 def _zero_launches():
-    for m in _kernel_modules():
-        m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+    from tracknetv3_tpu_torch.utils import profiling
+
+    profiling.reset()
 
 
 def _rally_label_counts(data_dir: str, split: str):
@@ -4320,7 +4328,7 @@ def _tools_train(data_dir: str, tmp: str, missing: list) -> dict:
         save_dir = os.path.join(tmp, f"tools_{name}")
         _zero_launches()
         res, printed, train_s, draws = _train_cli_run(argv + ["--debug"], save_dir)
-        launches = {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES) for m in _kernel_modules()}
+        launches = {m.__name__.rsplit(".", 1)[-1]: _launches(m) for m in _kernel_modules()}
         steps, samples = res["step"], res["step"] // TOOLS_DISPLAY_STEP
         logged = _jsonl_rows(os.path.join(save_dir, "logs", "scalars.jsonl"))
         written = os.path.exists(os.path.join(save_dir, sample))
@@ -4530,7 +4538,7 @@ def _merged_val(tn: str, inp: str, data_dir: str, process_id: int = 0,
     return {"results": out, "eval_s": time.perf_counter() - t0, "merge_s": merge_s,
             "tracknet_batches": n, "inpaint_batches": len(loader),
             "evaluated": [i for i in range(n) if i % process_count == process_id],
-            "bn_relu_fwd": batchnorm.LAUNCHES["bn_relu_fwd"]}
+            "bn_relu_fwd": _launches(batchnorm)["bn_relu_fwd"]}
 
 
 def _want_mesh_launches(chunks: int, shards: int, copies: bool) -> dict:
@@ -5725,7 +5733,7 @@ def _group_train(data_dir: str, out: str, go: str, card: int, started_s: float,
     res["seconds"].update(waited_bf16=t_bf16 - t_f32, bf16=time.perf_counter() - t_bf16)
     return {**res, "median_ms_per_step": statistics.median(times[2:]),
             "ms_per_step": times[2:], "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-            "split_launches": {k: bn.LAUNCHES[k] for k in SPLIT_KERNELS}}
+            "split_launches": {k: _launches(bn)[k] for k in SPLIT_KERNELS}}
 
 
 def _spawn_train_children(tmp: str, data_dir: str, backend: str,
@@ -5901,7 +5909,7 @@ def _mesh_train_measured(tmp: str, card: str, data_dir: str, pairs):
         out = train_cli.main(argv)
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    launches = {**dict(bn.LAUNCHES), **{f"wbce_disk_{k}": v for k, v in wd.LAUNCHES.items()}}
+    launches = _launches(bn, wd)
     steps, h = out["step"], out["history"][0]
     del out  # the CLI's model and optimizer: out of the peaks below
     val = len(HeatmapBatchLoader(build_split_index(data_dir, "val", L, L), "concat", B,
@@ -6198,7 +6206,7 @@ def _shard_cli_epoch(tmp: str, data_dir: str, meshes: dict) -> dict:
         out = train_cli.main(argv)
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    launches = shift_copy.LAUNCHES["window_copy"]
+    launches = _launches(shift_copy)["window_copy"]
     h = out["history"][0]
     lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("Resident frames")]
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -6259,7 +6267,7 @@ def phase_mesh_shard(tmp: str, card: str, ranks=None) -> dict:
             for m in SHARD_MODES:
                 _zero_launches()
                 inputs[m] = _shard_inputs({m: batches[m]}, mesh)[m]
-                r["window_copy_per_step"][m] = shift_copy.LAUNCHES["window_copy"]
+                r["window_copy_per_step"][m] = _launches(shift_copy)["window_copy"]
             r["want_window_copy_per_step"] = want_copies
             r["inputs_equal"] = _inputs_equal(inputs["shard"], inputs["replicate"])
             wrong_inputs = {}

@@ -42,6 +42,7 @@ from tracknetv3_tpu_torch.training.steps import (  # noqa: E402
     assemble_tracknet_inputs,
     assemble_tracknet_labels,
 )
+from tracknetv3_tpu_torch.utils import profiling  # noqa: E402
 
 N, H, W, CIN, C = 4, 16, 32, 8, 16  # 2048 rows of a layer
 
@@ -266,7 +267,7 @@ def test_kernel_input_checks(x, match):
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
-    before = dict(bnm.LAUNCHES)
+    before = profiling.counters()
     y, g, gamma, beta, rm, rv = (torch.from_numpy(np.asarray(a, np.float32))
                                  for a in _layer_data(5))
     y, g = y.permute(0, 3, 1, 2).to(torch.bfloat16), g.permute(0, 3, 1, 2).to(torch.bfloat16)
@@ -281,4 +282,4 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
         assert torch.equal(a, b)
     dy = bnm.bn_relu_bwd_apply(g, y, st, beta, coef)
     assert torch.equal(dy, bnm.bn_relu_bwd_apply_plain(g, y, st, beta, coef))
-    assert bnm.LAUNCHES == before
+    assert profiling.counters() == before

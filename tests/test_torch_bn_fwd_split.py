@@ -34,6 +34,7 @@ from unittest import mock  # noqa: E402
 
 from torch_dp_data import run_tracknet, tracknet_batch, tracknet_model  # noqa: E402
 from tracknetv3_tpu_torch.ops import batchnorm as bnm  # noqa: E402
+from tracknetv3_tpu_torch.utils import profiling  # noqa: E402
 from tracknetv3_tpu_torch.parallel.mesh import make_mesh, mesh_reducer  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -205,7 +206,8 @@ def test_the_split_forward_has_no_finalize_of_its_own():
     # the unsplit statistics keep their finalize kernel, whose body the
     # split normalise shares
     assert src.count("fwd_finalize_channel(c, C,") == 2
-    assert "bn_stats_finalize" not in bnm.LAUNCHES and "bn_relu_fwd_split" in bnm.LAUNCHES
+    launches = profiling.counters()
+    assert "launch.bn_stats_finalize" not in launches and "launch.bn_relu_fwd_split" in launches
     assert bnm.SplitBNOps._fields == ("sums", "fwd", "bwd_sums", "bwd_apply")
 
 

@@ -42,6 +42,7 @@ from tracknetv3_tpu.models import fused_forward as jff  # noqa: E402
 from tracknetv3_tpu_torch.models import fused_forward as tff  # noqa: E402
 from tracknetv3_tpu_torch.models.factory import get_model  # noqa: E402
 from tracknetv3_tpu_torch.ops import conv3x3 as c3  # noqa: E402
+from tracknetv3_tpu_torch.utils import profiling  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16_ULPS = 1.0
@@ -209,12 +210,12 @@ def test_kernel_input_checks(x, packed, bias, match):
 
 
 def test_unknown_variant_and_backend_raise_and_cpu_counts_no_launch():
-    before = dict(c3.LAUNCHES)
+    before = profiling.counters()
     x, packed = _cl((1, 32, 5, 7)), _w(32, 64)
     with pytest.raises(ValueError, match="unknown conv variant"):
         c3.conv3x3_bias_relu(x, packed, None, variant="cudnn")
     c3.conv3x3_bias_relu(x, packed, None, variant="k3c")
-    assert c3.LAUNCHES == before
+    assert profiling.counters() == before
     with pytest.raises(ValueError, match="unknown conv_backend"):
         tff.fused_params({}, torch.bfloat16, "cpu", conv_backend="hand")
     with pytest.raises(ValueError, match=r"\(3, 3, Ci, Co\)"):

@@ -41,6 +41,7 @@ from torch_dp_data import (  # noqa: E402
     worst,
 )
 from tracknetv3_tpu_torch.ops import batchnorm as bnm  # noqa: E402
+from tracknetv3_tpu_torch.utils import profiling  # noqa: E402
 from tracknetv3_tpu_torch.parallel.mesh import Reducer, make_mesh, mesh_reducer  # noqa: E402
 from tracknetv3_tpu_torch.training import steps  # noqa: E402
 
@@ -178,10 +179,11 @@ def test_split_kernel_wrappers_check_their_sums():
         with pytest.raises(ValueError, match="sums must be"):
             bnm._check_sums(bad, C, torch.device("cpu"))
     bnm._check_sums(torch.zeros(2, C, dtype=torch.float64), C, torch.device("cpu"))
-    assert {"bn_stats_sums", "bn_relu_fwd_split", "bn_relu_bwd_sums",
-            "bn_relu_bwd_apply_split"} <= set(bnm.LAUNCHES)
-    assert "bn_relu_bwd_finalize" not in bnm.LAUNCHES  # folded into the split apply
-    assert "bn_stats_finalize" not in bnm.LAUNCHES  # folded into the split normalise
+    launches = profiling.counters()
+    assert {"launch.bn_stats_sums", "launch.bn_relu_fwd_split", "launch.bn_relu_bwd_sums",
+            "launch.bn_relu_bwd_apply_split"} <= set(launches)
+    assert "launch.bn_relu_bwd_finalize" not in launches  # folded into the split apply
+    assert "launch.bn_stats_finalize" not in launches  # folded into the split normalise
     assert not hasattr(bnm, "bn_stats_finalize")
 
 

@@ -101,6 +101,10 @@ def test_predict_cli_profile_writes_a_chrome_trace(clip_and_ckpt, small_clis, tm
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "serve::forward" in names and "serve::yuv420_to_rgb" in names
+    with open(tmp_path / "prof" / "spans.json") as f:
+        spans = json.load(f)
+    assert {"serve::forward", "serve::decode", "serve::csv"} <= set(spans["spans"])
+    assert sum(spans["idle_by_span"].values()) == pytest.approx(spans["idle_s"])
     assert os.path.exists(tmp_path / "out" / "rally_ball.csv")
 
 

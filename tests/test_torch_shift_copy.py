@@ -34,6 +34,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 
 from tracknetv3_tpu.ops.preprocess import gather_windows as jax_gather_windows  # noqa: E402
 from tracknetv3_tpu_torch.ops import shift_copy as sc  # noqa: E402
+from tracknetv3_tpu_torch.utils import profiling  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C, TH = 32, 256, 128, 8  # the probe's tile
@@ -319,9 +320,12 @@ def test_kernel_input_checks():
 
 
 def test_cpu_wrappers_count_no_launch():
-    before = dict(sc.LAUNCHES)
+    def launches():
+        return {k: profiling.counters()[f"launch.{k}"] for k in sc.KERNELS}
+
+    before = launches()
     x = torch.arange(24, dtype=torch.uint8).reshape(4, 3, 2)
     sc.window_copy(x, torch.tensor([0, 1]), 2)
     sc.repeat_rows(x, 2)
     sc.roll_cols(x, 1)
-    assert sc.LAUNCHES == before == {"window_copy": 0, "repeat_rows": 0, "roll_cols": 0}
+    assert launches() == before == {"window_copy": 0, "repeat_rows": 0, "roll_cols": 0}

@@ -69,7 +69,6 @@ from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple, Option
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import COOR_TH, HEIGHT, WIDTH
 from .device import resolve_device, tf32_off
@@ -96,7 +95,9 @@ from .ops.preprocess import (
 from .parallel.mesh import (Mesh, canonical_device, check_mesh, device_context, gather_batch,
                             make_mesh, replicate_tree, split_batch, to_device)
 from .training.checkpoint import load_model_from_checkpoint
+from .utils import profiling
 from .utils.io import VideoReader, _require_cv2, write_pred_csv, write_pred_video
+from .utils.profiling import span
 
 # bytes of model-resolution uint8 frames past which a video streams instead
 # of staging (the JAX package's device-memory budget)
@@ -285,7 +286,7 @@ class TrackNetPredictor:
         with torch.cuda.stream(self._copy_stream) if on_card else contextlib.nullcontext():
             for part in parts:
                 host.append(part)
-                bufs.append(part.to(self.device, non_blocking=True))
+                bufs.append(profiling.h2d(part, self.device, non_blocking=True))
             if not bufs:
                 raise ValueError("no frames to stage: the video yielded zero frames")
             buf = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
@@ -311,10 +312,11 @@ class TrackNetPredictor:
                              f"{frames_u8.dtype} {frames_u8.shape}")
         if frames_u8.shape[0] == 0:
             raise ValueError("no frames to stage: the video yielded zero frames")
-        host = torch.from_numpy(frames_u8)
-        if self._copy_stream is not None:
-            host = host.pin_memory()
-        return self._upload_parts([host], bgr and not yuv, yuv, src_wh or (self.w, self.h))
+        with span("serve::upload"):
+            host = torch.from_numpy(frames_u8)
+            if self._copy_stream is not None:
+                host = host.pin_memory()
+            return self._upload_parts([host], bgr and not yuv, yuv, src_wh or (self.w, self.h))
 
     def finalize_staged(self, up: UploadedVideo,
                         max_sample_num: Optional[int] = None) -> StagedVideo:
@@ -334,10 +336,13 @@ class TrackNetPredictor:
             buf.record_stream(stream)  # allocated on the copy stream, read on this one
         bgr = up.bgr
         if up.yuv:
-            with record_function("serve::yuv420_to_rgb"):
+            with span("serve::yuv420_to_rgb"):
                 buf = yuv420_to_rgb(buf, self.h, self.w)
             bgr = False
-        median = self._median_staged(buf, max_sample_num) if self.bg_mode else None
+        median = None
+        if self.bg_mode:
+            with span("serve::median"):
+                median = self._median_staged(buf, max_sample_num)
         return StagedVideo(buf, up.T, median, bgr, up.src_wh)
 
     def stage_frames(
@@ -433,13 +438,13 @@ class TrackNetPredictor:
     def _forward(self, x: torch.Tensor, params: Optional[Dict] = None) -> torch.Tensor:
         """(B, h, w, C_in) model input -> (B, L, h, w) float32 probabilities;
         ``params`` are the folded weights on x's device (the predictor's)."""
-        with record_function("serve::forward"):
+        with span("serve::forward"):
             probs = tracknet_fused_forward(self.params if params is None else params, x)
         return probs.permute(0, 3, 1, 2)
 
     def _windows(self, pre, buf, med, starts, params: Optional[Dict] = None) -> torch.Tensor:
         """Forward the windows of staged frames starting at ``starts``."""
-        with record_function("serve::preprocess"):
+        with span("serve::preprocess"):
             x = pre(buf, med, starts)
         return self._forward(x, params)
 
@@ -467,7 +472,7 @@ class TrackNetPredictor:
                                          split_batch(starts, mesh.size)):
                 with device_context(dev):
                     shares.append(self._windows(pre, b, m, s.to(dev), p))
-            with record_function("serve::gather"):
+            with span("serve::gather"):
                 return gather_batch(shares, mesh)
 
         return forward
@@ -475,7 +480,7 @@ class TrackNetPredictor:
     def _forward_windows(self, frames_u8, median, starts) -> torch.Tensor:
         """Forward the windows of raw frames (at source resolution)
         starting at ``starts``: each frame resized once on the card."""
-        with record_function("serve::preprocess"):
+        with span("serve::preprocess"):
             x = self._preproc(frames_u8, median, starts)
         return self._forward(x)
 
@@ -483,7 +488,7 @@ class TrackNetPredictor:
         """Forward the windows of host-resized uint8 frames (and background
         differences) starting at ``starts``."""
         L = self.seq_len
-        with record_function("serve::preprocess"):
+        with span("serve::preprocess"):
             rgb_w = gather_windows(rgb.to(torch.float32), starts, L) if rgb is not None else None
             diff_w = (gather_windows(diff.to(torch.float32), starts, L)
                       if diff is not None else None)
@@ -494,14 +499,14 @@ class TrackNetPredictor:
     def _ensemble_decode(self, wins: torch.Tensor, t0: int, num_windows: int) -> torch.Tensor:
         """Stateless ensemble of B+L-1 windows, then decode: packed (B, 3)
         rows of frames t0 .. t0+B-1."""
-        with record_function("serve::ensemble"):
+        with span("serve::ensemble"):
             frames = ensemble_chunk(wins, self._weights, t0, num_windows)
-        with record_function("serve::decode"):
+        with span("serve::decode"):
             return _pack(decode_heatmaps(frames))
 
     def _decode_all(self, wins: torch.Tensor) -> torch.Tensor:
         """Decode every frame of disjoint windows: packed (B*L, 3) rows."""
-        with record_function("serve::decode"):
+        with span("serve::decode"):
             return _pack(decode_heatmaps(wins.reshape((-1,) + tuple(wins.shape[2:]))))
 
     def _arange(self, n: int) -> torch.Tensor:
@@ -592,22 +597,24 @@ class TrackNetPredictor:
                 for w0 in range(0, n_win, B):
                     wins = forward((w0 + arange_b) * L)
                     rows.append(self._decode_all(wins)[: min(B, n_win - w0) * L])
-                arr = torch.cat(rows).cpu().numpy()[:T]
+                with span("serve::fetch"):
+                    arr = torch.cat(rows).cpu().numpy()[:T]
                 return self._rows_to_pred(arr, img_scaler)
 
             S = max(T - L + 1, 1)  # real windows
             state = ensemble_init(L, (self.h, self.w), dev)
             for w0 in range(0, S, B):
                 wins = forward(w0 + arange_b)
-                with record_function("serve::ensemble"):
+                with span("serve::ensemble"):
                     state, frames = ensemble_update_fn(state, wins, self._weights,
                                                        min(S - w0, B))
-                with record_function("serve::decode"):
+                with span("serve::decode"):
                     rows.append(_pack(decode_heatmaps(frames)))
-            with record_function("serve::decode"):
+            with span("serve::decode"):
                 tail = _pack(decode_heatmaps(ensemble_flush(state)))
             n_rows = len(rows) * B
-            full = torch.cat(rows + [tail]).cpu().numpy()  # the one fetch
+            with span("serve::fetch"):
+                full = torch.cat(rows + [tail]).cpu().numpy()  # the one fetch
         arr = np.concatenate([full[:S], full[n_rows : n_rows + (T - S)]], axis=0)[:T]
         return self._rows_to_pred(arr, img_scaler)
 
@@ -628,8 +635,9 @@ class TrackNetPredictor:
         one copy; at most ``total_frames`` of them."""
         if not results:
             return self._rows_to_pred(np.zeros((0, 3), np.int32), img_scaler)
-        rows = torch.cat([packed[:n_valid] for packed, n_valid in results])
-        return self._rows_to_pred(rows.cpu().numpy()[:total_frames], img_scaler)
+        with span("serve::fetch"):
+            rows = torch.cat([packed[:n_valid] for packed, n_valid in results]).cpu().numpy()
+        return self._rows_to_pred(rows[:total_frames], img_scaler)
 
     # ---------------------------------------- resident raw frames (device resize)
 
@@ -654,6 +662,8 @@ class TrackNetPredictor:
         if self.device.type == "cuda":
             host = host.pin_memory()
         buf[L - 1 : L - 1 + T].copy_(host, non_blocking=True)
+        if self.device.type != "cpu":
+            profiling.count("h2d_bytes", host.numel())
         buf[: L - 1] = buf[L - 1]
         buf[L - 1 + T :] = buf[L - 2 + T]
         return buf, T
@@ -769,8 +779,8 @@ class TrackNetPredictor:
         results = []
         with torch.inference_mode(), contextlib.closing(_prefetched(chunks, what)) as items:
             for *host, t0, n_valid in items:
-                dev = [t.to(self.device, non_blocking=True) if t is not None else None
-                       for t in host]
+                dev = [profiling.h2d(t, self.device, non_blocking=True) if t is not None
+                       else None for t in host]
                 results.append((step(*dev, t0), n_valid))
             return self._collect_packed(results, total_frames, img_scaler)
 
@@ -905,6 +915,11 @@ class TrackNetPredictor:
         predict.py:213-301); ``img_shape`` is the source (width, height)."""
         if self.inpaintnet is None:
             raise ValueError("no InpaintNet checkpoint was given")
+        with span("serve::inpaint"):
+            return self._inpaint(pred_dict, img_shape, th_h)
+
+    def _inpaint(self, pred_dict: Dict[str, list], img_shape: Tuple[int, int],
+                 th_h: Optional[float]) -> Dict[str, list]:
         w, h = img_shape
         if th_h is None:
             th_h = h * 0.05
@@ -921,8 +936,8 @@ class TrackNetPredictor:
         pad_S = self._bucket(S + L - 1)  # all T frames fit the output
         starts = np.concatenate([starts, np.zeros(pad_S - S, np.int64)])
         idx = np.clip(starts[:, None] + np.arange(L)[None, :], 0, T - 1)
-        cw = torch.from_numpy(coords[idx]).to(self.device)  # (pad_S, L, 2)
-        mw = torch.from_numpy(mask[idx][..., None]).to(self.device)  # (pad_S, L, 1)
+        cw = profiling.h2d(torch.from_numpy(coords[idx]), self.device)  # (pad_S, L, 2)
+        mw = profiling.h2d(torch.from_numpy(mask[idx][..., None]), self.device)  # (pad_S, L, 1)
 
         with torch.inference_mode(), tf32_off():
             out = self.inpaintnet(cw, mw)

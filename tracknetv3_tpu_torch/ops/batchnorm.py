@@ -34,8 +34,8 @@ Tensors are NCHW views with channels_last memory, as the port's
 convolutions produce them, in bfloat16 (training) or float32 (parity
 runs). On a CPU tensor each wrapper returns its plain version (``*_plain``,
 torch ops); on a CUDA tensor it launches its kernel or raises (float64, or
-memory that is not channels_last, is refused). ``LAUNCHES`` counts the
-launches of each kernel.
+memory that is not channels_last, is refused). Each launch counts under
+``launch.<kernel>`` (``utils/profiling``).
 
 ``bn_relu_train`` / ``bn_relu_eval`` are the layer's op; ``*_plain`` are
 the same ``Function`` over the plain versions, so a caller can swap one
@@ -84,14 +84,15 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 SOURCE = "batchnorm.cu"
 MOMENTUM = 0.9
 EPS = 1e-5
-LAUNCHES = {"bn_stats": 0, "bn_relu_fwd": 0, "bn_relu_bwd_reduce": 0, "bn_relu_bwd_apply": 0,
-            "bn_stats_sums": 0, "bn_relu_fwd_split": 0, "bn_relu_bwd_sums": 0,
-            "bn_relu_bwd_apply_split": 0}
+KERNELS = ("bn_stats", "bn_relu_fwd", "bn_relu_bwd_reduce", "bn_relu_bwd_apply",  # launch counters
+           "bn_stats_sums", "bn_relu_fwd_split", "bn_relu_bwd_sums", "bn_relu_bwd_apply_split")
+profiling.declare(*(f"launch.{k}" for k in KERNELS))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -370,7 +371,7 @@ def _launch(kind: str, y: torch.Tensor, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kind} failed to launch: cudaError {err}")
-    LAUNCHES[kind] += 1
+    profiling.count(f"launch.{kind}")
 
 
 def _partials(y: torch.Tensor) -> torch.Tensor:
@@ -484,7 +485,7 @@ def bn_stats_sums(y) -> torch.Tensor:
                  sums.data_ptr(), _rows(y), C, plan.clusters, plan.rows_per_block, stream)
     if err != 0:
         raise RuntimeError(f"bn_stats_sums failed to launch: cudaError {err}")
-    LAUNCHES["bn_stats_sums"] += 1
+    profiling.count("launch.bn_stats_sums")
     return sums
 
 

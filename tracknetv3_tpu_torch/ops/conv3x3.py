@@ -28,7 +28,7 @@ every size a launch passes to the C entry point: tiles, grid, shared memory,
 the three tensor maps. On a CPU tensor ``conv3x3_bias_relu`` returns its
 plain version (``conv3x3_bias_relu_plain``, any float dtype); on a CUDA
 tensor it takes bfloat16 only and launches the kernel or raises.
-``LAUNCHES`` counts the launches of each kernel.
+Each launch counts under ``launch.<kernel>`` (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import cuda_build
 
 SOURCE = "conv3x3.cu"
@@ -49,7 +50,8 @@ VARIANTS = ("k3c", "9tap")
 # the ablation probe's partial variants of the k3c kernel: C entry point suffix
 ABLATION_VARIANTS = {"mm-only": "k3c_mm_only", "mm1-only": "k3c_mm1_only",
                      "dma+mm": "k3c_dma_mm", "sheet+mm": "k3c_sheet_mm"}
-LAUNCHES = {"conv3x3_k3c": 0, "conv3x3_9tap": 0}
+KERNELS = ("conv3x3_k3c", "conv3x3_9tap")  # launch counters
+profiling.declare(*(f"launch.{k}" for k in KERNELS))
 CI_MULTIPLE = 8  # input channels: TMA's 16-byte global stride
 CO_MULTIPLE = 64  # output channels per 128-byte TMA box
 TH, TW = 8, 16  # pixel tile at MW = 1; 8 MW rows: two warpgroups of MW m64 blocks of 4 x 16
@@ -283,7 +285,7 @@ def conv3x3_bias_relu(x: torch.Tensor, packed: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_bias_relu_plain(x, packed, bias, relu=relu)
     y = _launch(variant, variant, x, packed, bias, relu)
-    LAUNCHES[f"conv3x3_{variant}"] += 1
+    profiling.count(f"launch.conv3x3_{variant}")
     return y
 
 

@@ -11,8 +11,8 @@ Tensors are NCHW views with channels_last memory (physically NHWC), as the
 port's convolutions produce them, in bfloat16 (serving) or float32 (the
 parity path). On a CPU tensor each wrapper returns its plain version
 (``maxpool2x2_plain``, ``up2x_nearest_plain``: one PyTorch call each); on
-a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts the
-launches of each kernel.
+a CUDA tensor it launches the kernel or raises. Each launch counts under
+``launch.<kernel>`` (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -23,10 +23,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import cuda_build
 
 SOURCE = "pool_up2x.cu"
-LAUNCHES = {"maxpool2x2": 0, "up2x_nearest": 0}
+KERNELS = ("maxpool2x2", "up2x_nearest")  # launch counters
+profiling.declare(*(f"launch.{k}" for k in KERNELS))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,7 +85,7 @@ def _launch(x: torch.Tensor, y: torch.Tensor, what: str) -> None:
         err = fn(x.data_ptr(), y.data_ptr(), N, H, W, C, stream)
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}")
-    LAUNCHES[what] += 1
+    profiling.count(f"launch.{what}")
 
 
 def maxpool2x2(x: torch.Tensor) -> torch.Tensor:

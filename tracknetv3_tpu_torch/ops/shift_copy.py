@@ -35,10 +35,11 @@ grid puts about one block on each SM. ``LAST_PLAN`` is the plan of the last
 
 On a CPU tensor each wrapper returns its plain version (``*_plain``: torch
 indexing, ``repeat_interleave``, ``torch.roll``); on a CUDA tensor it
-launches its kernel or raises. ``LAUNCHES`` counts the launches of each
-kernel. A window start that is out of range is the caller's to refuse on
-the host (``check_starts`` on the numpy indices, before upload): reading a
-device table back would put a synchronisation into the train step.
+launches its kernel or raises. Each launch counts under ``launch.<kernel>``
+(``utils/profiling``). A window start that is out of range is the caller's
+to refuse on the host (``check_starts`` on the numpy indices, before
+upload): reading a device table back would put a synchronisation into the
+train step.
 """
 
 from __future__ import annotations
@@ -52,10 +53,12 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 SOURCE = "shift_copy.cu"
-LAUNCHES = {"window_copy": 0, "repeat_rows": 0, "roll_cols": 0}
+KERNELS = ("window_copy", "repeat_rows", "roll_cols")  # launch counters
+profiling.declare(*(f"launch.{k}" for k in KERNELS))
 TILE_BYTES = 32768  # the staged variant's largest shared tile (kTileBytes of the source)
 THREADS, UNROLL = 256, 4  # the vector body: a block copies THREADS * UNROLL vectors
 # the bulk route (the source's constants): a ring of STAGES stages of at most
@@ -448,7 +451,7 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, rows: int, col0: int = 0,
             arr.ctypes.data, _stream(x),
         )
     _raise_on(err, "window_copy")
-    LAUNCHES["window_copy"] += 1
+    profiling.count("launch.window_copy")
     LAST_PLAN = plan
     return out
 
@@ -473,7 +476,7 @@ def repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
         err = _lib().repeat_rows(x.data_ptr(), out.data_ptr(), R, row_bytes, k, arr.ctypes.data,
                                  _stream(x))
     _raise_on(err, "repeat_rows")
-    LAUNCHES["repeat_rows"] += 1
+    profiling.count("launch.repeat_rows")
     LAST_PLAN = plan
     return out
 
@@ -494,5 +497,5 @@ def roll_cols(x: torch.Tensor, shift: int) -> torch.Tensor:
         err = _lib().roll_cols(x.data_ptr(), out.data_ptr(), x.numel() // (W * x.shape[-1]), W,
                                pix_bytes, shift % W, vec, _stream(x))
     _raise_on(err, "roll_cols")
-    LAUNCHES["roll_cols"] += 1
+    profiling.count("launch.roll_cols")
     return out

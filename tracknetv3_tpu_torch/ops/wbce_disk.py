@@ -16,8 +16,9 @@ of the permuted sample, w = lambda) and frame mixup (two carried centers).
 (``tracknetv3_tpu/ops/pallas_wbce.py::wbce_disk_loss``): logits
 (B, H, W, L), centers (B, 2, 2, L), weights (B, 1, L). On a CPU tensor it
 runs ``wbce_disk_loss_plain`` (``make_heatmaps`` + ``wbce_from_logits``);
-on a CUDA tensor it launches the kernels or raises. ``LAUNCHES`` counts
-the launches of each direction.
+on a CUDA tensor it launches the kernels or raises. Each direction's
+launches count under ``launch.wbce_disk_fwd`` / ``launch.wbce_disk_bwd``
+(``utils/profiling``).
 
 The forward (K1) is one launch of a persistent grid whose warps walk a
 fixed partition of the logits into rows (``loss_plan``): one float partial
@@ -38,12 +39,14 @@ import numpy as np
 import torch
 
 from ..config import SIGMA
+from ..utils import profiling
 from . import cuda_build
 from .heatmap import make_heatmaps
 from .losses import wbce_from_logits
 
 SOURCE = "wbce_disk.cu"
-LAUNCHES = {"fwd": 0, "bwd": 0}
+KERNELS = ("wbce_disk_fwd", "wbce_disk_bwd")  # launch counters
+profiling.declare(*(f"launch.{k}" for k in KERNELS))
 # K1's constants (csrc/wbce_disk.cu): threads per block (8 warps), blocks
 # per SM (the launch bounds)
 THREADS, BLOCKS_PER_SM = 256, 4
@@ -170,7 +173,7 @@ def wbce_disk_forward(z: torch.Tensor, centers: torch.Tensor, w: torch.Tensor,
             stream,
         )
     _raise_on(err, "wbce_disk_forward")
-    LAUNCHES["fwd"] += 1
+    profiling.count("launch.wbce_disk_fwd")
     return loss
 
 
@@ -188,7 +191,7 @@ def wbce_disk_backward(z: torch.Tensor, centers: torch.Tensor, w: torch.Tensor,
             dz.data_ptr(), B, L, H, W, float(sigma), stream,
         )
     _raise_on(err, "wbce_disk_backward")
-    LAUNCHES["bwd"] += 1
+    profiling.count("launch.wbce_disk_bwd")
     return dz
 
 

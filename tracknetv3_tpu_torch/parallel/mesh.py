@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops.shift_copy import window_copy
+from ..utils.profiling import h2d
 
 DeviceLike = Union[str, torch.device]
 
@@ -209,7 +210,7 @@ def shard_train_batch(batch: dict, mesh: Mesh) -> List[dict]:
             else:
                 part = split_batch(v, mesh.size)[i]
                 shares[i][k] = (part if isinstance(part, np.ndarray)
-                                else part.to(dev, non_blocking=True))
+                                else h2d(part, dev, non_blocking=True))
     return shares
 
 

@@ -16,7 +16,9 @@ run ends with ``Predicted n/N``; ``--fail_fast`` raises at the first),
 default, stages planar YUV420 wherever the native reader serves the video,
 half the bytes of packed BGR; a forced ``yuv420`` that cannot be honoured
 raises), ``--profile DIR`` (a ``torch.profiler`` chrome trace of the run,
-``DIR/trace.json``), ``--num_devices N`` (the staged path's window batches
+``DIR/trace.json``, and ``DIR/spans.json``: the program's spans, counters,
+idle device time and host synchronisations by span; ``utils/profiling``),
+``--num_devices N`` (the staged path's window batches
 sharded over N devices of ``--device``'s type, ``parallel/mesh.py``); plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
 kernels) and ``--conv_backend`` (``cudnn`` or the hand-written 3x3 conv
@@ -79,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the staged path's window batches over a data-parallel mesh of "
                    "this many devices (default: one device)")
     p.add_argument("--profile", type=str, default="",
-                   help="write a torch.profiler chrome trace of the run to DIR/trace.json")
+                   help="write a torch.profiler chrome trace of the run to DIR/trace.json and "
+                        "its idle time and synchronisations by program span to DIR/spans.json")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--conv_backend", type=str, default=None,
                    choices=["cudnn", "hand_k3c", "hand_9tap"],

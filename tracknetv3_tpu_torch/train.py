@@ -54,7 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--exact_decode", nargs="?", const="device", default="",
                    choices=["", "device", "host"])
     p.add_argument("--profile", type=str, default="",
-                   help="write a torch.profiler chrome trace of the run to this directory")
+                   help="write a torch.profiler chrome trace of the run (trace.json) and its "
+                        "idle time and synchronisations by program span (spans.json) to this "
+                        "directory")
     p.add_argument("--multihost", action="store_true", default=False)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p

@@ -89,6 +89,7 @@ from ..models.factory import get_model
 from ..models.convert import inpaintnet_from_jax, tracknet_from_jax
 from ..parallel.mesh import Mesh, canonical_device, make_mesh, shard_train_batch
 from ..parallel.processes import device_group, process_count_index
+from ..utils.profiling import h2d, span
 from ..utils.visualize import ScalarLogger, write_to_tb
 from .checkpoint import (
     load_checkpoint,
@@ -149,6 +150,8 @@ def prefetch_to_device(loader: Iterable, device: torch.device, depth: int = 2,
 
     A thread assembles and pins the next ``depth`` batches; the consumer
     issues ``non_blocking`` host-to-device copies on the current stream.
+    Its wait for the next batch is the span ``train::input_wait``, its
+    copies ``train::h2d`` (their bytes count under ``h2d_bytes``).
     """
     pin = device.type == "cuda"
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -170,16 +173,19 @@ def prefetch_to_device(loader: Iterable, device: torch.device, depth: int = 2,
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("train::input_wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
                 raise item
-            if mesh is not None:
-                yield shard_train_batch(item, mesh)
-            else:
-                yield {k: (v.to(device, non_blocking=True) if k in keys else v)
-                       for k, v in item.items()}
+            with span("train::h2d"):
+                if mesh is not None:
+                    batch = shard_train_batch(item, mesh)
+                else:
+                    batch = {k: (h2d(v, device, non_blocking=True) if k in keys else v)
+                             for k, v in item.items()}
+            yield batch
     finally:
         stop.set()
         while thread.is_alive():  # unblock a producer waiting on a full queue

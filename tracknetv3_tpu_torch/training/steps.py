@@ -83,6 +83,7 @@ from ..ops.wbce_disk import (
 )
 from ..parallel.mesh import Mesh, entry_params, mesh_exchange, mesh_reducer
 from ..parallel.processes import DeviceGroup
+from ..utils.profiling import h2d, span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -324,7 +325,7 @@ class _Shares:
 
 def _host_rows(t, rows: slice, device) -> torch.Tensor:
     """Rows of a global draw (an array or a tensor) on ``device``."""
-    return torch.as_tensor(t[rows]).to(device)
+    return h2d(torch.as_tensor(t[rows]), device)
 
 
 def make_tracknet_shares_train_step(
@@ -349,6 +350,25 @@ def make_tracknet_shares_train_step(
     sh = _Shares(mesh, group)
 
     def step(shares: Sequence[Batch], step_idx: int, perm=None, lam=None) -> torch.Tensor:
+        with span("train::assemble"):
+            xs, targets, labels = assemble(shares, step_idx, perm, lam)
+        with span("train::forward"):
+            logits = model.forward_shares([_to_model_input(x) for x in xs], sh.params(model),
+                                          sh.reducer)
+            logits = [z.movedim(1, -1) for z in logits]  # (b, H, W, L)
+            if labels is not None:
+                losses = [wbce_from_logits(z, y) for z, y in zip(logits, labels)]
+            else:
+                losses = [wbce_disk_loss(z, *t) for z, t in zip(logits, targets)]
+        with span("train::backward"):
+            loss = sh.backward(model, losses)
+        with span("train::optimizer"):
+            optimizer.step()
+        return loss
+
+    def assemble(shares: Sequence[Batch], step_idx: int, perm, lam):
+        """The shares' inputs and their targets or labels, with the
+        schedule's rate set and the gradients cleared."""
         model.train()
         frame_mix = "mix_pair" in shares[0]
         xs = [assemble_tracknet_inputs(b, bg_mode) for b in sh.frames(shares)]
@@ -382,16 +402,7 @@ def make_tracknet_shares_train_step(
             for g in optimizer.param_groups:
                 g["lr"] = schedule(step_idx)
         optimizer.zero_grad(set_to_none=True)
-        logits = model.forward_shares([_to_model_input(x) for x in xs], sh.params(model),
-                                      sh.reducer)
-        logits = [z.movedim(1, -1) for z in logits]  # (b, H, W, L)
-        if labels is not None:
-            losses = [wbce_from_logits(z, y) for z, y in zip(logits, labels)]
-        else:
-            losses = [wbce_disk_loss(z, *t) for z, t in zip(logits, targets)]
-        loss = sh.backward(model, losses)
-        optimizer.step()
-        return loss
+        return xs, targets, labels
 
     return step
 

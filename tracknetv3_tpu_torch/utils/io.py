@@ -32,6 +32,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .profiling import span
+
 
 def list_dirs(directory: str) -> List[str]:
     return sorted(os.path.join(directory, p) for p in os.listdir(directory))
@@ -169,7 +171,7 @@ def write_pred_csv(pred_dict: Dict, save_file: str, save_inpaint_mask: bool = Fa
     if save_inpaint_mask:
         cols = ["Frame", "Visibility_GT", "X_GT", "Y_GT", "Visibility", "X", "Y",
                 "Inpaint_Mask"]
-    with open(save_file, "w", newline="", encoding="utf8") as f:
+    with span("serve::csv"), open(save_file, "w", newline="", encoding="utf8") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(cols)
         w.writerows(zip(*(pred_dict[c] for c in cols)))
