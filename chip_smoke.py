@@ -87,7 +87,7 @@ exits nonzero.
    trained TrackNet and a seeded InpaintNet, at batch 16 (the CLI default)
    and 120: 480 CSV rows, every coordinate inside the frame, P6 and P7
    each launched 3x per chunk forwarded, the decode kernel once a chunk
-   and once for the flushed tail; after a warm-up, the median of 3
+   and once for the flushed tail; after a warm-up, the median of 2
    runs of run_fps (frames / run_staged wall time), e2e_fps (host frames
    to CSV) and peak device memory; then the same through
    ``conv_backend="hand_k3c"`` and ``"hand_9tap"`` at batch 16 and 120 (17
@@ -391,8 +391,26 @@ and 17, ``--mesh_only`` phases 1, 2 and 18, ``--convert_only`` phases 1, 2
 and 19, ``--mesh_train_only`` phases 1, 2 and 20, ``--mesh_shard_only``
 phases 1, 2 and 21 (starting its own pairs of training processes, which run
 only their sharded steps), ``--split_bn_only`` phases 1, 2 and phase 20's
-split_vs_plain, ``--decode_only`` phases 1, 2 and phase 7's decode_peak;
-none prints a kernels line.
+split_vs_plain, ``--decode_only`` phases 1, 2 and phase 7's decode_peak,
+``--v1_only`` phases 1, 2 and v1 (below); none prints a kernels line.
+
+v1 (TrackNetV1, the original TrackNet; in the whole run after conv_ablate):
+v1_conv_vs_plain holds the conv kernels' ReLU -> affine epilogue mode
+(``scale`` / ``shift``, random per channel) to ``conv3x3_bias_relu_plain``
+at each distinct conv shape of TrackNetV1's forward at batch 16
+(``V1_CONV_SHAPES``, 12 for its 18 convs: 9 -> 64 padded to 16 and the
+64 -> 256 head at 360x640, down to 512 -> 512 at 45x80, whose partial tiles
+the U-Net never makes), within ``CONV_ULPS_BOUND``, NaN and inf where the
+plain version has them, k3c equal to 9tap bit for bit; the affine before the
+ReLU (the wrong order) must fall outside the bound. v1_serve, in a process
+of its own: the predict CLI (``--cv2_decode --profile``, a reader stood
+in) serves a 60-frame clip through ``predict_video`` -> ``run_staged``
+with a seeded TrackNetV1 checkpoint on each hand backend: rows equal
+between them, frames 0-1 invisible, ``launch.conv3x3_relu_affine`` 18 a
+chunk, and ``spans.json`` holding ``serve::classify``. With ``--v1_only``
+also v1_conv_times: at each shape both kernels with the affine, the 9tap
+kernel without it, the plain version, cuDNN with torch's epilogue passes
+and the bound, and their sums over the 18 convs.
 With ``--copy_only`` or ``--loss_only``, ``--baseline DIR`` (a checkout of another commit, e.g. the
 parent's unpacked by ``git archive`` into ``build/``) builds that tree's copy
 and loss kernels from its own sources, holds them bit for bit against this
@@ -2537,6 +2555,208 @@ def phase_conv():
                 "library_with_epilogue_ms": shared["cudnn_with_epilogue_ms"]} for v in tot}
 
 
+# (H, W, Ci, Co) of each distinct 3x3 conv of TrackNetV1's forward at
+# 360x640, and how many of its 18 convs have it (``models/tracknet_v1.LAYERS``:
+# no skips, so each conv reads the one before it; the first reads the 9
+# channels of a window, padded to 16; 45x80 leaves partial tiles)
+V1_CONV_SHAPES = {(360, 640, 9, 64): 1, (360, 640, 64, 64): 2, (180, 320, 64, 128): 1,
+                  (180, 320, 128, 128): 2, (90, 160, 128, 256): 1, (90, 160, 256, 256): 4,
+                  (45, 80, 256, 512): 1, (45, 80, 512, 512): 2, (90, 160, 512, 256): 1,
+                  (180, 320, 256, 128): 1, (360, 640, 128, 64): 1, (360, 640, 64, 256): 1}
+V1_CLIP_T = 60
+
+
+def _v1_layer_shapes() -> dict:
+    """``V1_CONV_SHAPES`` as ``models/tracknet_v1`` builds the forward."""
+    from tracknetv3_tpu_torch.models import tracknet_v1 as v1
+
+    out, h, w = {}, v1.HEIGHT, v1.WIDTH
+    for ci, co, after in v1.layer_channels():
+        out[(h, w, ci, co)] = out.get((h, w, ci, co), 0) + 1
+        h, w = (h // 2, w // 2) if after == "pool" else (h * 2, w * 2) if after == "up" else (h, w)
+    return out
+
+
+def _v1_conv_check_shape(c3, shape, seed: int, dev, timed: bool) -> dict:
+    """v1_conv_vs_plain at one (N, H, W, Ci, Co): both variants with a
+    random ``scale`` and ``shift`` against ``conv3x3_bias_relu_plain`` with
+    the same, and the wrong order; with ``timed`` v1_conv_times' row too."""
+    import torch
+
+    from tracknetv3_tpu_torch.models import fused_forward as ff
+
+    N, H, W, Ci, Co = shape
+    x, k, bias = _conv_data(N, H, W, Ci, Co, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    scale = 0.5 + torch.rand((Co,), generator=g, device=dev)
+    shift = 0.5 * torch.randn((Co,), generator=g, device=dev)
+    packed = c3.pack_weights(k, torch.bfloat16, device=dev)
+    want = c3.conv3x3_bias_relu_plain(x, packed, bias, scale=scale, shift=shift)
+    outs = {v: c3.conv3x3_bias_relu(x, packed, bias, variant=v, scale=scale, shift=shift)
+            for v in CONV_VARIANTS}
+    torch.cuda.synchronize()
+    res = {"phase": "v1_conv_vs_plain", "shape_NHWC": [N, H, W, Ci], "Co": Co,
+           "padded_Ci": x.shape[1], **{v: _conv_compare(o, want, x) for v, o in outs.items()},
+           "k3c_equals_9tap": bool(torch.equal(outs["k3c"].view(torch.int16),
+                                               outs["9tap"].view(torch.int16)))}
+    bad = [f"{v}: {res[v]}" for v, o in outs.items()
+           if not (_conv_sound(res[v]) and o.is_contiguous(memory_format=torch.channels_last)
+                   and tuple(o.shape) == (N, Co, H, W))]
+    # the wrong order: the affine map before the ReLU, on two samples
+    # without NaN or inf
+    lo = min(1, N - 1)
+    xs, ws = x[lo : lo + 2], want[lo : lo + 2].float()
+    wf = c3.conv3x3_bias_relu_plain(xs, packed, bias, relu=False).float()
+    wrong = torch.relu(wf * scale.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1))
+    floor = CONV_FLOOR_OF_RMS * float(ws.square().mean().sqrt())
+    res["wrong_order_ulps_apart"] = c3.bf16_ulps_apart(wrong.to(torch.bfloat16), ws, floor)
+    if not res["k3c_equals_9tap"]:
+        bad.append("k3c and 9tap differ")
+    if res["wrong_order_ulps_apart"] <= CONV_ULPS_BOUND:
+        bad.append(f"the bound passes the wrong order ({res['wrong_order_ulps_apart']})")
+    del want, outs, wf, wrong, ws
+    if timed:
+        # three copies of x rotate so that each call reads cold data
+        xr = [torch.nan_to_num(x)] + [torch.nan_to_num(x).contiguous(
+            memory_format=torch.channels_last) for _ in range(2)]
+        ms = {v: time_launches(lambda i, v=v: c3.conv3x3_bias_relu(
+            xr[i % 3], packed, bias, variant=v, scale=scale, shift=shift), n=10, windows=3)
+            for v in CONV_VARIANTS}
+        relu_only_ms = time_launches(lambda i: c3.conv3x3_bias_relu(
+            xr[i % 3], packed, bias, variant="9tap"), n=10, windows=3)
+        plain_ms = time_launches(lambda i: c3.conv3x3_bias_relu_plain(
+            xr[i % 3], packed, bias, scale=scale, shift=shift), n=2, windows=3)
+        w = k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xc = [t[:, :Ci].contiguous(memory_format=torch.channels_last) for t in xr]
+        cudnn_ms = time_launches(lambda i: ff._conv_relu_affine(
+            xc[i % 3], w, bias, scale, shift, "cudnn"), n=10, windows=3)
+        flops = 2 * N * H * W * 9 * Ci * Co
+        b_ms, b_by = bound_ms(2 * (N * H * W * (Ci + Co) + 9 * Ci * Co) + 12 * Co, flops,
+                              BF16_FLOPS)
+        res.update({"ms": ms, "relu_only_9tap_ms": relu_only_ms, "plain_ms": plain_ms,
+                    "cudnn_with_epilogue_ms": cudnn_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "gflop": flops / 1e9,
+                    "share_of_bound": {v: b_ms / t for v, t in ms.items()}})
+        del xr, xc
+    emit(res, detail=True)
+    del x
+    torch.cuda.empty_cache()
+    if bad:
+        fail("v1_conv_vs_plain", f"{shape}: " + "; ".join(bad))
+    return res
+
+
+def phase_v1(tmp: str, card: str, timed: bool = False) -> None:
+    """v1_conv_vs_plain and v1_serve (the module docstring); with ``timed``
+    (``--v1_only``) v1_conv_times too."""
+    import torch
+
+    from tracknetv3_tpu_torch.ops import conv3x3 as c3
+
+    dev = torch.device(DEVICE)
+    if _v1_layer_shapes() != V1_CONV_SHAPES:
+        fail("v1_conv_vs_plain", f"V1_CONV_SHAPES is not the model's: {_v1_layer_shapes()}")
+    torch.backends.cudnn.benchmark = True  # the yardstick picks its fastest algorithms
+    checked = [_v1_conv_check_shape(c3, (CONV_BATCH, H, W, Ci, Co), 80 + i, dev, timed)
+               for i, (H, W, Ci, Co) in enumerate(V1_CONV_SHAPES)]
+    emit({"phase": "v1_conv_vs_plain", "batch": CONV_BATCH, "shapes": len(checked),
+          "layers": sum(V1_CONV_SHAPES.values()), "bound_ulps": CONV_ULPS_BOUND,
+          "worst_ulps_apart": max(r[v]["ulps_apart"] for r in checked for v in CONV_VARIANTS),
+          "max_unequal_share": max(r[v]["unequal_share"] for r in checked
+                                   for v in CONV_VARIANTS),
+          "k3c_equals_9tap_everywhere": all(r["k3c_equals_9tap"] for r in checked),
+          "min_wrong_order_ulps_apart": min(r["wrong_order_ulps_apart"] for r in checked)})
+    if timed:
+        layers = list(V1_CONV_SHAPES.values())
+        tot = {key: sum(n * r[key] for n, r in zip(layers, checked))
+               for key in ("relu_only_9tap_ms", "plain_ms", "cudnn_with_epilogue_ms",
+                           "bound_ms", "gflop")}
+        tot.update({f"{v}_ms": sum(n * r["ms"][v] for n, r in zip(layers, checked))
+                    for v in CONV_VARIANTS})
+        emit({"phase": "v1_conv_times", "what": f"the {sum(layers)} 3x3 convs of one TrackNetV1 "
+              f"forward at batch {CONV_BATCH}, bf16, ReLU -> affine epilogue, ms summed", **tot,
+              "tflops": {v: tot["gflop"] / tot[f"{v}_ms"] for v in CONV_VARIANTS},
+              "per_shape": [{"H": r["shape_NHWC"][1], "W": r["shape_NHWC"][2],
+                             "Ci": r["shape_NHWC"][3], "Co": r["Co"], "layers": n,
+                             **{f"{v}_ms": r["ms"][v] for v in CONV_VARIANTS},
+                             "relu_only_9tap_ms": r["relu_only_9tap_ms"],
+                             "plain_ms": r["plain_ms"],
+                             "cudnn_with_epilogue_ms": r["cudnn_with_epilogue_ms"],
+                             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+                            for n, r in zip(layers, checked)]})
+    _v1_serve_child(tmp)
+
+
+V1_SERVE_CHILD_S = 300  # v1_serve's process: its time limit
+V1_SERVE_CHILD = r"""
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+cs._v1_serve({tmp!r})
+"""
+
+
+def _v1_serve_child(tmp: str) -> None:
+    """v1_serve in a process of its own, its lines passed on. Its predict
+    CLI runs with ``--profile``, and a torch.profiler session started later
+    in a process that has already profiled can miss kernels (a device
+    launch count of 0 or 0.9 where 1 is right), which would break
+    ``_device_kernels``' counts in the phases after this one."""
+    p = subprocess.run([sys.executable, "-c", V1_SERVE_CHILD.format(root=ROOT, tmp=tmp)],
+                       capture_output=True, text=True, timeout=V1_SERVE_CHILD_S, cwd=ROOT)
+    sys.stdout.write(p.stdout)
+    sys.stdout.flush()
+    if p.returncode != 0:
+        fail("v1_serve", f"its process exited {p.returncode}: {p.stderr[-3000:]}")
+
+
+def _v1_serve(tmp: str) -> None:
+    """v1_serve (the module docstring)."""
+    import torch
+
+    from tracknetv3_tpu_torch import inference as tinf
+    from tracknetv3_tpu_torch import predict as tpredict
+    from tracknetv3_tpu_torch.models.factory import get_model
+    from tracknetv3_tpu_torch.training.checkpoint import save_checkpoint
+
+    model = get_model("TrackNetV1", generator=torch.Generator().manual_seed(7))
+    ckpt = os.path.join(tmp, "TrackNetV1_best.pt")
+    save_checkpoint(ckpt, epoch=0, max_val_acc=0.0, model=model,
+                    param_dict={"model_name": "TrackNetV1", "seq_len": 3, "bg_mode": "",
+                                "height": 360, "width": 640})
+    src = os.path.join(tmp, "v1_clip.mp4")
+    videos = {src: (V1_CLIP_T, _Scene(11), None)}
+    rows, res = {}, {"phase": "v1_serve", "frames": V1_CLIP_T}
+    chunks = -(-(V1_CLIP_T - 2) // 16)
+    with mock.patch.object(tinf, "open_video", synthetic_reader(videos)):
+        for backend in ("hand_9tap", "hand_k3c"):
+            out = os.path.join(tmp, f"v1_{backend}")
+            _zero_launches()
+            t0 = time.time()
+            tpredict.main(["--video_file", src, "--tracknet_file", ckpt, "--save_dir", out,
+                           "--cv2_decode", "--conv_backend", backend, "--profile", out])
+            with open(os.path.join(out, "spans.json")) as f:
+                spans = json.load(f)
+            with open(os.path.join(out, "v1_clip_ball.csv")) as f:
+                rows[backend] = list(csv.DictReader(f))
+            variant = backend[len("hand_"):]
+            res[backend] = {"s": time.time() - t0, "counters": spans["counters"],
+                            "classify_spans": spans["spans"].get("serve::classify", {}).get("n"),
+                            "visible": sum(int(r["Visibility"]) for r in rows[backend])}
+            want = {f"launch.conv3x3_{variant}": 18 * chunks,
+                    "launch.conv3x3_relu_affine": 18 * chunks, "launch.decode_peak": chunks}
+            got = {k2: spans["counters"].get(k2) for k2 in want}
+            if got != want or res[backend]["classify_spans"] != chunks:
+                fail("v1_serve", f"{backend}: launches {got} (want {want}), serve::classify "
+                     f"{res[backend]['classify_spans']} (want {chunks})")
+    first = rows["hand_9tap"]
+    res["rows_equal"] = first == rows["hand_k3c"]
+    res["first_two_invisible"] = all(r["Visibility"] == "0" for r in first[:2])
+    emit(res)
+    if len(first) != V1_CLIP_T or not res["rows_equal"] or not res["first_two_invisible"]:
+        fail("v1_serve", f"{len(first)} rows, {res}")
+
+
 def phase_conv_ablate():
     """conv_ablate: the ablation probe's variants at its shape. ``full`` and
     ``full-9mm`` are the two kernels (held to plain); the partial variants
@@ -2637,7 +2857,7 @@ def phase_serve(tmp: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run_s, e2e_s = [], []
-        for i in range(3):
+        for i in range(2):
             if i == 0:  # counts of this run only
                 _zero_launches()
             pred, r, e = once()
@@ -6530,6 +6750,9 @@ def main() -> int:
     ap.add_argument("--decode_only", action="store_true",
                     help="build and decode_peak (the peak-blob decode kernel against its "
                          "plain version at serving's calls, timed) alone; no kernels line")
+    ap.add_argument("--v1_only", action="store_true",
+                    help="build and v1 (TrackNetV1's conv epilogue mode against its plain "
+                         "version, and a clip served by the predict CLI) alone; no kernels line")
     ap.add_argument("--baseline", metavar="DIR",
                     help="with --copy_only, --loss_only or --split_bn_only: a checkout of "
                          "another commit (e.g. the parent's, unpacked with git archive); its "
@@ -6566,7 +6789,8 @@ def main() -> int:
             else "mesh_train" if args.mesh_train_only
             else "mesh_shard" if args.mesh_shard_only
             else "split_bn" if args.split_bn_only
-            else "decode" if args.decode_only else None)
+            else "decode" if args.decode_only
+            else "v1" if args.v1_only else None)
     if args.baseline and only not in ("copy", "loss", "split_bn"):
         print("chip_smoke: --baseline goes with --copy_only, --loss_only or --split_bn_only",
               file=sys.stderr)
@@ -6612,6 +6836,9 @@ def main() -> int:
             _split_vs_plain(baseline[2] if baseline is not None else None)
         elif only == "decode":
             phase_decode_peak()
+        elif only == "v1":
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_v1(tmp, card, timed=True)
         else:
             phase_kernels(baseline)
         print(card, flush=True)
@@ -6636,6 +6863,7 @@ def main() -> int:
         decode = phase_decode_peak()
         conv = phase_conv()
         phase_conv_ablate()
+        phase_v1(tmp, card)
         serve_launches, frames = phase_serve(tmp)
         phase_serve_parity(tmp, frames)
         del frames

@@ -25,6 +25,15 @@ the tree into it (``models.convert``) and writes it with
 ``training.checkpoint.save_checkpoint``: the npz file both packages read,
 with the tool's ``param_dict`` (``model_name`` inferred where missing).
 
+The same command converts the original TrackNet's weights:
+``BallTrackerNet`` of github.com/yastrebksv/TrackNet saves its
+``state_dict()`` as it is (``conv1.block.0.weight`` ... ``conv18.block.2.*``),
+or a dict holding it under ``model``. ``convert_ball_tracker`` loads it into
+the port's ``TrackNetV1`` (the same names) and ``convert_checkpoint`` writes
+it with the ``param_dict`` that names the architecture (``model_name``
+``"TrackNetV1"``, ``seq_len`` 3, ``bg_mode`` ``""``, ``height`` 360,
+``width`` 640), which serving reads to pick TrackNetV1's path.
+
 Host only: it reads and writes files on the CPU and does no device work, so
 it runs without a card.
 """
@@ -135,6 +144,33 @@ def tracknet_shape(state_dict, param_dict: Dict[str, Any]):
     return seq_len, fits[0]
 
 
+def ball_tracker_state(ckpt) -> Optional[Dict[str, Any]]:
+    """The ``BallTrackerNet`` state dict in a loaded file (the file itself,
+    or its ``model``), or None where it holds none."""
+    for sd in (ckpt, ckpt.get("model") if isinstance(ckpt, dict) else None):
+        if isinstance(sd, dict) and "conv1.block.0.weight" in sd:
+            return sd
+    return None
+
+
+def convert_ball_tracker(state_dict):
+    """A ``BallTrackerNet`` state dict -> (the port's float32 ``TrackNetV1``
+    holding it, its ``param_dict``). Its input channels must be 9 (three
+    BGR frames)."""
+    from .models import tracknet_v1
+
+    cin = int(state_dict["conv1.block.0.weight"].shape[1])
+    if cin != tracknet_v1.IN_CHANNELS:
+        raise ValueError(f"the first conv takes {cin} channels, TrackNetV1 takes "
+                         f"{tracknet_v1.IN_CHANNELS} (three BGR frames)")
+    model = tracknet_v1.TrackNetV1(
+        cin, int(state_dict[f"conv{len(tracknet_v1.LAYERS)}.block.0.weight"].shape[0]))
+    model.load_state_dict(state_dict)
+    pd = {"model_name": tracknet_v1.ARCH, "seq_len": tracknet_v1.SEQ_LEN, "bg_mode": "",
+          "height": tracknet_v1.HEIGHT, "width": tracknet_v1.WIDTH}
+    return model, pd
+
+
 def convert_checkpoint(in_path: str, out_path: str) -> None:
     import torch
 
@@ -143,6 +179,12 @@ def convert_checkpoint(in_path: str, out_path: str) -> None:
     from .training.checkpoint import save_checkpoint
 
     ckpt = torch.load(in_path, map_location="cpu", weights_only=False)
+    ball = ball_tracker_state(ckpt)
+    if ball is not None:
+        model, pd = convert_ball_tracker(ball)
+        save_checkpoint(out_path, epoch=0, max_val_acc=0.0, model=model, param_dict=pd)
+        print(f"Converted {pd['model_name']} checkpoint -> {out_path}")
+        return
     pd = dict(ckpt.get("param_dict", {}))
     model_name = pd.get("model_name") or (
         "TrackNet" if any("down_block" in k for k in ckpt["model"]) else "InpaintNet"

@@ -4,7 +4,15 @@
 //   y = bf16(relu(acc_f32 + bias_f32))
 // float32 accumulation over all 9 * Ci terms, the bias added to the
 // accumulator (__fadd_rn), a NaN-keeping ReLU, one round-to-nearest-even to
-// bfloat16. For sm_90a. Plain C interface, loaded with ctypes
+// bfloat16. With per-channel float32 scale and shift pointers (kernel
+// instantiations of their own) the epilogue goes on to an affine map after
+// the ReLU, the eval BatchNorm of a network
+// whose BatchNorm follows its ReLU (TrackNetV1, which cannot fold it into the
+// conv before):
+//   y = bf16(relu(acc_f32 + bias_f32) * scale_f32 + shift_f32)
+// with the multiply and the add each rounded in float32 (__fmul_rn,
+// __fadd_rn: no fused multiply-add, so the plain version's two torch ops give
+// the same bits) and still one rounding to bfloat16. For sm_90a. Plain C interface, loaded with ctypes
 // (tracknetv3_tpu_torch/ops/conv3x3.py, whose launch_plan computes every
 // size, grid and tensor map that a launch passes in).
 //
@@ -16,7 +24,7 @@
 //            tools/probe_pallas_ablate.py:63 variant "full-9mm"
 // and computes, with the epilogue, _conv_relu of the serving forward
 // (tracknetv3_tpu/models/fused_forward.py:63). With a null bias and relu = 0
-// it is the probes' bare conv.
+// it is the probes' bare conv; null scale and shift leave the affine out.
 //
 // Function. x (N, H, W, Ci), packed weights (3, 3 * Ci, Co) = the HWIO kernel
 // reshaped, rows (dx, ci) for each dy, i.e. (9 taps, Ci, Co); bias (Co)
@@ -75,7 +83,9 @@
 //   inside a swizzle atom, so A is loaded with ldmatrix (lane addresses may
 //   point anywhere) and multiplied from registers (RS), double-buffered over
 //   one group of 4 MW products per tap.
-// - Epilogue from registers: bias, ReLU and the bf16 pack on the
+// - Epilogue from registers: bias, ReLU, the affine map (instantiations with
+//   AFFINE = true, launched where scale and shift are given; the others are
+//   the kernels as they were before the mode) and the bf16 pack on the
 //   accumulator fragments, 4-byte stores into a 128B-swizzled staging tile
 //   (k3c: the warpgroup's own sheet; 9tap: its own 16 KB), then one TMA
 //   store per m64 block and 64 channels, box (64, TW, 4, 1), whose bounds
@@ -387,12 +397,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The conv. K3C picks the A path (sheet + SS, or shifted halo + ldmatrix +
-// RS); STAGES switches parts of the k3c pipeline off for the ablation.
-template <bool K3C, int BN, int STAGES, int MW>
+// RS); STAGES switches parts of the k3c pipeline off for the ablation; AFFINE
+// adds the affine map after the ReLU to the epilogue.
+template <bool K3C, int BN, int STAGES, int MW, bool AFFINE>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_kernel(const __grid_constant__ CUtensorMap tmap_x,
                    const __grid_constant__ CUtensorMap tmap_w,
                    const __grid_constant__ CUtensorMap tmap_y, const float* __restrict__ bias,
+                   const float* __restrict__ scale, const float* __restrict__ shift,
                    int relu, int Ci, int H, int tiles_w, int tiles_h) {
   constexpr int S = Layout<K3C>::kWStages;
   constexpr int R = BN / 2;   // float32 accumulators per thread
@@ -405,6 +417,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool ONE = (STAGES & kOne) != 0;
   static_assert(K3C || STAGES == kFull, "the stage switches are the k3c kernel's");
   static_assert(!K3C || MW == 1, "a k3c warpgroup's sheet holds one m64 block");
+  static_assert(!AFFINE || STAGES == kFull, "the ablation's variants have no affine mode");
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -580,7 +593,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  // Epilogue: bias, ReLU, one rounding, into the 128B-swizzled staging tile
+  // Epilogue: bias, ReLU, the affine map, one rounding, into the 128B-swizzled staging tile
   // (per m64 block and 64 channels, 64 pixel rows of 128 bytes), then TMA
   // stores.
   wgmma_wait<0>();
@@ -593,6 +606,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int col = j * 8 + (lane & 3) * 2;
     float2 bb = make_float2(0.0f, 0.0f);
     if (bias != nullptr) bb = *reinterpret_cast<const float2*>(bias + co0 + col);
+    float2 ss, tt;
+    if constexpr (AFFINE) {
+      ss = *reinterpret_cast<const float2*>(scale + co0 + col);
+      tt = *reinterpret_cast<const float2*>(shift + co0 + col);
+    }
 #pragma unroll
     for (int mb = 0; mb < MW; ++mb)
 #pragma unroll
@@ -606,6 +624,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (relu) {
           v0 = relu_nan(v0);
           v1 = relu_nan(v1);
+        }
+        if constexpr (AFFINE) {
+          v0 = __fadd_rn(__fmul_rn(v0, ss.x), tt.x);
+          v1 = __fadd_rn(__fmul_rn(v1, ss.y), tt.y);
         }
         *reinterpret_cast<uint32_t*>(own + (mb * NB + (j >> 3)) * kStoreBlock +
                                      sw128(r, j & 7) + (lane & 3) * 4) = pack_bf16(v0, v1);
@@ -690,12 +712,12 @@ bool plan_matches(const long long* p) {
   return ok;
 }
 
-template <bool K3C, int BN, int STAGES, int MW>
-int launch(const void* x, const void* wp, const void* bias, void* y, const long long* plan,
-           int relu, void* stream) {
+template <bool K3C, int BN, int STAGES, int MW, bool AFFINE>
+int launch(const void* x, const void* wp, const void* bias, const void* scale, const void* shift,
+           void* y, const long long* plan, int relu, void* stream) {
   if (!plan_matches<K3C, BN, MW>(plan)) return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<K3C, BN, MW>();
-  auto kernel = conv3x3_kernel<K3C, BN, STAGES, MW>;
+  auto kernel = conv3x3_kernel<K3C, BN, STAGES, MW, AFFINE>;
   // the attribute is the current device's: one flag per instantiation and
   // device, so that a second card of a mesh sets it too
   constexpr int kMaxDevices = 64;
@@ -716,20 +738,36 @@ int launch(const void* x, const void* wp, const void* bias, void* y, const long 
   if (e != 0) return e;
   const dim3 grid((unsigned int)plan[P_GRID_X], (unsigned int)plan[P_GRID_Y]);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      mx, mw, my, (const float*)bias, relu, (int)plan[P_CI], (int)plan[P_H],
+      mx, mw, my, (const float*)bias, (const float*)scale, (const float*)shift, relu,
+      (int)plan[P_CI], (int)plan[P_H],
       (int)plan[P_TILES_W], (int)plan[P_TILES_H]);
   return (int)cudaGetLastError();
 }
 
+// The instantiation with the affine map where scale and shift are given.
+template <bool K3C, int BN, int STAGES, int MW>
+int launch_mode(const void* x, const void* wp, const void* bias, const void* scale,
+                const void* shift, void* y, const long long* plan, int relu, void* stream) {
+  if (scale == nullptr)
+    return launch<K3C, BN, STAGES, MW, false>(x, wp, bias, scale, shift, y, plan, relu, stream);
+  if constexpr (STAGES == kFull)
+    return launch<K3C, BN, STAGES, MW, true>(x, wp, bias, scale, shift, y, plan, relu, stream);
+  return (int)cudaErrorInvalidValue;  // the ablation's variants have no affine mode
+}
+
 template <bool K3C, int STAGES>
-int launch_bn(const void* x, const void* wp, const void* bias, void* y, const long long* plan,
-              int relu, void* stream) {
-  if (plan[P_BN] == 128) return launch<K3C, 128, STAGES, 1>(x, wp, bias, y, plan, relu, stream);
+int launch_bn(const void* x, const void* wp, const void* bias, const void* scale,
+              const void* shift, void* y, const long long* plan, int relu, void* stream) {
+  if ((scale == nullptr) != (shift == nullptr)) return (int)cudaErrorInvalidValue;
+  if (plan[P_BN] == 128)
+    return launch_mode<K3C, 128, STAGES, 1>(x, wp, bias, scale, shift, y, plan, relu, stream);
   if (STAGES == kFull && plan[P_BN] == 64) {
     // 9tap at BN = 64: two m64 blocks per warpgroup (M = 256), which fit in
     // registers at this width and halve the weight bytes per product
-    if constexpr (K3C) return launch<true, 64, kFull, 1>(x, wp, bias, y, plan, relu, stream);
-    else return launch<false, 64, kFull, 2>(x, wp, bias, y, plan, relu, stream);
+    if constexpr (K3C)
+      return launch_mode<true, 64, kFull, 1>(x, wp, bias, scale, shift, y, plan, relu, stream);
+    else
+      return launch_mode<false, 64, kFull, 2>(x, wp, bias, scale, shift, y, plan, relu, stream);
   }
   return (int)cudaErrorInvalidValue;  // the partial variants are built at BN = 128 only
 }
@@ -739,13 +777,14 @@ int launch_bn(const void* x, const void* wp, const void* bias, void* y, const lo
 extern "C" {
 
 // y (N, H, W, Co) bf16 = epilogue(conv3x3(x (N, H, W, Ci) bf16, wp (3, 3 * Ci, Co) bf16)),
-// NHWC; bias (Co) float32 or null; relu 0 or 1; plan: launch_plan's P_LEN int64s.
+// NHWC; bias (Co) float32 or null; scale and shift (Co) float32, both or neither
+// (the affine after the ReLU); relu 0 or 1; plan: launch_plan's P_LEN int64s.
 // Each returns cudaGetLastError(), cudaErrorInvalidValue for a plan that is not
 // this kernel's, or kEncodeError + the CUresult of a tensor map that failed.
-#define CONV3X3_ARGS \
-  const void *x, const void *wp, const void *bias, void *y, const long long *plan, int relu, \
-      void *stream
-#define CONV3X3_PASS x, wp, bias, y, plan, relu, stream
+#define CONV3X3_ARGS                                                                     \
+  const void *x, const void *wp, const void *bias, const void *scale, const void *shift, \
+      void *y, const long long *plan, int relu, void *stream
+#define CONV3X3_PASS x, wp, bias, scale, shift, y, plan, relu, stream
 
 int conv3x3_k3c_bf16(CONV3X3_ARGS) { return launch_bn<true, kFull>(CONV3X3_PASS); }
 

@@ -51,6 +51,21 @@ entry forwards its share from its own copy of the staged frames, the
 median and the folded weights, and the shares come back in window order to
 the mesh's first device for the ensemble and the decode.
 
+A TrackNetV1 checkpoint (``param_dict["model_name"]`` ``"TrackNetV1"``,
+``models/tracknet_v1.py``: the original TrackNet, 256 gray-level classes a
+pixel) selects its own window mode on the staged path, whatever
+``eval_mode`` says (it is not read for such a checkpoint): one window a
+frame t from frame 2 on, its frames t, t-1, t-2 in BGR
+(``make_staged_preprocessor(v1_order=True)``), the
+folded forward with the ReLU -> BatchNorm epilogue
+(``tracknet_v1_fused_forward``), the channel argmax to ``gray / 255``
+(``class_maps``, span ``serve::classify``) and the same decode, so a
+frame is visible where ``gray > 127``; frames 0 and 1 are written
+invisible. No median, ensemble or InpaintNet, and neither
+``device_resize`` nor streaming: those raise ``NotImplementedError``.
+Its resolution is the checkpoint's (``height`` / ``width``), 360x640
+unless it says otherwise.
+
 Serving runs under ``torch.inference_mode()``. The JAX package's TPU
 runtime machinery is not ported: bucket padding of the staged buffer and
 the AOT program cache raise ``NotImplementedError``.
@@ -72,7 +87,10 @@ import torch
 
 from .config import COOR_TH, HEIGHT, WIDTH
 from .device import resolve_device, tf32_off
-from .models.fused_forward import fold_batchnorm, fused_params, tracknet_fused_forward
+from .models import tracknet_v1
+from .models.fused_forward import (class_maps, fold_batchnorm, fused_params,
+                                   tracknet_fused_forward, tracknet_v1_fused_forward,
+                                   v1_fused_params)
 from .native_video import open_native_video
 from .ops.detect import decode_heatmaps
 from .ops.ensemble import (
@@ -105,6 +123,7 @@ STAGING_BUDGET_BYTES = 8e9
 PREFETCH_CHUNKS = 4  # streaming: chunks read ahead of the card
 SLAB_FRAMES = 120  # staging: frames the native reader decodes at once
 STAGE_FORMATS = ("auto", "yuv420", "bgr")
+V1_EVAL_MODE = "sliding"  # TrackNetV1's one window mode (a window a frame, newest first)
 
 
 def open_video(path: str) -> VideoReader:
@@ -226,6 +245,11 @@ class TrackNetPredictor:
     model dims are even, else BGR. ``decode_backend`` says what the last
     staging or stream decoded with: ``"cv2"``, ``"native-lowres{n}"``, with
     ``"+yuv420"`` where it staged YUV420.
+
+    A TrackNetV1 checkpoint sets ``arch`` to ``"TrackNetV1"`` and
+    ``eval_mode`` to ``V1_EVAL_MODE`` (the argument is not read), takes
+    its resolution from the checkpoint unless ``input_hw`` is given, and
+    refuses an InpaintNet checkpoint (module docstring).
     """
 
     def __init__(
@@ -246,11 +270,24 @@ class TrackNetPredictor:
         if stage_format not in STAGE_FORMATS:
             raise ValueError(f"stage_format must be auto|yuv420|bgr: {stage_format}")
         self.device = resolve_device(device)
-        self.h, self.w = (int(input_hw[0]), int(input_hw[1])) if input_hw else (HEIGHT, WIDTH)
         self.compute_dtype = compute_dtype if compute_dtype is not None else torch.bfloat16
         tracknet, tn_pd = load_model_from_checkpoint(tracknet_file, dtype=torch.float32)
-        self.params = fused_params(fold_batchnorm(tracknet), self.compute_dtype, self.device,
-                                   conv_backend)
+        self.arch = tn_pd.get("model_name", "TrackNet")
+        self.v1 = self.arch == tracknet_v1.ARCH
+        hw = (HEIGHT, WIDTH)
+        if self.v1:
+            if inpaintnet_file:
+                raise ValueError("a TrackNetV1 checkpoint serves without InpaintNet: drop the "
+                                 "InpaintNet checkpoint")
+            self.params = v1_fused_params(tracknet, self.compute_dtype, self.device,
+                                          conv_backend)
+            hw = (int(tn_pd.get("height", tracknet_v1.HEIGHT)),
+                  int(tn_pd.get("width", tracknet_v1.WIDTH)))
+            eval_mode = V1_EVAL_MODE
+        else:
+            self.params = fused_params(fold_batchnorm(tracknet), self.compute_dtype,
+                                       self.device, conv_backend)
+        self.h, self.w = (int(input_hw[0]), int(input_hw[1])) if input_hw else hw
         self.seq_len = int(tn_pd["seq_len"])
         self.bg_mode = tn_pd.get("bg_mode", "")
         self.eval_mode = eval_mode
@@ -258,10 +295,12 @@ class TrackNetPredictor:
         self.native_decode = bool(native_decode)
         self.stage_format = stage_format
         self.decode_backend = "unused"
-        weights = get_ensemble_weight(
-            self.seq_len, eval_mode if eval_mode != "nonoverlap" else "average"
-        )
-        self._weights = torch.from_numpy(weights).to(self.device)
+        self._weights = None
+        if not self.v1:
+            weights = get_ensemble_weight(
+                self.seq_len, eval_mode if eval_mode != "nonoverlap" else "average"
+            )
+            self._weights = torch.from_numpy(weights).to(self.device)
         self._preproc = make_window_preprocessor(self.bg_mode, self.seq_len, (self.h, self.w))
         # staging copies run here, beside the chunks on the default stream
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
@@ -436,10 +475,15 @@ class TrackNetPredictor:
     # ------------------------------------------------------------ TrackNet
 
     def _forward(self, x: torch.Tensor, params: Optional[Dict] = None) -> torch.Tensor:
-        """(B, h, w, C_in) model input -> (B, L, h, w) float32 probabilities;
+        """(B, h, w, C_in) model input -> (B, L, h, w) float32 probabilities
+        (TrackNetV1: (B, 256, h, w) class logits in the working dtype);
         ``params`` are the folded weights on x's device (the predictor's)."""
+        params = self.params if params is None else params
         with span("serve::forward"):
-            probs = tracknet_fused_forward(self.params if params is None else params, x)
+            if self.v1:
+                probs = tracknet_v1_fused_forward(params, x)
+            else:
+                probs = tracknet_fused_forward(params, x)
         return probs.permute(0, 3, 1, 2)
 
     def _windows(self, pre, buf, med, starts, params: Optional[Dict] = None) -> torch.Tensor:
@@ -514,6 +558,34 @@ class TrackNetPredictor:
     def _arange(self, n: int) -> torch.Tensor:
         return torch.arange(n, device=self.device)
 
+    def _require_unet(self, what: str) -> None:
+        if self.v1:
+            raise NotImplementedError(f"{what} is not ported for TrackNetV1 checkpoints: they "
+                                      "serve on the staged path alone")
+
+    def _run_sliding(self, forward: Callable, T: int, img_scaler) -> Dict[str, list]:
+        """TrackNetV1's chunk loop: ``forward(starts)`` gives the class
+        logits of the windows starting at ``starts`` (frames newest first,
+        so window s predicts frame s + L - 1); each chunk's logits become
+        ``gray / 255`` maps (``serve::classify``) and decoded rows that stay
+        on the card until one fetch; the first L - 1 frames are invisible."""
+        L, B = self.seq_len, self.batch_size
+        S = max(T - L + 1, 0)  # frames with a window
+        arange_b = self._arange(B)
+        rows: List[torch.Tensor] = []
+        for w0 in range(0, S, B):
+            logits = forward(w0 + arange_b)
+            with span("serve::classify"):
+                maps = class_maps(logits)
+            with span("serve::decode"):
+                rows.append(_pack(decode_heatmaps(maps)))
+        got = np.zeros((0, 3), np.int32)
+        if rows:
+            with span("serve::fetch"):
+                got = torch.cat(rows).cpu().numpy()[:S]  # the one fetch
+        arr = np.concatenate([np.zeros((T - S, 3), np.int32), got], axis=0)
+        return self._rows_to_pred(arr, img_scaler)
+
     def _overlap_step(self, frames_u8, median, t0: int, num_windows: int) -> torch.Tensor:
         """Stateless chunk (JAX ``_overlap_step_impl``): raw frames of
         global frames [t0-L+1, t0+B+L-1) (clipped at the video's bounds);
@@ -576,7 +648,7 @@ class TrackNetPredictor:
         its size divides ``batch_size``, its first device is the
         predictor's) each chunk's windows are forwarded in equal shares over
         its entries (``_sharded_windows``); the rows are the single-device
-        run's."""
+        run's. A TrackNetV1 predictor runs ``_run_sliding``."""
         T, L, B = staged.T, self.seq_len, self.batch_size
         if mesh is not None:
             check_mesh(mesh, B, self.device, "predictor")
@@ -586,7 +658,8 @@ class TrackNetPredictor:
         med = staged.median
         if med is None:
             med = torch.zeros((self.h, self.w, 3), dtype=torch.float32, device=dev)
-        pre = make_staged_preprocessor(self.bg_mode, L, staged.bgr, out_dtype=self.compute_dtype)
+        pre = make_staged_preprocessor(self.bg_mode, L, staged.bgr, out_dtype=self.compute_dtype,
+                                       v1_order=self.v1)
         arange_b = self._arange(B)
         rows: List[torch.Tensor] = []
         with torch.inference_mode():
@@ -594,6 +667,8 @@ class TrackNetPredictor:
                 forward = functools.partial(self._windows, pre, staged.buf, med)
             else:
                 forward = self._sharded_windows(pre, staged.buf, med, mesh)
+            if self.v1:
+                return self._run_sliding(forward, T, img_scaler)
             if self.eval_mode == "nonoverlap":
                 n_win = -(-T // L)
                 for w0 in range(0, n_win, B):
@@ -651,6 +726,7 @@ class TrackNetPredictor:
         (the JAX package's ``upload_frames`` + ``build_resident``, there
         called ``stage_frames``; without its 256-frame bucket). Returns the
         buffer and T."""
+        self._require_unet("device_resize")
         frames = np.ascontiguousarray(frames)
         if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f"need (T, H, W, 3) uint8 frames, got {frames.dtype} {frames.shape}")
@@ -804,6 +880,7 @@ class TrackNetPredictor:
         (``_streaming_host_resize``, cv2); without, raw frames go to the
         card and are resized there (``_overlap_step`` /
         ``_nonoverlap_step``). A decode error raises ``RuntimeError``."""
+        self._require_unet("large_video (streaming)")
         reader = open_video(video_file)
         try:
             img_scaler = (reader.w / self.w, reader.h / self.h)

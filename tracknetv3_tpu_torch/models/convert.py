@@ -7,6 +7,12 @@ kernels are HWIO in JAX and OIHW here. ``inpaintnet_from_jax`` /
 ``inpaintnet_to_jax`` do the same for InpaintNet's ``{"params"}`` tree:
 1-D conv kernels are flax ``(k, Ci, Co)`` and torch ``(Co, Ci, k)``.
 
+``tracknet_v1_to_tree`` / ``tracknet_v1_from_tree`` keep TrackNetV1
+(``models/tracknet_v1.py``, which has no JAX counterpart) in the same
+checkpoint layout: ``{"params": {"conv{i}": {"conv": {"kernel" (HWIO),
+"bias"}, "bn": {"scale", "bias"}}}, "batch_stats": {"conv{i}": {"bn":
+{"mean", "var"}}}}``.
+
 ``JAX_PARAM_PATHS`` lists the JAX parameter paths in ``jax.tree_util``'s
 flatten order (dict keys sorted at every level), which is also the order
 of the per-parameter leaves of an optax optimizer state; checkpoints use
@@ -155,3 +161,44 @@ def inpaintnet_to_jax(module: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
     for path, name in INPAINT_MAP:
         _set(params, path, conv1d_to_jax_layout(state[name].detach().cpu().numpy()))
     return {"params": params}
+
+
+def tracknet_v1_to_tree(module: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+                        ) -> Dict[str, Any]:
+    """Port ``TrackNetV1`` (or a ``BallTrackerNet`` state dict) -> the
+    checkpoint's ``{"params", "batch_stats"}`` numpy trees (HWIO kernels;
+    BatchNorm's ``num_batches_tracked`` is not kept)."""
+    state = module.state_dict() if isinstance(module, torch.nn.Module) else module
+    n = sum(1 for k in state if k.endswith(".block.0.weight"))
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(1, n + 1):
+        pre = f"conv{i}.block."
+        sd = {k: state[pre + k].detach().float().cpu().numpy() for k in (
+            "0.weight", "0.bias", "2.weight", "2.bias", "2.running_mean", "2.running_var")}
+        params[f"conv{i}"] = {"conv": {"kernel": torch_to_jax_layout(sd["0.weight"]),
+                                       "bias": sd["0.bias"]},
+                              "bn": {"scale": sd["2.weight"], "bias": sd["2.bias"]}}
+        stats[f"conv{i}"] = {"bn": {"mean": sd["2.running_mean"], "var": sd["2.running_var"]}}
+    return {"params": params, "batch_stats": stats}
+
+
+def tracknet_v1_from_tree(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The checkpoint's trees -> a ``TrackNetV1`` state dict (each
+    ``num_batches_tracked`` 0)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    for i in range(1, len(params) + 1):
+        p, s, pre = params[f"conv{i}"], stats[f"conv{i}"]["bn"], f"conv{i}.block."
+        sd[pre + "0.weight"] = t(jax_to_torch_layout(np.asarray(p["conv"]["kernel"])))
+        sd[pre + "0.bias"] = t(p["conv"]["bias"])
+        sd[pre + "2.weight"] = t(p["bn"]["scale"])
+        sd[pre + "2.bias"] = t(p["bn"]["bias"])
+        sd[pre + "2.running_mean"] = t(s["mean"])
+        sd[pre + "2.running_var"] = t(s["var"])
+        sd[pre + "2.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return sd

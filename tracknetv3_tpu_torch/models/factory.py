@@ -1,5 +1,5 @@
-"""Model factory: ``get_model('TrackNet', seq_len, bg_mode, generator=...)``
-and ``get_model('InpaintNet')``.
+"""Model factory: ``get_model('TrackNet', seq_len, bg_mode, generator=...)``,
+``get_model('InpaintNet')`` and ``get_model('TrackNetV1')``.
 
 The TrackNet input channel count follows ``bg_mode`` and ``out_dim`` is
 always ``seq_len``, as in the JAX package's factory; InpaintNet takes no
@@ -7,7 +7,9 @@ shape arguments (its ``seq_len`` is the window length of its callers).
 Fresh weights use flax's default initialisers, drawn from the given
 ``torch.Generator``: conv kernels LeCun-normal (truncated normal, variance
 1/fan_in), biases zero, BatchNorm scale one and bias zero, running mean
-zero and variance one.
+zero and variance one. TrackNetV1 (float32, no shape arguments) takes its
+published module's initialisation (``BallTrackerNet._init_weights``): conv
+kernels uniform in [-0.05, 0.05], biases zero, BatchNorm as above.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from torch import nn
 from ..config import tracknet_in_channels
 from .inpaintnet import InpaintNet
 from .tracknet import TrackNet
+from .tracknet_v1 import ARCH as V1_ARCH
+from .tracknet_v1 import TrackNetV1
 
 # std of a unit normal truncated to [-2, 2]: flax divides by it so the
 # truncated draw keeps the requested variance
@@ -42,7 +46,16 @@ def get_model(
     dtype: torch.dtype = torch.bfloat16,
 ) -> nn.Module:
     """Build a freshly initialised model (on the CPU; move it with ``.to``).
-    ``dtype`` is TrackNet's working dtype; InpaintNet is always float32."""
+    ``dtype`` is TrackNet's working dtype; InpaintNet and TrackNetV1 are
+    always float32."""
+    if model_name == V1_ARCH:
+        model = TrackNetV1()
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, nn.Conv2d):
+                    m.weight.uniform_(-0.05, 0.05, generator=generator)
+                    m.bias.zero_()
+        return model
     if model_name == "TrackNet":
         if seq_len is None:
             raise ValueError("TrackNet requires seq_len")

@@ -26,6 +26,17 @@ its state dict); its output keeps the JAX layouts (HWIO kernels).
 - each up block concatenates ``[up2x(x), skip]``;
 - the 1x1 predictor's float32 bias is added before the sigmoid.
 
+TrackNetV1 (``models/tracknet_v1.py``) puts its BatchNorm after the ReLU,
+so it cannot fold into the conv before, and folding it into the next conv
+is not exact at the zero-padded border. ``v1_fused_params`` keeps each
+block's conv with its bias and the BatchNorm as a per-channel float32
+``scale = gamma / sqrt(var + eps)`` and ``shift = beta - mean * scale``;
+``tracknet_v1_fused_forward`` runs the 18 blocks as ``bf16(relu(conv(x) +
+b) * scale + shift)``, one rounding, in the conv kernels' epilogue mode on
+the hand backends (torch passes after ``F.conv2d`` on ``cudnn``), with the
+same pool and upsample kernels, no concat and no sigmoid: it returns the
+256 class logits. ``class_maps`` turns them into the decode's input.
+
 On the ``cudnn`` route one rounding differs from the JAX forward at
 bfloat16: cuDNN returns each convolution in the working dtype, so the
 float32 bias is added to a value already rounded to bfloat16, where JAX
@@ -47,6 +58,7 @@ import torch.nn.functional as F
 from ..device import tf32_off
 from ..ops import conv3x3
 from ..ops.pool_up2x import maxpool2x2, up2x_nearest
+from . import tracknet_v1
 from .convert import BLOCKS, tracknet_to_jax
 
 
@@ -209,3 +221,72 @@ def tracknet_fused_forward(params: Dict[str, Any], x: torch.Tensor, *,
         logits = torch.add(F.conv2d(x, w), b)  # float32
     out = torch.sigmoid(logits) if apply_sigmoid else logits
     return out.permute(0, 2, 3, 1)
+
+
+def v1_fused_params(model_or_state, dtype: torch.dtype, device: Union[str, torch.device],
+                    conv_backend: Optional[str] = None) -> Dict[str, Any]:
+    """A ``TrackNetV1`` (or its state dict) -> device tensors for
+    ``tracknet_v1_fused_forward``: per block the 3x3 kernel as
+    ``fused_params`` lays it out for the backend, and the float32 bias,
+    ``scale`` and ``shift`` (flat), with what follows the block (``""``,
+    ``"pool"`` or ``"up"``). ``conv_backend`` goes through
+    ``resolve_conv_backend``."""
+    conv_backend = resolve_conv_backend(conv_backend, dtype, device)
+    layers = []
+    for (w, b, gamma, beta, mean, var), (_, _, after) in zip(
+            tracknet_v1.blocks(model_or_state), tracknet_v1.layer_channels()):
+        scale = gamma / torch.sqrt(var + tracknet_v1.EPS)
+        shift = beta - mean * scale
+        if conv_backend == "cudnn":
+            kernel = w.to(device, dtype).contiguous(memory_format=torch.channels_last)
+        else:
+            kernel = conv3x3.pack_weights(w.permute(2, 3, 1, 0), dtype, device=device)
+        layers.append((kernel, *(v.to(device).contiguous() for v in (b, scale, shift)), after))
+    return {"dtype": dtype, "conv_backend": conv_backend, "arch": tracknet_v1.ARCH,
+            "layers": layers}
+
+
+def _conv_relu_affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor, backend: str) -> torch.Tensor:
+    variant = CONV_BACKENDS[backend]
+    if variant is not None:
+        return conv3x3.conv3x3_bias_relu(x, w, b, variant=variant, scale=scale, shift=shift)
+    y = torch.add(F.conv2d(x, w, padding=1), b.reshape(1, -1, 1, 1)).relu_()  # float32
+    return (y * scale.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)).to(x.dtype)
+
+
+def tracknet_v1_fused_forward(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """TrackNetV1's serving forward.
+
+    Args:
+        params: ``v1_fused_params(...)``; its backend computes the convs.
+        x: (B, H, W, 9) NHWC windows in [0, 1], H and W multiples of 8.
+
+    Returns:
+        (B, H, W, 256) class logits in the working dtype, an NHWC view of
+        channels_last memory. At a float32 working dtype cuDNN runs without
+        TF32.
+    """
+    dtype = params["dtype"]
+    backend = params["conv_backend"]
+    fp32 = dtype == torch.float32 and x.device.type == "cuda"
+    with tf32_off() if fp32 else contextlib.nullcontext():
+        channels = x.shape[-1]
+        if backend != "cudnn":
+            channels = conv3x3.padded_channels(channels)
+        x = _to_working_layout(x, dtype, channels)
+        for w, b, scale, shift, after in params["layers"]:
+            x = _conv_relu_affine(x, w, b, scale, shift, backend)
+            if after == "pool":
+                x = maxpool2x2(x)
+            elif after == "up":
+                x = up2x_nearest(x)
+    return x.permute(0, 2, 3, 1)
+
+
+def class_maps(logits: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) class logits -> (B, H, W) float32 ``gray / 255``, where
+    ``gray`` is the channel argmax (the first class on ties), the decode's
+    input: its 0.5 threshold is ``gray > 127``, since 127 / 255 < 0.5 <
+    128 / 255."""
+    return logits.argmax(dim=1).to(torch.float32) / 255.0

@@ -1,5 +1,6 @@
 """SAME 3x3 convolution with the folded serving forward's bias + ReLU
-epilogue (hand-written CUDA kernels for Hopper).
+epilogue (hand-written CUDA kernels for Hopper), and an affine map after
+the ReLU for a network whose BatchNorm follows its ReLU (TrackNetV1).
 
 The JAX serving forward's ``_conv_relu`` convolves in the working dtype
 with a float32 accumulator, adds the float32 bias to it, applies ReLU and
@@ -29,6 +30,14 @@ the three tensor maps. On a CPU tensor ``conv3x3_bias_relu`` returns its
 plain version (``conv3x3_bias_relu_plain``, any float dtype); on a CUDA
 tensor it takes bfloat16 only and launches the kernel or raises.
 Each launch counts under ``launch.<kernel>`` (``utils/profiling``).
+
+``scale`` and ``shift`` (float32, one per output channel, both or neither)
+add the epilogue mode ``bf16(relu(conv(x) + bias) * scale + shift)``: the
+eval BatchNorm after the ReLU, the multiply and the add each rounded in
+float32 and one rounding to bfloat16. It runs in instantiations of the same
+kernel template with the affine in their epilogue; each such launch also
+counts under ``launch.conv3x3_relu_affine``. Without them the kernels are
+the instantiations they were before the mode was added.
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ VARIANTS = ("k3c", "9tap")
 ABLATION_VARIANTS = {"mm-only": "k3c_mm_only", "mm1-only": "k3c_mm1_only",
                      "dma+mm": "k3c_dma_mm", "sheet+mm": "k3c_sheet_mm"}
 KERNELS = ("conv3x3_k3c", "conv3x3_9tap")  # launch counters
-profiling.declare(*(f"launch.{k}" for k in KERNELS))
+AFFINE_COUNTER = "launch.conv3x3_relu_affine"  # the launches in the ReLU -> affine mode
+profiling.declare(*(f"launch.{k}" for k in KERNELS), AFFINE_COUNTER)
 CI_MULTIPLE = 8  # input channels: TMA's 16-byte global stride
 CO_MULTIPLE = 64  # output channels per 128-byte TMA box
 TH, TW = 8, 16  # pixel tile at MW = 1; 8 MW rows: two warpgroups of MW m64 blocks of 4 x 16
@@ -155,7 +165,7 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     for name in VARIANTS + tuple(ABLATION_VARIANTS.values()):
         fn = getattr(lib, f"conv3x3_{name}_bf16")
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P]
         fn.restype = _I
     return lib
 
@@ -178,7 +188,17 @@ def pack_weights(kernel_hwio: Union[np.ndarray, torch.Tensor], dtype: torch.dtyp
     return k.reshape(3, -1, co).to(device, dtype).contiguous()
 
 
-def _check_operands(x: torch.Tensor, packed: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+def _check_channel_vector(name: str, v: Optional[torch.Tensor], packed: torch.Tensor,
+                          x: torch.Tensor) -> None:
+    if v is not None and (v.dtype != torch.float32 or v.shape != packed.shape[2:]
+                          or v.device != x.device):
+        raise ValueError(f"need a float32 {name} of shape ({packed.shape[2]},) on {x.device}, "
+                         f"got {v.dtype} {tuple(v.shape)} on {v.device}")
+
+
+def _check_operands(x: torch.Tensor, packed: torch.Tensor, bias: Optional[torch.Tensor],
+                    scale: Optional[torch.Tensor] = None,
+                    shift: Optional[torch.Tensor] = None) -> None:
     if x.dim() != 4 or packed.dim() != 3 or packed.shape[0] != 3:
         raise ValueError(f"need x (N, C, H, W) and packed weights (3, 3 * C, Co), got "
                          f"{tuple(x.shape)} and {tuple(packed.shape)}")
@@ -189,21 +209,23 @@ def _check_operands(x: torch.Tensor, packed: torch.Tensor, bias: Optional[torch.
     if packed.dtype != x.dtype or packed.device != x.device:
         raise ValueError(f"weights are {packed.dtype} on {packed.device}, x is {x.dtype} on "
                          f"{x.device}")
-    if bias is not None and (bias.dtype != torch.float32 or bias.shape != packed.shape[2:]
-                             or bias.device != x.device):
-        raise ValueError(f"need a float32 bias of shape ({packed.shape[2]},) on {x.device}, "
-                         f"got {bias.dtype} {tuple(bias.shape)} on {bias.device}")
+    if (scale is None) != (shift is None):
+        raise ValueError("give scale and shift together, or neither")
+    for name, v in (("bias", bias), ("scale", scale), ("shift", shift)):
+        _check_channel_vector(name, v, packed, x)
 
 
 def conv3x3_bias_relu_plain(x: torch.Tensor, packed: torch.Tensor,
                             bias: Optional[torch.Tensor] = None, *,
-                            relu: bool = True) -> torch.Tensor:
+                            relu: bool = True, scale: Optional[torch.Tensor] = None,
+                            shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The function in plain PyTorch: ``F.conv2d`` on float32 copies
-    (``padding=1``), the float32 bias, a NaN-propagating ReLU, one cast to
-    ``x.dtype``; channels_last. On the card it runs PyTorch's own
+    (``padding=1``), the float32 bias, a NaN-propagating ReLU, with
+    ``scale`` and ``shift`` the float32 multiply and then the add, one cast
+    to ``x.dtype``; channels_last. On the card it runs PyTorch's own
     (non-cuDNN) float32 convolution, so no TF32 and no transform algorithm
     that would spread a NaN or an inf past its 3x3 neighbourhood."""
-    _check_operands(x, packed, bias)
+    _check_operands(x, packed, bias, scale, shift)
     co = packed.shape[2]
     w = packed.reshape(3, 3, -1, co).permute(3, 2, 0, 1).float()
     with torch.backends.cudnn.flags(enabled=False):
@@ -212,6 +234,9 @@ def conv3x3_bias_relu_plain(x: torch.Tensor, packed: torch.Tensor,
         y = y + bias.reshape(1, -1, 1, 1)
     if relu:
         y = torch.maximum(y, torch.zeros((), device=y.device))
+    if scale is not None:
+        y = y * scale.reshape(1, -1, 1, 1)
+        y = y + shift.reshape(1, -1, 1, 1)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
@@ -232,13 +257,15 @@ def bf16_ulps_apart(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
 
 
 def check_kernel_input(x: torch.Tensor, packed: torch.Tensor,
-                       bias: Optional[torch.Tensor]) -> None:
+                       bias: Optional[torch.Tensor], scale: Optional[torch.Tensor] = None,
+                       shift: Optional[torch.Tensor] = None) -> None:
     """Raise unless the operands are what the kernels take: bfloat16 x, an
     NCHW view of channels_last memory with a multiple of ``CI_MULTIPLE``
     channels; contiguous bfloat16 packed weights with a multiple of
-    ``CO_MULTIPLE`` output channels; a contiguous float32 bias or None;
-    16-byte aligned (TMA's global addresses)."""
-    _check_operands(x, packed, bias)
+    ``CO_MULTIPLE`` output channels; a contiguous float32 bias, scale and
+    shift or None; 16-byte aligned (TMA's global addresses, and the
+    epilogue's paired loads)."""
+    _check_operands(x, packed, bias, scale, shift)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the conv kernels take bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
@@ -247,17 +274,19 @@ def check_kernel_input(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"need input channels a multiple of {CI_MULTIPLE} and output "
                          f"channels a multiple of {CO_MULTIPLE}, got {x.shape[1]} -> "
                          f"{packed.shape[2]}")
-    if not packed.is_contiguous() or (bias is not None and not bias.is_contiguous()):
-        raise ValueError("need contiguous packed weights and bias")
-    ptrs = [x.data_ptr(), packed.data_ptr()] + ([bias.data_ptr()] if bias is not None else [])
+    vectors = [v for v in (bias, scale, shift) if v is not None]
+    if not packed.is_contiguous() or not all(v.is_contiguous() for v in vectors):
+        raise ValueError("need contiguous packed weights, bias, scale and shift")
+    ptrs = [x.data_ptr(), packed.data_ptr()] + [v.data_ptr() for v in vectors]
     if any(p % 16 for p in ptrs):
         raise ValueError("need 16-byte aligned tensors")
 
 
 def _launch(entry: str, variant: str, x: torch.Tensor, packed: torch.Tensor,
-            bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+            bias: Optional[torch.Tensor], relu: bool, scale: Optional[torch.Tensor] = None,
+            shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Check, plan, allocate y, launch the C entry point ``conv3x3_<entry>_bf16``."""
-    check_kernel_input(x, packed, bias)
+    check_kernel_input(x, packed, bias, scale, shift)
     N, C, H, W = x.shape
     co = packed.shape[2]
     plan = launch_plan(N, H, W, C, co, variant).to_int64()
@@ -266,7 +295,8 @@ def _launch(entry: str, variant: str, x: torch.Tensor, packed: torch.Tensor,
     fn = getattr(_lib(), f"conv3x3_{entry}_bf16")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        err = fn(x.data_ptr(), packed.data_ptr(), ptr(bias), ptr(scale), ptr(shift),
                  y.data_ptr(), plan.ctypes.data, int(relu), stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_{entry} failed to launch: error {err} (cudaError, or "
@@ -276,16 +306,20 @@ def _launch(entry: str, variant: str, x: torch.Tensor, packed: torch.Tensor,
 
 def conv3x3_bias_relu(x: torch.Tensor, packed: torch.Tensor,
                       bias: Optional[torch.Tensor] = None, *, variant: str,
-                      relu: bool = True) -> torch.Tensor:
+                      relu: bool = True, scale: Optional[torch.Tensor] = None,
+                      shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernels P1-P3: (N, C, H, W) -> (N, Co, H, W), channels_last,
-    ``cast(relu(conv(x) + bias))`` with one rounding. ``bias=None,
+    ``cast(relu(conv(x) + bias))`` with one rounding; with ``scale`` and
+    ``shift``, ``cast(relu(conv(x) + bias) * scale + shift)``. ``bias=None,
     relu=False`` gives the bare conv. ``variant`` is ``"k3c"`` or ``"9tap"``."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown conv variant {variant!r}, need one of {VARIANTS}")
     if x.device.type == "cpu":
-        return conv3x3_bias_relu_plain(x, packed, bias, relu=relu)
-    y = _launch(variant, variant, x, packed, bias, relu)
+        return conv3x3_bias_relu_plain(x, packed, bias, relu=relu, scale=scale, shift=shift)
+    y = _launch(variant, variant, x, packed, bias, relu, scale, shift)
     profiling.count(f"launch.conv3x3_{variant}")
+    if scale is not None:
+        profiling.count(AFFINE_COUNTER)
     return y
 
 

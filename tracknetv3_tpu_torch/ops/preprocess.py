@@ -129,11 +129,16 @@ def window_channels(
     return out.to(torch.float32) * _INV_255
 
 
-def gather_windows(per_frame: torch.Tensor, starts: torch.Tensor, seq_len: int) -> torch.Tensor:
+def gather_windows(per_frame: torch.Tensor, starts: torch.Tensor, seq_len: int,
+                   newest_first: bool = False) -> torch.Tensor:
     """(T, h, w, c) per-frame data and (B,) window starts -> (B, L, h, w, c);
     frame indices are clipped into [0, T-1] (windows past the end repeat
-    the last frame, the reference's padding rule)."""
-    idx = starts[:, None] + torch.arange(seq_len, device=starts.device)[None, :]
+    the last frame, the reference's padding rule). ``newest_first`` orders
+    each window's frames from its last to its first."""
+    offsets = torch.arange(seq_len, device=starts.device)
+    if newest_first:
+        offsets = offsets.flip(0)
+    idx = starts[:, None] + offsets[None, :]
     return per_frame[idx.clamp(0, per_frame.shape[0] - 1)]
 
 
@@ -224,7 +229,8 @@ def median_of_host_frames(frames: np.ndarray, device: torch.device) -> np.ndarra
 
 
 def make_staged_preprocessor(
-    bg_mode: str, seq_len: int, bgr: bool = False, out_dtype: Optional[torch.dtype] = None
+    bg_mode: str, seq_len: int, bgr: bool = False, out_dtype: Optional[torch.dtype] = None,
+    *, v1_order: bool = False,
 ) -> Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor], torch.Tensor]:
     """Build ``run(buf_u8, median_resized, starts)`` -> model input for
     frames already at model resolution.
@@ -232,17 +238,20 @@ def make_staged_preprocessor(
     ``buf_u8``: (T, h, w, 3) uint8 frames; ``median_resized``: (h, w, 3)
     float32 in the same channel order (or None where ``bg_mode`` needs
     none); ``starts``: (B,) window start frames. With ``bgr`` the buffer
-    and median hold BGR and are flipped to RGB here. The background
-    difference of the subtract modes is taken at model resolution. Returns
-    (B, h, w, C_in) in [0, 1]: float32, cast to ``out_dtype`` if given.
+    and median hold BGR; they are flipped to the model's channel order
+    here: RGB, or with ``v1_order`` TrackNetV1's, each window's frames from
+    its last to its first (t, t-1, t-2 for the window that starts at t-2)
+    in BGR. The background difference of
+    the subtract modes is taken at model resolution. Returns (B, h, w,
+    C_in) in [0, 1]: float32, cast to ``out_dtype`` if given.
     """
     needs_diff = bg_mode in ("subtract", "subtract_concat")
     needs_rgb = bg_mode in ("", "subtract_concat", "concat")
 
     def run(buf_u8, median_resized, starts):
-        wins = gather_windows(buf_u8, starts, seq_len)  # (B, L, h, w, 3) uint8
+        wins = gather_windows(buf_u8, starts, seq_len, v1_order)  # (B, L, h, w, 3) uint8
         med = median_resized
-        if bgr:
+        if bgr != v1_order:
             wins = wins.flip(-1)
             med = med.flip(-1) if med is not None else None
         diffs = background_diff(wins, med) if needs_diff else None

@@ -8,7 +8,10 @@ an npz archive holding
   - ``model/params/<block>/<conv_i>/...`` and ``model/batch_stats/...``:
     TrackNet variables in the JAX package's layouts (HWIO kernels); for
     InpaintNet ``model/params/<layer>/conv/...`` only (flax ``(k, Ci, Co)``
-    kernels);
+    kernels); for TrackNetV1 ``model/params/conv{i}/{conv,bn}/...`` and
+    ``model/batch_stats/conv{i}/bn/...`` in the same layouts
+    (``models.convert.tracknet_v1_to_tree``), its ``param_dict`` naming
+    the architecture (``model_name`` ``"TrackNetV1"``);
   - ``opt/<i>``: optimizer-state leaves in optax's flatten order for the
     same optimizer: Adam is the step count, then ``mu``, then ``nu``; SGD
     the momentum trace; Adadelta ``e_g`` then ``e_x``; a step-based
@@ -42,8 +45,12 @@ from ..models.convert import (
     torch_to_jax_layout,
     tracknet_from_jax,
     tracknet_to_jax,
+    tracknet_v1_from_tree,
+    tracknet_v1_to_tree,
 )
 from ..models.inpaintnet import InpaintNet
+from ..models.tracknet_v1 import ARCH as V1_ARCH
+from ..models.tracknet_v1 import TrackNetV1
 
 _FORMAT_VERSION = 2
 _SEP = "/"
@@ -163,7 +170,8 @@ def save_checkpoint(
         scheduler=None if scheduler is None else dict(scheduler),
         n_opt_leaves=None if opt_leaves is None else len(opt_leaves),
     )
-    to_jax = inpaintnet_to_jax if isinstance(model, InpaintNet) else tracknet_to_jax
+    to_jax = (inpaintnet_to_jax if isinstance(model, InpaintNet)
+              else tracknet_v1_to_tree if isinstance(model, TrackNetV1) else tracknet_to_jax)
     arrays = _flatten(to_jax(model), "model")
     for i, leaf in enumerate(opt_leaves or []):
         arrays[f"opt{_SEP}{i}"] = np.asarray(leaf)
@@ -196,8 +204,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def load_model_from_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16):
     """Rebuild (model on the CPU, param_dict) from a checkpoint file of
-    either package: TrackNet (working dtype ``dtype``) or InpaintNet
-    (float32), as ``param_dict["model_name"]`` says."""
+    either package: TrackNet (working dtype ``dtype``), InpaintNet or
+    TrackNetV1 (float32), as ``param_dict["model_name"]`` says."""
     from ..models.factory import get_model
 
     ckpt = load_checkpoint(path)
@@ -206,6 +214,10 @@ def load_model_from_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16):
     if name == "InpaintNet":
         model = get_model("InpaintNet")
         model.load_state_dict(inpaintnet_from_jax(ckpt["model"]))
+        return model, pd
+    if name == V1_ARCH:
+        model = get_model(V1_ARCH)
+        model.load_state_dict(tracknet_v1_from_tree(ckpt["model"]))
         return model, pd
     model = get_model(name, pd["seq_len"], pd.get("bg_mode", ""), dtype=dtype)
     model.load_state_dict(tracknet_from_jax(ckpt["model"]))
